@@ -1,0 +1,64 @@
+"""Dispatch for the metering kernels: a CUDA tensor launches the
+hand-written kernel (``kernels/segment_trapz.py``), a CPU tensor takes
+the plain PyTorch version (``kernels/ref.py``).  This is the
+reference's ``use_pallas=None`` policy -- the kernel on real hardware,
+the plain version where no kernel can run -- decided by where the
+tensor lies, with no fallback for a CUDA tensor: it launches or raises.
+
+``LAUNCHES`` counts kernel launches per op (plain-version calls never
+count), so a caller can show that a run really went through the
+kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import segment_trapz as _cuda
+
+LAUNCHES = _cuda.LAUNCHES
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _on_cuda(op: str, t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{op}: tensors on {t.device} are not supported "
+                     f"(expected cuda or cpu)")
+
+
+def segment_trapz(a, b, w, kt, kv, cum, *, period: float) -> torch.Tensor:
+    """Per-segment trapezoid integrals ``w * (F(b) - F(a))`` of one
+    periodic piecewise-linear carbon curve (see ``ref.segment_trapz_ref``).
+    """
+    if _on_cuda("segment_trapz", a):
+        return _cuda.segment_trapz(a, b, w, kt, kv, cum, period=period)
+    return ref.segment_trapz_ref(a, b, w, kt, kv, cum, period=period)
+
+
+def fused_meter(a, b, dt, w, g, kt, kv, cum, periods):
+    """Fused metering pass: per charge-log entry energy, billed seconds,
+    carbon increment and start prefix (see ``ref.fused_meter_ref``)."""
+    if _on_cuda("fused_meter", a):
+        return _cuda.fused_meter(a, b, dt, w, g, kt, kv, cum, periods)
+    return ref.fused_meter_ref(a, b, dt, w, g, kt, kv, cum, periods)
+
+
+def ordered_segment_sum(vals, keys, num: int) -> torch.Tensor:
+    """Per-key sums of ``vals`` [C, N], each key's entries added in
+    index order (see ``ref.ordered_segment_sum_ref``)."""
+    if _on_cuda("ordered_segment_sum", vals):
+        return _cuda.ordered_segment_sum(vals, keys, num)
+    return ref.ordered_segment_sum_ref(vals, keys, num)

@@ -1,0 +1,13 @@
+from repro_torch.serving.energy import EnergyMeter, SimClock
+from repro_torch.serving.model_manager import ManagedModel, ModelManager
+from repro_torch.serving.service_model import (ConstantServiceTime,
+                                               ModelServiceProfile,
+                                               RequestShape,
+                                               RooflineServiceTime,
+                                               ServiceTimeModel)
+from repro_torch.serving.slots import DeviceRuntime, SlotPool
+
+__all__ = ["EnergyMeter", "SimClock", "ModelManager", "ManagedModel",
+           "SlotPool", "DeviceRuntime", "ServiceTimeModel",
+           "ConstantServiceTime", "RooflineServiceTime",
+           "ModelServiceProfile", "RequestShape"]

@@ -5,22 +5,41 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc``, holds every kernel against its plain PyTorch version on
-the card, then drives ``repro_torch.fleet.run_mega(backend="torch")``
-on the 600-device, ~1M-request acceptance day and checks it against
-the port's numpy backend.  Phases, in order:
+the card, drives ``repro_torch.fleet.run_mega(backend="torch")`` on the
+600-device, ~1M-request acceptance day and checks it against the port's
+numpy backend, then serves Qwen2.5-7B through ``ServingEngine`` and
+``repro_torch.launch.serve``.  Phases, in order:
 
-  1. the card (``nvidia-smi`` name and power limit) and the build time;
-  2. each kernel against its plain version at small and acceptance-day
-     shapes (``e``/``s`` and the energy sums bit-equal, ``c``/``fa``
-     within 1e-12 relative), with CUDA-event times (per call, median of
-     7 rounds of back-to-back calls, L2 flushed before each round)
-     beside the least time the card could take;
-  3. the acceptance day on the fused lane (the main path), with the
+  1. the card (``nvidia-smi`` name and power limit) and the build time
+     (every source in parallel, with its ``ptxas`` register lines);
+  2. each metering kernel against its plain version at small and
+     acceptance-day shapes (``e``/``s`` and the energy sums bit-equal,
+     ``c``/``fa`` within 1e-12 relative), with CUDA-event times (per
+     call, median of 7 rounds of back-to-back calls, L2 flushed before
+     each round) beside the least time the card could take;
+  3. the acceptance day on the fused lane (the metering path), with the
      launch counters reset just before it and read just after;
   4. the unfused lane on a 24-route day, then the 3-zone pinned day
      (several carbon traces in one fused launch);
-  5. one JSON line describing every kernel;
-  6. as the last line, ``{"ok": true, "device": {...}}``.
+  5. the attention kernels against their plain versions (the
+     reference's shape sweeps in float32 and bfloat16, tolerance 2e-3 /
+     2e-2; rows past ``length`` ignored to 1e-5; the launcher's ragged
+     shapes through permuted cache views), then their times at Qwen
+     serving shapes beside the bound, the plain version and
+     ``scaled_dot_product_attention``;
+  6. Qwen2.5-7B's widths at depth 2 in float32, the same weights served
+     on the card and on the CPU: logits within 2e-3 of their max
+     magnitude, greedy tokens equal; each side's prefill logits beside a
+     float64 CPU run;
+  7. the launcher (the serving path) at full width and depth on the
+     card, counters reset just before it and read just after: exactly
+     28 ``flash_attention`` launches per prefill and 28
+     ``decode_attention`` launches per decode step, and the energy line
+     equal to the ``--reduced`` run on the CPU;
+  8. a ``torch.profiler`` breakdown of the card's kernel time over three
+     served requests at full width, beside their host-clock time;
+  9. one JSON line describing every kernel;
+  10. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line.  It also exits non-zero without a CUDA device.
@@ -42,22 +61,23 @@ REL_KERNEL = 1e-12         # carbon lanes vs their plain versions
 REL_DAY = 1e-9             # torch backend vs numpy backend totals
 DEV = "cuda"
 
-# NVIDIA H100 data sheet: memory bandwidth and FP64 (non-tensor) peak
-# per form factor, matched against torch.cuda.get_device_name().
-_PEAKS = (("PCIe", 2.0e12, 26e12), ("NVL", 3.9e12, 30e12),
-          ("", 3.35e12, 34e12))
+# NVIDIA H100 data sheet: memory bandwidth, FP64 (non-tensor) peak and
+# dense BF16 tensor-core peak per form factor, matched against
+# torch.cuda.get_device_name().
+_PEAKS = (("PCIe", 2.0e12, 26e12, 756e12), ("NVL", 3.9e12, 30e12, 835e12),
+          ("", 3.35e12, 34e12, 989e12))
 
 
 def _peaks(name):
-    for key, bw, fp64 in _PEAKS:
+    for key, bw, fp64, bf16 in _PEAKS:
         if key in name:
-            return bw, fp64
+            return bw, {"fp64": fp64, "bf16": bf16}
     raise AssertionError("unreachable")
 
 
-def _bound_ms(name, nbytes, flops):
-    bw, fp64 = _peaks(name)
-    t_bytes, t_ops = nbytes / bw, flops / fp64
+def _bound_ms(name, nbytes, flops, kind="fp64"):
+    bw, peak = _peaks(name)
+    t_bytes, t_ops = nbytes / bw, flops / peak[kind]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -273,6 +293,420 @@ def check_kernels(quick=False):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# attention kernels and the serving path
+# ---------------------------------------------------------------------------
+
+ARCH = "qwen2-5-7b"
+# the reference's attention contract (tests/test_kernels.py)
+FLASH_SHAPES = ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 256, 128),
+                (2, 2, 2, 512, 32))                     # (B, H, Hkv, S, D)
+DECODE_SHAPES = ((1, 4, 4, 256, 64), (2, 8, 2, 512, 64),
+                 (4, 8, 1, 1024, 128))                  # (B, H, Hkv, T, D)
+ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+REL_LOGITS = 2e-3          # card vs CPU logits, relative to their max
+# timing shapes: a 2048-token Qwen prefill; 4 decode rows over 4096 rows
+FLASH_TIMED = (1, 28, 4, 2048, 128)
+DECODE_TIMED = (4, 28, 4, 4096, 128)
+
+
+def _randn(shape, seed, dtype, torch):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=DEV).to(dtype)
+
+
+def _attn_close(got, want, tol, label):
+    """|got - want| <= tol + tol * |want| elementwise (the reference's
+    assert_allclose(rtol=tol, atol=tol)); returns the max abs error."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool(torch.all(err <= tol + tol * w.abs()))
+    assert ok and bool(torch.isfinite(g).all()), \
+        f"{label}: max abs err {float(err.max()):.3e} beyond {tol}"
+    return float(err.max())
+
+
+def check_attention():
+    """The attention kernels against their plain versions on the card:
+    the reference's shape sweeps, the frontier case, and the launcher's
+    ragged shapes through permuted cache views.  Returns the max abs
+    error of each kernel over all cases."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dt).split(".")[-1]]
+        for b, h, hkv, s, d in FLASH_SHAPES:
+            q = _randn((b, h, s, d), 0, dt, torch)
+            k = _randn((b, hkv, s, d), 1, dt, torch)
+            v = _randn((b, hkv, s, d), 2, dt, torch)
+            for window in (None, 64):
+                got = ops.flash_attention(q, k, v, causal=True, window=window)
+                want = ref.flash_attention_ref(q, k, v, causal=True,
+                                               window=window)
+                torch.cuda.synchronize()
+                assert got.shape == q.shape and got.dtype == dt
+                err = _attn_close(got, want, tol,
+                                  f"flash {dt} {(b, h, hkv, s, d)} "
+                                  f"window={window}")
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+                print(f"flash_attention  {str(dt):14s} B,H,Hkv,S,D="
+                      f"{(b, h, hkv, s, d)} window={window}: max abs err "
+                      f"{err:.3e} (tol {tol})")
+        for b, h, hkv, t, d in DECODE_SHAPES:
+            q = _randn((b, h, d), 0, dt, torch)
+            k = _randn((b, hkv, t, d), 1, dt, torch)
+            v = _randn((b, hkv, t, d), 2, dt, torch)
+            g = torch.Generator().manual_seed(t)
+            length = torch.randint(1, t, (b,), generator=g,
+                                   dtype=torch.int32).to(DEV)
+            got = ops.decode_attention(q, k, v, length)
+            want = ref.decode_attention_ref(q, k, v, length)
+            torch.cuda.synchronize()
+            assert got.shape == q.shape and got.dtype == dt
+            err = _attn_close(got, want, tol,
+                              f"decode {dt} {(b, h, hkv, t, d)}")
+            worst["decode_attention"] = max(worst["decode_attention"], err)
+            print(f"decode_attention {str(dt):14s} B,H,Hkv,T,D="
+                  f"{(b, h, hkv, t, d)} length={length.tolist()}: max abs "
+                  f"err {err:.3e} (tol {tol})")
+        # the launcher's shapes: a 3-token prompt against 48 cache rows,
+        # and a decode at position 5, both read through [B,T,Hkv,D] views
+        q = _randn((1, 3, 28, 128), 3, dt, torch)
+        k = _randn((1, 48, 4, 128), 4, dt, torch)
+        v = _randn((1, 48, 4, 128), 5, dt, torch)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        got = ops.flash_attention(qt, kt, vt, causal=True)
+        want = ref.flash_attention_ref(qt, kt, vt, causal=True)
+        torch.cuda.synchronize()
+        err = _attn_close(got, want, tol, f"flash {dt} S=3 T=48")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        kb = _randn((4, 48, 4, 128), 6, dt, torch).transpose(1, 2)
+        vb = _randn((4, 48, 4, 128), 7, dt, torch).transpose(1, 2)
+        qd = _randn((4, 28, 128), 8, dt, torch)
+        length = torch.full((4,), 6, dtype=torch.int32, device=DEV)
+        got = ops.decode_attention(qd, kb, vb, length)
+        want = ref.decode_attention_ref(qd, kb, vb, length)
+        torch.cuda.synchronize()
+        err2 = _attn_close(got, want, tol, f"decode {dt} T=48 length=6")
+        worst["decode_attention"] = max(worst["decode_attention"], err2)
+        print(f"launcher shapes  {str(dt):14s} flash S=3 T=48 err {err:.3e}; "
+              f"decode B=4 T=48 length=6 err {err2:.3e} (tol {tol})")
+    # garbage past the frontier must not change the output
+    b, h, hkv, t, d = 1, 4, 2, 256, 64
+    q = _randn((b, h, d), 0, torch.float32, torch)
+    k = _randn((b, hkv, t, d), 1, torch.float32, torch)
+    v = _randn((b, hkv, t, d), 2, torch.float32, torch)
+    out1 = ops.decode_attention(q, k, v, 100)
+    k[:, :, 100:] = 1e4
+    v[:, :, 100:] = -1e4
+    out2 = ops.decode_attention(q, k, v, 100)
+    torch.cuda.synchronize()
+    diff = float((out1 - out2).abs().max())
+    assert diff <= 1e-5, f"decode reads past length: {diff:.3e}"
+    print(f"decode_attention ignores rows past length: max diff {diff:.3e}")
+    return {k: {"max_abs_err": v} for k, v in worst.items()}
+
+
+def _raw_attn(mod, lib, fn_name, sig, strides, *args):
+    """A call of one attention C entry point with a preallocated output
+    (no checks, no allocation, no launch count)."""
+    import ctypes
+
+    import torch
+    fn = mod.c_fn(lib, fn_name, sig)
+    arr = (ctypes.c_longlong * len(strides))(*strides)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        rc = fn(*args, arr, stream)
+        if rc != 0:
+            raise RuntimeError(f"{fn_name}: CUDA error {rc}")
+
+    return run
+
+
+def time_attention(stats):
+    """Times at Qwen serving shapes, beside the bound, the plain version
+    and ``scaled_dot_product_attention`` on the same inputs."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ref
+
+    name = torch.cuda.get_device_name(0)
+    dt = torch.bfloat16
+    b, h, hkv, s, d = FLASH_TIMED
+    q = _randn((b, h, s, d), 10, dt, torch)
+    k = _randn((b, hkv, s, d), 11, dt, torch)
+    v = _randn((b, hkv, s, d), 12, dt, torch)
+    out = torch.empty_like(q)
+    t = stats["flash_attention"]
+    t["ms"] = _time_ms(_raw_attn(
+        fmod, "flash_attention", "flash_attention_fwd", fmod._SIG,
+        [*q.stride(), *k.stride(), *v.stride(), *out.stride()], 1,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, hkv, s, s, d, 1, 0, 1.0 / math.sqrt(d)), torch, reps=5)
+    torch.cuda.synchronize()
+    err = _attn_close(out, ref.flash_attention_ref(q, k, v), 2e-2,
+                      "flash at the timed shape")
+    t["max_abs_err"] = max(t["max_abs_err"], err)
+    t["plain_ms"] = _time_ms(lambda: ref.flash_attention_ref(q, k, v),
+                             torch, reps=2, rounds=3)
+    t["library_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), torch, reps=5)
+    pairs = b * h * s * (s + 1) // 2                   # causal (q, k) pairs
+    t["bound_ms"], t["bound_by"] = _bound_ms(
+        name, (2 * q.numel() + k.numel() + v.numel()) * 2, 4 * pairs * d,
+        "bf16")
+    t["shape"] = f"B,H,Hkv,S=T,D={FLASH_TIMED} bf16 causal"
+
+    b, h, hkv, tt, d = DECODE_TIMED
+    q = _randn((b, h, d), 13, dt, torch)
+    k = _randn((b, hkv, tt, d), 14, dt, torch)
+    v = _randn((b, hkv, tt, d), 15, dt, torch)
+    length = torch.full((b,), tt, dtype=torch.int32, device=DEV)
+    out = torch.empty_like(q)
+    t = stats["decode_attention"]
+    t["ms"] = _time_ms(_raw_attn(
+        dmod, "decode_attention", "decode_attention_fwd", dmod._SIG,
+        [*q.stride(), *k.stride(), *v.stride(), *out.stride()], 1,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        out.data_ptr(), b, h, hkv, tt, d, 1.0 / math.sqrt(d)), torch)
+    torch.cuda.synchronize()
+    err = _attn_close(out, ref.decode_attention_ref(q, k, v, length), 2e-2,
+                      "decode at the timed shape")
+    t["max_abs_err"] = max(t["max_abs_err"], err)
+    t["plain_ms"] = _time_ms(
+        lambda: ref.decode_attention_ref(q, k, v, length), torch, reps=5)
+    t["library_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, enable_gqa=True), torch)
+    t["bound_ms"], t["bound_by"] = _bound_ms(
+        name, (2 * q.numel() + k.numel() + v.numel()) * 2,
+        4 * b * h * tt * d, "bf16")
+    t["shape"] = f"B,H,Hkv,T,D={DECODE_TIMED} bf16 full length"
+    for kname in ("flash_attention", "decode_attention"):
+        v = stats[kname]
+        print(f"time {kname:16s} {v['shape']}: kernel {v['ms']:.4f} ms, "
+              f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']}), scaled_dot_product_attention "
+              f"{v['library_ms']:.4f} ms")
+
+
+class _Recorder:
+    """Wraps the engine's ``prefill`` / ``decode_step`` to count the calls,
+    time them (synchronised host clock) and keep their logits."""
+
+    def __init__(self, torch):
+        from repro_torch.serving import engine
+        self.engine, self.torch = engine, torch
+        self.real = (engine.prefill, engine.decode_step)
+        self.calls = {"prefill": [], "decode": []}
+        self.logits = []
+
+    def _wrap(self, kind, fn):
+        def run(*a, **kw):
+            sync = self.torch.cuda.synchronize
+            sync()
+            t0 = time.perf_counter()
+            logits, caches = fn(*a, **kw)
+            sync()
+            self.calls[kind].append(time.perf_counter() - t0)
+            self.logits.append(logits.float().cpu())
+            return logits, caches
+        return run
+
+    def __enter__(self):
+        self.engine.prefill = self._wrap("prefill", self.real[0])
+        self.engine.decode_step = self._wrap("decode", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.prefill, self.engine.decode_step = self.real
+
+
+def serve_depth2(cfg=None, prompt_len=48, steps=8):
+    """Qwen2.5-7B's widths at depth 2 in float32: the same weights served
+    on the card (kernels) and on the CPU (plain versions) through
+    ``ServingEngine``; logits within REL_LOGITS of their max magnitude
+    and equal greedy tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (ScanGroup, build_cache_specs,
+                                    build_param_specs, materialize, prefill)
+    from repro_torch.serving import ServingEngine
+
+    if cfg is None:
+        full = get_config(ARCH)
+        cfg = dataclasses.replace(
+            full, n_layers=2,
+            groups=(ScanGroup("main", 2, full.groups[0].pattern),),
+            param_dtype=torch.float32, compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    host = materialize(build_param_specs(cfg),
+                       torch.Generator().manual_seed(0), "cpu")
+
+    card = _cast(host, DEV)
+    print(f"depth 2: {cfg.name} d_model={cfg.d_model} layers="
+          f"{cfg.n_layers} float32 weights built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompt = torch.randint(0, cfg.vocab_size, (prompt_len,),
+                           generator=torch.Generator().manual_seed(1)).tolist()
+    runs = {}
+    for dev, params in (("cpu", host), (DEV, card)):
+        with _Recorder(torch) as rec:
+            eng = ServingEngine(cfg, params, max_batch=1,
+                                max_len=prompt_len + steps + 8, device=dev)
+            toks = eng.generate(prompt, max_new=steps + 1).tokens
+        runs[dev] = (toks, rec.logits)
+    (ct, cl), (gt, gl) = runs["cpu"], runs[DEV]
+    assert len(cl) == len(gl) == steps + 1
+    worst = 0.0
+    for a, c in zip(gl, cl):
+        assert bool(torch.isfinite(a).all())
+        worst = max(worst, float((a - c).abs().max() / c.abs().max()))
+    assert worst <= REL_LOGITS, f"depth-2 logits differ by {worst:.3e}"
+    assert gt == ct, f"tokens differ: card {gt} vs CPU {ct}"
+    print(f"depth 2: prefill of {prompt_len} tokens + {steps} decode steps, "
+          f"tokens equal {gt}; logits max |card - CPU| / max|CPU| = "
+          f"{worst:.3e} (limit {REL_LOGITS})")
+    # which side the gap comes from: the prefill once more on the CPU in
+    # float64 (no gate: a measure of float32 rounding through the model)
+    c64 = dataclasses.replace(cfg, param_dtype=torch.float64,
+                              compute_dtype=torch.float64)
+    caches = materialize(build_cache_specs(c64, 1, prompt_len + steps + 8,
+                                           torch.float64),
+                         torch.Generator(), "cpu")
+    o64, _ = prefill(_cast(host, torch.float64),
+                     {"tokens": torch.tensor([prompt])}, caches, c64)
+    o64 = o64.float()
+    m = o64.abs().max()
+    print(f"depth 2: prefill logits against a float64 CPU run, max |x - "
+          f"f64| / max|f64|: card {float((gl[0] - o64).abs().max() / m):.3e}"
+          f", CPU float32 {float((cl[0] - o64).abs().max() / m):.3e}")
+
+
+def _cast(tree, to):
+    """Every leaf of a parameter tree moved to a device or dtype."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, to) for k, v in tree.items()}
+    return tree.to(to)
+
+
+def _serve_lines(argv, **kw):
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert serve.main(argv, **kw) == 0
+    out = buf.getvalue().splitlines()
+    for line in out:
+        print(f"  {line}")
+    return out
+
+
+def profile_serving(requests=3):
+    """Where the time of a served request goes at full width: the card's
+    kernel time by name over a few requests (``torch.profiler``, after a
+    warm-up request), against the host clock of the same requests run
+    without the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import RunFlags, build_param_specs, materialize
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config(ARCH)
+    params = materialize(build_param_specs(cfg),
+                         torch.Generator().manual_seed(0), DEV)
+    eng = ServingEngine(cfg, params, max_batch=4, max_len=48,
+                        flags=RunFlags(remat="none"), device=DEV)
+
+    def serve():
+        for _ in range(requests):
+            eng.generate([1, 2, 3], max_new=4)
+        torch.cuda.synchronize()
+
+    serve()                                           # warm-up
+    t0 = time.perf_counter()
+    serve()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve()
+    # device-side events only (kernels, copies): an operator's own device
+    # time repeats that of the kernels it launched
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    rows.sort(key=lambda r: -r[1])
+    if not busy:
+        print("profile: the profiler recorded no device time; the idle "
+              "share is not measured")
+        return
+    print(f"profile: {requests} requests (4 forwards each) took "
+          f"{1e3 * wall:.3f} ms of host clock without the profiler; the "
+          f"card's kernels took {busy:.3f} ms under it, so the card was "
+          f"idle {100 * (1 - busy / (1e3 * wall)):.1f} % of the request time")
+    for key, ms, n in rows[:10]:
+        print(f"  device {ms:10.3f} ms  {100 * ms / busy:5.1f} %  x{n:<6d} "
+              f"{key[:90]}")
+    del params, eng
+    torch.cuda.empty_cache()
+
+
+def serve_launcher(argv=("--arch", ARCH, "--hours", "6"), layers=None):
+    """The launcher at full width and depth on the card, counted and
+    timed, then its --reduced run on the CPU: the energy lines must be
+    equal (the clock and the loader come from the full config's
+    checkpoint bytes, not from compute)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    layers = layers or get_config(ARCH).n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with _Recorder(torch) as rec:
+        card = _serve_lines(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    pre, dec = rec.calls["prefill"], rec.calls["decode"]
+    print(f"launcher on the card: wall {wall:.3f} s, {len(pre)} prefills "
+          f"(mean {1e3 * statistics.mean(pre):.6f} ms, median "
+          f"{1e3 * statistics.median(pre):.6f} ms), {len(dec)} decode "
+          f"steps (mean {1e3 * statistics.mean(dec):.6f} ms, median "
+          f"{1e3 * statistics.median(dec):.6f} ms), max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B")
+    print(f"launcher launches {counts}")
+    assert counts["flash_attention"] == layers * len(pre), counts
+    assert counts["decode_attention"] == layers * len(dec), counts
+    cpu = _serve_lines(list(argv) + ["--reduced"], device="cpu")
+    assert card[1] == cpu[1], (card[1], cpu[1])
+    print("launcher: energy line equal to the --reduced run on the CPU")
+    return counts
+
+
 def _compare_days(got, want, label):
     """The torch backend against the numpy backend on one day."""
     assert got.requests == want.requests, (got.requests, want.requests)
@@ -386,20 +820,38 @@ def main():
     import repro_torch  # noqa: F401  (fail before printing without the port)
     card = _card_line()
     print(card)
+    # float32 products on the card stay float32 (no TF32 rounding)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     build()
     stats = check_kernels()
     main_counts, unfused_counts = drive_days()
-    src = "src/repro_torch/kernels/csrc/segment_trapz.cu"
+    attn = check_attention()
+    time_attention(attn)
+    serve_depth2()
+    serve_counts = serve_launcher()
+    profile_serving()
+    stats.update(attn)
+    csrc = "src/repro_torch/kernels/csrc/"
+    source = {"fused_meter": csrc + "segment_trapz.cu",
+              "segment_trapz": csrc + "segment_trapz.cu",
+              "ordered_segment_sum": csrc + "segment_trapz.cu",
+              "flash_attention": csrc + "flash_attention.cu",
+              "decode_attention": csrc + "decode_attention.cu"}
     replaces = {
         "fused_meter": "src/repro/kernels/segment_trapz.py:66",
         "segment_trapz": "src/repro/kernels/segment_trapz.py:40",
         # not a Pallas kernel: the jax.ops.segment_sum it replaces
         "ordered_segment_sum": "src/repro/fleet/mega/jaxback.py:236",
+        "flash_attention": "src/repro/kernels/flash_attention.py:78",
+        "decode_attention": "src/repro/kernels/decode_attention.py:57",
     }
     launches = {"fused_meter": main_counts["fused_meter"],
                 "segment_trapz": unfused_counts["segment_trapz"],
-                "ordered_segment_sum": main_counts["ordered_segment_sum"]}
-    kernels = [{"name": k, "route": "cuda", "source": src,
+                "ordered_segment_sum": main_counts["ordered_segment_sum"],
+                "flash_attention": serve_counts["flash_attention"],
+                "decode_attention": serve_counts["decode_attention"]}
+    kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": v["max_abs_err"], "ms": v["ms"],
                 "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],

@@ -1,3 +1,3 @@
-"""Metering kernels of the port: hand-written CUDA for Hopper
+"""Kernels of the port (metering and attention): hand-written CUDA for Hopper
 (``csrc/``), their plain PyTorch versions (``ref``), and the
 dispatch between them (``ops``)."""

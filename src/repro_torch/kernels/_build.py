@@ -1,9 +1,12 @@
 """Build and load the CUDA sources under ``csrc/`` with ``nvcc``.
 
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<digest>.so`` at the
-repository root (the digest covers the source and the flags, so an
-edited source never loads a stale library), compiled at first use for
-Hopper (``sm_90a``) with a plain C interface and loaded with ctypes.
+repository root (the digest covers the source, the headers it includes
+and its flags, so an edited source never loads a stale library),
+compiled at first use for Hopper (``sm_90a``) with a plain C interface
+and loaded with ctypes.  Flags are per source: the metering kernels
+build with ``--fmad=false`` (their carbon lanes round step by step like
+the plain versions); the attention kernels keep fused multiply-adds.
 All missing libraries compile in parallel, one ``nvcc`` per source.
 Nothing here runs at import time.
 """
@@ -21,10 +24,18 @@ from typing import Dict
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD = _HERE.parents[2] / "build"
-SOURCES = ("segment_trapz",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+_BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3")
+_LIB_FLAGS = ("-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# per source: (nvcc flags, headers of csrc/ it includes)
+_SOURCES = {
+    "segment_trapz": (_BASE_FLAGS + ("--fmad=false",) + _LIB_FLAGS, ()),
+    "flash_attention": (_BASE_FLAGS + _LIB_FLAGS,
+                        ("attention_common.cuh",)),
+    "decode_attention": (_BASE_FLAGS + _LIB_FLAGS,
+                         ("attention_common.cuh",)),
+}
+SOURCES = tuple(_SOURCES)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -47,8 +58,11 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> pathlib.Path:
+    flags, headers = _SOURCES[name]
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
+    for hdr in headers:
+        h.update((CSRC / hdr).read_bytes())
     return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -66,7 +80,8 @@ def build_all() -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *_SOURCES[name][0], "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, out)

@@ -1,0 +1,119 @@
+"""Launch wrapper of the CUDA prefill attention kernel in
+``csrc/flash_attention.cu`` (the port of the Pallas kernel
+``repro/kernels/flash_attention.py``).
+
+The wrapper takes CUDA tensors only (``kernels/ops.py`` routes CPU
+tensors to ``ref.flash_attention_ref``), checks device, dtype, shape and
+the unit stride of the head dim, hands the kernel every other stride (so
+permuted views need no copy), allocates the output with
+``torch.empty_like(q)`` (same layout as q), launches on the current
+stream without synchronising, raises if the launch returns a CUDA error,
+and adds one to ``LAUNCHES["flash_attention"]`` per launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.kernels import _build
+
+# kernel launches since the last reset (ops.reset_launches)
+LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = [_I, _P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float, _P, _P]
+
+
+def c_fn(lib: str, name: str, argtypes):
+    fn = getattr(_build.load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check(op: str, ts: Sequence[torch.Tensor], names: Sequence[str],
+          ndims: Sequence[int]) -> int:
+    """Common checks of the attention wrappers; returns the dtype code."""
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: expected a tensor on a CUDA device, got "
+                         f"{dev}")
+    if ts[0].dtype not in _DTYPES:
+        raise TypeError(f"{op}: expected float32 or bfloat16, got "
+                        f"{ts[0].dtype}")
+    for t, nm, nd in zip(ts, names, ndims):
+        if t.device != dev or t.dtype != ts[0].dtype:
+            raise ValueError(f"{op}: {nm} must be {ts[0].dtype} on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+        if t.dim() != nd:
+            raise ValueError(f"{op}: {nm} must be {nd}-D, got shape "
+                             f"{tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{op}: {nm} must have a unit-stride head dim")
+        # k and v rows are read as 4-element vectors
+        if nm in ("k", "v") and (t.data_ptr() % (4 * t.element_size()) or
+                                 any(x % 4 for x in t.stride()[:-1])):
+            raise ValueError(f"{op}: {nm} rows must start 4-element "
+                             f"aligned (strides {t.stride()})")
+    d = ts[0].shape[-1]
+    if d % 4 or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"{op}: head dim {d} must be a positive multiple "
+                         f"of 4 up to {MAX_HEAD_DIM}")
+    return _DTYPES[ts[0].dtype]
+
+
+def launch(op: str, fn, device: torch.device, strides: Sequence[int],
+           *args) -> None:
+    """Call the C entry point ``fn(*args, strides, stream)`` on the
+    current stream of ``device``; raise on a CUDA error."""
+    arr = (ctypes.c_longlong * len(strides))(*strides)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, arr, stream)
+    if rc != 0:
+        raise RuntimeError(f"{op}: CUDA launch failed with error {rc}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: [B,H,S,D]; k, v: [B,Hkv,T,D], float32 or bfloat16 alike, any
+    strides with a unit-stride D.  Query row i sits at position i and key
+    row j at position j; ``causal`` masks j > i, ``window`` masks
+    i - j >= window.  Returns [B,H,S,D] in q's dtype and layout."""
+    code = check("flash_attention", (q, k, v), ("q", "k", "v"), (4, 4, 4))
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if k.shape != (b, hkv, t, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: k and v must be [B,Hkv,T,D] "
+                         f"for q {tuple(q.shape)}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"flash_attention: {h} query heads do not group "
+                         f"over {hkv} kv heads")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be positive, got "
+                         f"{window}")
+    out = torch.empty_like(q)
+    if out.stride(-1) != 1:
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    if t == 0:
+        return out.zero_()
+    strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride()]
+    launch("flash_attention", c_fn("flash_attention", "flash_attention_fwd",
+                                   _SIG), q.device, strides,
+           code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           b, h, hkv, s, t, d, int(causal), int(window or 0),
+           1.0 / math.sqrt(d))
+    LAUNCHES["flash_attention"] += 1
+    return out

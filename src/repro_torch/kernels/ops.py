@@ -1,33 +1,37 @@
-"""Dispatch for the metering kernels: a CUDA tensor launches the
-hand-written kernel (``kernels/segment_trapz.py``), a CPU tensor takes
-the plain PyTorch version (``kernels/ref.py``).  This is the
+"""Dispatch for the port's kernels: a CUDA tensor launches the
+hand-written kernel (``kernels/segment_trapz.py``,
+``kernels/flash_attention.py``, ``kernels/decode_attention.py``), a CPU
+tensor takes the plain PyTorch version (``kernels/ref.py``).  This is the
 reference's ``use_pallas=None`` policy -- the kernel on real hardware,
 the plain version where no kernel can run -- decided by where the
 tensor lies, with no fallback for a CUDA tensor: it launches or raises.
 
-``LAUNCHES`` counts kernel launches per op (plain-version calls never
-count), so a caller can show that a run really went through the
-kernels.
+``launch_counts()`` reads the kernel launches per op since the last
+``reset_launches()`` (plain-version calls never count), so a caller can
+show that a run really went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_trapz as _cuda
 
-LAUNCHES = _cuda.LAUNCHES
+_COUNTERS = (_cuda.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in _COUNTERS:
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    return {k: n for counts in _COUNTERS for k, n in counts.items()}
 
 
 def _on_cuda(op: str, t: torch.Tensor) -> bool:
@@ -62,3 +66,20 @@ def ordered_segment_sum(vals, keys, num: int) -> torch.Tensor:
     if _on_cuda("ordered_segment_sum", vals):
         return _cuda.ordered_segment_sum(vals, keys, num)
     return ref.ordered_segment_sum_ref(vals, keys, num)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Prefill attention, q [B,H,S,D] against k, v [B,Hkv,T,D] (see
+    ``ref.flash_attention_ref``)."""
+    if _on_cuda("flash_attention", q):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, length) -> torch.Tensor:
+    """One-token attention, q [B,H,D] against the first ``length`` rows
+    of k, v [B,Hkv,T,D] (see ``ref.decode_attention_ref``)."""
+    if _on_cuda("decode_attention", q):
+        return _decode.decode_attention(q, k, v, length)
+    return ref.decode_attention_ref(q, k, v, length)

@@ -1,14 +1,60 @@
-"""Plain PyTorch versions of the metering kernels (the allclose targets).
+"""Plain PyTorch versions of the port's kernels (the allclose targets).
 
 These are the semantics the CUDA kernels in ``csrc/`` must match: the
 CPU path of ``kernels/ops.py`` runs them, and ``chip_smoke.py`` holds
-each kernel against them on the card.  Everything is float64 (the
-fleet accounting convention); the functions do not change the global
-default dtype.
+each kernel against them on the card.  The metering functions are
+float64 (the fleet accounting convention); the attention functions take
+float32 or bfloat16 and compute in float32.  None of them changes the
+global default dtype.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: [B,H,S,D]; k,v: [B,Hkv,T,D] with H a multiple of Hkv.
+    Positions are 0..S-1 / 0..T-1 (prefill semantics).  A row with no
+    valid key is NaN (a softmax over -inf only)."""
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    g = h // k.shape[1]
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), kk) / math.sqrt(d)
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= qi - ki < window
+    scores = scores.masked_fill(~mask, -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", w, vv).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length) -> torch.Tensor:
+    """Single-token GQA decode.  q: [B,H,D]; k,v: [B,Hkv,T,D]; ``length``
+    (an int or a [B] tensor) = number of valid cache entries per row
+    (attend to positions < length)."""
+    b, h, d = q.shape
+    t = k.shape[2]
+    g = h // k.shape[1]
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    scores = torch.einsum("bhd,bhtd->bht", q.float(), kk) / math.sqrt(d)
+    length = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1)
+    valid = torch.arange(t, device=q.device)[None, None, :] < length
+    scores = scores.masked_fill(~valid, -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bht,bhtd->bhd", w, vv).to(q.dtype)
 
 
 def prefix_integral(t: torch.Tensor, kt: torch.Tensor, kv: torch.Tensor,

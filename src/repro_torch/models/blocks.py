@@ -1,0 +1,95 @@
+"""Single-layer block assembly: pre-norm mixer + pre-norm FFN residual.
+
+One ``BlockSpec`` (config.py) describes a layer; ``block_param_specs``
+builds its ParamSpec tree and ``apply_block`` runs it on a full sequence
+without a cache (the training forward), on a full sequence that also
+writes the cache at offset 0 (prefill), or on one token against the
+cache (decode) -- the cache and its offset say which.
+
+This slice ports the attention mixer with the dense SwiGLU FFN (the
+Qwen2.5 / Llama block).  Other mixers and FFNs raise
+``NotImplementedError`` naming the slice that brings them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ArchConfig, BlockSpec, FFN, Mixer
+from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
+
+Tree = Any
+
+WINDOW_INF = 2 ** 30     # "no window": larger than any position
+
+_LATER = {
+    Mixer.MLA: "the MLA slice (DeepSeek-V2, MiniCPM3)",
+    Mixer.RGLRU: "the RecurrentGemma slice (rglru_scan)",
+    Mixer.MLSTM: "the xLSTM slice",
+    Mixer.SLSTM: "the xLSTM slice",
+    FFN.MOE: "the MoE slice (Mixtral, DeepSeek-V2)",
+    FFN.NONE: "the xLSTM slice",
+}
+
+
+def _supported(blk: BlockSpec) -> None:
+    for part in (blk.mixer, blk.ffn):
+        if part in _LATER:
+            raise NotImplementedError(
+                f"{part.value} blocks are not ported yet; they come with "
+                f"{_LATER[part]}")
+    if blk.cross_attention:
+        raise NotImplementedError(
+            "cross-attention is not ported yet; it comes with the "
+            "encoder-decoder slice (whisper)")
+
+
+def block_param_specs(cfg: ArchConfig, blk: BlockSpec) -> Tree:
+    _supported(blk)
+    d = cfg.d_model
+    return {"norm_mixer": rmsnorm_spec(d), "attn": attn.gqa_specs(cfg),
+            "norm_ffn": rmsnorm_spec(d), "ffn": mlp_spec(cfg)}
+
+
+def block_cache_specs(cfg: ArchConfig, blk: BlockSpec, batch: int,
+                      max_len: int,
+                      dtype: torch.dtype = torch.bfloat16) -> Tree:
+    """Decode/prefill cache structure for one layer."""
+    _supported(blk)
+    return {"attn": attn.gqa_cache_spec(cfg, batch, max_len, dtype)}
+
+
+def apply_block(
+    p: Tree,
+    blk: BlockSpec,
+    cfg: ArchConfig,
+    x: torch.Tensor,                    # [B,S,D]
+    positions: torch.Tensor,            # [B,S]
+    meta: Dict[str, Any],               # this layer's window / theta
+    *,
+    cache: Optional[Tree] = None,
+    cache_offset=None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, Optional[Tree]]:
+    """Returns (x, new_cache)."""
+    _supported(blk)
+    # without per-layer overrides the BlockSpec's window / theta hold
+    if cfg.layer_windows is None and cfg.layer_thetas is None:
+        window = blk.window
+        theta = blk.rope_theta
+    else:
+        window = meta["window"]
+        window = None if window >= WINDOW_INF else window
+        theta = meta["theta"]
+
+    h = rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
+    y, nc = attn.gqa_attention(
+        p["attn"], h, positions, cfg=cfg, window=window, rope_theta=theta,
+        causal=causal, cache=cache["attn"] if cache else None,
+        cache_offset=cache_offset)
+    new_cache = {"attn": nc} if cache is not None else None
+    x = x + y
+    h = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+    return x + mlp(p["ffn"], h), new_cache

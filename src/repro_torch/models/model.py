@@ -1,0 +1,202 @@
+"""The composable LM stack: param-spec construction + prefill/decode.
+
+Layer stacks run over *scan groups* (config.py): parameters and caches
+are stacked with a leading "layers" axis, as in the reference, and the
+port walks the layers in a Python loop where the reference uses
+``lax.scan``.  Everything runs eagerly; the attention inside each layer
+goes through the port's kernels (``models/attention.py``).
+
+The training loss and the encoder tower come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models.blocks import (WINDOW_INF, apply_block,
+                                       block_cache_specs, block_param_specs)
+from repro_torch.models.config import ArchConfig, ScanGroup
+from repro_torch.models.layers import embed, embed_specs, rmsnorm, \
+    rmsnorm_spec, unembed
+from repro_torch.models.params import ParamSpec, tree_map_specs
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class RunFlags:
+    """Per-step execution knobs (the reference's; this slice reads none
+    of them -- remat, scan unrolling, query chunking and MoE dispatch
+    belong to paths not ported yet -- and keeps them for its callers)."""
+    remat: str = "full"            # none | full | dots
+    moe_impl: Optional[str] = None  # override cfg.moe.impl
+    scan_unroll: int = 1
+    attn_chunk: int = 1024         # query-chunked attention working set
+    grad_accum: int = 1            # microbatch gradient accumulation
+    moe_group: int = 0             # MoE dispatch group size (0 = one group)
+    cache_dtype: str = "bf16"      # decode KV cache dtype: bf16 | int8
+
+
+# ---------------------------------------------------------------------------
+# parameter / cache / metadata construction
+# ---------------------------------------------------------------------------
+
+def _stack_specs(tree: Tree, repeats: int) -> Tree:
+    return tree_map_specs(
+        lambda s: ParamSpec((repeats,) + s.shape, s.dtype,
+                            ("layers",) + s.axes, s.init, s.init_scale),
+        tree)
+
+
+def _no_encoder(cfg: ArchConfig) -> None:
+    if cfg.encoder is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder tower is not ported yet; it comes "
+            f"with the encoder-decoder slice (whisper)")
+
+
+def build_param_specs(cfg: ArchConfig) -> Tree:
+    cfg.validate()
+    _no_encoder(cfg)
+    return {
+        "embed": embed_specs(cfg),
+        "final_norm": rmsnorm_spec(cfg.d_model),
+        "groups": {g.name: {f"pos{j}": _stack_specs(
+            block_param_specs(cfg, blk), g.repeats)
+            for j, blk in enumerate(g.pattern)} for g in cfg.groups},
+    }
+
+
+def build_cache_specs(cfg: ArchConfig, batch: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16) -> Tree:
+    _no_encoder(cfg)
+    return {g.name: {f"pos{j}": _stack_specs(
+        block_cache_specs(cfg, blk, batch, max_len, dtype), g.repeats)
+        for j, blk in enumerate(g.pattern)} for g in cfg.groups}
+
+
+def build_meta(cfg: ArchConfig) -> Dict[str, Dict[str, Dict[str, List]]]:
+    """Per-group, per-pattern-position metadata lists [repeats] of each
+    layer's window (``WINDOW_INF`` for none) and rope theta."""
+    flat_windows = list(cfg.layer_windows) if cfg.layer_windows else None
+    flat_thetas = list(cfg.layer_thetas) if cfg.layer_thetas else None
+    metas: Dict[str, Dict[str, Dict[str, List]]] = {}
+    li = 0
+    for g in cfg.groups:
+        per_pos = {f"pos{j}": {"window": [], "theta": []}
+                   for j in range(len(g.pattern))}
+        for _ in range(g.repeats):
+            for j, blk in enumerate(g.pattern):
+                w = flat_windows[li] if flat_windows is not None \
+                    else blk.window
+                th = flat_thetas[li] if flat_thetas is not None \
+                    else blk.rope_theta
+                per_pos[f"pos{j}"]["window"].append(
+                    WINDOW_INF if w is None else int(w))
+                per_pos[f"pos{j}"]["theta"].append(float(th))
+                li += 1
+        metas[g.name] = per_pos
+    return metas
+
+
+# ---------------------------------------------------------------------------
+# layer-stack execution
+# ---------------------------------------------------------------------------
+
+def _layer(tree: Tree, i: int) -> Tree:
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: List[Tree]) -> Tree:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _run_groups(
+    params: Tree,
+    groups: Tuple[ScanGroup, ...],
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    metas: Tree,
+    *,
+    caches: Optional[Tree] = None,
+    cache_offset=None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, Optional[Tree]]:
+    """Run every layer in order; returns (x, new caches or None)."""
+    new_caches: Optional[Dict[str, Tree]] = {} if caches is not None \
+        else None
+    for g in groups:
+        gp = params["groups"][g.name]
+        gm = metas[g.name]
+        gc = caches[g.name] if caches is not None else None
+        layer_caches: Dict[str, List[Tree]] = {
+            f"pos{j}": [] for j in range(len(g.pattern))}
+        for r in range(g.repeats):
+            for j, blk in enumerate(g.pattern):
+                key = f"pos{j}"
+                meta = {k: v[r] for k, v in gm[key].items()}
+                x, nc = apply_block(
+                    _layer(gp[key], r), blk, cfg, x, positions, meta,
+                    cache=_layer(gc[key], r) if gc is not None else None,
+                    cache_offset=cache_offset, causal=causal)
+                layer_caches[key].append(nc)
+        if new_caches is not None:
+            new_caches[g.name] = {k: _stack(v)
+                                  for k, v in layer_caches.items()}
+    return x, new_caches
+
+
+# ---------------------------------------------------------------------------
+# model-level entry points
+# ---------------------------------------------------------------------------
+
+def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Embed tokens.  Returns (x, positions, n_prefix)."""
+    if cfg.n_prefix_embeddings > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: prefix embeddings are not ported yet; they come "
+            f"with the vision-language slice (internvl2)")
+    tokens = batch["tokens"]
+    x = embed(params["embed"], tokens, cfg).to(cfg.compute_dtype)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    return x, positions, 0
+
+
+def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
+            cfg: ArchConfig, flags: RunFlags = RunFlags()
+            ) -> Tuple[torch.Tensor, Tree]:
+    """Process the full prompt, returning (last-token logits [B,V],
+    populated caches)."""
+    x, positions, _ = _prepare_inputs(params, cfg, batch)
+    x, new_caches = _run_groups(
+        params, cfg.groups, cfg, x, positions, build_meta(cfg),
+        caches=caches, cache_offset=0)
+    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg)[:, 0, :]
+    return logits, new_caches
+
+
+def decode_step(params: Tree, tokens: torch.Tensor, caches: Tree,
+                pos: int, cfg: ArchConfig, flags: RunFlags = RunFlags()
+                ) -> Tuple[torch.Tensor, Tree]:
+    """One decode step.  tokens [B,1]; pos: the write offset (an int).
+    Returns (logits [B,V], updated caches)."""
+    pos = int(pos)
+    x = embed(params["embed"], tokens, cfg).to(cfg.compute_dtype)
+    b, s, _ = x.shape
+    positions = (pos + torch.arange(s, device=x.device))[None].expand(b, s)
+    x, new_caches = _run_groups(
+        params, cfg.groups, cfg, x, positions, build_meta(cfg),
+        caches=caches, cache_offset=pos)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params["embed"], x, cfg)[:, -1, :]
+    return logits, new_caches

@@ -1,4 +1,5 @@
 from repro_torch.serving.energy import EnergyMeter, SimClock
+from repro_torch.serving.engine import GenerationResult, ServingEngine
 from repro_torch.serving.model_manager import ManagedModel, ModelManager
 from repro_torch.serving.service_model import (ConstantServiceTime,
                                                ModelServiceProfile,
@@ -7,7 +8,8 @@ from repro_torch.serving.service_model import (ConstantServiceTime,
                                                ServiceTimeModel)
 from repro_torch.serving.slots import DeviceRuntime, SlotPool
 
-__all__ = ["EnergyMeter", "SimClock", "ModelManager", "ManagedModel",
+__all__ = ["EnergyMeter", "SimClock", "ServingEngine", "GenerationResult",
+           "ModelManager", "ManagedModel",
            "SlotPool", "DeviceRuntime", "ServiceTimeModel",
            "ConstantServiceTime", "RooflineServiceTime",
            "ModelServiceProfile", "RequestShape"]

@@ -165,7 +165,9 @@ def test_cpu_tensors_never_launch():
     ops.ordered_segment_sum(_t(np.stack([w, dt])),
                             _t(g.astype(np.int64)), 1)
     assert ops.launch_counts() == {"fused_meter": 0, "segment_trapz": 0,
-                                   "ordered_segment_sum": 0}
+                                   "ordered_segment_sum": 0,
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}
     with pytest.raises(ValueError, match="expected a tensor on"):
         cuda_wrappers.fused_meter(*map(_t, (a, b, dt, w, g) + tabs))
     with pytest.raises(ValueError, match="expected a tensor on"):

@@ -7,8 +7,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc``, holds every kernel against its plain PyTorch version on
 the card, drives ``repro_torch.fleet.run_mega(backend="torch")`` on the
 600-device, ~1M-request acceptance day and checks it against the port's
-numpy backend, then serves Qwen2.5-7B through ``ServingEngine`` and
-``repro_torch.launch.serve``.  Phases, in order:
+numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
+``ServingEngine`` and ``repro_torch.launch.serve``.  Phases, in order:
 
   1. the card (``nvidia-smi`` name and power limit) and the build time
      (every source in parallel, with its ``ptxas`` register lines);
@@ -38,8 +38,21 @@ numpy backend, then serves Qwen2.5-7B through ``ServingEngine`` and
      equal to the ``--reduced`` run on the CPU;
   8. a ``torch.profiler`` breakdown of the card's kernel time over three
      served requests at full width, beside their host-clock time;
-  9. one JSON line describing every kernel;
-  10. as the last line, ``{"ok": true, "device": {...}}``.
+  9. ``rglru_scan`` against its plain version (the reference's three
+     shapes in float32 and bfloat16, tolerance 1e-4 / 3e-2; the carried
+     ``h0``; the launcher's shapes [1,3,4096] and [4,1,4096]), its time
+     on a 2048-token prompt, and windowed decode (``decode_attention``
+     over a view of the window's cache rows) against the plain windowed
+     attention at RecurrentGemma's heads;
+  10. RecurrentGemma-9B's widths at depth 3 (one RG-LRU, RG-LRU, local
+      attention superlayer, the window cut to 16) in float32, card
+      against CPU, as phase 6;
+  11. the RecurrentGemma launcher at full width and depth (38 layers)
+      on the card, counted as phase 7: exactly 26 ``rglru_scan`` and 12
+      ``flash_attention`` launches per prefill, 26 ``rglru_scan`` and 12
+      ``decode_attention`` per decode step; then its profile, as phase 8;
+  12. one JSON line describing every kernel;
+  13. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line.  It also exits non-zero without a CUDA device.
@@ -61,17 +74,18 @@ REL_KERNEL = 1e-12         # carbon lanes vs their plain versions
 REL_DAY = 1e-9             # torch backend vs numpy backend totals
 DEV = "cuda"
 
-# NVIDIA H100 data sheet: memory bandwidth, FP64 (non-tensor) peak and
-# dense BF16 tensor-core peak per form factor, matched against
+# NVIDIA H100 data sheet: memory bandwidth, FP64 and FP32 (non-tensor)
+# peaks and dense BF16 tensor-core peak per form factor, matched against
 # torch.cuda.get_device_name().
-_PEAKS = (("PCIe", 2.0e12, 26e12, 756e12), ("NVL", 3.9e12, 30e12, 835e12),
-          ("", 3.35e12, 34e12, 989e12))
+_PEAKS = (("PCIe", 2.0e12, 26e12, 51e12, 756e12),
+          ("NVL", 3.9e12, 30e12, 60e12, 835e12),
+          ("", 3.35e12, 34e12, 67e12, 989e12))
 
 
 def _peaks(name):
-    for key, bw, fp64, bf16 in _PEAKS:
+    for key, bw, fp64, fp32, bf16 in _PEAKS:
         if key in name:
-            return bw, {"fp64": fp64, "bf16": bf16}
+            return bw, {"fp64": fp64, "fp32": fp32, "bf16": bf16}
     raise AssertionError("unreachable")
 
 
@@ -309,6 +323,15 @@ REL_LOGITS = 2e-3          # card vs CPU logits, relative to their max
 FLASH_TIMED = (1, 28, 4, 2048, 128)
 DECODE_TIMED = (4, 28, 4, 4096, 128)
 
+RG_ARCH = "recurrentgemma-9b"
+# the reference's rglru_scan contract (tests/test_kernels.py), then the
+# launcher's shapes: a 3-token prefill and a 4-row decode step at W=4096
+RGLRU_SHAPES = ((1, 128, 128), (2, 256, 256), (3, 384, 128))   # (B, S, W)
+RGLRU_RAGGED = ((1, 3, 4096), (4, 1, 4096))
+RGLRU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+RGLRU_TIMED = (1, 2048, 4096)          # a long RecurrentGemma prompt, f32
+RG_WINDOW = 16                         # the depth-3 run's cut window
+
 
 def _randn(shape, seed, dtype, torch):
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -412,8 +435,9 @@ def check_attention():
 
 
 def _raw_attn(mod, lib, fn_name, sig, strides, *args):
-    """A call of one attention C entry point with a preallocated output
-    (no checks, no allocation, no launch count)."""
+    """A call of one attention or RG-LRU C entry point (``fn(*args,
+    strides, stream)``) with a preallocated output (no checks, no
+    allocation, no launch count)."""
     import ctypes
 
     import torch
@@ -500,6 +524,120 @@ def time_attention(stats):
               f"{v['library_ms']:.4f} ms")
 
 
+def _scan_inputs(shape, seed, dtype, torch):
+    b, s, w = shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    a = torch.rand((b, s, w), generator=g, device=DEV) * 0.499 + 0.5
+    x = torch.randn((b, s, w), generator=g, device=DEV)
+    h0 = torch.randn((b, w), generator=g, device=DEV)
+    return a.to(dtype), x.to(dtype), h0.to(dtype)
+
+
+def check_rglru():
+    """``rglru_scan`` against its plain version on the card: the
+    reference's shapes in float32 and bfloat16, the launcher's ragged
+    shapes, and the carried ``h0``.  Returns its max abs error."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        tol = RGLRU_TOL[str(dt).split(".")[-1]]
+        for shape in RGLRU_SHAPES + RGLRU_RAGGED:
+            a, x, h0 = _scan_inputs(shape, sum(shape), dt, torch)
+            got = ops.rglru_scan(a, x, h0)
+            want = ref.rglru_scan_ref(a, x, h0)
+            torch.cuda.synchronize()
+            assert got.shape == a.shape and got.dtype == dt
+            err = _attn_close(got, want, tol, f"rglru_scan {dt} {shape}")
+            worst = max(worst, err)
+            print(f"rglru_scan       {str(dt):14s} B,S,W={shape}: max abs "
+                  f"err {err:.3e} (tol {tol})")
+    b, s, w = RGLRU_SHAPES[0]
+    h = ops.rglru_scan(torch.full((b, s, w), 0.9, device=DEV),
+                       torch.zeros((b, s, w), device=DEV),
+                       torch.ones((b, w), device=DEV))
+    torch.cuda.synchronize()
+    first = float((h[:, 0] - 0.9).abs().max() / 0.9)
+    last = float((h[:, -1] - 0.9 ** s).abs().max() / 0.9 ** s)
+    assert first <= 1e-5 and last <= 1e-3, (first, last)
+    print(f"rglru_scan carries h0: h[:, 0] rel err {first:.3e}, h[:, -1] "
+          f"vs 0.9**{s} rel err {last:.3e}")
+    return {"rglru_scan": {"max_abs_err": worst}}
+
+
+def time_rglru(stats):
+    """Its time on a 2048-token RecurrentGemma prompt (float32, W=4096)
+    beside the byte bound and the plain version; no single PyTorch call
+    computes the recurrence."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rmod
+
+    name = torch.cuda.get_device_name(0)
+    b, s, w = RGLRU_TIMED
+    a, x, h0 = _scan_inputs(RGLRU_TIMED, 20, torch.float32, torch)
+    out = torch.empty_like(a)
+    t = stats["rglru_scan"]
+    t["ms"] = _time_ms(_raw_attn(
+        rmod, "rglru_scan", "rglru_scan_fwd", rmod._SIG,
+        [*a.stride()[:2], *x.stride()[:2], *out.stride()[:2]], 0,
+        a.data_ptr(), x.data_ptr(), h0.data_ptr(), out.data_ptr(), b, s, w),
+        torch)
+    torch.cuda.synchronize()
+    err = _attn_close(out, ref.rglru_scan_ref(a, x, h0), 1e-4,
+                      "rglru_scan at the timed shape")
+    t["max_abs_err"] = max(t["max_abs_err"], err)
+    t["plain_ms"] = _time_ms(lambda: ref.rglru_scan_ref(a, x, h0), torch,
+                             reps=1, rounds=3)
+    t["library_ms"] = None
+    t["bound_ms"], t["bound_by"] = _bound_ms(
+        name, (a.numel() + x.numel() + out.numel() + h0.numel()) * 4,
+        2 * a.numel(), "fp32")
+    print(f"time rglru_scan       B,S,W={RGLRU_TIMED} f32: kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library none: no "
+          f"single PyTorch call")
+
+
+def check_windowed_decode(stats):
+    """Windowed decode as the model runs it: ``decode_attention`` over a
+    view of the cache rows [off + 1 - window, off] of a [B,T,Hkv,D]
+    cache, against the plain windowed prefill attention's last query
+    row, at RecurrentGemma's heads (16 over 1 kv head, head_dim 256)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    b, h, hkv, t, d, window = 2, 16, 1, 64, 256, RG_WINDOW
+    for dt in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dt).split(".")[-1]]
+        k = _randn((b, t, hkv, d), 30, dt, torch)
+        v = _randn((b, t, hkv, d), 31, dt, torch)
+        for off in (5, window - 1, window, 40, t - 1):
+            q = _randn((b, h, off + 1, d), 32 + off, dt, torch)
+            lo = max(0, off + 1 - window)
+            got = ops.decode_attention(
+                q[:, :, off], k[:, lo:off + 1].transpose(1, 2),
+                v[:, lo:off + 1].transpose(1, 2),
+                torch.full((b,), off + 1 - lo, dtype=torch.int32,
+                           device=DEV))
+            want = ref.flash_attention_ref(
+                q, k[:, :off + 1].transpose(1, 2),
+                v[:, :off + 1].transpose(1, 2), causal=True,
+                window=window)[:, :, off]
+            torch.cuda.synchronize()
+            err = _attn_close(got, want, tol,
+                              f"windowed decode {dt} off={off}")
+            stats["decode_attention"]["max_abs_err"] = max(
+                stats["decode_attention"]["max_abs_err"], err)
+            print(f"windowed decode  {str(dt):14s} H,Hkv,D={(h, hkv, d)} "
+                  f"window={window} off={off} (rows {lo}..{off}): max abs "
+                  f"err {err:.3e} (tol {tol})")
+
+
 class _Recorder:
     """Wraps the engine's ``prefill`` / ``decode_step`` to count the calls,
     time them (synchronised host clock) and keep their logits."""
@@ -532,32 +670,61 @@ class _Recorder:
         self.engine.prefill, self.engine.decode_step = self.real
 
 
-def serve_depth2(cfg=None, prompt_len=48, steps=8):
-    """Qwen2.5-7B's widths at depth 2 in float32: the same weights served
-    on the card (kernels) and on the CPU (plain versions) through
-    ``ServingEngine``; logits within REL_LOGITS of their max magnitude
-    and equal greedy tokens."""
+def qwen_depth2():
+    """Qwen2.5-7B's widths at depth 2, float32."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import (ScanGroup, build_cache_specs,
-                                    build_param_specs, materialize, prefill)
+    from repro_torch.models import ScanGroup
+    full = get_config(ARCH)
+    return dataclasses.replace(
+        full, n_layers=2,
+        groups=(ScanGroup("main", 2, full.groups[0].pattern),),
+        param_dtype=torch.float32, compute_dtype=torch.float32)
+
+
+def recurrentgemma_depth3():
+    """RecurrentGemma-9B's widths at depth 3, float32: one (RG-LRU,
+    RG-LRU, local attention) superlayer and the tied head, the local
+    window cut from 2048 to RG_WINDOW so that a 48-token prompt and 8
+    decode steps run windowed prefill and windowed decode."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ScanGroup
+    full = get_config(RG_ARCH)
+    pattern = tuple(dataclasses.replace(b, window=RG_WINDOW) if b.window
+                    else b for b in full.groups[0].pattern)
+    return dataclasses.replace(
+        full, n_layers=3, groups=(ScanGroup("main", 1, pattern),),
+        param_dtype=torch.float32, compute_dtype=torch.float32)
+
+
+def serve_depth(cfg, prompt_len=48, steps=8, f64=True):
+    """A cut-in-depth config at full width in float32: the same weights
+    served on the card (kernels) and on the CPU (plain versions) through
+    ``ServingEngine``; logits within REL_LOGITS of their max magnitude
+    and equal greedy tokens.  With ``f64``, each side's prefill logits
+    beside a float64 CPU prefill."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import (build_cache_specs, build_param_specs,
+                                    materialize, prefill)
     from repro_torch.serving import ServingEngine
 
-    if cfg is None:
-        full = get_config(ARCH)
-        cfg = dataclasses.replace(
-            full, n_layers=2,
-            groups=(ScanGroup("main", 2, full.groups[0].pattern),),
-            param_dtype=torch.float32, compute_dtype=torch.float32)
+    tag = f"depth {cfg.n_layers}"
     t0 = time.perf_counter()
     host = materialize(build_param_specs(cfg),
                        torch.Generator().manual_seed(0), "cpu")
 
     card = _cast(host, DEV)
-    print(f"depth 2: {cfg.name} d_model={cfg.d_model} layers="
+    print(f"{tag}: {cfg.name} d_model={cfg.d_model} layers="
           f"{cfg.n_layers} float32 weights built in "
           f"{time.perf_counter() - t0:.1f} s")
     prompt = torch.randint(0, cfg.vocab_size, (prompt_len,),
@@ -575,11 +742,13 @@ def serve_depth2(cfg=None, prompt_len=48, steps=8):
     for a, c in zip(gl, cl):
         assert bool(torch.isfinite(a).all())
         worst = max(worst, float((a - c).abs().max() / c.abs().max()))
-    assert worst <= REL_LOGITS, f"depth-2 logits differ by {worst:.3e}"
+    assert worst <= REL_LOGITS, f"{tag} logits differ by {worst:.3e}"
     assert gt == ct, f"tokens differ: card {gt} vs CPU {ct}"
-    print(f"depth 2: prefill of {prompt_len} tokens + {steps} decode steps, "
+    print(f"{tag}: prefill of {prompt_len} tokens + {steps} decode steps, "
           f"tokens equal {gt}; logits max |card - CPU| / max|CPU| = "
           f"{worst:.3e} (limit {REL_LOGITS})")
+    if not f64:
+        return
     # which side the gap comes from: the prefill once more on the CPU in
     # float64 (no gate: a measure of float32 rounding through the model)
     c64 = dataclasses.replace(cfg, param_dtype=torch.float64,
@@ -591,7 +760,7 @@ def serve_depth2(cfg=None, prompt_len=48, steps=8):
                      {"tokens": torch.tensor([prompt])}, caches, c64)
     o64 = o64.float()
     m = o64.abs().max()
-    print(f"depth 2: prefill logits against a float64 CPU run, max |x - "
+    print(f"{tag}: prefill logits against a float64 CPU run, max |x - "
           f"f64| / max|f64|: card {float((gl[0] - o64).abs().max() / m):.3e}"
           f", CPU float32 {float((cl[0] - o64).abs().max() / m):.3e}")
 
@@ -617,7 +786,7 @@ def _serve_lines(argv, **kw):
     return out
 
 
-def profile_serving(requests=3):
+def profile_serving(arch, requests=3):
     """Where the time of a served request goes at full width: the card's
     kernel time by name over a few requests (``torch.profiler``, after a
     warm-up request), against the host clock of the same requests run
@@ -630,7 +799,7 @@ def profile_serving(requests=3):
     from repro_torch.models import RunFlags, build_param_specs, materialize
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     params = materialize(build_param_specs(cfg),
                          torch.Generator().manual_seed(0), DEV)
     eng = ServingEngine(cfg, params, max_batch=4, max_len=48,
@@ -660,7 +829,7 @@ def profile_serving(requests=3):
         print("profile: the profiler recorded no device time; the idle "
               "share is not measured")
         return
-    print(f"profile: {requests} requests (4 forwards each) took "
+    print(f"profile {arch}: {requests} requests (4 forwards each) took "
           f"{1e3 * wall:.3f} ms of host clock without the profiler; the "
           f"card's kernels took {busy:.3f} ms under it, so the card was "
           f"idle {100 * (1 - busy / (1e3 * wall)):.1f} % of the request time")
@@ -671,39 +840,58 @@ def profile_serving(requests=3):
     torch.cuda.empty_cache()
 
 
-def serve_launcher(argv=("--arch", ARCH, "--hours", "6"), layers=None):
+def per_call_launches(cfg):
+    """The kernel launches one prefill and one decode step of ``cfg``
+    make: each attention layer launches ``flash_attention`` (prefill) or
+    ``decode_attention`` (decode), each RG-LRU layer ``rglru_scan``."""
+    from repro_torch.models import Mixer
+    mixers = [blk.mixer for g in cfg.groups for _ in range(g.repeats)
+              for blk in g.pattern]
+    n_attn, n_rec = mixers.count(Mixer.ATTN), mixers.count(Mixer.RGLRU)
+    assert n_attn + n_rec == cfg.n_layers, mixers
+    return ({"flash_attention": n_attn, "rglru_scan": n_rec},
+            {"decode_attention": n_attn, "rglru_scan": n_rec})
+
+
+def serve_launcher(arch, argv=None, cfg=None):
     """The launcher at full width and depth on the card, counted and
     timed, then its --reduced run on the CPU: the energy lines must be
     equal (the clock and the loader come from the full config's
-    checkpoint bytes, not from compute)."""
+    checkpoint bytes, not from compute).  Every kernel's launches must
+    equal what the recorded prefills and decode steps of ``cfg`` (the
+    full config by default) make, and no other kernel may launch."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
 
-    layers = layers or get_config(ARCH).n_layers
+    argv = list(argv or ("--arch", arch, "--hours", "6"))
+    per_prefill, per_decode = per_call_launches(cfg or get_config(arch))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
     with _Recorder(torch) as rec:
-        card = _serve_lines(list(argv))
+        card = _serve_lines(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     pre, dec = rec.calls["prefill"], rec.calls["decode"]
-    print(f"launcher on the card: wall {wall:.3f} s, {len(pre)} prefills "
-          f"(mean {1e3 * statistics.mean(pre):.6f} ms, median "
+    print(f"launcher {arch} on the card: wall {wall:.3f} s, {len(pre)} "
+          f"prefills (mean {1e3 * statistics.mean(pre):.6f} ms, median "
           f"{1e3 * statistics.median(pre):.6f} ms), {len(dec)} decode "
           f"steps (mean {1e3 * statistics.mean(dec):.6f} ms, median "
           f"{1e3 * statistics.median(dec):.6f} ms), max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B")
-    print(f"launcher launches {counts}")
-    assert counts["flash_attention"] == layers * len(pre), counts
-    assert counts["decode_attention"] == layers * len(dec), counts
-    cpu = _serve_lines(list(argv) + ["--reduced"], device="cpu")
+    print(f"launcher {arch} launches {counts}")
+    want = {k: per_prefill.get(k, 0) * len(pre) +
+            per_decode.get(k, 0) * len(dec) for k in counts}
+    assert counts == want, (counts, want)
+    cpu = _serve_lines(argv + ["--reduced"], device="cpu")
     assert card[1] == cpu[1], (card[1], cpu[1])
-    print("launcher: energy line equal to the --reduced run on the CPU")
+    print(f"launcher {arch}: energy line equal to the --reduced run on the "
+          f"CPU; launches exactly {per_prefill} per prefill and "
+          f"{per_decode} per decode step")
     return counts
 
 
@@ -828,29 +1016,43 @@ def main():
     main_counts, unfused_counts = drive_days()
     attn = check_attention()
     time_attention(attn)
-    serve_depth2()
-    serve_counts = serve_launcher()
-    profile_serving()
+    serve_depth(qwen_depth2())
+    qwen_counts = serve_launcher(ARCH)
+    profile_serving(ARCH)
+    torch.cuda.empty_cache()                   # the Qwen weights are gone
     stats.update(attn)
+    stats.update(check_rglru())
+    time_rglru(stats)
+    check_windowed_decode(stats)
+    serve_depth(recurrentgemma_depth3(), f64=False)
+    rg_counts = serve_launcher(RG_ARCH)
+    profile_serving(RG_ARCH)
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
               "segment_trapz": csrc + "segment_trapz.cu",
               "ordered_segment_sum": csrc + "segment_trapz.cu",
               "flash_attention": csrc + "flash_attention.cu",
-              "decode_attention": csrc + "decode_attention.cu"}
+              "decode_attention": csrc + "decode_attention.cu",
+              "rglru_scan": csrc + "rglru_scan.cu"}
     replaces = {
-        "fused_meter": "src/repro/kernels/segment_trapz.py:66",
-        "segment_trapz": "src/repro/kernels/segment_trapz.py:40",
+        "fused_meter": "src/repro/kernels/segment_trapz.py:114",
+        "segment_trapz": "src/repro/kernels/segment_trapz.py:161",
         # not a Pallas kernel: the jax.ops.segment_sum it replaces
         "ordered_segment_sum": "src/repro/fleet/mega/jaxback.py:236",
         "flash_attention": "src/repro/kernels/flash_attention.py:78",
         "decode_attention": "src/repro/kernels/decode_attention.py:57",
+        "rglru_scan": "src/repro/kernels/rglru_scan.py:40",
     }
+    # each path's own run: the fleet days for the metering kernels, the
+    # two launchers (summed) for the attention kernels
     launches = {"fused_meter": main_counts["fused_meter"],
                 "segment_trapz": unfused_counts["segment_trapz"],
                 "ordered_segment_sum": main_counts["ordered_segment_sum"],
-                "flash_attention": serve_counts["flash_attention"],
-                "decode_attention": serve_counts["decode_attention"]}
+                "flash_attention": qwen_counts["flash_attention"] +
+                rg_counts["flash_attention"],
+                "decode_attention": qwen_counts["decode_attention"] +
+                rg_counts["decode_attention"],
+                "rglru_scan": rg_counts["rglru_scan"]}
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": v["max_abs_err"], "ms": v["ms"],

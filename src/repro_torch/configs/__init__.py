@@ -3,7 +3,7 @@
 Each module exports CONFIG (the full-scale config) and ``reduced()`` (a
 structurally identical small config for CPU tests).  ``get_config`` /
 ``ARCHS`` are the registry the launcher consumes (``--arch <id>``).
-The reference's other ten configs join as the blocks they need are
+The reference's other nine configs join as the blocks they need are
 ported (ROADMAP.md).
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ from repro_torch.models.config import ArchConfig
 
 _MODULES = [
     "qwen2_5_7b",          # the paper's section 4.3 validation model
+    "recurrentgemma_9b",   # hybrid: RG-LRU + local attention
 ]
 
 ARCHS: List[str] = [m.replace("_", "-") for m in _MODULES]

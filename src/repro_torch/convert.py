@@ -63,9 +63,10 @@ def params_from_numpy(cfg: ArchConfig, tree: Any,
 
 def caches_from_numpy(tree: Any,
                       device: str | torch.device = "cuda") -> Any:
-    """A KV-cache tree (nested dicts of arrays, the reference's layout
-    ``[layers, batch, kv_len, kv_heads, hdim]``) as tensors on
-    ``device``, each in its own dtype."""
+    """A cache tree (nested dicts of arrays in the reference's layouts:
+    KV caches ``[layers, batch, kv_len, kv_heads, hdim]``, recurrent
+    states ``[layers, batch, ...]``) as tensors on ``device``, each in
+    its own dtype."""
     if isinstance(tree, dict):
         return {k: caches_from_numpy(v, device) for k, v in tree.items()}
     return _tensor(tree, None, device)

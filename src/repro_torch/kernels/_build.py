@@ -6,7 +6,8 @@ and its flags, so an edited source never loads a stale library),
 compiled at first use for Hopper (``sm_90a``) with a plain C interface
 and loaded with ctypes.  Flags are per source: the metering kernels
 build with ``--fmad=false`` (their carbon lanes round step by step like
-the plain versions); the attention kernels keep fused multiply-adds.
+the plain versions); the attention and RG-LRU kernels keep fused
+multiply-adds.
 All missing libraries compile in parallel, one ``nvcc`` per source.
 Nothing here runs at import time.
 """
@@ -34,6 +35,7 @@ _SOURCES = {
                         ("attention_common.cuh",)),
     "decode_attention": (_BASE_FLAGS + _LIB_FLAGS,
                          ("attention_common.cuh",)),
+    "rglru_scan": (_BASE_FLAGS + _LIB_FLAGS, ()),
 }
 SOURCES = tuple(_SOURCES)
 

@@ -1,10 +1,11 @@
 """Dispatch for the port's kernels: a CUDA tensor launches the
 hand-written kernel (``kernels/segment_trapz.py``,
-``kernels/flash_attention.py``, ``kernels/decode_attention.py``), a CPU
-tensor takes the plain PyTorch version (``kernels/ref.py``).  This is the
-reference's ``use_pallas=None`` policy -- the kernel on real hardware,
-the plain version where no kernel can run -- decided by where the
-tensor lies, with no fallback for a CUDA tensor: it launches or raises.
+``kernels/flash_attention.py``, ``kernels/decode_attention.py``,
+``kernels/rglru_scan.py``), a CPU tensor takes the plain PyTorch
+version (``kernels/ref.py``).  This is the reference's
+``use_pallas=None`` policy -- the kernel on real hardware, the plain
+version where no kernel can run -- decided by where the tensor lies,
+with no fallback for a CUDA tensor: it launches or raises.
 
 ``launch_counts()`` reads the kernel launches per op since the last
 ``reset_launches()`` (plain-version calls never count), so a caller can
@@ -19,9 +20,11 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import segment_trapz as _cuda
 
-_COUNTERS = (_cuda.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES)
+_COUNTERS = (_cuda.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES,
+             _rglru.LAUNCHES)
 
 
 def reset_launches() -> None:
@@ -83,3 +86,11 @@ def decode_attention(q, k, v, length) -> torch.Tensor:
     if _on_cuda("decode_attention", q):
         return _decode.decode_attention(q, k, v, length)
     return ref.decode_attention_ref(q, k, v, length)
+
+
+def rglru_scan(a, b, h0) -> torch.Tensor:
+    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` over a, b
+    [B,S,W] from h0 [B,W] (see ``ref.rglru_scan_ref``)."""
+    if _on_cuda("rglru_scan", a):
+        return _rglru.rglru_scan(a, b, h0)
+    return ref.rglru_scan_ref(a, b, h0)

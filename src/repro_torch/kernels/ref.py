@@ -3,9 +3,9 @@
 These are the semantics the CUDA kernels in ``csrc/`` must match: the
 CPU path of ``kernels/ops.py`` runs them, and ``chip_smoke.py`` holds
 each kernel against them on the card.  The metering functions are
-float64 (the fleet accounting convention); the attention functions take
-float32 or bfloat16 and compute in float32.  None of them changes the
-global default dtype.
+float64 (the fleet accounting convention); the attention functions and
+the RG-LRU scan take float32 or bfloat16 and compute in float32.  None
+of them changes the global default dtype.
 """
 from __future__ import annotations
 
@@ -55,6 +55,21 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~valid, -math.inf)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bht,bhtd->bhd", w, vv).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU diagonal linear recurrence ``h_t = a_t * h_{t-1} + b_t``,
+    one step at a time.  a, b: [B,S,W]; h0: [B,W].  The state is float32
+    (a, b and h0 are widened to it); each h_t is returned in a's dtype,
+    as the Pallas kernel writes it."""
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out
 
 
 def prefix_integral(t: torch.Tensor, kt: torch.Tensor, kv: torch.Tensor,

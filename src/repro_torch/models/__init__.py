@@ -1,6 +1,7 @@
-"""Model substrate of the port: configs, layers, GQA attention and the
-composable stack (prefill / decode).  MoE, MLA, recurrent blocks and
-the training loss come with later slices."""
+"""Model substrate of the port: configs, layers, GQA attention, the
+RG-LRU recurrent block and the composable stack (prefill / decode).
+MoE, MLA, the xLSTM blocks and the training loss come with later
+slices."""
 from repro_torch.models.config import (ArchConfig, BlockSpec, FFN, Mixer,
                                        MLAConfig, MoEConfig,
                                        RecurrentConfig, ScanGroup, dense_lm)

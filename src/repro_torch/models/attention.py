@@ -1,5 +1,5 @@
-"""GQA/MQA/MHA attention mixer with its KV cache (full attention, and
-sliding-window attention in prefill).
+"""GQA/MQA/MHA attention mixer with its KV cache (full and sliding-window
+attention, in prefill and in decode).
 
 The attention itself goes through the port's kernels (``kernels/ops``):
 ``flash_attention`` for a prefill at cache offset 0 (with or without a
@@ -10,10 +10,11 @@ plain PyTorch versions.  This is the reference's function
 jnp) within the kernels' tolerances: the kernels keep the softmax
 weights in float32 where the reference rounds them to the value dtype.
 
+A decode step hands ``decode_attention`` a view of the cache rows it
+may see: rows [off + 1 - window, off] with a window, [0, off] without.
 Cases the kernels cannot express raise ``NotImplementedError`` instead
-of being computed another way: a logit softcap, a window in decode, and
-a multi-token step at a nonzero offset.  MLA and cross-attention come
-with later slices.
+of being computed another way: a logit softcap and a multi-token step at
+a nonzero offset.  MLA and cross-attention come with later slices.
 
 The KV cache is ``[B, T, Hkv, D]`` per layer (float32, bfloat16 or int8
 with per-(token, head) scales).  Writes are out of place
@@ -109,10 +110,6 @@ def gqa_attention(
         raise NotImplementedError(
             f"a {s}-token step at cache offset {off} (chunked prefill) has "
             f"no kernel; it comes with a later serving slice")
-    if off > 0 and window is not None:
-        raise NotImplementedError(
-            "sliding-window decode: decode_attention has no window; it "
-            "comes with the gemma3 slice")
     if off > 0 and cache is None:
         raise ValueError("a decode step at a nonzero offset needs a cache")
 
@@ -123,14 +120,22 @@ def gqa_attention(
     k = rope(k, positions, rope_theta)
 
     new_cache = None
+    lo = 0
     if cache is not None:
         t = cache["k"].shape[1]
         new_cache = dict(cache)
         new_cache.update(_kv_write(cache, "k", k, off))
         new_cache.update(_kv_write(cache, "v", v, off))
-        if s != t:
-            # read the whole cache back; rows past the frontier are
-            # masked by causality (prefill) or by length (decode)
+        if off > 0:
+            # decode: only the rows the query may see, [lo, off] (the
+            # window is exact here: every row of the call is at ``off``)
+            lo = 0 if window is None else max(0, off + 1 - window)
+            rows = {n: c[:, lo:off + 1] for n, c in new_cache.items()}
+            k = _kv_read(rows, "k", q.dtype)
+            v = _kv_read(rows, "v", q.dtype)
+        elif s != t:
+            # prefill into a longer cache: read it back; rows past the
+            # frontier are masked by causality
             k = _kv_read(new_cache, "k", q.dtype)
             v = _kv_read(new_cache, "v", q.dtype)
     k, v = k.to(q.dtype), v.to(q.dtype)
@@ -142,7 +147,7 @@ def gqa_attention(
                                   v.transpose(1, 2), causal=causal,
                                   window=window).transpose(1, 2)
     else:
-        length = torch.full((b,), off + 1, dtype=torch.int32,
+        length = torch.full((b,), off + 1 - lo, dtype=torch.int32,
                             device=x.device)
         out = ops.decode_attention(q[:, 0], k.transpose(1, 2),
                                    v.transpose(1, 2), length)[:, None]

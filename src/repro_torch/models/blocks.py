@@ -6,9 +6,10 @@ without a cache (the training forward), on a full sequence that also
 writes the cache at offset 0 (prefill), or on one token against the
 cache (decode) -- the cache and its offset say which.
 
-This slice ports the attention mixer with the dense SwiGLU FFN (the
-Qwen2.5 / Llama block).  Other mixers and FFNs raise
-``NotImplementedError`` naming the slice that brings them.
+The port has the attention mixer (the Qwen2.5 / Llama block) and the
+RG-LRU mixer (RecurrentGemma), each with the dense SwiGLU FFN.  Other
+mixers and FFNs raise ``NotImplementedError`` naming the slice that
+brings them.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ArchConfig, BlockSpec, FFN, Mixer
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 
@@ -26,7 +28,6 @@ WINDOW_INF = 2 ** 30     # "no window": larger than any position
 
 _LATER = {
     Mixer.MLA: "the MLA slice (DeepSeek-V2, MiniCPM3)",
-    Mixer.RGLRU: "the RecurrentGemma slice (rglru_scan)",
     Mixer.MLSTM: "the xLSTM slice",
     Mixer.SLSTM: "the xLSTM slice",
     FFN.MOE: "the MoE slice (Mixtral, DeepSeek-V2)",
@@ -49,15 +50,20 @@ def _supported(blk: BlockSpec) -> None:
 def block_param_specs(cfg: ArchConfig, blk: BlockSpec) -> Tree:
     _supported(blk)
     d = cfg.d_model
-    return {"norm_mixer": rmsnorm_spec(d), "attn": attn.gqa_specs(cfg),
+    mixer = {"rglru": rec.rglru_specs(cfg)} if blk.mixer == Mixer.RGLRU \
+        else {"attn": attn.gqa_specs(cfg)}
+    return {"norm_mixer": rmsnorm_spec(d), **mixer,
             "norm_ffn": rmsnorm_spec(d), "ffn": mlp_spec(cfg)}
 
 
 def block_cache_specs(cfg: ArchConfig, blk: BlockSpec, batch: int,
                       max_len: int,
                       dtype: torch.dtype = torch.bfloat16) -> Tree:
-    """Decode/prefill cache structure for one layer."""
+    """Decode/prefill cache structure for one layer: the KV cache of an
+    attention layer (in ``dtype``), the state of an RG-LRU layer."""
     _supported(blk)
+    if blk.mixer == Mixer.RGLRU:
+        return {"rglru": rec.rglru_state_spec(cfg, batch)}
     return {"attn": attn.gqa_cache_spec(cfg, batch, max_len, dtype)}
 
 
@@ -85,11 +91,17 @@ def apply_block(
         theta = meta["theta"]
 
     h = rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
-    y, nc = attn.gqa_attention(
-        p["attn"], h, positions, cfg=cfg, window=window, rope_theta=theta,
-        causal=causal, cache=cache["attn"] if cache else None,
-        cache_offset=cache_offset)
-    new_cache = {"attn": nc} if cache is not None else None
+    if blk.mixer == Mixer.RGLRU:
+        y, nc = rec.rglru_block(p["rglru"], h, cfg=cfg,
+                                state=cache["rglru"] if cache else None)
+        new_cache = {"rglru": nc} if cache is not None else None
+    else:
+        y, nc = attn.gqa_attention(
+            p["attn"], h, positions, cfg=cfg, window=window,
+            rope_theta=theta, causal=causal,
+            cache=cache["attn"] if cache else None,
+            cache_offset=cache_offset)
+        new_cache = {"attn": nc} if cache is not None else None
     x = x + y
     h = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
     return x + mlp(p["ffn"], h), new_cache

@@ -3,8 +3,9 @@
 Layer stacks run over *scan groups* (config.py): parameters and caches
 are stacked with a leading "layers" axis, as in the reference, and the
 port walks the layers in a Python loop where the reference uses
-``lax.scan``.  Everything runs eagerly; the attention inside each layer
-goes through the port's kernels (``models/attention.py``).
+``lax.scan``.  Everything runs eagerly; the attention and the RG-LRU
+recurrence inside each layer go through the port's kernels
+(``models/attention.py``, ``models/recurrent.py``).
 
 The training loss and the encoder tower come with later slices.
 """

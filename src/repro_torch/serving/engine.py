@@ -9,9 +9,11 @@ occupancy is tracked by ``serving/slots.py``'s ``SlotPool``.
 
 Everything runs eagerly on ``device`` (default ``"cuda"``, where the
 attention goes through the hand-written kernels; a missing card raises
-rather than running on the CPU).  The caches are float32 whatever the
+rather than running on the CPU).  The KV caches are float32 whatever the
 model dtype, as in the reference; attention reads them back in the
-activation dtype.
+activation dtype.  A recurrent layer's state (``models/recurrent.py``)
+has no time axis: its leaves are ``[layers, batch, ...]`` like the KV
+caches', so a slot's row is written and merged the same way.
 """
 from __future__ import annotations
 

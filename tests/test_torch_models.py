@@ -1,12 +1,14 @@
 """The port's model stack (config, params, layers, GQA attention with its
-KV cache, prefill / decode) against the JAX package at reduced
-Qwen2.5-7B, with the reference's own weights carried over through
+KV cache, the RG-LRU block with its state, prefill / decode) against the
+JAX package at reduced Qwen2.5-7B and reduced RecurrentGemma-9B, with
+the reference's own weights carried over through
 ``convert.params_from_numpy``.
 
-Contract: prefill and decode logits within 1e-4 of the reference
-(float32); decode consistent with the cache-free forward (the
-reference's teacher-forcing bound, 2e-3); the full config's parameter
-count and checkpoint bytes equal to the reference's.
+Contract: prefill and decode logits (and every cache and state leaf)
+within 1e-4 of the reference (float32), windowed decode included;
+decode consistent with the cache-free forward (the reference's
+teacher-forcing bound, 2e-3); the full configs' parameter counts and
+checkpoint bytes equal to the reference's.
 """
 import dataclasses
 
@@ -18,7 +20,11 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
+from repro.models import BlockSpec as JBlockSpec
+from repro.models import FFN as JFFN
+from repro.models import Mixer as JMixer
 from repro.models import RunFlags as JRunFlags
+from repro.models import ScanGroup as JScanGroup
 from repro.models import build_cache_specs as jbuild_cache_specs
 from repro.models import build_param_specs as jbuild_param_specs
 from repro.models import decode_step as jdecode_step
@@ -36,6 +42,7 @@ from repro_torch.models.model import _prepare_inputs, _run_groups, \
     build_meta
 
 ARCH = "qwen2-5-7b"
+RG = "recurrentgemma-9b"
 JFLAGS = JRunFlags(remat="none")
 FLAGS = RunFlags(remat="none")
 
@@ -54,7 +61,7 @@ def weights():
 
 
 def test_registry_and_config_match_reference():
-    assert ARCHS == [ARCH]
+    assert ARCHS == [ARCH, RG]
     for ours, theirs in ((get_config(ARCH), jget_config(ARCH)),
                          (get_reduced(ARCH), jget_reduced(ARCH))):
         a, b = dataclasses.asdict(ours), dataclasses.asdict(theirs)
@@ -67,6 +74,69 @@ def test_registry_and_config_match_reference():
         jget_config(ARCH).param_count() == full.param_count()
     assert param_bytes(build_param_specs(full)) == \
         jparam_bytes(jbuild_param_specs(jget_config(ARCH)))
+
+
+def test_recurrentgemma_config_matches_reference():
+    """38 layers (26 RG-LRU, 12 local attention), tied embeddings:
+    parameter count and bf16 checkpoint bytes equal to the reference's."""
+    for ours, theirs in ((get_config(RG), jget_config(RG)),
+                         (get_reduced(RG), jget_reduced(RG))):
+        a, b = dataclasses.asdict(ours), dataclasses.asdict(theirs)
+        for key in ("param_dtype", "compute_dtype"):
+            assert str(a.pop(key)).split(".")[-1] == \
+                np.dtype(b.pop(key)).name
+        assert a == b
+    full = get_config(RG)
+    mixers = [blk.mixer for g in full.groups for _ in range(g.repeats)
+              for blk in g.pattern]
+    assert mixers.count(Mixer.RGLRU) == 26 and mixers.count(Mixer.ATTN) == 12
+    assert param_count(build_param_specs(full)) == \
+        jget_config(RG).param_count() == full.param_count()
+    assert param_bytes(build_param_specs(full)) == \
+        jparam_bytes(jbuild_param_specs(jget_config(RG))) == 18_793_660_416
+
+
+def _assert_leaves_close(jtree, tree, tol=1e-4):
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jtree)[0]:
+        got = tree
+        for key in path:
+            got = got[key.key]
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(leaf, np.float32),
+                                   rtol=tol, atol=tol,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_recurrentgemma_prefill_and_decode_match_reference():
+    """Reduced RecurrentGemma (RG-LRU, RG-LRU, local attention with
+    window 8, then two RG-LRU): a batch-2 12-token prefill, past the
+    window, then 8 greedy decode steps; logits and every cache and state
+    leaf within 1e-4 of the reference's ``prefill`` / ``decode_step``."""
+    jcfg, cfg = jget_reduced(RG), get_reduced(RG)
+    jp = jmaterialize(jbuild_param_specs(jcfg), jax.random.PRNGKey(0))
+    params = params_from_numpy(cfg, _np_tree(jp), "cpu")
+    B, S, T = 2, 12, 24
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))
+    jc = jmaterialize(jbuild_cache_specs(jcfg, B, T, jnp.float32),
+                      jax.random.PRNGKey(0))
+    caches = caches_from_numpy(_np_tree(jc), "cpu")
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)}, jc,
+                      jcfg, JFLAGS)
+    tl, caches = prefill(params, {"tokens": torch.from_numpy(toks)}, caches,
+                         cfg, FLAGS)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    _assert_leaves_close(jc, caches)
+    for pos in range(S, S + 8):
+        nxt = np.array(jnp.argmax(jl, -1))[:, None]
+        assert nxt.tolist() == torch.argmax(tl, -1)[:, None].tolist()
+        jl, jc = jdecode_step(jp, jnp.asarray(nxt, jnp.int32), jc,
+                              jnp.int32(pos), jcfg, JFLAGS)
+        tl, caches = decode_step(params, torch.from_numpy(nxt), caches, pos,
+                                 cfg, FLAGS)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                   atol=1e-4)
+    _assert_leaves_close(jc, caches)
 
 
 def test_params_carry_over_exactly(weights):
@@ -163,9 +233,11 @@ def test_materialize_init_laws_and_independent_streams():
 
 
 def test_cases_without_a_kernel_raise(weights):
-    """Softcap, windowed decode and chunked prefill are not computed
-    another way; blocks of later slices raise at build time."""
-    _, _, cfg, params = weights
+    """Softcap and chunked prefill are not computed another way; blocks
+    of later slices raise at build time.  Windowed decode has its kernel
+    path now (a view of the window's cache rows): it matches the
+    reference's masked decode."""
+    jcfg, jp, cfg, params = weights
     toks = torch.tensor([[1, 2, 3]])
     caches = materialize(build_cache_specs(cfg, 1, 8, torch.float32),
                          torch.Generator(), "cpu")
@@ -175,12 +247,24 @@ def test_cases_without_a_kernel_raise(weights):
     blk = BlockSpec(Mixer.ATTN, FFN.DENSE, window=4)
     windowed = dataclasses.replace(cfg, groups=(ScanGroup("main", 2,
                                                           (blk,)),))
-    _, c2 = prefill(params, {"tokens": toks}, caches, windowed, FLAGS)
-    with pytest.raises(NotImplementedError, match="window"):
-        decode_step(params, toks[:, :1], c2, 3, windowed, FLAGS)
+    jwindowed = dataclasses.replace(jcfg, groups=(JScanGroup(
+        "main", 2, (JBlockSpec(JMixer.ATTN, JFFN.DENSE, window=4),)),))
+    tl, c2 = prefill(params, {"tokens": toks}, caches, windowed, FLAGS)
+    jc = jmaterialize(jbuild_cache_specs(jwindowed, 1, 8, jnp.float32),
+                      jax.random.PRNGKey(0))
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks.numpy(), jnp.int32)},
+                      jc, jwindowed, JFLAGS)
+    cw = c2
+    for pos, tok in zip(range(3, 8), (7, 1, 9, 4, 2)):   # window bites at 4
+        jl, jc = jdecode_step(jp, jnp.full((1, 1), tok, jnp.int32), jc,
+                              jnp.int32(pos), jwindowed, JFLAGS)
+        tl, cw = decode_step(params, torch.full((1, 1), tok), cw, pos,
+                             windowed, FLAGS)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                   atol=1e-4)
     with pytest.raises(NotImplementedError, match="chunked prefill"):
         decode_step(params, toks, c2, 3, cfg, FLAGS)
-    for mixer, ffn in ((Mixer.RGLRU, FFN.DENSE), (Mixer.MLA, FFN.DENSE),
+    for mixer, ffn in ((Mixer.MLSTM, FFN.DENSE), (Mixer.MLA, FFN.DENSE),
                        (Mixer.ATTN, FFN.MOE)):
         other = dataclasses.replace(
             cfg, groups=(ScanGroup("main", 2, (BlockSpec(mixer, ffn),)),),

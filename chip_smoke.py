@@ -11,7 +11,9 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
 ``ServingEngine`` and ``repro_torch.launch.serve``.  Phases, in order:
 
   1. the card (``nvidia-smi`` name and power limit) and the build time
-     (every source in parallel, with its ``ptxas`` register lines);
+     (every source in parallel, with its ``ptxas`` register and spill
+     lines per entry function), and the HGMMA (wgmma) instructions in the
+     sm90 attention library's SASS where the toolkit has ``cuobjdump``;
   2. each metering kernel against its plain version at small and
      acceptance-day shapes (``e``/``s`` and the energy sums bit-equal,
      ``c``/``fa`` within 1e-12 relative), with CUDA-event times (per
@@ -24,18 +26,29 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
   5. the attention kernels against their plain versions (the
      reference's shape sweeps in float32 and bfloat16, tolerance 2e-3 /
      2e-2; rows past ``length`` ignored to 1e-5; the launcher's ragged
-     shapes through permuted cache views), then their times at Qwen
-     serving shapes beside the bound, the plain version and
-     ``scaled_dot_product_attention``;
+     shapes through permuted cache views), each prefill asserting the
+     route that took it: bfloat16 at D in {32, 64, 128, 256} the sm90
+     kernel (wgmma + TMA), float32 the simt kernel (FP32 FMAs); then
+     the sm90 route at RecurrentGemma's heads (16 over 1, D = 256,
+     S = T = 300, window None and 64), at both launchers' 3-token
+     prompts against 48 cache rows through views, and without the
+     causal mask; then the times: ``decode_attention`` at a Qwen decode
+     shape, and bf16 ``flash_attention`` (the sm90 and the simt kernel
+     on the same inputs) at the 2048-token Qwen and RecurrentGemma
+     prompts and at both launchers' prefill shapes, each beside the
+     bound, the plain version and ``scaled_dot_product_attention``
+     under every backend that takes it (the fastest is the yardstick);
   6. Qwen2.5-7B's widths at depth 2 in float32, the same weights served
      on the card and on the CPU: logits within 2e-3 of their max
      magnitude, greedy tokens equal; each side's prefill logits beside a
-     float64 CPU run;
+     float64 CPU run; then a bf16 prefill of 300 tokens with the kernels
+     and with the plain flash attention swapped in, each against float32
+     on the card: the kernel run no farther than 2x the plain one;
   7. the launcher (the serving path) at full width and depth on the
      card, counters reset just before it and read just after: exactly
-     28 ``flash_attention`` launches per prefill and 28
-     ``decode_attention`` launches per decode step, and the energy line
-     equal to the ``--reduced`` run on the CPU;
+     28 ``flash_attention`` launches per prefill, all on the sm90
+     route, and 28 ``decode_attention`` launches per decode step, and
+     the energy line equal to the ``--reduced`` run on the CPU;
   8. a ``torch.profiler`` breakdown of the card's kernel time over three
      served requests at full width, beside their host-clock time;
   9. ``rglru_scan`` against its plain version (the reference's three
@@ -46,12 +59,14 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
      attention at RecurrentGemma's heads;
   10. RecurrentGemma-9B's widths at depth 3 (one RG-LRU, RG-LRU, local
       attention superlayer, the window cut to 16) in float32, card
-      against CPU, as phase 6;
+      against CPU, then in bf16 against float32, as phase 6;
   11. the RecurrentGemma launcher at full width and depth (38 layers)
       on the card, counted as phase 7: exactly 26 ``rglru_scan`` and 12
       ``flash_attention`` launches per prefill, 26 ``rglru_scan`` and 12
       ``decode_attention`` per decode step; then its profile, as phase 8;
-  12. one JSON line describing every kernel;
+  12. one JSON line describing every kernel (the flash row: the sm90
+      kernel's time, the simt kernel's beside it, and every timed
+      prefill shape);
   13. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -158,7 +173,7 @@ def build():
     for name in _build.SOURCES:
         log = _build.lib_path(name).with_suffix(".log")
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "entry")):
                 print(f"  ptxas {name}: {line.strip()}")
 
 
@@ -319,8 +334,8 @@ DECODE_SHAPES = ((1, 4, 4, 256, 64), (2, 8, 2, 512, 64),
                  (4, 8, 1, 1024, 128))                  # (B, H, Hkv, T, D)
 ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
 REL_LOGITS = 2e-3          # card vs CPU logits, relative to their max
-# timing shapes: a 2048-token Qwen prefill; 4 decode rows over 4096 rows
-FLASH_TIMED = (1, 28, 4, 2048, 128)
+# decode timing shape: 4 decode rows over 4096 rows (the prefill rows
+# are FLASH_ROWS)
 DECODE_TIMED = (4, 28, 4, 4096, 128)
 
 RG_ARCH = "recurrentgemma-9b"
@@ -350,6 +365,88 @@ def _attn_close(got, want, tol, label):
     return float(err.max())
 
 
+def _flash_routed(q, k, v, window, causal=True):
+    """``ops.flash_attention``, asserting that the route the wrapper
+    names for q's dtype and head dim took the launch."""
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ops
+    way = fmod.route(q.dtype, q.shape[-1])
+    before = dict(fmod.ROUTES)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fmod.ROUTES[way] == before[way] + 1 and sum(
+        fmod.ROUTES.values()) == sum(before.values()) + 1, (way, before)
+    return out
+
+
+# bf16 checks of the sm90 route beyond the reference's sweep:
+# (B, H, Hkv, S, T, D, window, views, causal) -- RecurrentGemma's heads
+# at a ragged S = T = 300; the launcher's 3-token prompt against 48 cache
+# rows, read through [B,S|T,heads,D] views, at both models' heads; and
+# the non-causal mask the wrapper also takes, with T below and above S
+# (every row sees a key: where none is visible the plain version gives
+# NaN and the kernels 0)
+SM90_CASES = (
+    (1, 16, 1, 300, 300, 256, None, False, True),
+    (1, 16, 1, 300, 300, 256, 64, False, True),
+    (1, 28, 4, 3, 48, 128, None, True, True),
+    (1, 16, 1, 3, 48, 256, 2048, True, True),
+    (2, 8, 2, 300, 200, 128, None, False, False),
+    (2, 4, 4, 200, 300, 64, 64, False, False),
+)
+
+
+def check_flash_sm90(stats):
+    """The bf16 sm90 route (``csrc/flash_attention_sm90.cu``) against the
+    plain version at SM90_CASES, 2e-2; every call must take the sm90
+    route.  (The reference's sweep in ``check_attention`` covers D = 32,
+    64 and 128 on this route in bf16.)"""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ref
+
+    dt, tol = torch.bfloat16, ATTN_TOL["bfloat16"]
+    for i, (b, h, hkv, s, t, d, window, views, causal) in \
+            enumerate(SM90_CASES):
+        assert fmod.route(dt, d) == "sm90"
+        if views:
+            q = _randn((b, s, h, d), 70 + i, dt, torch).transpose(1, 2)
+            k = _randn((b, t, hkv, d), 80 + i, dt, torch).transpose(1, 2)
+            v = _randn((b, t, hkv, d), 90 + i, dt, torch).transpose(1, 2)
+        else:
+            q = _randn((b, h, s, d), 70 + i, dt, torch)
+            k = _randn((b, hkv, t, d), 80 + i, dt, torch)
+            v = _randn((b, hkv, t, d), 90 + i, dt, torch)
+        got = _flash_routed(q, k, v, window, causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
+        torch.cuda.synchronize()
+        err = _attn_close(got, want, tol, f"sm90 flash {SM90_CASES[i]}")
+        stats["flash_attention"]["max_abs_err"] = max(
+            stats["flash_attention"]["max_abs_err"], err)
+        print(f"flash_attention  sm90 bf16 B,H,Hkv,S,T,D="
+              f"{(b, h, hkv, s, t, d)} window={window} views={views} "
+              f"causal={causal}: max abs err {err:.3e} (tol {tol})")
+
+
+def count_hgmma():
+    """The HGMMA (wgmma) instructions in the sm90 library's SASS, read
+    with the toolkit's ``cuobjdump`` where it has one (None otherwise)."""
+    from repro_torch.kernels import _build
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print("cuobjdump not found beside nvcc: the sm90 library's HGMMA "
+              "count is not read")
+        return None
+    sass = subprocess.run(
+        [str(tool), "-sass", str(_build.lib_path("flash_attention_sm90"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"flash_attention_sm90 SASS: {n} HGMMA instructions")
+    assert n > 0, "the sm90 library holds no wgmma"
+    return n
+
+
 def check_attention():
     """The attention kernels against their plain versions on the card:
     the reference's shape sweeps, the frontier case, and the launcher's
@@ -367,7 +464,7 @@ def check_attention():
             k = _randn((b, hkv, s, d), 1, dt, torch)
             v = _randn((b, hkv, s, d), 2, dt, torch)
             for window in (None, 64):
-                got = ops.flash_attention(q, k, v, causal=True, window=window)
+                got = _flash_routed(q, k, v, window)
                 want = ref.flash_attention_ref(q, k, v, causal=True,
                                                window=window)
                 torch.cuda.synchronize()
@@ -402,7 +499,7 @@ def check_attention():
         k = _randn((1, 48, 4, 128), 4, dt, torch)
         v = _randn((1, 48, 4, 128), 5, dt, torch)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        got = ops.flash_attention(qt, kt, vt, causal=True)
+        got = _flash_routed(qt, kt, vt, None)
         want = ref.flash_attention_ref(qt, kt, vt, causal=True)
         torch.cuda.synchronize()
         err = _attn_close(got, want, tol, f"flash {dt} S=3 T=48")
@@ -454,44 +551,20 @@ def _raw_attn(mod, lib, fn_name, sig, strides, *args):
 
 
 def time_attention(stats):
-    """Times at Qwen serving shapes, beside the bound, the plain version
-    and ``scaled_dot_product_attention`` on the same inputs."""
+    """``decode_attention``'s time at a Qwen serving shape, beside the
+    bound, the plain version and ``scaled_dot_product_attention`` under
+    its fastest backend, on the same inputs (``flash_attention``'s rows
+    are ``time_flash``'s)."""
     import math
 
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as dmod
-    from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ref
 
     name = torch.cuda.get_device_name(0)
     dt = torch.bfloat16
-    b, h, hkv, s, d = FLASH_TIMED
-    q = _randn((b, h, s, d), 10, dt, torch)
-    k = _randn((b, hkv, s, d), 11, dt, torch)
-    v = _randn((b, hkv, s, d), 12, dt, torch)
-    out = torch.empty_like(q)
-    t = stats["flash_attention"]
-    t["ms"] = _time_ms(_raw_attn(
-        fmod, "flash_attention", "flash_attention_fwd", fmod._SIG,
-        [*q.stride(), *k.stride(), *v.stride(), *out.stride()], 1,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, hkv, s, s, d, 1, 0, 1.0 / math.sqrt(d)), torch, reps=5)
-    torch.cuda.synchronize()
-    err = _attn_close(out, ref.flash_attention_ref(q, k, v), 2e-2,
-                      "flash at the timed shape")
-    t["max_abs_err"] = max(t["max_abs_err"], err)
-    t["plain_ms"] = _time_ms(lambda: ref.flash_attention_ref(q, k, v),
-                             torch, reps=2, rounds=3)
-    t["library_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), torch, reps=5)
-    pairs = b * h * s * (s + 1) // 2                   # causal (q, k) pairs
-    t["bound_ms"], t["bound_by"] = _bound_ms(
-        name, (2 * q.numel() + k.numel() + v.numel()) * 2, 4 * pairs * d,
-        "bf16")
-    t["shape"] = f"B,H,Hkv,S=T,D={FLASH_TIMED} bf16 causal"
-
     b, h, hkv, tt, d = DECODE_TIMED
     q = _randn((b, h, d), 13, dt, torch)
     k = _randn((b, hkv, tt, d), 14, dt, torch)
@@ -510,18 +583,142 @@ def time_attention(stats):
     t["max_abs_err"] = max(t["max_abs_err"], err)
     t["plain_ms"] = _time_ms(
         lambda: ref.decode_attention_ref(q, k, v, length), torch, reps=5)
-    t["library_ms"] = _time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, enable_gqa=True), torch)
+    t["library_ms"], t["library"], backends = _library_ms(
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                               enable_gqa=True), torch)
     t["bound_ms"], t["bound_by"] = _bound_ms(
         name, (2 * q.numel() + k.numel() + v.numel()) * 2,
         4 * b * h * tt * d, "bf16")
     t["shape"] = f"B,H,Hkv,T,D={DECODE_TIMED} bf16 full length"
-    for kname in ("flash_attention", "decode_attention"):
-        v = stats[kname]
-        print(f"time {kname:16s} {v['shape']}: kernel {v['ms']:.4f} ms, "
-              f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-              f"({v['bound_by']}), scaled_dot_product_attention "
-              f"{v['library_ms']:.4f} ms")
+    bk = ", ".join(f"{k} {v:.4f}" for k, v in backends.items())
+    print(f"time decode_attention {t['shape']}: kernel {t['ms']:.4f} ms, "
+          f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}), scaled_dot_product_attention "
+          f"{t['library_ms']:.4f} ms ({t['library']}; {bk})")
+
+
+# bf16 prefill timing rows: (label, B, H, Hkv, S, T, D, window, views);
+# ``views``: q, k, v read through [B,S|T,heads,D] tensors, as the
+# launcher hands them over (a 3-token prompt against 48 cache rows)
+FLASH_ROWS = (
+    ("qwen 2048", 1, 28, 4, 2048, 2048, 128, None, False),
+    ("recurrentgemma 2048", 1, 16, 1, 2048, 2048, 256, 2048, False),
+    ("qwen launcher", 1, 28, 4, 3, 48, 128, None, True),
+    ("recurrentgemma launcher", 1, 16, 1, 3, 48, 256, 2048, True),
+)
+
+
+def _flash_work(b, h, hkv, s, t, d, window):
+    """Bytes and operations a causal (windowed) prefill needs: q, out
+    and the kv rows some query sees, once each; 4 D operations per
+    visible (query, key) pair."""
+    pairs = sum(min(i + 1, t) - (max(0, i + 1 - window) if window else 0)
+                for i in range(s))
+    rows = min(s, t)
+    return (2 * b * h * s * d + 2 * b * hkv * rows * d) * 2, \
+        4 * b * h * pairs * d
+
+
+def _library_ms(call, torch):
+    """``call`` (one ``scaled_dot_product_attention``) timed under each
+    backend of ``torch.nn.attention.sdpa_kernel`` that accepts it;
+    returns (the fastest time, its backend, every backend's time)."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            # a backend that refuses the call warns why, then raises
+            with sdpa_kernel(be), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                call()
+                torch.cuda.synchronize()
+                times[be.name] = _time_ms(call, torch, reps=5)
+        except RuntimeError:
+            continue
+    best = min(times, key=times.get)
+    return times[best], best, times
+
+
+def _raw_flash(q, k, v, out, window, route):
+    """One raw call of the ``route`` kernel (no checks, no count)."""
+    import math
+
+    from repro_torch.kernels import flash_attention as fmod
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    return _raw_attn(fmod, *fmod.ENTRY[route], fmod._SIG,
+                     [*q.stride(), *k.stride(), *v.stride(), *out.stride()],
+                     1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), b, h, hkv, s, t, d, 1,
+                     int(window or 0), 1.0 / math.sqrt(d))
+
+
+def time_flash(stats, routes=("sm90", "simt")):
+    """bf16 ``flash_attention`` at every row of FLASH_ROWS: each route's
+    kernel (the wrapper takes the first; the simt kernel, which bf16 no
+    longer reaches at these head dims, is timed on the same inputs), the
+    plain version, the bound and ``scaled_dot_product_attention`` under
+    its fastest backend.  The Qwen 2048 row fills
+    ``stats["flash_attention"]``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    name = torch.cuda.get_device_name(0)
+    dt = torch.bfloat16
+    rows = []
+    for i, (label, b, h, hkv, s, t, d, window, views) in \
+            enumerate(FLASH_ROWS):
+        if views:
+            q = _randn((b, s, h, d), 40 + i, dt, torch).transpose(1, 2)
+            k = _randn((b, t, hkv, d), 50 + i, dt, torch).transpose(1, 2)
+            v = _randn((b, t, hkv, d), 60 + i, dt, torch).transpose(1, 2)
+        else:
+            q = _randn((b, h, s, d), 40 + i, dt, torch)
+            k = _randn((b, hkv, t, d), 50 + i, dt, torch)
+            v = _randn((b, hkv, t, d), 60 + i, dt, torch)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        row = {"label": label, "shape": f"B,H,Hkv,S,T,D={(b, h, hkv, s, t, d)}"
+               f" window={window} bf16 causal"}
+        for route in routes:
+            out = torch.empty_like(q)
+            reps = 5 if s > 512 else 20
+            row[route] = _time_ms(_raw_flash(q, k, v, out, window, route),
+                                  torch, reps=reps)
+            torch.cuda.synchronize()
+            row[route + "_err"] = _attn_close(out, want, 2e-2,
+                                              f"{route} flash at {label}")
+        row["plain_ms"] = _time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window), torch, reps=2, rounds=3)
+        # the window never bites at these shapes (S <= window), so the
+        # library computes the same function with is_causal alone
+        assert window is None or window >= s
+        row["library_ms"], row["library"], row["backends"] = _library_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), torch)
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            name, *_flash_work(b, h, hkv, s, t, d, window), "bf16")
+        rows.append(row)
+        times = ", ".join(f"{r} {row[r]:.4f} ms (err {row[r + '_err']:.3e})"
+                          for r in routes)
+        bk = ", ".join(f"{k} {v:.4f}" for k, v in row["backends"].items())
+        print(f"time flash_attention {label:24s} {row['shape']}: {times}; "
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}), scaled_dot_product_attention "
+              f"{row['library_ms']:.4f} ms ({row['library']}; {bk})")
+    top = rows[0]
+    t = stats["flash_attention"]
+    t.update(ms=top[routes[0]], plain_ms=top["plain_ms"],
+             library_ms=top["library_ms"], library=top["library"],
+             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+             shape=top["shape"])
+    t["max_abs_err"] = max(t["max_abs_err"],
+                           *(top[r + "_err"] for r in routes))
+    return rows
 
 
 def _scan_inputs(shape, seed, dtype, torch):
@@ -765,6 +962,76 @@ def serve_depth(cfg, prompt_len=48, steps=8, f64=True):
           f", CPU float32 {float((cl[0] - o64).abs().max() / m):.3e}")
 
 
+class _PlainFlash:
+    """Swaps the plain version ``ref.flash_attention_ref`` in for
+    ``ops.flash_attention`` (which the model calls) and restores the
+    kernel on exit."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.ops, self.real = ops, ops.flash_attention
+        ops.flash_attention = ref.flash_attention_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+
+def check_bf16_model(cfg, prompt_len=300):
+    """A bf16 forward of ``cfg`` (cut in depth, full width) on the card
+    with the kernels, then with the plain flash attention swapped in,
+    each against a float32 forward of the same weights: the kernel run
+    may be no farther from float32 than 2x the plain bf16 run.  The
+    prompt is ragged against the 128-row tiles and prefills into a
+    longer cache, so the model's cache views reach the sm90 route."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import (build_cache_specs, build_param_specs,
+                                    materialize, prefill)
+
+    c16 = dataclasses.replace(cfg, param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    c32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    w16 = materialize(build_param_specs(c16),
+                      torch.Generator().manual_seed(0), DEV)
+    w32 = _cast(w16, torch.float32)                 # the same values
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                           generator=torch.Generator().manual_seed(2))
+
+    def forward(c, w):
+        caches = materialize(build_cache_specs(c, 1, prompt_len + 16,
+                                               c.compute_dtype),
+                             torch.Generator(), DEV)
+        logits, _ = prefill(w, {"tokens": tokens.to(DEV)}, caches, c)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(logits).all())
+        return logits.float()
+
+    ops.reset_launches()
+    kern = forward(c16, w16)
+    routes = ops.route_counts()
+    n_attn = ops.launch_counts()["flash_attention"]
+    assert n_attn > 0 and routes == {"sm90": n_attn, "simt": 0}, routes
+    with _PlainFlash():
+        plain = forward(c16, w16)
+    f32 = forward(c32, w32)
+    m = f32.abs().max()
+    d_kern = float((kern - f32).abs().max() / m)
+    d_plain = float((plain - f32).abs().max() / m)
+    print(f"bf16 {cfg.name} depth {cfg.n_layers}, {prompt_len}-token "
+          f"prefill: max |logits - float32| / max|float32| = {d_kern:.3e} "
+          f"with the kernels ({n_attn} sm90 flash launches), {d_plain:.3e} "
+          f"with the plain flash attention (limit 2x)")
+    assert d_kern <= 2 * d_plain, (d_kern, d_plain)
+    del w16, w32
+    torch.cuda.empty_cache()
+    return d_kern, d_plain
+
+
 def _cast(tree, to):
     """Every leaf of a parameter tree moved to a device or dtype."""
     if isinstance(tree, dict):
@@ -876,6 +1143,7 @@ def serve_launcher(arch, argv=None, cfg=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    routes = ops.route_counts()
     pre, dec = rec.calls["prefill"], rec.calls["decode"]
     print(f"launcher {arch} on the card: wall {wall:.3f} s, {len(pre)} "
           f"prefills (mean {1e3 * statistics.mean(pre):.6f} ms, median "
@@ -883,10 +1151,13 @@ def serve_launcher(arch, argv=None, cfg=None):
           f"steps (mean {1e3 * statistics.mean(dec):.6f} ms, median "
           f"{1e3 * statistics.median(dec):.6f} ms), max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B")
-    print(f"launcher {arch} launches {counts}")
+    print(f"launcher {arch} launches {counts}; flash_attention routes "
+          f"{routes}")
     want = {k: per_prefill.get(k, 0) * len(pre) +
             per_decode.get(k, 0) * len(dec) for k in counts}
     assert counts == want, (counts, want)
+    # the launchers serve bf16 at head dims the sm90 route takes
+    assert routes == {"sm90": counts["flash_attention"], "simt": 0}, routes
     cpu = _serve_lines(argv + ["--reduced"], device="cpu")
     assert card[1] == cpu[1], (card[1], cpu[1])
     print(f"launcher {arch}: energy line equal to the --reduced run on the "
@@ -1012,11 +1283,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build()
+    hgmma = count_hgmma()
     stats = check_kernels()
     main_counts, unfused_counts = drive_days()
     attn = check_attention()
+    check_flash_sm90(attn)
     time_attention(attn)
+    flash_rows = time_flash(attn)
     serve_depth(qwen_depth2())
+    check_bf16_model(qwen_depth2())
     qwen_counts = serve_launcher(ARCH)
     profile_serving(ARCH)
     torch.cuda.empty_cache()                   # the Qwen weights are gone
@@ -1025,13 +1300,14 @@ def main():
     time_rglru(stats)
     check_windowed_decode(stats)
     serve_depth(recurrentgemma_depth3(), f64=False)
+    check_bf16_model(recurrentgemma_depth3())
     rg_counts = serve_launcher(RG_ARCH)
     profile_serving(RG_ARCH)
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
               "segment_trapz": csrc + "segment_trapz.cu",
               "ordered_segment_sum": csrc + "segment_trapz.cu",
-              "flash_attention": csrc + "flash_attention.cu",
+              "flash_attention": csrc + "flash_attention_sm90.cu",
               "decode_attention": csrc + "decode_attention.cu",
               "rglru_scan": csrc + "rglru_scan.cu"}
     replaces = {
@@ -1059,6 +1335,18 @@ def main():
                 "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
                 "bound_by": v["bound_by"], "library_ms": v["library_ms"]}
                for k, v in stats.items()]
+    for row in kernels:
+        if "library" in stats[row["name"]]:
+            row["library"] = stats[row["name"]]["library"]
+        if row["name"] == "flash_attention":
+            # every launcher launch took the sm90 route (serve_launcher);
+            # the simt kernel (float32, other head dims) timed beside it
+            row.update(kernel_route="sm90", hgmma=hgmma,
+                       simt_source=csrc + "flash_attention.cu",
+                       simt_ms=flash_rows[0]["simt"],
+                       rows={r["label"]: {k: r[k] for k in (
+                           "sm90", "simt", "plain_ms", "library_ms",
+                           "library", "bound_ms")} for r in flash_rows})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

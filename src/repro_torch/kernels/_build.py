@@ -33,6 +33,7 @@ _SOURCES = {
     "segment_trapz": (_BASE_FLAGS + ("--fmad=false",) + _LIB_FLAGS, ()),
     "flash_attention": (_BASE_FLAGS + _LIB_FLAGS,
                         ("attention_common.cuh",)),
+    "flash_attention_sm90": (_BASE_FLAGS + _LIB_FLAGS, ()),
     "decode_attention": (_BASE_FLAGS + _LIB_FLAGS,
                          ("attention_common.cuh",)),
     "rglru_scan": (_BASE_FLAGS + _LIB_FLAGS, ()),

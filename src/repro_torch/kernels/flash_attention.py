@@ -1,14 +1,23 @@
-"""Launch wrapper of the CUDA prefill attention kernel in
-``csrc/flash_attention.cu`` (the port of the Pallas kernel
-``repro/kernels/flash_attention.py``).
+"""Launch wrapper of the CUDA prefill attention kernels (the port of the
+Pallas kernel ``repro/kernels/flash_attention.py``), on two routes fixed
+by dtype and head dim (``route``), never by a failure:
+
+* ``"sm90"``: bfloat16 with D in {32, 64, 128, 256},
+  ``csrc/flash_attention_sm90.cu`` -- wgmma tensor-core tiles fed by TMA.
+  TMA needs 16-byte aligned bases and strides that are multiples of 8
+  elements; a view that breaks that is refused (``tma_check``), never
+  copied.
+* ``"simt"``: float32 (which must not round through TF32) and every
+  other D, ``csrc/flash_attention.cu`` -- float32 FMAs.
 
 The wrapper takes CUDA tensors only (``kernels/ops.py`` routes CPU
 tensors to ``ref.flash_attention_ref``), checks device, dtype, shape and
 the unit stride of the head dim, hands the kernel every other stride (so
 permuted views need no copy), allocates the output with
 ``torch.empty_like(q)`` (same layout as q), launches on the current
-stream without synchronising, raises if the launch returns a CUDA error,
-and adds one to ``LAUNCHES["flash_attention"]`` per launch.
+stream without synchronising, raises if the launch returns an error, and
+adds one to ``LAUNCHES["flash_attention"]`` and one to ``ROUTES[route]``
+per launch.
 """
 from __future__ import annotations
 
@@ -20,8 +29,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# kernel launches since the last reset (ops.reset_launches)
+# kernel launches since the last reset (ops.reset_launches), and which
+# route each took
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+ROUTES: Dict[str, int] = {"sm90": 0, "simt": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -29,6 +40,32 @@ MAX_HEAD_DIM = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = [_I, _P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float, _P, _P]
+# route -> (library, C entry point); both take _SIG
+ENTRY = {"sm90": ("flash_attention_sm90", "flash_attention_sm90_fwd"),
+         "simt": ("flash_attention", "flash_attention_fwd")}
+SM90_HEAD_DIMS = (32, 64, 128, 256)
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes a prefill of this dtype and head dim."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "simt"
+
+
+def tma_check(ts: Sequence[torch.Tensor], names: Sequence[str]) -> None:
+    """Raise unless every tensor can be read by TMA as it lies: a 16-byte
+    aligned base and, in every dimension longer than 1 but the last
+    (unit-stride) one, a stride that is a multiple of 8 elements."""
+    for t, nm in zip(ts, names):
+        bad = [st for st, n in zip(t.stride()[:-1], t.shape[:-1])
+               if n > 1 and st % 8]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"flash_attention: the sm90 route reads {nm} by TMA, which "
+                f"needs a 16-byte aligned base and strides that are "
+                f"multiples of 8 elements; got base offset "
+                f"{t.data_ptr() % 16} B, strides {t.stride()}")
 
 
 def c_fn(lib: str, name: str, argtypes):
@@ -79,7 +116,9 @@ def launch(op: str, fn, device: torch.device, strides: Sequence[int],
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, arr, stream)
     if rc != 0:
-        raise RuntimeError(f"{op}: CUDA launch failed with error {rc}")
+        raise RuntimeError(f"{op}: launch failed with error {rc} (a CUDA "
+                           f"error below 10000; see the kernel's source "
+                           f"for the others)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -109,11 +148,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if t == 0:
         return out.zero_()
+    way = route(q.dtype, d)
+    if way == "sm90":
+        tma_check((q, k, v), ("q", "k", "v"))
     strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride()]
-    launch("flash_attention", c_fn("flash_attention", "flash_attention_fwd",
-                                   _SIG), q.device, strides,
+    launch("flash_attention", c_fn(*ENTRY[way], _SIG), q.device, strides,
            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            b, h, hkv, s, t, d, int(causal), int(window or 0),
            1.0 / math.sqrt(d))
     LAUNCHES["flash_attention"] += 1
+    ROUTES[way] += 1
     return out

@@ -9,7 +9,8 @@ with no fallback for a CUDA tensor: it launches or raises.
 
 ``launch_counts()`` reads the kernel launches per op since the last
 ``reset_launches()`` (plain-version calls never count), so a caller can
-show that a run really went through the kernels.
+show that a run really went through the kernels; ``route_counts()``
+splits the ``flash_attention`` launches by the kernel that took them.
 """
 from __future__ import annotations
 
@@ -28,13 +29,19 @@ _COUNTERS = (_cuda.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES,
 
 
 def reset_launches() -> None:
-    for counts in _COUNTERS:
+    for counts in _COUNTERS + (_flash.ROUTES,):
         for k in counts:
             counts[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {k: n for counts in _COUNTERS for k, n in counts.items()}
+
+
+def route_counts() -> Dict[str, int]:
+    """``flash_attention`` launches per route (``"sm90"``, ``"simt"``)
+    since the last ``reset_launches()``."""
+    return dict(_flash.ROUTES)
 
 
 def _on_cuda(op: str, t: torch.Tensor) -> bool:

@@ -18,7 +18,9 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
      acceptance-day shapes (``e``/``s`` and the energy sums bit-equal,
      ``c``/``fa`` within 1e-12 relative), with CUDA-event times (per
      call, median of 7 rounds of back-to-back calls, L2 flushed before
-     each round) beside the least time the card could take;
+     each round, each round queued behind a spin kernel so the events
+     time the card and not the host's launches) beside the least time
+     the card could take;
   3. the acceptance day on the fused lane (the metering path), with the
      launch counters reset just before it and read just after;
   4. the unfused lane on a 24-route day, then the 3-zone pinned day
@@ -32,41 +34,69 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
      the sm90 route at RecurrentGemma's heads (16 over 1, D = 256,
      S = T = 300, window None and 64), at both launchers' 3-token
      prompts against 48 cache rows through views, and without the
-     causal mask; then the times: ``decode_attention`` at a Qwen decode
-     shape, and bf16 ``flash_attention`` (the sm90 and the simt kernel
-     on the same inputs) at the 2048-token Qwen and RecurrentGemma
-     prompts and at both launchers' prefill shapes, each beside the
-     bound, the plain version and ``scaled_dot_product_attention``
-     under every backend that takes it (the fastest is the yardstick);
+     causal mask; then the split-KV ``decode_attention`` (each call's
+     route asserted): the timed Qwen shape with ragged lengths [4096,
+     1000, 17, 1] (splits wholly past a row's length), a row of length 0
+     (exactly 0, where the plain version gives NaN), RecurrentGemma's
+     decode shape at T = 2048, and two calls bit-equal, with unit-normal
+     queries and with queries x4, whose peaked softmax lets the check
+     see the combine: two wrong combines of the same partials, modelled
+     in plain torch, must fail it; then the times,
+     each beside the bound (a kernel time under it fails the run), the
+     plain version and ``scaled_dot_product_attention`` under every
+     backend that takes it (the fastest is the yardstick):
+     ``decode_attention`` (the split and the single route on the same
+     inputs) at the Qwen shape B=4, T=4096, RecurrentGemma's B=4,
+     T=2048, D=256, and both launchers' B=4, T=48 through views, the
+     kernel and the library each rotating over input sets of >= 100 MB
+     so that no call finds its cache in the 50 MB L2 (the back-to-back
+     time of one set beside it); and bf16 ``flash_attention`` (the sm90
+     and the simt kernel on the same inputs) at the 2048-token Qwen and
+     RecurrentGemma prompts and at both launchers' prefill shapes;
   6. Qwen2.5-7B's widths at depth 2 in float32, the same weights served
      on the card and on the CPU: logits within 2e-3 of their max
      magnitude, greedy tokens equal; each side's prefill logits beside a
      float64 CPU run; then a bf16 prefill of 300 tokens with the kernels
      and with the plain flash attention swapped in, each against float32
-     on the card: the kernel run no farther than 2x the plain one;
+     on the card: the kernel run no farther than 2x the plain one; then
+     one bf16 ``decode_step`` at a 2048-row context (the split route):
+     each layer's decode against the plain version on the model's views,
+     where the two wrong combines must fail, and the logits within 2e-2
+     of their max of the same step with the plain ``decode_attention``;
   7. the launcher (the serving path) at full width and depth on the
      card, counters reset just before it and read just after: exactly
      28 ``flash_attention`` launches per prefill, all on the sm90
-     route, and 28 ``decode_attention`` launches per decode step, and
-     the energy line equal to the ``--reduced`` run on the CPU;
+     route, and 28 ``decode_attention`` launches per decode step, all
+     on the single route, and the energy line equal to the
+     ``--reduced`` run on the CPU;
   8. a ``torch.profiler`` breakdown of the card's kernel time over three
      served requests at full width, beside their host-clock time;
-  9. ``rglru_scan`` against its plain version (the reference's three
-     shapes in float32 and bfloat16, tolerance 1e-4 / 3e-2; the carried
-     ``h0``; the launcher's shapes [1,3,4096] and [4,1,4096]), its time
-     on a 2048-token prompt, and windowed decode (``decode_attention``
-     over a view of the window's cache rows) against the plain windowed
-     attention at RecurrentGemma's heads;
+  9. ``rglru_scan`` against its plain version on both routes, the
+     serial and the chunked kernel, at the reference's three shapes,
+     the launcher's [1,3,4096] and [4,1,4096] and a 2048-token prompt
+     [1,2048,4096] with a channel at a = 0.9999 (the carry's drift), in
+     float32 and bfloat16 (tolerance 1e-4 / 3e-2), two chunked calls
+     bit-equal, and the carried ``h0``; its times (both routes on the
+     same inputs) on the 2048-token prompt and at the launcher's
+     shapes; and windowed decode (``decode_attention`` over a view of
+     the window's cache rows) against the plain windowed attention at
+     RecurrentGemma's heads;
   10. RecurrentGemma-9B's widths at depth 3 (one RG-LRU, RG-LRU, local
       attention superlayer, the window cut to 16) in float32, card
-      against CPU, then in bf16 against float32, as phase 6;
+      against CPU, then in bf16 against float32, as phase 6 (its
+      300-token prefill's scans on the chunked route);
   11. the RecurrentGemma launcher at full width and depth (38 layers)
       on the card, counted as phase 7: exactly 26 ``rglru_scan`` and 12
       ``flash_attention`` launches per prefill, 26 ``rglru_scan`` and 12
-      ``decode_attention`` per decode step; then its profile, as phase 8;
+      ``decode_attention`` per decode step, every scan on the serial
+      route and every decode on the single one; then its profile, as
+      phase 8;
   12. one JSON line describing every kernel (the flash row: the sm90
       kernel's time, the simt kernel's beside it, and every timed
-      prefill shape);
+      prefill shape; the decode row: the single route's time beside the
+      split route's, the back-to-back time, and every timed shape; the
+      scan row: the serial route's time beside the chunked one's, and
+      every timed shape);
   13. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -118,20 +148,42 @@ def _card_line():
     return out.stdout.strip()
 
 
+def _busy_card(torch):
+    """Keep the card busy for about 2.5 ms (a spin kernel) while the host
+    enqueues the calls of a timed round: the events around the round
+    then time the card's work, not the rate at which the host launches
+    (a wrapper or a ctypes call costs the host microseconds, as much as
+    a small kernel takes the card)."""
+    torch.cuda._sleep(5_000_000)
+
+
 def _time_ms(fn, torch, reps=20, rounds=7):
-    """Per-call CUDA-event time of ``fn``: events around ``reps``
-    back-to-back calls, the L2 flushed before each round, median over
-    ``rounds`` after a warm-up call."""
+    """Per-call CUDA-event time of ``fn``: back-to-back calls, the L2
+    flushed before each round (``_time_rot`` over one function)."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEV)
-    fn()
-    times = []
+    return _time_rot([fn], torch, reps, rounds, flush=flush)
+
+
+def _time_rot(fns, torch, reps=20, rounds=7, flush=None):
+    """Per-call CUDA-event time of calls that take ``fns`` in turn (each
+    on its own input set where there are several: together >=
+    ROTATE_BYTES, so no call finds its inputs in the L2 the calls before
+    it left): events around ``reps`` calls queued behind ``_busy_card``,
+    ``flush`` (if given) zeroed before each round, median over
+    ``rounds`` after a warm-up pass over all."""
+    for fn in fns:
+        fn()
+    times, i = [], 0
     for _ in range(rounds):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
+        _busy_card(torch)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            fn()
+            fns[i % len(fns)]()
+            i += 1
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop) / reps)
@@ -335,8 +387,24 @@ DECODE_SHAPES = ((1, 4, 4, 256, 64), (2, 8, 2, 512, 64),
 ATTN_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
 REL_LOGITS = 2e-3          # card vs CPU logits, relative to their max
 # decode timing shape: 4 decode rows over 4096 rows (the prefill rows
-# are FLASH_ROWS)
+# are FLASH_ROWS), its ragged lengths, and RecurrentGemma's decode over
+# its 2048-row window
 DECODE_TIMED = (4, 28, 4, 4096, 128)
+DECODE_RAGGED = (4096, 1000, 17, 1)
+RG_DECODE = (4, 16, 1, 2048, 256)
+RG_RAGGED = (2048, 700, 64, 3)
+# bf16 decode timing rows: (label, B, H, Hkv, T, D, length, views);
+# ``views``: k, v read through [B,T,Hkv,D] tensors, as the launcher's
+# decode steps hand them over (position 5 of a 48-row cache)
+DECODE_ROWS = (
+    ("qwen 4096", *DECODE_TIMED, 4096, False),
+    ("recurrentgemma 2048", *RG_DECODE, 2048, False),
+    ("qwen launcher", 4, 28, 4, 48, 128, 6, True),
+    ("recurrentgemma launcher", 4, 16, 1, 48, 256, 6, True),
+)
+# input sets a timed call rotates over: together at least this many
+# bytes, twice the 50 MB L2, so no call finds its inputs there
+ROTATE_BYTES = 100_000_000
 
 RG_ARCH = "recurrentgemma-9b"
 # the reference's rglru_scan contract (tests/test_kernels.py), then the
@@ -345,6 +413,7 @@ RGLRU_SHAPES = ((1, 128, 128), (2, 256, 256), (3, 384, 128))   # (B, S, W)
 RGLRU_RAGGED = ((1, 3, 4096), (4, 1, 4096))
 RGLRU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 RGLRU_TIMED = (1, 2048, 4096)          # a long RecurrentGemma prompt, f32
+RGLRU_ROWS = (RGLRU_TIMED,) + RGLRU_RAGGED   # timed, f32
 RG_WINDOW = 16                         # the depth-3 run's cut window
 
 
@@ -353,16 +422,54 @@ def _randn(shape, seed, dtype, torch):
     return torch.randn(shape, generator=g, device=DEV).to(dtype)
 
 
-def _attn_close(got, want, tol, label):
-    """|got - want| <= tol + tol * |want| elementwise (the reference's
-    assert_allclose(rtol=tol, atol=tol)); returns the max abs error."""
+def _close(got, want, tol):
+    """Whether |got - want| <= tol + tol * |want| elementwise (the
+    reference's assert_allclose(rtol=tol, atol=tol)) with got finite, and
+    the max abs error."""
     import torch
     g, w = got.float(), want.float()
     err = (g - w).abs()
     ok = bool(torch.all(err <= tol + tol * w.abs()))
-    assert ok and bool(torch.isfinite(g).all()), \
-        f"{label}: max abs err {float(err.max()):.3e} beyond {tol}"
-    return float(err.max())
+    return ok and bool(torch.isfinite(g).all()), float(err.max())
+
+
+def _attn_close(got, want, tol, label):
+    """``_close`` or fail; returns the max abs error."""
+    ok, err = _close(got, want, tol)
+    assert ok, f"{label}: max abs err {err:.3e} beyond {tol}"
+    return err
+
+
+def _sees_combine(q, k, v, length, want, tol, label):
+    """The split route's check must be able to fail a wrong combine:
+    the kernel's own plan's partials, modelled in plain torch
+    (``ref.decode_split_partials``), combined the two wrong ways of
+    ``ref.decode_split_faults`` (splits weighted equally; each split left
+    on its own max), must each fail ``_close(., want, tol)``.  Returns
+    their max abs errors."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import ref
+    b, h, d = q.shape
+    pl = dmod.plan(b, h, k.shape[1], k.shape[2], d, dmod._sms(q.device))
+    parts = ref.decode_split_partials(q, k, v, length, pl.chunk)
+    errs = {}
+    for name, out in ref.decode_split_faults(*parts, q.dtype).items():
+        ok, errs[name] = _close(out, want, tol)
+        assert not ok, (f"{label}: the check passes a combine with "
+                        f"{name} (max abs err {errs[name]:.3e})")
+    return errs
+
+
+def _routed(op, way, call):
+    """``call()``, asserting that it made one call of ``op`` and that
+    the call took route ``way`` (``ops.route_counts(op)``)."""
+    from repro_torch.kernels import ops
+    before = ops.route_counts(op)
+    out = call()
+    after = ops.route_counts(op)
+    assert after[way] == before[way] + 1 and sum(after.values()) == sum(
+        before.values()) + 1, (op, way, before, after)
+    return out
 
 
 def _flash_routed(q, k, v, window, causal=True):
@@ -370,12 +477,9 @@ def _flash_routed(q, k, v, window, causal=True):
     names for q's dtype and head dim took the launch."""
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ops
-    way = fmod.route(q.dtype, q.shape[-1])
-    before = dict(fmod.ROUTES)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    assert fmod.ROUTES[way] == before[way] + 1 and sum(
-        fmod.ROUTES.values()) == sum(before.values()) + 1, (way, before)
-    return out
+    return _routed("flash_attention", fmod.route(q.dtype, q.shape[-1]),
+                   lambda: ops.flash_attention(q, k, v, causal=causal,
+                                               window=window))
 
 
 # bf16 checks of the sm90 route beyond the reference's sweep:
@@ -550,13 +654,120 @@ def _raw_attn(mod, lib, fn_name, sig, strides, *args):
     return run
 
 
-def time_attention(stats):
-    """``decode_attention``'s time at a Qwen serving shape, beside the
-    bound, the plain version and ``scaled_dot_product_attention`` under
-    its fastest backend, on the same inputs (``flash_attention``'s rows
-    are ``time_flash``'s)."""
+def _sets(nbytes):
+    """Input sets of ``nbytes`` each to rotate over: at least two, and
+    together at least ROTATE_BYTES."""
+    return max(2, -(-ROTATE_BYTES // nbytes))
+
+
+def _possible(ms, bound, label):
+    """A kernel time under the least time the card could take is a
+    timing fault (an input read from cache, work skipped): fail."""
+    assert ms >= bound, (f"{label}: {ms} ms is under the bound {bound} ms; "
+                         f"impossible")
+
+
+def _raw_decode(q, k, v, length, out, pl):
+    """One raw call of the decode kernel with plan ``pl`` (no checks, no
+    count; its partials' scratch allocated here and kept by the call)."""
     import math
 
+    import torch
+
+    from repro_torch.kernels import decode_attention as dmod
+    b, h, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    acc = ml = None
+    if pl.splits > 1:
+        acc = torch.empty((b, h, pl.splits, d), dtype=torch.float32,
+                          device=DEV)
+        ml = torch.empty((b, h, pl.splits, 2), dtype=torch.float32,
+                         device=DEV)
+    run = _raw_attn(
+        dmod, "decode_attention", "decode_attention_fwd", dmod._SIG,
+        [*q.stride(), *k.stride(), *v.stride(), *out.stride()],
+        1 if q.dtype == torch.bfloat16 else 0,
+        int(dmod.tensor_cores(q.dtype, d)), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), length.data_ptr(), out.data_ptr(),
+        acc.data_ptr() if acc is not None else None,
+        ml.data_ptr() if ml is not None else None, b, h, hkv, t, d,
+        pl.splits, pl.chunk, 1.0 / math.sqrt(d))
+    run.scratch = (acc, ml)
+    return run
+
+
+def _decode_routed(q, k, v, length, way):
+    """``ops.decode_attention``, asserting that it took route ``way``."""
+    from repro_torch.kernels import ops
+    return _routed("decode_attention", way,
+                   lambda: ops.decode_attention(q, k, v, length))
+
+
+def check_decode_split(stats):
+    """The split-KV route against the plain version at the timed Qwen
+    shape with ragged lengths (whole splits past a row's length) and at
+    RecurrentGemma's decode shape, in bfloat16 (the tensor cores) and
+    float32 (FP32 FMAs), with unit-normal queries and with queries x4:
+    there the softmax is peaked, a row spanning splits takes its value
+    from a few keys, and the check must reject a wrong combine of the
+    same plan's partials (``_sees_combine``); a row of length 0 gives
+    exactly 0; two calls on the same inputs are bit-equal."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    for shape, lengths in ((DECODE_TIMED, DECODE_RAGGED),
+                           (RG_DECODE, RG_RAGGED)):
+        b, h, hkv, t, d = shape
+        for dt in (torch.bfloat16, torch.float32):
+            tol = ATTN_TOL[str(dt).split(".")[-1]]
+            k = _randn((b, hkv, t, d), 101, dt, torch)
+            v = _randn((b, hkv, t, d), 102, dt, torch)
+            length = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+            for qs in (1, 4):
+                q = _randn((b, h, d), 100, dt, torch) * qs
+                got = _decode_routed(q, k, v, length, "split")
+                want = ref.decode_attention_ref(q, k, v, length)
+                again = ops.decode_attention(q, k, v, length)
+                torch.cuda.synchronize()
+                err = _attn_close(got, want, tol,
+                                  f"split decode {dt} {shape} q x{qs}")
+                assert torch.equal(got, again), "two calls differ"
+                # a row of length 0: 0 (the plain version's empty softmax
+                # is NaN), the other rows as before
+                zero = torch.tensor((0,) + lengths[1:], dtype=torch.int32,
+                                    device=DEV)
+                got0 = _decode_routed(q, k, v, zero, "split")
+                torch.cuda.synchronize()
+                assert bool((got0[0] == 0).all()), "length 0 row is not 0"
+                assert torch.equal(got0[1:], got[1:])
+                seen = ""
+                if qs > 1:
+                    faults = _sees_combine(q, k, v, length, want, tol,
+                                           f"split decode {dt} {shape}")
+                    seen = "; the check rejects a wrong combine: " + \
+                        ", ".join(f"{n} max abs err {e:.3e}"
+                                  for n, e in faults.items())
+                stats["decode_attention"]["max_abs_err"] = max(
+                    stats["decode_attention"]["max_abs_err"], err)
+                print(f"decode_attention split {str(dt):14s} B,H,Hkv,T,D="
+                      f"{shape} length={list(lengths)} q x{qs}: max abs "
+                      f"err {err:.3e} (tol {tol}), max|want| "
+                      f"{float(want.float().abs().max()):.3e}; two calls "
+                      f"bit-equal; a length-0 row exactly 0{seen}")
+
+
+def time_attention(stats):
+    """``decode_attention``'s time at every row of DECODE_ROWS (bf16):
+    the split route the plan takes and, on the same inputs, the single
+    route (one block a (b, kv head, query-head group)), each rotating
+    over input sets of >= ROTATE_BYTES together; beside them the
+    back-to-back time of one set (the earlier method, which reads
+    a cache smaller than the L2 from there after the first call), the
+    plain version, the bound (every kernel time must be at or above
+    it) and ``scaled_dot_product_attention`` under its fastest backend,
+    rotating alike (``flash_attention``'s rows are ``time_flash``'s).
+    The Qwen 4096 row fills ``stats["decode_attention"]``."""
     import torch
     import torch.nn.functional as F
 
@@ -565,36 +776,74 @@ def time_attention(stats):
 
     name = torch.cuda.get_device_name(0)
     dt = torch.bfloat16
-    b, h, hkv, tt, d = DECODE_TIMED
-    q = _randn((b, h, d), 13, dt, torch)
-    k = _randn((b, hkv, tt, d), 14, dt, torch)
-    v = _randn((b, hkv, tt, d), 15, dt, torch)
-    length = torch.full((b,), tt, dtype=torch.int32, device=DEV)
-    out = torch.empty_like(q)
+    rows = []
+    for i, (label, b, h, hkv, t, d, n, views) in enumerate(DECODE_ROWS):
+        # queries x4: a peaked softmax, whose output a wrong combine
+        # would miss by far more than the tolerance (check_decode_split)
+        q = _randn((b, h, d), 200 + i, dt, torch) * 4
+        sets = []
+        for j in range(_sets(2 * b * hkv * t * d * 2)):
+            if views:
+                k = _randn((b, t, hkv, d), 300 + 2 * j, dt, torch)
+                v = _randn((b, t, hkv, d), 301 + 2 * j, dt, torch)
+                sets.append((k.transpose(1, 2), v.transpose(1, 2)))
+            else:
+                sets.append((_randn((b, hkv, t, d), 300 + 2 * j, dt, torch),
+                             _randn((b, hkv, t, d), 301 + 2 * j, dt,
+                                    torch)))
+        length = torch.full((b,), n, dtype=torch.int32, device=DEV)
+        want = ref.decode_attention_ref(q, *sets[0], length)
+        pl = dmod.plan(b, h, hkv, t, d, dmod._sms(q.device))
+        one = dmod.Plan(1, -(-t // dmod.TILE) * dmod.TILE)
+        way = "split" if pl.splits > 1 else "single"
+        row = {"label": label, "splits": pl.splits, "route": way,
+               "shape": f"B,H,Hkv,T,D={(b, h, hkv, t, d)} length={n} "
+                        f"views={views} bf16"}
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            name, (2 * q.numel() + 2 * b * hkv * n * d) * 2,
+            4 * b * h * n * d, "bf16")
+        for route, p in (("split", pl), ("single", one)):
+            if route == "split" and pl.splits == 1:
+                continue
+            outs = [torch.empty_like(q) for _ in sets]
+            fns = [_raw_decode(q, k, v, length, o, p)
+                   for (k, v), o in zip(sets, outs)]
+            row[route] = _time_rot(fns, torch)
+            torch.cuda.synchronize()
+            row[route + "_err"] = _attn_close(outs[0], want, 2e-2,
+                                              f"{route} decode at {label}")
+            _possible(row[route], row["bound_ms"], f"{route} decode {label}")
+            if route == way:
+                row["l2_ms"] = _time_ms(fns[0], torch)
+        row["plain_ms"] = _time_ms(
+            lambda: ref.decode_attention_ref(q, *sets[0], length), torch,
+            reps=5)
+        calls = [lambda k=k, v=v: F.scaled_dot_product_attention(
+            q[:, :, None], k[:, :, :n], v[:, :, :n], enable_gqa=True)
+            for k, v in sets]
+        row["library_ms"], row["library"], row["backends"] = _library_ms(
+            calls[0], torch, rotate=calls[1:])
+        rows.append(row)
+        times = ", ".join(f"{r} {row[r]:.4f} ms (err {row[r + '_err']:.3e})"
+                          for r in ("split", "single") if r in row)
+        bk = ", ".join(f"{k} {v:.4f}" for k, v in row["backends"].items())
+        print(f"time decode_attention {label:24s} {row['shape']}, "
+              f"{pl.splits} splits: {times}, each rotating over "
+              f"{len(sets)} input sets; {way} back-to-back on one set "
+              f"{row['l2_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"scaled_dot_product_attention {row['library_ms']:.4f} ms "
+              f"({row['library']}; {bk})")
+    top = rows[0]
     t = stats["decode_attention"]
-    t["ms"] = _time_ms(_raw_attn(
-        dmod, "decode_attention", "decode_attention_fwd", dmod._SIG,
-        [*q.stride(), *k.stride(), *v.stride(), *out.stride()], 1,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-        out.data_ptr(), b, h, hkv, tt, d, 1.0 / math.sqrt(d)), torch)
-    torch.cuda.synchronize()
-    err = _attn_close(out, ref.decode_attention_ref(q, k, v, length), 2e-2,
-                      "decode at the timed shape")
-    t["max_abs_err"] = max(t["max_abs_err"], err)
-    t["plain_ms"] = _time_ms(
-        lambda: ref.decode_attention_ref(q, k, v, length), torch, reps=5)
-    t["library_ms"], t["library"], backends = _library_ms(
-        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
-                                               enable_gqa=True), torch)
-    t["bound_ms"], t["bound_by"] = _bound_ms(
-        name, (2 * q.numel() + k.numel() + v.numel()) * 2,
-        4 * b * h * tt * d, "bf16")
-    t["shape"] = f"B,H,Hkv,T,D={DECODE_TIMED} bf16 full length"
-    bk = ", ".join(f"{k} {v:.4f}" for k, v in backends.items())
-    print(f"time decode_attention {t['shape']}: kernel {t['ms']:.4f} ms, "
-          f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-          f"({t['bound_by']}), scaled_dot_product_attention "
-          f"{t['library_ms']:.4f} ms ({t['library']}; {bk})")
+    t.update(ms=top["split"], single_ms=top["single"], l2_ms=top["l2_ms"],
+             plain_ms=top["plain_ms"], library_ms=top["library_ms"],
+             library=top["library"], bound_ms=top["bound_ms"],
+             bound_by=top["bound_by"], shape=top["shape"],
+             splits=top["splits"])
+    t["max_abs_err"] = max(t["max_abs_err"], top["split_err"],
+                           top["single_err"])
+    return rows
 
 
 # bf16 prefill timing rows: (label, B, H, Hkv, S, T, D, window, views);
@@ -619,10 +868,12 @@ def _flash_work(b, h, hkv, s, t, d, window):
         4 * b * h * pairs * d
 
 
-def _library_ms(call, torch):
+def _library_ms(call, torch, rotate=()):
     """``call`` (one ``scaled_dot_product_attention``) timed under each
-    backend of ``torch.nn.attention.sdpa_kernel`` that accepts it;
-    returns (the fastest time, its backend, every backend's time)."""
+    backend of ``torch.nn.attention.sdpa_kernel`` that accepts it, in
+    turn with the same call on the input sets ``rotate`` when given
+    (``_time_rot``); returns (the fastest time, its backend, every
+    backend's time)."""
     import warnings
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -635,7 +886,8 @@ def _library_ms(call, torch):
                 warnings.simplefilter("ignore", UserWarning)
                 call()
                 torch.cuda.synchronize()
-                times[be.name] = _time_ms(call, torch, reps=5)
+                times[be.name] = _time_rot([call, *rotate], torch, reps=5) \
+                    if rotate else _time_ms(call, torch, reps=5)
         except RuntimeError:
             continue
     best = min(times, key=times.get)
@@ -684,6 +936,8 @@ def time_flash(stats, routes=("sm90", "simt")):
         want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
         row = {"label": label, "shape": f"B,H,Hkv,S,T,D={(b, h, hkv, s, t, d)}"
                f" window={window} bf16 causal"}
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            name, *_flash_work(b, h, hkv, s, t, d, window), "bf16")
         for route in routes:
             out = torch.empty_like(q)
             reps = 5 if s > 512 else 20
@@ -692,6 +946,7 @@ def time_flash(stats, routes=("sm90", "simt")):
             torch.cuda.synchronize()
             row[route + "_err"] = _attn_close(out, want, 2e-2,
                                               f"{route} flash at {label}")
+            _possible(row[route], row["bound_ms"], f"{route} flash {label}")
         row["plain_ms"] = _time_ms(lambda: ref.flash_attention_ref(
             q, k, v, causal=True, window=window), torch, reps=2, rounds=3)
         # the window never bites at these shapes (S <= window), so the
@@ -700,8 +955,6 @@ def time_flash(stats, routes=("sm90", "simt")):
         row["library_ms"], row["library"], row["backends"] = _library_ms(
             lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), torch)
-        row["bound_ms"], row["bound_by"] = _bound_ms(
-            name, *_flash_work(b, h, hkv, s, t, d, window), "bf16")
         rows.append(row)
         times = ", ".join(f"{r} {row[r]:.4f} ms (err {row[r + '_err']:.3e})"
                           for r in routes)
@@ -730,27 +983,56 @@ def _scan_inputs(shape, seed, dtype, torch):
     return a.to(dtype), x.to(dtype), h0.to(dtype)
 
 
+def _scan_both(a, x, h0):
+    """``rglru_scan`` on both routes: the one S picks through
+    ``ops.rglru_scan`` (its route asserted), the other by a raw call of
+    its kernel on the same inputs.  Returns {route: h}."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rmod
+    way = rmod.route(a.shape[1])
+    other = "serial" if way == "chunked" else "chunked"
+    out = torch.empty_like(a)
+    _raw_scan(a, x, h0, out, other)()
+    return {way: _routed("rglru_scan", way,
+                         lambda: ops.rglru_scan(a, x, h0)), other: out}
+
+
 def check_rglru():
-    """``rglru_scan`` against its plain version on the card: the
-    reference's shapes in float32 and bfloat16, the launcher's ragged
-    shapes, and the carried ``h0``.  Returns its max abs error."""
+    """``rglru_scan`` against its plain version on the card, on both
+    routes: the reference's shapes, the launcher's ragged shapes and the
+    2048-token prompt (a channel at a = 0.9999 throughout), in float32
+    and bfloat16; two chunked calls bit-equal; the carried ``h0``.
+    Returns its max abs error."""
     import torch
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as rmod
 
     worst = 0.0
     for dt in (torch.float32, torch.bfloat16):
         tol = RGLRU_TOL[str(dt).split(".")[-1]]
-        for shape in RGLRU_SHAPES + RGLRU_RAGGED:
+        for shape in RGLRU_SHAPES + RGLRU_ROWS:
             a, x, h0 = _scan_inputs(shape, sum(shape), dt, torch)
-            got = ops.rglru_scan(a, x, h0)
+            if shape == RGLRU_TIMED:
+                a[:, :, 7] = 0.9999                 # the carry's drift
             want = ref.rglru_scan_ref(a, x, h0)
+            got = _scan_both(a, x, h0)
+            again = _scan_both(a, x, h0)
             torch.cuda.synchronize()
-            assert got.shape == a.shape and got.dtype == dt
-            err = _attn_close(got, want, tol, f"rglru_scan {dt} {shape}")
-            worst = max(worst, err)
+            errs = []
+            for way in ("serial", "chunked"):
+                assert got[way].shape == a.shape and got[way].dtype == dt
+                errs.append(_attn_close(got[way], want, tol,
+                                        f"rglru_scan {way} {dt} {shape}"))
+            assert torch.equal(got["chunked"], again["chunked"]), \
+                "two chunked calls differ"
+            worst = max(worst, *errs)
             print(f"rglru_scan       {str(dt):14s} B,S,W={shape}: max abs "
-                  f"err {err:.3e} (tol {tol})")
+                  f"err serial {errs[0]:.3e}, chunked {errs[1]:.3e} (tol "
+                  f"{tol}; route by S: {rmod.route(shape[1])}); chunked "
+                  f"calls bit-equal")
     b, s, w = RGLRU_SHAPES[0]
     h = ops.rglru_scan(torch.full((b, s, w), 0.9, device=DEV),
                        torch.zeros((b, s, w), device=DEV),
@@ -764,39 +1046,77 @@ def check_rglru():
     return {"rglru_scan": {"max_abs_err": worst}}
 
 
+def _raw_scan(a, x, h0, out, way):
+    """One raw call of the ``way`` scan kernel (no checks, no count; h0
+    widened to the float32 the kernel reads, and kept by the call)."""
+    import torch
+
+    from repro_torch.kernels import rglru_scan as rmod
+    b, s, w = a.shape
+    h0 = h0.to(torch.float32).contiguous()
+    buf = rmod.scratch(a.device, rmod.scratch_words(b, s, w)) \
+        if way == "chunked" else None
+    run = _raw_attn(
+        rmod, "rglru_scan", "rglru_scan_fwd", rmod._SIG,
+        [*a.stride()[:2], *x.stride()[:2], *out.stride()[:2]],
+        rmod._DTYPES[a.dtype], a.data_ptr(), x.data_ptr(), h0.data_ptr(),
+        out.data_ptr(), b, s, w, int(way == "chunked"),
+        buf.data_ptr() if buf is not None else None,
+        buf.numel() if buf is not None else 0)
+    run.inputs = (h0, buf)
+    return run
+
+
 def time_rglru(stats):
-    """Its time on a 2048-token RecurrentGemma prompt (float32, W=4096)
-    beside the byte bound and the plain version; no single PyTorch call
-    computes the recurrence."""
+    """Its time at every RGLRU_ROWS shape (float32): the serial and the
+    chunked kernel on the same inputs, each rotating over input sets of
+    >= ROTATE_BYTES together, beside the byte bound (every kernel time
+    must be at or above it) and the plain version; no single PyTorch
+    call computes the recurrence.  The 2048-token row fills
+    ``stats["rglru_scan"]``."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rmod
 
     name = torch.cuda.get_device_name(0)
-    b, s, w = RGLRU_TIMED
-    a, x, h0 = _scan_inputs(RGLRU_TIMED, 20, torch.float32, torch)
-    out = torch.empty_like(a)
+    rows = []
+    for shape in RGLRU_ROWS:
+        b, s, w = shape
+        sets = [_scan_inputs(shape, 20 + j, torch.float32, torch)
+                for j in range(_sets(3 * b * s * w * 4))]
+        a, x, h0 = sets[0]
+        want = ref.rglru_scan_ref(a, x, h0)
+        row = {"shape": f"B,S,W={shape} f32", "route": rmod.route(s)}
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            name, (3 * a.numel() + h0.numel()) * 4, 2 * a.numel(), "fp32")
+        for way in ("chunked", "serial"):
+            outs = [torch.empty_like(a) for _ in sets]
+            row[way] = _time_rot([_raw_scan(*abh, o, way)
+                                  for abh, o in zip(sets, outs)], torch)
+            torch.cuda.synchronize()
+            row[way + "_err"] = _attn_close(outs[0], want, 1e-4,
+                                            f"rglru_scan {way} at {shape}")
+            _possible(row[way], row["bound_ms"], f"rglru_scan {way} {shape}")
+        row["plain_ms"] = _time_ms(lambda: ref.rglru_scan_ref(a, x, h0),
+                                   torch, reps=1, rounds=3)
+        rows.append(row)
+        print(f"time rglru_scan       {row['shape']}: chunked "
+              f"{row['chunked']:.4f} ms (err {row['chunked_err']:.3e}), "
+              f"serial {row['serial']:.4f} ms (err {row['serial_err']:.3e}),"
+              f" each rotating over {len(sets)} input sets (route by S: "
+              f"{row['route']}); plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library none: "
+              f"no single PyTorch call")
+    top = rows[0]
     t = stats["rglru_scan"]
-    t["ms"] = _time_ms(_raw_attn(
-        rmod, "rglru_scan", "rglru_scan_fwd", rmod._SIG,
-        [*a.stride()[:2], *x.stride()[:2], *out.stride()[:2]], 0,
-        a.data_ptr(), x.data_ptr(), h0.data_ptr(), out.data_ptr(), b, s, w),
-        torch)
-    torch.cuda.synchronize()
-    err = _attn_close(out, ref.rglru_scan_ref(a, x, h0), 1e-4,
-                      "rglru_scan at the timed shape")
-    t["max_abs_err"] = max(t["max_abs_err"], err)
-    t["plain_ms"] = _time_ms(lambda: ref.rglru_scan_ref(a, x, h0), torch,
-                             reps=1, rounds=3)
-    t["library_ms"] = None
-    t["bound_ms"], t["bound_by"] = _bound_ms(
-        name, (a.numel() + x.numel() + out.numel() + h0.numel()) * 4,
-        2 * a.numel(), "fp32")
-    print(f"time rglru_scan       B,S,W={RGLRU_TIMED} f32: kernel "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-          f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library none: no "
-          f"single PyTorch call")
+    t.update(ms=top["chunked"], serial_ms=top["serial"],
+             plain_ms=top["plain_ms"], library_ms=None,
+             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+             shape=top["shape"])
+    t["max_abs_err"] = max(t["max_abs_err"], top["chunked_err"],
+                           top["serial_err"])
+    return rows
 
 
 def check_windowed_decode(stats):
@@ -962,19 +1282,21 @@ def serve_depth(cfg, prompt_len=48, steps=8, f64=True):
           f", CPU float32 {float((cl[0] - o64).abs().max() / m):.3e}")
 
 
-class _PlainFlash:
-    """Swaps the plain version ``ref.flash_attention_ref`` in for
-    ``ops.flash_attention`` (which the model calls) and restores the
-    kernel on exit."""
+class _Plain:
+    """Swaps the plain version ``ref.<op>_ref`` in for ``ops.<op>``
+    (which the model calls) and restores the kernel on exit."""
+
+    def __init__(self, op):
+        self.op = op
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
-        self.ops, self.real = ops, ops.flash_attention
-        ops.flash_attention = ref.flash_attention_ref
+        self.ops, self.real = ops, getattr(ops, self.op)
+        setattr(ops, self.op, getattr(ref, self.op + "_ref"))
         return self
 
     def __exit__(self, *exc):
-        self.ops.flash_attention = self.real
+        setattr(self.ops, self.op, self.real)
 
 
 def check_bf16_model(cfg, prompt_len=300):
@@ -1016,7 +1338,11 @@ def check_bf16_model(cfg, prompt_len=300):
     routes = ops.route_counts()
     n_attn = ops.launch_counts()["flash_attention"]
     assert n_attn > 0 and routes == {"sm90": n_attn, "simt": 0}, routes
-    with _PlainFlash():
+    # a long prompt's scans take the chunked kernel
+    n_scan = ops.launch_counts()["rglru_scan"]
+    scans = ops.route_counts("rglru_scan")
+    assert scans == {"chunked": n_scan, "serial": 0}, scans
+    with _Plain("flash_attention"):
         plain = forward(c16, w16)
     f32 = forward(c32, w32)
     m = f32.abs().max()
@@ -1024,12 +1350,99 @@ def check_bf16_model(cfg, prompt_len=300):
     d_plain = float((plain - f32).abs().max() / m)
     print(f"bf16 {cfg.name} depth {cfg.n_layers}, {prompt_len}-token "
           f"prefill: max |logits - float32| / max|float32| = {d_kern:.3e} "
-          f"with the kernels ({n_attn} sm90 flash launches), {d_plain:.3e} "
-          f"with the plain flash attention (limit 2x)")
+          f"with the kernels ({n_attn} sm90 flash launches, {n_scan} "
+          f"chunked scans), {d_plain:.3e} with the plain flash attention "
+          f"(limit 2x)")
     assert d_kern <= 2 * d_plain, (d_kern, d_plain)
     del w16, w32
     torch.cuda.empty_cache()
     return d_kern, d_plain
+
+
+def check_model_decode(cfg, ctx=2048):
+    """One bf16 ``decode_step`` of ``cfg`` (cut in depth, full width) on
+    the card at a ``ctx``-row context: its attention layers' decode on
+    the split route (counted), each layer's output held against the
+    plain version on the model's own q and cache views (2e-2), where a
+    wrong combine must fail (``_sees_combine``: the random weights' scores
+    spread over hundreds, so each row's softmax sits on its top key and a
+    combine that weighs the splits wrongly misses by the values' size);
+    then the logits against the same step with the plain
+    ``decode_attention`` swapped in, within 2e-2 of their max."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import (build_cache_specs, build_param_specs,
+                                    decode_step, materialize, prefill)
+
+    c16 = dataclasses.replace(cfg, param_dtype=torch.bfloat16,
+                              compute_dtype=torch.bfloat16)
+    w = materialize(build_param_specs(c16),
+                    torch.Generator().manual_seed(0), DEV)
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, ctx + 1),
+                           generator=gen).to(DEV)
+    n_attn = per_call_launches(cfg)[1]["decode_attention"]
+    caches = materialize(build_cache_specs(c16, 1, ctx + 16, torch.bfloat16),
+                         torch.Generator(), DEV)
+    _, caches = prefill(w, {"tokens": tokens[:, :ctx]}, caches, c16)
+
+    def step():
+        # the step writes its row out of place: both steps see one cache
+        ops.reset_launches()
+        logits, _ = decode_step(w, tokens[:, ctx:], caches, ctx, c16)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(logits).all())
+        return logits.float(), ops.route_counts("decode_attention")
+
+    seen, real = [], ops.decode_attention
+
+    def spy(q, k, v, length):
+        out = real(q, k, v, length)
+        seen.append((q, k, v, length, out))
+        return out
+
+    ops.decode_attention = spy
+    try:
+        kern, routes = step()
+    finally:
+        ops.decode_attention = real
+    assert routes == {"split": n_attn, "single": 0}, routes
+    assert len(seen) == n_attn
+    tol = ATTN_TOL["bfloat16"]
+    op_err, faults, peak = 0.0, {}, 1.0
+    for q, k, v, length, out in seen:
+        want = ref.decode_attention_ref(q, k, v, length)
+        op_err = max(op_err, _attn_close(out, want, tol,
+                                         "model decode views"))
+        for name, e in _sees_combine(q, k, v, length, want, tol,
+                                     "model decode views").items():
+            faults[name] = min(faults.get(name, math.inf), e)
+        g = q.shape[1] // k.shape[1]
+        p = torch.softmax(torch.einsum(
+            "bhd,bhtd->bht", q.float(), k.repeat_interleave(g, 1).float())
+            / math.sqrt(q.shape[-1]), -1)
+        peak = min(peak, float(p.amax(-1).mean()))
+    del seen
+    with _Plain("decode_attention"):
+        plain, _ = step()
+    d_both = float((kern - plain).abs().max() / plain.abs().max())
+    print(f"bf16 {cfg.name} depth {cfg.n_layers}, decode_step at a "
+          f"{ctx}-row context ({n_attn} split-route decodes; each row's "
+          f"largest softmax weight {peak:.4f} on average, least over the "
+          f"layers): each layer's decode against the plain version on "
+          f"the model's views max abs err {op_err:.3e} (tol {tol}), a "
+          f"wrong combine rejected in every layer (least max abs err: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in faults.items()) +
+          f"); logits against the plain decode_attention's step: max "
+          f"|kernel - plain| / max|plain| = {d_both:.3e} (limit {tol})")
+    assert d_both <= tol, d_both
+    del w, caches
+    torch.cuda.empty_cache()
+    return d_both
 
 
 def _cast(tree, to):
@@ -1126,7 +1539,9 @@ def serve_launcher(arch, argv=None, cfg=None):
     equal (the clock and the loader come from the full config's
     checkpoint bytes, not from compute).  Every kernel's launches must
     equal what the recorded prefills and decode steps of ``cfg`` (the
-    full config by default) make, and no other kernel may launch."""
+    full config by default) make, and no other kernel may launch.
+    Returns the launch counts (one an op call) and the number of
+    ``decode_attention``'s combine launches (one a split-route call)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1144,6 +1559,8 @@ def serve_launcher(arch, argv=None, cfg=None):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     routes = ops.route_counts()
+    decodes = ops.route_counts("decode_attention")
+    scans = ops.route_counts("rglru_scan")
     pre, dec = rec.calls["prefill"], rec.calls["decode"]
     print(f"launcher {arch} on the card: wall {wall:.3f} s, {len(pre)} "
           f"prefills (mean {1e3 * statistics.mean(pre):.6f} ms, median "
@@ -1152,18 +1569,24 @@ def serve_launcher(arch, argv=None, cfg=None):
           f"{1e3 * statistics.median(dec):.6f} ms), max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B")
     print(f"launcher {arch} launches {counts}; flash_attention routes "
-          f"{routes}")
+          f"{routes}, decode_attention routes {decodes}, rglru_scan routes "
+          f"{scans}")
     want = {k: per_prefill.get(k, 0) * len(pre) +
             per_decode.get(k, 0) * len(dec) for k in counts}
     assert counts == want, (counts, want)
-    # the launchers serve bf16 at head dims the sm90 route takes
+    # the launchers serve bf16 at head dims the sm90 route takes; their
+    # 48-row caches are one split, their 3- and 1-step scans serial
     assert routes == {"sm90": counts["flash_attention"], "simt": 0}, routes
+    assert decodes == {"split": 0,
+                       "single": counts["decode_attention"]}, decodes
+    assert scans == {"chunked": 0, "serial": counts["rglru_scan"]}, scans
     cpu = _serve_lines(argv + ["--reduced"], device="cpu")
     assert card[1] == cpu[1], (card[1], cpu[1])
     print(f"launcher {arch}: energy line equal to the --reduced run on the "
           f"CPU; launches exactly {per_prefill} per prefill and "
           f"{per_decode} per decode step")
-    return counts
+    # a split-route decode launches the combine kernel too
+    return counts, decodes["split"]
 
 
 def _compare_days(got, want, label):
@@ -1288,20 +1711,22 @@ def main():
     main_counts, unfused_counts = drive_days()
     attn = check_attention()
     check_flash_sm90(attn)
-    time_attention(attn)
+    check_decode_split(attn)
+    decode_rows = time_attention(attn)
     flash_rows = time_flash(attn)
     serve_depth(qwen_depth2())
     check_bf16_model(qwen_depth2())
-    qwen_counts = serve_launcher(ARCH)
+    check_model_decode(qwen_depth2())
+    qwen_counts, qwen_combines = serve_launcher(ARCH)
     profile_serving(ARCH)
     torch.cuda.empty_cache()                   # the Qwen weights are gone
     stats.update(attn)
     stats.update(check_rglru())
-    time_rglru(stats)
+    scan_rows = time_rglru(stats)
     check_windowed_decode(stats)
     serve_depth(recurrentgemma_depth3(), f64=False)
     check_bf16_model(recurrentgemma_depth3())
-    rg_counts = serve_launcher(RG_ARCH)
+    rg_counts, rg_combines = serve_launcher(RG_ARCH)
     profile_serving(RG_ARCH)
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
@@ -1347,6 +1772,31 @@ def main():
                        rows={r["label"]: {k: r[k] for k in (
                            "sm90", "simt", "plain_ms", "library_ms",
                            "library", "bound_ms")} for r in flash_rows})
+        if row["name"] == "decode_attention":
+            # the split route's time; the single route (one block a
+            # (b, kv head, head group)) and the back-to-back time of one
+            # input set beside it; every launcher decode took single.
+            # ``launches`` counts op calls; a split-route call launches
+            # the combine kernel too, counted in ``combine_launches``
+            row.update(kernel_route="split",
+                       combine_launches=qwen_combines + rg_combines,
+                       splits=stats["decode_attention"]["splits"],
+                       single_ms=stats["decode_attention"]["single_ms"],
+                       l2_ms=stats["decode_attention"]["l2_ms"],
+                       rows={r["label"]: {k: r.get(k) for k in (
+                           "split", "single", "l2_ms", "splits",
+                           "plain_ms", "library_ms", "library",
+                           "bound_ms")} for r in decode_rows})
+        if row["name"] == "rglru_scan":
+            # the chunked route's time, the serial one's beside it; every
+            # launcher scan took serial
+            row.update(kernel_route="chunked",
+                       serial_ms=stats["rglru_scan"]["serial_ms"],
+                       rows={r["shape"]: {k: r[k] for k in (
+                           "chunked", "serial", "plain_ms", "bound_ms")}
+                           for r in scan_rows})
+    for row in kernels:
+        _possible(row["ms"], row["bound_ms"], row["name"])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -53,19 +53,26 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     return "simt"
 
 
-def tma_check(ts: Sequence[torch.Tensor], names: Sequence[str]) -> None:
-    """Raise unless every tensor can be read by TMA as it lies: a 16-byte
-    aligned base and, in every dimension longer than 1 but the last
-    (unit-stride) one, a stride that is a multiple of 8 elements."""
+def check_16b(ts: Sequence[torch.Tensor], names: Sequence[str],
+              reader: str) -> None:
+    """Raise unless every tensor can be read in 16-byte pieces as it lies:
+    a 16-byte aligned base and, in every dimension longer than 1 but the
+    last (unit-stride) one, a stride that is a whole number of 16 bytes.
+    ``reader`` names the kernel and the loads, for the message."""
     for t, nm in zip(ts, names):
+        per = 16 // t.element_size()
         bad = [st for st, n in zip(t.stride()[:-1], t.shape[:-1])
-               if n > 1 and st % 8]
+               if n > 1 and st % per]
         if t.data_ptr() % 16 or bad:
             raise ValueError(
-                f"flash_attention: the sm90 route reads {nm} by TMA, which "
-                f"needs a 16-byte aligned base and strides that are "
-                f"multiples of 8 elements; got base offset "
-                f"{t.data_ptr() % 16} B, strides {t.stride()}")
+                f"{reader} {nm}, which needs a 16-byte aligned base and "
+                f"strides that are multiples of {per} elements; got base "
+                f"offset {t.data_ptr() % 16} B, strides {t.stride()}")
+
+
+def tma_check(ts: Sequence[torch.Tensor], names: Sequence[str]) -> None:
+    """Raise unless every (bf16) tensor can be read by TMA as it lies."""
+    check_16b(ts, names, "flash_attention: the sm90 route reads by TMA")
 
 
 def c_fn(lib: str, name: str, argtypes):

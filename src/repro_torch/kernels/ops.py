@@ -10,7 +10,10 @@ with no fallback for a CUDA tensor: it launches or raises.
 ``launch_counts()`` reads the kernel launches per op since the last
 ``reset_launches()`` (plain-version calls never count), so a caller can
 show that a run really went through the kernels; ``route_counts()``
-splits the ``flash_attention`` launches by the kernel that took them.
+splits the ``flash_attention`` launches by the kernel that took them,
+``route_counts("decode_attention")`` its calls by ``"split"`` /
+``"single"``, ``route_counts("rglru_scan")`` by ``"chunked"`` /
+``"serial"``.
 """
 from __future__ import annotations
 
@@ -28,8 +31,13 @@ _COUNTERS = (_cuda.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES,
              _rglru.LAUNCHES)
 
 
+_ROUTES = {"flash_attention": _flash.ROUTES,
+           "decode_attention": _decode.ROUTES,
+           "rglru_scan": _rglru.ROUTES}
+
+
 def reset_launches() -> None:
-    for counts in _COUNTERS + (_flash.ROUTES,):
+    for counts in _COUNTERS + tuple(_ROUTES.values()):
         for k in counts:
             counts[k] = 0
 
@@ -38,10 +46,12 @@ def launch_counts() -> Dict[str, int]:
     return {k: n for counts in _COUNTERS for k, n in counts.items()}
 
 
-def route_counts() -> Dict[str, int]:
-    """``flash_attention`` launches per route (``"sm90"``, ``"simt"``)
-    since the last ``reset_launches()``."""
-    return dict(_flash.ROUTES)
+def route_counts(op: str = "flash_attention") -> Dict[str, int]:
+    """``op``'s kernel calls per route since the last
+    ``reset_launches()``: ``flash_attention`` (the default) by kernel
+    (``"sm90"``, ``"simt"``), ``decode_attention`` by ``"split"`` /
+    ``"single"``, ``rglru_scan`` by ``"chunked"`` / ``"serial"``."""
+    return dict(_ROUTES[op])
 
 
 def _on_cuda(op: str, t: torch.Tensor) -> bool:

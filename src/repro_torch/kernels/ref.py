@@ -72,6 +72,130 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def decode_split_partials(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, length, chunk: int, *,
+                          tile: int = 64):
+    """The split-KV decode kernel's partials in plain torch (a model for
+    tests and ``chip_smoke.py``, not a path of ``ops``): the cache axis
+    cut into splits of ``chunk`` keys (``decode_attention.plan``'s cut:
+    whole tiles); each split folds its keys below ``length`` in tiles of
+    ``tile`` into an online softmax in float32 (P rounded to q's dtype
+    before P V, as the bf16 kernel feeds the tensor cores).  Returns the
+    running max m and sum l [B,H,splits] and the unnormalised acc
+    [B,H,splits,D]; a split with no valid key has m = -inf, l = 0."""
+    b, h, d = q.shape
+    t = k.shape[2]
+    g = h // k.shape[1]
+    qf = q.float() / math.sqrt(d)
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    length = torch.as_tensor(length, device=q.device).reshape(-1)
+    length = length.expand(b).clamp(0, t)
+    parts = []
+    for lo in range(0, max(t, 1), chunk):
+        m = torch.full((b, h), -math.inf, device=q.device)
+        l = torch.zeros((b, h), device=q.device)
+        acc = torch.zeros((b, h, d), device=q.device)
+        for k0 in range(lo, min(lo + chunk, t), tile):
+            k1 = min(k0 + tile, lo + chunk, t)
+            s = torch.einsum("bhd,bhtd->bht", qf, kk[:, :, k0:k1])
+            valid = torch.arange(k0, k1, device=q.device)[None, None] < \
+                length[:, None, None]
+            s = s.masked_fill(~valid, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            mu = torch.where(m_new == -math.inf, 0.0, m_new)
+            p = torch.exp(s - mu[..., None])
+            alpha = torch.exp(m - mu)
+            l = l * alpha + p.sum(-1)
+            pv = p.to(q.dtype).float()
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bht,bhtd->bhd", pv, vv[:, :, k0:k1])
+            m = m_new
+        parts.append((m, l, acc))
+    return (torch.stack([m for m, _, _ in parts], -1),
+            torch.stack([l for _, l, _ in parts], -1),
+            torch.stack([acc for _, _, acc in parts], -2))
+
+
+def decode_split_combine(m: torch.Tensor, l: torch.Tensor,
+                         acc: torch.Tensor, dtype: torch.dtype
+                         ) -> torch.Tensor:
+    """The kernel's combine of ``decode_split_partials``, split by split
+    in order: ``sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M),
+    1e-20)`` with M the largest m, so a row with no valid key gives 0
+    (the Pallas kernel's value).  Returns [B,H,D] in ``dtype``."""
+    mm = m.amax(-1)
+    mu = torch.where(mm == -math.inf, 0.0, mm)
+    num = torch.zeros(acc.shape[:2] + acc.shape[3:], device=acc.device)
+    den = torch.zeros(m.shape[:2], device=acc.device)
+    for s in range(m.shape[-1]):
+        f = torch.where(m[..., s] == -math.inf, 0.0,
+                        torch.exp(m[..., s] - mu))
+        num = num + acc[:, :, s] * f[..., None]
+        den = den + l[..., s] * f
+    return (num / den.clamp_min(1e-20)[..., None]).to(dtype)
+
+
+def decode_split_faults(m: torch.Tensor, l: torch.Tensor,
+                        acc: torch.Tensor, dtype: torch.dtype):
+    """Two wrong combines of ``decode_split_partials``, to show that a
+    check can see the combine (it must reject both wherever a row spans
+    splits of different weight): ``"equal weights"``, the mean of the
+    non-empty splits' acc / l, and ``"no rescale"``, sum acc / sum l with
+    each split left on its own max.  Returns {name: [B,H,D] in dtype}."""
+    live = (l > 0).float()
+    part = acc / l.clamp_min(1e-20)[..., None]
+    equal = (part * live[..., None]).sum(2) / \
+        live.sum(2).clamp_min(1)[..., None]
+    own = acc.sum(2) / l.sum(2).clamp_min(1e-20)[..., None]
+    return {"equal weights": equal.to(dtype), "no rescale": own.to(dtype)}
+
+
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, length, chunk: int, *,
+                               tile: int = 64) -> torch.Tensor:
+    """The split-KV decode kernel's algorithm in plain torch: the
+    partials of splits of ``chunk`` keys, combined in split order."""
+    return decode_split_combine(
+        *decode_split_partials(q, k, v, length, chunk, tile=tile), q.dtype)
+
+
+def rglru_scan_chunked_ref(a: torch.Tensor, b: torch.Tensor,
+                           h0: torch.Tensor, ct: int, *,
+                           window: int = 16) -> torch.Tensor:
+    """The chunked scan kernel's algorithm in plain torch (a model for
+    tests, not a path of ``ops``): chunks of ``ct``
+    steps; each chunk's aggregate (A = prod a_t, B = the scan from 0);
+    chunk c's carry from h0 (c <= ``window``) or from the last h of chunk
+    c - window - 1, then the aggregates of the chunks between folded in
+    order (h = A_j h + B_j); the chunk's last state A_c h + B_c; then the
+    chunk rescanned from its carry step by step.  The state is float32;
+    h_t is returned in a's dtype."""
+    bsz, s, w = a.shape
+    af, bf = a.float(), b.float()
+    starts = list(range(0, s, ct))
+    agg = []
+    for t0 in starts:
+        aa = torch.ones((bsz, w), device=a.device)
+        bb = torch.zeros((bsz, w), device=a.device)
+        for t in range(t0, min(t0 + ct, s)):
+            aa = aa * af[:, t]
+            bb = af[:, t] * bb + bf[:, t]
+        agg.append((aa, bb))
+    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    last = []
+    for c, t0 in enumerate(starts):
+        lo = max(0, c - window)
+        h = last[lo - 1] if lo > 0 else h0.float()
+        for aa, bb in agg[lo:c]:
+            h = aa * h + bb
+        last.append(agg[c][0] * h + agg[c][1])
+        for t in range(t0, min(t0 + ct, s)):
+            h = af[:, t] * h + bf[:, t]
+            out[:, t] = h
+    return out
+
+
 def prefix_integral(t: torch.Tensor, kt: torch.Tensor, kv: torch.Tensor,
                     cum: torch.Tensor, per) -> torch.Tensor:
     """F(t) = integral over [0, t] of the periodic piecewise-linear curve

@@ -14,13 +14,27 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
      (every source in parallel, with its ``ptxas`` register and spill
      lines per entry function), and the HGMMA (wgmma) instructions in the
      sm90 attention library's SASS where the toolkit has ``cuobjdump``;
-  2. each metering kernel against its plain version at small and
-     acceptance-day shapes (``e``/``s`` and the energy sums bit-equal,
-     ``c``/``fa`` within 1e-12 relative), with CUDA-event times (per
-     call, median of 7 rounds of back-to-back calls, L2 flushed before
-     each round, each round queued behind a spin kernel so the events
-     time the card and not the host's launches) beside the least time
-     the card could take;
+  2. each metering kernel against its plain version: ``fused_meter`` at
+     small and acceptance-day shapes (``e``/``s`` bit-equal, ``c``/``fa``
+     within 1e-12 relative); ``segment_trapz`` bit-equal at N in {1, 17,
+     2001, tile - 1, tile, tile + 1, 3 tiles + 1, one persistent wave
+     +- 1, the acceptance day's N - 1 (odd) and N}, a zero-width entry
+     exactly 0, and a view off the 16-byte grid refused;
+     ``ordered_segment_sum`` bit-equal at n in {0, 1, 1000, N} with
+     uniform keys, with 90 % of the keys on one key, and at 15,000 keys,
+     and refused above its key limit; planted faults modelled in plain
+     torch (the ring read one tile late; each key's run summed in
+     reverse, and as a pairwise tree) must fail those checks, and the
+     count each gets wrong is printed.  Then the three public wrappers'
+     CUDA-event times at the acceptance day's shapes (per call, median
+     of 7 rounds of 20 calls, each round queued behind a spin kernel so
+     the events time the card and not the host's launches, rotating
+     over input sets of >= 100 MB so no call reads the L2), beside the
+     least time the card could take: the larger of the bytes over the
+     HBM rate, the FP64-pipe instructions (counted per entry in the
+     kernels' SASS) over 132 SMs x 64 a clock at the top clock, and for
+     ``ordered_segment_sum`` the longest run times the latency of one
+     dependent FP64 add (measured by a one-thread chain);
   3. the acceptance day on the fused lane (the metering path), with the
      launch counters reset just before it and read just after;
   4. the unfused lane on a 24-route day, then the 3-zone pinned day
@@ -91,7 +105,9 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
       ``decode_attention`` per decode step, every scan on the serial
       route and every decode on the single one; then its profile, as
       phase 8;
-  12. one JSON line describing every kernel (the flash row: the sm90
+  12. one JSON line describing every kernel (the metering rows: the
+      input sets, FP64 instructions an entry or the longest run and the
+      dependent-add latency; the flash row: the sm90
       kernel's time, the simt kernel's beside it, and every timed
       prefill shape; the decode row: the single route's time beside the
       split route's, the back-to-back time, and every timed shape; the
@@ -101,6 +117,8 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line.  It also exits non-zero without a CUDA device.
+``python3 chip_smoke.py --metering`` stops after phase 4 and prints the
+metering kernels' figures as one JSON line instead of the last two.
 """
 import json
 import pathlib
@@ -190,21 +208,6 @@ def _time_rot(fns, torch, reps=20, rounds=7, flush=None):
     return statistics.median(times)
 
 
-def _raw(cu, fn_name, torch, *args):
-    """A call of one C entry point with preallocated outputs: times the
-    kernel itself, without the wrapper's checks and allocations (and
-    without touching the wrapper's launch count)."""
-    fn = cu._fn(fn_name)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run():
-        rc = fn(*args, stream)
-        if rc != 0:
-            raise RuntimeError(f"{fn_name}: CUDA error {rc}")
-
-    return run
-
-
 def _rel_close(x, y, rel):
     """|x - y| <= rel * |y| elementwise; returns the max abs error."""
     import torch
@@ -255,9 +258,190 @@ def _entries(n, seed, G, torch):
     return [torch.from_numpy(x).to(DEV) for x in (a, b, b - a, w, g)]
 
 
-def check_kernels(quick=False):
-    """Phase 2: every kernel against its plain version on the card."""
+def _sort_inputs(n, num, seed, torch, hot=None):
+    """vals [2, n] and keys [n] int64 uniform over [0, num) (or, with
+    ``hot``, 90 % of them on key ``hot``: a flash crowd on one device)."""
     import numpy as np
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, num, n)
+    if hot is not None:
+        keys[rng.random(n) < 0.9] = hot
+    vals = rng.uniform(0.0, 5e5, (2, n))
+    return torch.from_numpy(vals).to(DEV), torch.from_numpy(keys).to(DEV)
+
+
+def metering_sets(torch):
+    """The three metering wrappers' timed inputs at the acceptance day's
+    shapes, each a list of input sets that together hold at least
+    ROTATE_BYTES (so no call finds its inputs in the L2).  Returns
+    {name: (calls, bytes one call must move, the first set, extra)}:
+    ``calls`` are thunks of the public wrappers of the ``repro_torch``
+    on the path; ``extra`` is the knot tables, or for
+    ``ordered_segment_sum`` thunks of ``index_add_`` on the same sets."""
+    from repro_torch.fleet import make_trace
+    from repro_torch.kernels import segment_trapz as cu
+
+    tr = make_trace("solar-duck", 0.39)
+    tabs = _tables([tr], torch)
+    K = tabs[0].shape[1]
+    one = (4 * 8 + 4) * N_METER + 4 * 8 * N_METER + (3 * K + 1) * 8
+    fm = [_entries(N_METER, 1000 + j, 1, torch) for j in range(_sets(one))]
+    fm_calls = [lambda s=s: cu.fused_meter(*s, *tabs) for s in fm]
+    kt, kv, cum = tabs[0][0], tabs[1][0], tabs[2][0]
+    one_s = 4 * 8 * N_SEG + 3 * K * 8
+    st = [_entries(N_SEG, 2000 + j, 1, torch) for j in range(_sets(one_s))]
+    st_calls = [lambda s=s: cu.segment_trapz(s[0], s[1], s[3], kt, kv, cum,
+                                             period=tr.period_s)
+                for s in st]
+    num = N_DEV * 3
+    one_o = 3 * 8 * N_METER + 2 * num * 8
+    os_ = [_sort_inputs(N_METER, num, 3000 + j, torch)
+           for j in range(_sets(one_o))]
+    os_calls = [lambda s=s: cu.ordered_segment_sum(*s, num) for s in os_]
+    lib = [lambda s=s: torch.zeros(2, num, dtype=torch.float64, device=DEV)
+           .index_add_(1, s[1], s[0]) for s in os_]
+    return {"fused_meter": (fm_calls, one, fm[0], tabs),
+            "segment_trapz": (st_calls, one_s, st[0], (kt, kv, cum, tr)),
+            "ordered_segment_sum": (os_calls, one_o, os_[0], lib)}
+
+
+def time_metering(torch, sets=None):
+    """Rotated, spin-queued CUDA-event time of each metering wrapper
+    (``_time_rot`` over ``metering_sets``).  Returns {name: ms}."""
+    sets = sets or metering_sets(torch)
+    return {k: _time_rot(v[0], torch) for k, v in sets.items()}
+
+
+# FP64-pipe opcodes counted in a kernel's SASS (an H100 SM issues 64 a
+# clock: the data sheet's 34 TFLOP/s FP64 / 2 / 132 SMs / 1.98 GHz)
+_FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET", "FRND",
+             "MUFU.RCP64H", "MUFU.RSQ64H", "F2F", "F2I", "I2F")
+
+
+def _sass_functions(lib):
+    """{mangled name: [SASS lines]} of a built library (``cuobjdump``
+    beside ``nvcc``)."""
+    from repro_torch.kernels import _build
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    assert tool.exists(), "cuobjdump not found beside nvcc"
+    sass = subprocess.run([str(tool), "-sass", str(_build.lib_path(lib))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :")[1].strip(), [])
+        elif cur is not None:
+            cur.append(line)
+    return funcs
+
+
+def _fp64_ops(lines):
+    """FP64-pipe instructions of one function's SASS by opcode, leaving
+    out the subroutines it CALLs (the divide's rarely taken slow path).
+    F2F, F2I and I2F count only with an F64 operand type."""
+    import re
+    text = "\n".join(lines)
+    called = set(re.findall(r"CALL\.REL[.A-Z]*\s+`\((\.L_x_\d+)\)", text))
+    counts, skip = {}, False
+    for line in lines:
+        label = line.strip().rstrip(":")
+        if line.strip().endswith(":") and label in called:
+            skip = True
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if not m:
+            continue
+        op = m.group(1)
+        if not skip:
+            for k in _FP64_OPS:
+                if op == k or op.startswith(k + "."):
+                    if k in ("F2F", "F2I", "I2F") and "F64" not in op:
+                        break
+                    counts[k] = counts.get(k, 0) + 1
+                    break
+        elif op.startswith("RET"):
+            skip = False
+    return counts
+
+
+def fp64_per_entry(kernel, K):
+    """FP64-pipe instructions a metering kernel issues per entry, read
+    from its SASS (its instantiation for K knots; a loop's body, as
+    fused_meter's bisect, counts once, so the count is a lower one, and
+    the bound it gives still a least time): every entry does four
+    IEEE divides, each one MUFU.RCP64H on its fast path, so the code
+    holds the body of round(RCP64H / 4) entries (one in fused_meter's
+    loop, four in segment_trapz's tile), whatever the compiler unrolled.
+    The function's SASS is written to ``chiprun_out/<kernel>.sass``.
+    Returns (per entry, {opcode: count over the code})."""
+    steps = max(1, (K - 1).bit_length())
+    funcs = _sass_functions("segment_trapz")
+    (name,) = [f for f in funcs if f"{kernel}ILi{steps}E" in f] or \
+        [f for f in funcs if f"{kernel}E" in f]
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"{kernel}.sass").write_text("\n".join(funcs[name]))
+    ops = _fp64_ops(funcs[name])
+    entries = round(ops.get("MUFU.RCP64H", 0) / 4)
+    assert entries >= 1, (name, ops)
+    return sum(ops.values()) / entries, ops
+
+
+def _clock_hz():
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``): the
+    FP64 term of a bound at this clock is the least time."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def _bound_terms(terms):
+    """The largest of ``terms`` ({term: ms}) and its name."""
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+def dadd_latency_ms(torch, steps=1 << 20):
+    """The latency of one dependent FP64 add on the card: one thread
+    adding ``steps`` times (``dadd_chain_f64``), CUDA events around it."""
+    from repro_torch.kernels import segment_trapz as cu
+    out = torch.empty(1, dtype=torch.float64, device=DEV)
+    fn = cu._fn("dadd_chain_f64")
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in (1024, steps):                 # a warm-up, then the timed run
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        assert fn(1.0, n, out.data_ptr(), stream) == 0
+        stop.record()
+    stop.synchronize()
+    assert float(out) == float(steps)
+    return start.elapsed_time(stop) / steps
+
+
+def _sees(got, want, faults, label, axis=None):
+    """A check that must be able to fail: ``got`` equals ``want`` bit
+    for bit and each planted fault does not.  Returns {fault: how many
+    entries (``axis=None``) or keys (``axis=0``: columns) it gets
+    wrong}."""
+    import torch
+    assert torch.equal(got, want), f"{label}: not bit-equal to the plain"
+    wrong = {}
+    for name, bad in faults.items():
+        diff = bad != want
+        if axis is not None:
+            diff = diff.any(axis)
+        wrong[name] = int(diff.sum())
+        assert wrong[name] > 0, f"{label}: the check passes {name}"
+    return wrong
+
+
+def check_kernels(quick=False):
+    """Phase 2: every metering kernel against its plain version on the
+    card, then (unless ``quick``) their times and bounds."""
     import torch
 
     from repro_torch.fleet import make_trace
@@ -287,90 +471,123 @@ def check_kernels(quick=False):
                   f"c,fa max abs err {err:.3e}")
             if G == 1 and n == big_m:
                 stats["fused_meter"] = {"max_abs_err": err, "n": n}
-                args = (a, b, dt, w, g, *tabs)
-    K = args[5].shape[1]
-    big_s = 0 if quick else N_SEG
     tr = make_trace("solar-duck", 0.39)
     kt, kv, cum = (torch.tensor(x, dtype=torch.float64, device=DEV)
                    for x in (tr._kt, tr._kv, tr._cum))
-    for n in (1, 17, 2001, big_s):
+    K = len(tr._kt)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile = cu.TRAPZ_TILE
+    wave = cu.trapz_plan(10**9, sms).blocks * tile   # one persistent wave
+    sizes = [1, 17, 2001, tile - 1, tile, tile + 1, 3 * tile + 1]
+    if not quick:
+        sizes += [wave - 1, wave, wave + 1, N_SEG - 1, N_SEG]
+    for n in sizes:
         a, b, _dt, w, _g = _entries(n, n, 1, torch)
         got = ops.segment_trapz(a, b, w, kt, kv, cum, period=tr.period_s)
         want = ref.segment_trapz_ref(a, b, w, kt, kv, cum,
                                      period=tr.period_s)
         torch.cuda.synchronize()
-        err = _rel_close(got, want, REL_KERNEL)
-        print(f"segment_trapz N={n:>7}: out max abs err {err:.3e}")
-        if n == big_s:
-            stats["segment_trapz"] = {"max_abs_err": err, "n": n}
-            sargs = (a, b, w, kt, kv, cum)
+        plan = cu.trapz_plan(n, sms)
+        faults = ref.segment_trapz_faults(want, tile, plan.full_tiles) \
+            if plan.full_tiles > 1 else {}
+        wrong = _sees(got, want, faults, f"segment_trapz N={n}")
+        assert float(got[n // 2]) == 0.0            # the zero-width entry
+        seen = "".join(f"; {k} gets {v} entries wrong"
+                       for k, v in wrong.items())
+        print(f"segment_trapz N={n:>7} ({plan.blocks} blocks, "
+              f"{plan.full_tiles} ring tiles + {plan.tiles - plan.full_tiles}"
+              f" tail): bit-equal{seen}")
+        stats["segment_trapz"] = {"max_abs_err": 0.0, "n": n}
+    try:
+        ops.segment_trapz(a[1:], b[1:], w[1:], kt, kv, cum,
+                          period=tr.period_s)
+    except ValueError as e:
+        print(f"segment_trapz on a view off the 16-byte grid raises: {e}")
+    else:
+        raise AssertionError("segment_trapz took a misaligned view")
+
     num = N_DEV * 3
-    for n in (0, 1, 1000, big_m):
-        rng = np.random.default_rng(n)
-        keys = torch.from_numpy(rng.integers(0, num, n)).to(DEV)
-        vals = torch.from_numpy(rng.uniform(0.0, 5e5, (2, n))).to(DEV)
-        got = ops.ordered_segment_sum(vals, keys, num)
-        want = ref.ordered_segment_sum_ref(vals, keys, num)
+    cases = [("uniform", n, num, None) for n in (0, 1, 1000, big_m)]
+    if not quick:
+        cases += [("90 % on one key", 100_000, num, 7),
+                  ("uniform", N_METER, 15_000, None)]
+    for kind, n, nk, hot in cases:
+        vals, keys = _sort_inputs(n, nk, n + nk, torch, hot)
+        got = ops.ordered_segment_sum(vals, keys, nk)
+        # the plain version loops over the longest run: on the CPU for
+        # the skewed keys (90,000 steps), on the card otherwise
+        on = "cpu" if hot is not None else DEV
+        want = ref.ordered_segment_sum_ref(vals.to(on), keys.to(on), nk)
+        faults = ref.ordered_segment_sum_faults(
+            vals.to(on), keys.to(on), nk) if n >= 100_000 else {}
         torch.cuda.synchronize()
-        assert torch.equal(got, want), "ordered_segment_sum not bit-equal"
-        print(f"ordered_segment_sum N={n:>7}: bit-equal")
-        if n == big_m:
+        wrong = _sees(got.to(on), want, faults,
+                      f"ordered_segment_sum {kind} N={n} num={nk}", axis=0)
+        run = int(torch.bincount(keys, minlength=nk).max()) if n else 0
+        seen = "".join(f"; {k} gets {v} keys wrong"
+                       for k, v in wrong.items())
+        print(f"ordered_segment_sum {kind} N={n:>7} num={nk} (tiles of "
+              f"{cu.sort_plan(n, nk).tile}, longest run {run}): "
+              f"bit-equal{seen}")
+        if n == big_m and nk == num:
             stats["ordered_segment_sum"] = {"max_abs_err": 0.0, "n": n}
-            oargs = (vals, keys, num)
+    try:
+        cu.ordered_segment_sum(vals, keys, cu.SORT_MAX_NUM + 1)
+    except ValueError as e:
+        print(f"ordered_segment_sum above its key limit raises: {e}")
+    else:
+        raise AssertionError("ordered_segment_sum took too many keys")
     if quick:
         return stats
 
-    # times at the acceptance day's shapes, beside the least time
-    def ptrs(*ts):
-        return [t.data_ptr() for t in ts]
-
-    G1 = 1
-    t = stats["fused_meter"]
-    outs = [torch.empty_like(args[0]) for _ in range(4)]
-    t["ms"] = _time_ms(_raw(cu, "fused_meter_f64", torch,
-                            *ptrs(*args, *outs), big_m, G1, K), torch)
-    t["plain_ms"] = _time_ms(lambda: ref.fused_meter_ref(*args), torch,
-                             reps=3)
-    t["bound_ms"], t["bound_by"] = _bound_ms(
-        name, big_m * (4 * 8 + 4) + big_m * 4 * 8 + (3 * G1 * K + G1) * 8,
-        35 * big_m)      # two prefix integrals (~16 FP64 ops each) + e, c
-    t["library_ms"] = None
-    t = stats["segment_trapz"]
-    out = torch.empty_like(sargs[0])
-    t["ms"] = _time_ms(_raw(cu, "segment_trapz_f64", torch, *ptrs(*sargs),
-                            float(tr.period_s), out.data_ptr(), big_s,
-                            len(tr._kt)), torch)
-    t["plain_ms"] = _time_ms(lambda: ref.segment_trapz_ref(
-        *sargs, period=tr.period_s), torch, reps=3)
-    t["bound_ms"], t["bound_by"] = _bound_ms(
-        name, big_s * 4 * 8 + 3 * len(tr._kt) * 8, 34 * big_s)
-    t["library_ms"] = None
+    # times at the acceptance day's shapes, rotated, beside the least time
+    sets = metering_sets(torch)
+    times = time_metering(torch, sets)
+    clock = _clock_hz()
+    fp64_rate = sms * 64 * clock                   # instructions a second
+    bw = _peaks(name)[0]
+    dadd_ms = dadd_latency_ms(torch)
+    print(f"FP64 pipe: {sms} SMs x 64 a clock x {clock / 1e6:.0f} MHz; "
+          f"one dependent FP64 add {dadd_ms * 1e6:.3f} ns (one-thread "
+          f"chain)")
+    for k in ("fused_meter", "segment_trapz"):
+        t = stats[k]
+        calls, nbytes = sets[k][:2]
+        per, ops_by = fp64_per_entry(k + "_kernel", K)
+        t.update(ms=times[k], sets=len(calls), fp64_per_entry=per,
+                 library_ms=None, n=N_METER if k == "fused_meter" else N_SEG)
+        t["bound_ms"], t["bound_by"] = _bound_terms({
+            "bytes": nbytes / bw * 1e3,
+            "operations": per * t["n"] / fp64_rate * 1e3})
+        print(f"{k} SASS (K={K}): {per:.2f} FP64-pipe instructions an "
+              f"entry; over the code {ops_by}")
+    a, b, dt, w, g = sets["fused_meter"][2]
+    tabs = sets["fused_meter"][3]
+    stats["fused_meter"]["plain_ms"] = _time_ms(
+        lambda: ref.fused_meter_ref(a, b, dt, w, g, *tabs), torch, reps=3)
+    a, b, _dt, w, _g = sets["segment_trapz"][2]
+    stats["segment_trapz"]["plain_ms"] = _time_ms(
+        lambda: ref.segment_trapz_ref(a, b, w, kt, kv, cum,
+                                      period=tr.period_s), torch, reps=3)
     t = stats["ordered_segment_sum"]
-    vals, keys, num = oargs
-    # the whole function (stable sort + run offsets + the in-order walk)
-    t["ms"] = _time_ms(lambda: cu.ordered_segment_sum(*oargs), torch)
-    order = torch.sort(keys, stable=True).indices
-    offsets = torch.zeros(num + 1, dtype=torch.int64, device=DEV)
-    torch.cumsum(torch.bincount(keys, minlength=num), 0, out=offsets[1:])
-    out = torch.empty(2, num, dtype=torch.float64, device=DEV)
-    t["walk_ms"] = _time_ms(_raw(
-        cu, "ordered_segment_sum_f64", torch,
-        *ptrs(vals, order, offsets, out), keys.numel(), 2, num), torch)
-    t["plain_ms"] = _time_ms(lambda: ref.ordered_segment_sum_ref(*oargs),
-                             torch, reps=1, rounds=3)
-    t["bound_ms"], t["bound_by"] = _bound_ms(
-        name, vals.numel() * 8 + keys.numel() * 8 + 2 * num * 8,
-        vals.numel())
-    t["library_ms"] = _time_ms(
-        lambda: torch.zeros(2, num, dtype=torch.float64, device=DEV)
-        .index_add_(1, keys, vals), torch)
-    print(f"time ordered_segment_sum in-order walk alone: "
-          f"{t.pop('walk_ms'):.4f} ms")
+    calls, nbytes, (vals, keys), lib = sets["ordered_segment_sum"]
+    t.update(ms=times["ordered_segment_sum"], sets=len(calls),
+             longest_run=int(torch.bincount(keys, minlength=num).max()),
+             dadd_ns=dadd_ms * 1e6)
+    t["plain_ms"] = _time_ms(lambda: ref.ordered_segment_sum_ref(
+        vals, keys, num), torch, reps=1, rounds=3)
+    t["bound_ms"], t["bound_by"] = _bound_terms({
+        "bytes": nbytes / bw * 1e3,
+        "operations": vals.numel() / fp64_rate * 1e3,
+        "dependent adds": t["longest_run"] * dadd_ms})
+    t["library_ms"] = _time_rot(lib, torch)
     for k, v in stats.items():
-        print(f"time {k:20s} N={v['n']}: kernel {v['ms']:.4f} ms, plain "
-              f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-              f"({v['bound_by']}), library "
-              f"{'n/a' if v['library_ms'] is None else '%.4f ms' % v['library_ms']}")
+        lib_ms = v["library_ms"]
+        print(f"time {k:20s} N={v['n']}: kernel {v['ms']!r} ms rotating "
+              f"over {v['sets']} input sets, plain {v['plain_ms']:.4f} ms, "
+              f"bound {v['bound_ms']!r} ms ({v['bound_by']}), library "
+              f"{'n/a' if lib_ms is None else repr(lib_ms) + ' ms'}")
+        _possible(v["ms"], v["bound_ms"], k)
     return stats
 
 
@@ -1650,6 +1867,8 @@ def _drive(scenario_fn, label, **kw):
 
 def drive_days():
     """Phases 3 and 4; returns the launch counts of each path."""
+    import torch
+
     from repro_torch.core.scheduler import Breakeven
     from repro_torch.fleet import flash_crowd, make_trace
     from repro_torch.fleet import mixed_fleet_scenario
@@ -1664,7 +1883,16 @@ def drive_days():
         shapes["fused_meter"] = (a.shape[0], tuple(kt.shape))
         return real_fm(a, b, dt, w, g, kt, *rest)
 
+    real_oss = ops.ordered_segment_sum
+
+    def seen_ordered_segment_sum(vals, keys, num):
+        shapes.setdefault("longest_run", int(
+            torch.bincount(keys, minlength=num).max()) if keys.numel()
+            else 0)
+        return real_oss(vals, keys, num)
+
     torchback.ops.fused_meter = seen_fused_meter    # records shapes only
+    torchback.ops.ordered_segment_sum = seen_ordered_segment_sum
     try:
         torchback.FUSED = True
         day = flash_crowd(n_routes=600, fleet="200xh100+200xa100+200xl40s",
@@ -1672,7 +1900,9 @@ def drive_days():
         main = _drive(lambda: day.to_scenario(Breakeven, carbon_trace=ct),
                       "acceptance day (fused)", compute_bound=False)
         print(f"acceptance day fused_meter N, [G, K] = "
-              f"{shapes['fused_meter']}")
+              f"{shapes['fused_meter']}; ordered_segment_sum's longest "
+              f"run {shapes['longest_run']}")
+        main["longest_run"] = shapes["longest_run"]
         assert main["fused_meter"] > 0 and main["ordered_segment_sum"] > 0
         torchback.FUSED = False
         d24 = flash_crowd(n_routes=24, fleet="2xh100+2xa100+2xl40s",
@@ -1690,6 +1920,7 @@ def drive_days():
         assert zones["fused_meter"] > 0 and G > 1, G
     finally:
         torchback.ops.fused_meter = real_fm
+        torchback.ops.ordered_segment_sum = real_oss
         torchback.FUSED = True
     return main, unfused
 
@@ -1709,6 +1940,10 @@ def main():
     hgmma = count_hgmma()
     stats = check_kernels()
     main_counts, unfused_counts = drive_days()
+    if "--metering" in sys.argv[1:]:        # phases 1-4 alone
+        print(json.dumps({k: {x: y for x, y in v.items()}
+                          for k, v in stats.items()}))
+        return 0
     attn = check_attention()
     check_flash_sm90(attn)
     check_decode_split(attn)
@@ -1763,6 +1998,13 @@ def main():
     for row in kernels:
         if "library" in stats[row["name"]]:
             row["library"] = stats[row["name"]]["library"]
+        if row["name"] in ("fused_meter", "segment_trapz",
+                           "ordered_segment_sum"):
+            row.update({k: stats[row["name"]][k] for k in (
+                "sets", "fp64_per_entry", "longest_run", "dadd_ns")
+                if k in stats[row["name"]]})
+            if row["name"] == "ordered_segment_sum":
+                row["acceptance_longest_run"] = main_counts["longest_run"]
         if row["name"] == "flash_attention":
             # every launcher launch took the sm90 route (serve_launcher);
             # the simt kernel (float32, other head dims) timed beside it

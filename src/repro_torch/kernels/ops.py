@@ -99,10 +99,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def decode_attention(q, k, v, length) -> torch.Tensor:
     """One-token attention, q [B,H,D] against the first ``length`` rows
-    of k, v [B,Hkv,T,D] (see ``ref.decode_attention_ref``)."""
+    of k, v [B,Hkv,T,D] (see ``ref.decode_attention_ref``).  A row of
+    length 0 gives exactly 0 on either device, as the kernel and the
+    reference's Pallas kernel (``acc / max(l, 1e-20)``) give; the plain
+    version alone would give NaN there (a softmax over no key)."""
     if _on_cuda("decode_attention", q):
         return _decode.decode_attention(q, k, v, length)
-    return ref.decode_attention_ref(q, k, v, length)
+    out = ref.decode_attention_ref(q, k, v, length)
+    empty = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1) <= 0
+    return out.masked_fill(empty, 0)
 
 
 def rglru_scan(a, b, h0) -> torch.Tensor:

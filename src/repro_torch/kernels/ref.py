@@ -270,3 +270,85 @@ def ordered_segment_sum_ref(vals: torch.Tensor, keys: torch.Tensor,
         idx = order[starts[live] + r]
         out[:, live] = out[:, live] + vals[:, idx]
     return out
+
+
+def counting_sort_positions(keys: torch.Tensor, num: int,
+                            tile: int) -> torch.Tensor:
+    """Where ``ordered_segment_sum``'s counting sort puts each entry,
+    modelled pass by pass as the kernels compute it: per-tile key
+    counts; an exclusive scan in (key, tile) order (a key's start plus
+    the entries of that key in earlier tiles); then each tile's entries
+    in index order, 32 at a time (one warp's lanes), each after the
+    earlier entries of its key and ranked among the lower lanes with the
+    same key (``__match_any_sync`` and a popcount of the lower lanes),
+    after which each key's position moves on by its lanes.  keys: [N]
+    int64 in [0, num).  Returns [N] int64 positions in key-major
+    order."""
+    n = keys.numel()
+    dev = keys.device
+    tiles = -(-n // tile)
+    t_of = torch.arange(n, device=dev) // tile
+    counts = torch.zeros(tiles, num, dtype=torch.int64, device=dev)
+    counts.index_put_((t_of, keys), torch.ones_like(keys), accumulate=True)
+    offs = torch.cumsum(counts, 0) - counts                # per key, by tile
+    totals = counts.sum(0)
+    starts = torch.cumsum(totals, 0) - totals
+    lower = torch.tril(torch.ones(32, 32, dtype=torch.bool, device=dev), -1)
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    for t in range(tiles):
+        pos = starts + offs[t]
+        for c0 in range(t * tile, min(n, (t + 1) * tile), 32):
+            k = keys[c0:c0 + 32]
+            same = k[:, None] == k[None, :]
+            rank = (same & lower[:k.numel(), :k.numel()]).sum(1)
+            out[c0:c0 + k.numel()] = pos[k] + rank
+            pos.index_add_(0, k, torch.ones_like(k))
+    return out
+
+
+def _pairwise_runs(x: torch.Tensor, seg: torch.Tensor):
+    """x [C, M] in key-major order, seg [M] its (sorted) keys: each run
+    reduced by a pairwise tree ((x0 + x1) + (x2 + x3) ...).  Returns the
+    one value per run and the run's key."""
+    while seg.numel():
+        m = seg.numel()
+        idx = torch.arange(m, device=seg.device)
+        first = torch.ones(m, dtype=torch.bool, device=seg.device)
+        first[1:] = seg[1:] != seg[:-1]
+        rank = idx - torch.cummax(torch.where(first, idx, 0), 0).values
+        has_next = torch.zeros_like(first)
+        has_next[:-1] = ~first[1:]
+        even = rank % 2 == 0
+        if not bool((even & has_next).any()):
+            break
+        nxt = torch.zeros_like(x)
+        nxt[:, :-1] = x[:, 1:]
+        x = torch.where(even & has_next, x + nxt, x)[:, even]
+        seg = seg[even]
+    return x, seg
+
+
+def ordered_segment_sum_faults(vals: torch.Tensor, keys: torch.Tensor,
+                               num: int):
+    """Two wrong orders of ``ordered_segment_sum_ref``, which a check of
+    the kernel must reject: each key's run summed in reverse order, and
+    each run summed as a pairwise tree.  Returns {name: [C, num]}."""
+    rev = ordered_segment_sum_ref(vals.flip(1), keys.flip(0), num)
+    order = torch.sort(keys, stable=True).indices
+    x, seg = _pairwise_runs(vals[:, order], keys[order])
+    pair = torch.zeros(vals.shape[0], num, dtype=vals.dtype,
+                       device=vals.device)
+    pair[:, seg] = x
+    return {"reversed order": rev, "pairwise sum": pair}
+
+
+def segment_trapz_faults(want: torch.Tensor, tile: int, full_tiles: int):
+    """A wrong ``segment_trapz`` a check of the kernel must reject: the
+    ring read one tile late, so each ring tile t >= 1 (t < full_tiles)
+    holds the outputs of tile t - 1.  want: the right [N] outputs.
+    Returns {name: [N]}."""
+    late = want.clone()
+    end = full_tiles * tile
+    if full_tiles > 1:
+        late[tile:end] = want[:end - tile]
+    return {"ring read one tile late": late}

@@ -5,16 +5,25 @@ and ``ordered_segment_sum`` (the in-order per-key sum behind the
 bit-exact energy buckets; not a port of a TPU kernel).
 
 Each wrapper takes CUDA tensors only, checks device, dtype, shape and
-contiguity, allocates its outputs with ``torch.empty``, launches on the
-current stream without synchronising, raises if the launch returns a
-CUDA error, and adds one to its entry of ``LAUNCHES`` per launch.
+contiguity, allocates its outputs (and scratch) with ``torch.empty``,
+launches on the current stream without synchronising, raises if the
+launch returns a CUDA error, and adds one to its entry of ``LAUNCHES``
+per call (``ordered_segment_sum``'s four kernels are one call).
 ``kernels/ops.py`` routes CPU tensors to the plain versions in
 ``kernels/ref.py`` instead.
+
+The launch plans are functions of shapes alone, so the CPU tests reach
+them: ``trapz_plan`` (``segment_trapz``'s persistent blocks and their
+tiles) and ``sort_plan`` (``ordered_segment_sum``'s counting-sort
+tiles).  ``trapz_align_check`` and ``sort_limits`` raise on what the
+kernels do not take: a base off the 16-byte grid (the bulk copies and
+16-byte stores), more than ``SORT_MAX_NUM`` keys or ``SORT_MAX_C``
+channels.  Nothing here falls back to another path.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -24,18 +33,110 @@ from repro_torch.kernels import _build
 LAUNCHES: Dict[str, int] = {"fused_meter": 0, "segment_trapz": 0,
                             "ordered_segment_sum": 0}
 
-# dynamic shared memory a block may use without opting in
+# dynamic shared memory a fused_meter block may use (no opt-in)
 _SMEM_BYTES = 48 * 1024
+# knots a segment_trapz table may hold: its search is instantiated for
+# ceil(log2 K) <= 11 steps (csrc STEPS_CASES)
+MAX_KNOTS = 2048
+
+# segment_trapz: entries a tile (csrc kTile) and persistent blocks an SM
+TRAPZ_TILE = 1024
+TRAPZ_BLOCKS_PER_SM = 2
+# ordered_segment_sum: a counting-sort tile is a multiple of SORT_TILE
+# entries (csrc kSortTile); keys per call (a block keeps a 32-bit counter
+# a key in shared memory: 192 KB) and channels (csrc kMaxNum,
+# kMaxChannels)
+SORT_TILE = 2048
+SORT_MAX_NUM = 49152
+SORT_MAX_C = 4
 
 _P = ctypes.c_void_p
 _SIGS = {
     "fused_meter_f64": [_P] * 13 + [ctypes.c_longlong, ctypes.c_int,
                                     ctypes.c_int, _P],
     "segment_trapz_f64": [_P] * 6 + [ctypes.c_double, _P,
-                                     ctypes.c_longlong, ctypes.c_int, _P],
-    "ordered_segment_sum_f64": [_P] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, _P],
+                                     ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, _P],
+    "ordered_segment_sum_f64": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int, _P],
+    "dadd_chain_f64": [ctypes.c_double, ctypes.c_longlong, _P, _P],
 }
+
+
+class TrapzPlan(NamedTuple):
+    """``segment_trapz``'s launch: ``blocks`` persistent blocks over
+    ``tiles`` tiles of ``TRAPZ_TILE`` entries, of which the first
+    ``full_tiles`` go through the shared-memory ring (bulk copies) and
+    the last partial one, if any, is read with plain loads."""
+    blocks: int
+    tiles: int
+    full_tiles: int
+
+
+def trapz_plan(n: int, sms: int) -> TrapzPlan:
+    """The plan for ``n`` entries on a card of ``sms`` SMs."""
+    tiles = -(-n // TRAPZ_TILE)
+    return TrapzPlan(max(1, min(tiles, TRAPZ_BLOCKS_PER_SM * sms)), tiles,
+                     n // TRAPZ_TILE)
+
+
+def trapz_tiles(plan: TrapzPlan, block: int) -> range:
+    """The tiles block ``block`` computes, in its order (as the kernel's
+    loop ``t = blockIdx.x; t < tiles; t += gridDim.x``)."""
+    return range(block, plan.tiles, plan.blocks)
+
+
+class SortPlan(NamedTuple):
+    """``ordered_segment_sum``'s counting sort: ``tiles`` tiles of
+    ``tile`` entries, one histogram row and one scatter warp each."""
+    tile: int
+    tiles: int
+
+
+def sort_plan(n: int, num: int) -> SortPlan:
+    """The plan for ``n`` entries over ``num`` keys: a tile of at least
+    ``num`` entries (a multiple of SORT_TILE), so the histogram rows
+    (tiles x num counters) hold no more counters than the tiles hold
+    entries."""
+    tile = SORT_TILE * max(1, -(-num // SORT_TILE))
+    return SortPlan(tile, -(-n // tile))
+
+
+def sort_limits(n: int, C: int, num: int) -> None:
+    """Raise unless the counting sort takes ``C`` channels of ``n``
+    entries over ``num`` keys."""
+    if num > SORT_MAX_NUM:
+        raise ValueError(f"ordered_segment_sum: num={num} keys exceed the "
+                         f"kernel's limit of {SORT_MAX_NUM} (a 32-bit "
+                         f"counter a key in one block's shared memory)")
+    if C > SORT_MAX_C:
+        raise ValueError(f"ordered_segment_sum: C={C} channels exceed the "
+                         f"kernel's limit of {SORT_MAX_C}")
+    if n >= 2 ** 31:
+        raise ValueError(f"ordered_segment_sum: N={n} entries exceed the "
+                         f"kernel's 32-bit positions")
+
+
+def trapz_align_check(ts, names) -> None:
+    """Raise unless every tensor's base lies on the 16-byte grid, as
+    ``segment_trapz``'s bulk copies and 16-byte stores need; a
+    misaligned tensor is never copied."""
+    for t, nm in zip(ts, names):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"segment_trapz {nm}: the kernel reads by 16-byte bulk "
+                f"copies and needs a 16-byte aligned base; got base offset "
+                f"{t.data_ptr() % 16} B")
+
+
+def _knots(op: str, K: int) -> None:
+    if K < 2 or K > MAX_KNOTS:
+        raise ValueError(f"{op}: need 2 <= K <= {MAX_KNOTS} knots in each "
+                         f"table, got K={K}")
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _fn(name: str):
@@ -103,8 +204,9 @@ def fused_meter(a, b, dt, w, g, kt, kv, cum, periods
 
 
 def segment_trapz(a, b, w, kt, kv, cum, *, period: float) -> torch.Tensor:
-    """a, b, w: [N] float64; kt, kv, cum: [K] float64 knot tables of one
-    trace with period ``period``.  Returns [N] ``w*(F(b)-F(a))``."""
+    """a, b, w: [N] float64, 16-byte aligned; kt, kv, cum: [K] float64
+    knot tables of one trace with period ``period``.  Returns [N]
+    ``w*(F(b)-F(a))``."""
     dev = a.device
     for nm, t in (("a", a), ("b", b), ("w", w), ("kt", kt), ("kv", kv),
                   ("cum", cum)):
@@ -113,26 +215,28 @@ def segment_trapz(a, b, w, kt, kv, cum, *, period: float) -> torch.Tensor:
     if b.shape[0] != n or w.shape[0] != n:
         raise ValueError("segment_trapz: a, b, w must share one length")
     K = kt.shape[0]
-    if kv.shape[0] != K or cum.shape[0] != K or K < 2:
-        raise ValueError("segment_trapz: need K >= 2 knots in each table")
-    if 3 * K * 8 > _SMEM_BYTES:
-        raise ValueError(f"segment_trapz: K={K} knots do not fit the "
-                         f"kernel's {_SMEM_BYTES} B of shared memory")
+    if kv.shape[0] != K or cum.shape[0] != K:
+        raise ValueError("segment_trapz: kt, kv, cum must share one length")
+    _knots("segment_trapz", K)
     out = torch.empty_like(a)
     if n == 0:
         return out
+    trapz_align_check((a, b, w, out), ("a", "b", "w", "out"))
+    plan = trapz_plan(n, _sms(dev))
     _launch("segment_trapz", "segment_trapz_f64", dev,
             *(t.data_ptr() for t in (a, b, w, kt, kv, cum)),
-            float(period), out.data_ptr(), n, K)
+            float(period), out.data_ptr(), n, K, plan.blocks, TRAPZ_TILE)
     return out
 
 
 def ordered_segment_sum(vals: torch.Tensor, keys: torch.Tensor,
                         num: int) -> torch.Tensor:
-    """vals: [C, N] float64; keys: [N] int64 in [0, num).  Returns
-    [C, num]: each key's entries summed in index order from 0.0.  The
-    stable sort and run offsets are PyTorch calls; the kernel walks
-    each run in order."""
+    """vals: [C, N] float64 (C <= SORT_MAX_C); keys: [N] int64 in
+    [0, num), num <= SORT_MAX_NUM (an entry with a key outside is left
+    out).  Returns [C, num]: each key's entries summed in index order
+    from 0.0.  One call launches the counting sort's histogram, scan
+    and scatter kernels and the in-order walk (``sort_plan``), with
+    scratch from ``torch.empty``."""
     dev = vals.device
     _check("ordered_segment_sum vals", vals, torch.float64, 2, dev)
     _check("ordered_segment_sum keys", keys, torch.int64, 1, dev)
@@ -140,14 +244,17 @@ def ordered_segment_sum(vals: torch.Tensor, keys: torch.Tensor,
     if keys.shape[0] != n:
         raise ValueError("ordered_segment_sum: keys must be [N] for vals "
                          "[C, N]")
-    out = torch.zeros(C, num, dtype=torch.float64, device=dev)
-    if n == 0 or num == 0:
-        return out
-    order = torch.sort(keys, stable=True).indices
-    offsets = torch.zeros(num + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(torch.bincount(keys, minlength=num)[:num], 0,
-                 out=offsets[1:])
+    sort_limits(n, C, num)
+    if n == 0 or num == 0 or C == 0:
+        return torch.zeros(C, num, dtype=torch.float64, device=dev)
+    plan = sort_plan(n, num)
+    out = torch.empty(C, num, dtype=torch.float64, device=dev)
+    counts = torch.empty(plan.tiles * num, dtype=torch.int32, device=dev)
+    totals = torch.empty(num, dtype=torch.int32, device=dev)
+    starts = torch.empty(num + 1, dtype=torch.int32, device=dev)
+    ordered = torch.empty(n, C, dtype=torch.float64, device=dev)
     _launch("ordered_segment_sum", "ordered_segment_sum_f64", dev,
-            vals.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), n, C, num)
+            *(t.data_ptr() for t in (vals, keys, counts, totals, starts,
+                                     ordered, out)), n, C, num, plan.tile)
     return out
+

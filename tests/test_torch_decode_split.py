@@ -275,3 +275,26 @@ def test_route_counts_per_op_are_zero_on_the_cpu_and_reset():
     assert ops.launch_counts()["decode_attention"] == 0
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_decode.decode_attention(q, k, k, 3)
+
+
+def test_cpu_decode_gives_zero_on_an_empty_row_as_the_reference():
+    """``ops.decode_attention`` on the CPU at ``length = [0, 5]`` against
+    the reference's default dispatch (its Pallas kernel, which gives
+    ``acc / max(l, 1e-20)`` = 0 on an empty row): row 0 exactly 0 (the
+    plain version alone gives NaN there), row 1 within 2e-3."""
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((2, 4, 64)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 256, 64)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 256, 64)).astype(np.float32)
+    lengths = np.array([0, 5], np.int32)
+    want = np.asarray(jops.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths)), np.float32)
+    got = ops.decode_attention(*(torch.from_numpy(x) for x in
+                                 (q, k, v, lengths))).numpy()
+    assert np.all(want[0] == 0.0)
+    assert np.all(got[0] == 0.0) and not np.signbit(got[0]).any()
+    np.testing.assert_allclose(got[1], want[1], rtol=2e-3, atol=2e-3)
+    plain = ref.decode_attention_ref(*(torch.from_numpy(x) for x in
+                                       (q, k, v, lengths)))
+    assert torch.isnan(plain[0]).all()          # the yardstick is unchanged

@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc``, holds every kernel against its plain PyTorch version on
 the card, drives ``repro_torch.fleet.run_mega(backend="torch")`` on the
 600-device, ~1M-request acceptance day and checks it against the port's
-numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
+numpy backend, drives the rest of the fleet-accounting stack
+(``core.simulator``, ``run_mega_sweep`` and ``plan_fleet``), then serves Qwen2.5-7B and RecurrentGemma-9B through
 ``ServingEngine`` and ``repro_torch.launch.serve``.  Phases, in order:
 
   1. the card (``nvidia-smi`` name and power limit) and the build time
@@ -39,6 +40,31 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
      launch counters reset just before it and read just after;
   4. the unfused lane on a 24-route day, then the 3-zone pinned day
      (several carbon traces in one fused launch);
+  4a. the 1-device anchor: each of the four traffic patterns (seed 7)
+     under AlwaysOn, Breakeven and FixedTTL(300) through ``run_mega`` on
+     the card, equal to ``core.simulator.simulate`` on the same
+     arrivals (energy within 1e-6 Wh, cold starts and requests equal;
+     always-on H100 for 24 h 2920.8 Wh);
+  4b. the sweep (``benchmarks/bench_fleet.py``'s sweep leg: 24 points
+     of 6 routes over 24 h): ``sweep_traces`` on the card, timed, a
+     second batch bit-identical, ``sweep_traces([5])`` equal to point 5
+     (and a planted fault, route seeds from the batch position, must
+     differ), every route's count within 6 sigma of its rate's
+     integral; then ``run_mega_sweep``, each point against the numpy
+     backend on its trace with phase 3's gate, its wall and
+     ``bulk_scan_s`` printed, point 0 replayed to the same bits;
+  4c. one sweep point at the acceptance scale (600 routes, ~1M
+     arrivals) sampled on the card, timed, resampled bit-identical,
+     Poisson-bounded, and replayed on both backends as in phase 3;
+  4d. the Pareto planner on the torch backend: the pinned 20-point
+     sweep of the 24 h 3-zone day against the numpy planner (every
+     field but the engine label equal, carbon and the hypervolume
+     within 1e-9, the frontier's labels equal) and the reference's
+     three anchors; then ``benchmarks/plan_compare.py``'s 27-point grid
+     batched and serial, point for point identical.  In 4a-4d every
+     torch-backend simulation launched ``fused_meter`` and
+     ``ordered_segment_sum`` once each and nothing else (counts reset
+     just before each path and read just after);
   5. the attention kernels against their plain versions (the
      reference's shape sweeps in float32 and bfloat16, tolerance 2e-3 /
      2e-2; rows past ``length`` ignored to 1e-5; the launcher's ragged
@@ -112,13 +138,15 @@ numpy backend, then serves Qwen2.5-7B and RecurrentGemma-9B through
       prefill shape; the decode row: the single route's time beside the
       split route's, the back-to-back time, and every timed shape; the
       scan row: the serial route's time beside the chunked one's, and
-      every timed shape);
+      every timed shape; the metering rows also carry their launches
+      on the paths of 4a-4d, ``stack_launches``);
   13. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line.  It also exits non-zero without a CUDA device.
-``python3 chip_smoke.py --metering`` stops after phase 4 and prints the
-metering kernels' figures as one JSON line instead of the last two.
+``python3 chip_smoke.py --metering`` stops after phase 4d and prints
+the metering kernels' figures and the stack's walls and launches as two
+JSON lines instead of the last two.
 """
 import json
 import pathlib
@@ -1806,8 +1834,9 @@ def serve_launcher(arch, argv=None, cfg=None):
     return counts, decodes["split"]
 
 
-def _compare_days(got, want, label):
-    """The torch backend against the numpy backend on one day."""
+def _compare_days(got, want, label, show=True):
+    """The torch backend against the numpy backend on one day; returns
+    the largest relative carbon/tier difference."""
     assert got.requests == want.requests, (got.requests, want.requests)
     assert got.cold_starts == want.cold_starts
     for gd, wd in zip(got.devices, want.devices):
@@ -1833,10 +1862,12 @@ def _compare_days(got, want, label):
     assert worst <= REL_DAY, f"{label}: carbon/tier drift {worst:.3e}"
     import math
     assert math.isfinite(got.carbon_kg) and got.energy_wh > 0
-    print(f"{label}: {got.requests:,} requests, {got.cold_starts} cold "
-          f"starts, {len(got.devices)} devices; energy/seconds per "
-          f"(device, state) bit-equal, cost equal (${got.cost_usd!r}), "
-          f"carbon/timeline/tier max rel diff {worst:.3e}")
+    if show:
+        print(f"{label}: {got.requests:,} requests, {got.cold_starts} cold "
+              f"starts, {len(got.devices)} devices; energy/seconds per "
+              f"(device, state) bit-equal, cost equal (${got.cost_usd!r}), "
+              f"carbon/timeline/tier max rel diff {worst:.3e}")
+    return worst
 
 
 def _drive(scenario_fn, label, **kw):
@@ -1925,6 +1956,408 @@ def drive_days():
     return main, unfused
 
 
+# ---------------------------------------------------------------------------
+# Phases 4a-4d: the rest of the fleet-accounting stack on the card.
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_fleet.py's sweep leg: 24 points of 6 routes over 24 h
+SWEEP_KW = dict(n_routes=6, fleet="2xh100+2xa100+2xl40s", base_rate_hr=30.0,
+                horizon_s=24 * 3600.0)
+SWEEP_SEEDS = tuple(range(24))
+# one sweep point at the acceptance day's scale (~1M arrivals)
+ACCEPT_SWEEP_KW = dict(n_routes=600, fleet="200xh100+200xa100+200xl40s",
+                       base_rate_hr=130.0, spike_x=60.0)
+ACCEPT_SWEEP_SEED = 100
+SIGMAS = 6.0               # a route's count vs the integral of its rate
+# benchmarks/plan_compare.py's 27-point grid (fleets x routers x tiers)
+PLAN27_ROUTERS = ("warm-first", "slo-aware", "carbon-aware")
+PLAN27_TIERS = ("on_demand", "reserved", "spot")
+PLAN_ANCHORS = {"reference_cost": 624.6396714072346,
+                "best_cost": 182.70635568021723,
+                "best_carbon": 2.7966818523969312}
+# PlanPoint fields compared between planners (eval_s is wall-clock)
+PLAN_FIELDS = ("fleet", "router", "price_tier", "preemption_rate",
+               "cost_usd", "energy_wh", "carbon_kg", "p99_s", "engine",
+               "gpu_hours_usd", "energy_usd", "preemptions", "requests")
+
+
+class _MegaRuns:
+    """Times the ``run_mega`` calls that finish on the torch backend
+    while the block runs (``megasim.run_mega`` wrapped; the wrapper only
+    observes): their number is the count of mega-torch simulations."""
+
+    def __enter__(self):
+        from repro_torch.fleet.mega import megasim
+        self._mod, self._real = megasim, megasim.run_mega
+        self.walls = []
+
+        def run(sc, **kw):
+            t0 = time.perf_counter()
+            res = self._real(sc, **kw)
+            if kw.get("backend", "torch") == "torch":
+                self.walls.append(time.perf_counter() - t0)
+            return res
+
+        megasim.run_mega = run
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.run_mega = self._real
+
+
+def _launched(n, label):
+    """Each mega-torch simulation launched the fused metering pass and
+    the in-order segment sum once, and nothing else."""
+    from repro_torch.kernels import ops
+    got = ops.launch_counts()
+    want = {k: 0 for k in got}
+    want.update(fused_meter=n, ordered_segment_sum=n)
+    assert got == want, f"{label}: launches {got}, expected {want}"
+    return got
+
+
+def check_anchor():
+    """Phase 4a: one device, one model on the card against
+    ``core.simulator.simulate`` on the same arrivals; always-on H100 for
+    24 h is 2920.8 Wh (121.7 W x 24 h)."""
+    import torch
+
+    from repro_torch.core import H100, PYTORCH_70B, simulate, traffic
+    from repro_torch.core.scheduler import AlwaysOn, Breakeven, FixedTTL
+    from repro_torch.fleet import run_mega, single_device_scenario
+    from repro_torch.kernels import ops
+
+    policies = (("always-on", AlwaysOn),
+                ("breakeven", lambda: Breakeven(PYTORCH_70B, H100)),
+                ("ttl-5min", lambda: FixedTTL(300.0)))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    n, worst = 0, 0.0
+    for pattern in ("steady", "bursty", "diurnal", "mmpp"):
+        arr = traffic.PATTERNS[pattern](seed=7)
+        for name, make in policies:
+            sim = simulate(arr, make(), H100, PYTORCH_70B)
+            res = run_mega(single_device_scenario(arr, make, PYTORCH_70B,
+                                                  "h100"),
+                           backend="torch", device=DEV)
+            n += 1
+            label = f"anchor {pattern}/{name}"
+            err = abs(res.energy_wh - sim.energy_wh)
+            assert err <= 1e-6, (label, res.energy_wh, sim.energy_wh)
+            assert res.cold_starts == sim.cold_starts, label
+            assert res.requests == sim.n_requests, label
+            if name == "always-on":
+                assert abs(res.energy_wh - 2920.8) <= 1e-6, \
+                    (label, res.energy_wh)
+            worst = max(worst, err)
+    torch.cuda.synchronize()
+    launches = _launched(n, "anchor")
+    print(f"1-device anchor on the card: {n} (pattern, policy) days equal "
+          f"to core.simulator (max |dE| {worst:.3e} Wh, cold starts and "
+          f"requests equal), always-on H100 24 h = 2920.8 Wh; launches "
+          f"{launches}")
+    return n
+
+
+def _same_days(got, want, label):
+    """Two sweep batches bit-identical: names, plans, every arrival."""
+    assert len(got) == len(want), label
+    for a, b in zip(got, want):
+        assert (a.name, a.fleet, a.horizon_s, a.seed) == \
+            (b.name, b.fleet, b.horizon_s, b.seed), label
+        for ra, rb in zip(a.routes, b.routes, strict=True):
+            assert (ra.route_id, ra.checkpoint_gb) == \
+                (rb.route_id, rb.checkpoint_gb), label
+            assert ra.arrivals_s.tobytes() == rb.arrivals_s.tobytes(), \
+                (label, a.seed, ra.route_id)
+
+
+def _same_result(got, want, label):
+    """Two FleetResults equal in every field but the phase timings."""
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(want):
+        if f.name == "phase_timings":
+            continue
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(w, np.ndarray):
+            assert np.array_equal(g, w), (label, f.name)
+        else:
+            assert g == w, (label, f.name)
+
+
+def _differs(got, want):
+    try:
+        _same_days(got, want, "")
+    except AssertionError:
+        return True
+    return False
+
+
+def _poisson_bounds(days, generator="flash-crowd", **kw):
+    """Every route's count within SIGMAS sigma of the integral of its
+    rate (per hour) over the day; returns the largest |z| and the
+    number of routes."""
+    import inspect
+    import math
+
+    import torch
+
+    from repro_torch.fleet.mega import torchback
+
+    sig = inspect.signature(torchback.sweep_traces).parameters
+    rate_kw = {k: kw.get(k, sig[k].default) for k in (
+        "base_rate_hr", "spike_x", "spike_start_s", "spike_width_s")}
+    horizon_s = kw.get("horizon_s", sig["horizon_s"].default)
+    n_routes = len(days[0].routes)
+    t = torch.linspace(0.0, horizon_s, int(horizon_s) * 2 + 1,
+                       dtype=torch.float64)
+    mu = [0.0] * n_routes
+    for routes, fn, _rmax in torchback.sweep_rates(generator, n_routes,
+                                                   **rate_kw):
+        r = fn(t)
+        m = float(torch.sum(0.5 * (r[1:] + r[:-1]) * torch.diff(t))) / 3600
+        for i in routes:
+            mu[i] = m
+    worst = 0.0
+    for tr in days:
+        for i, route in enumerate(tr.routes):
+            z = (route.arrivals_s.size - mu[i]) / math.sqrt(max(mu[i], 1.0))
+            assert abs(z) <= SIGMAS, (tr.seed, route.route_id,
+                                      route.arrivals_s.size, mu[i])
+            worst = max(worst, abs(z))
+    return worst, len(days) * n_routes
+
+
+def check_sweep():
+    """Phase 4b: ``run_mega_sweep`` on bench_fleet's sweep leg, its
+    arrivals sampled on the card, each point against the numpy backend
+    on its trace."""
+    import torch
+
+    from repro_torch.core.scheduler import Breakeven
+    from repro_torch.fleet import make_trace, run_mega
+    from repro_torch.fleet.mega import torchback
+    from repro_torch.kernels import ops
+
+    seeds = list(SWEEP_SEEDS)
+    ct = make_trace("solar-duck", 0.39)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    days = torchback.sweep_traces(seeds, device=DEV, **SWEEP_KW)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = torchback.sweep_traces(seeds, device=DEV, **SWEEP_KW)
+    torch.cuda.synchronize()
+    resample_s = time.perf_counter() - t0
+    _same_days(again, days, "24-point sweep sampled twice")
+    _same_days(torchback.sweep_traces([5], device=DEV, **SWEEP_KW),
+               [days[5]], "sweep_traces([5]) against point 5")
+    # a planted fault: route seeds taken from the batch position (as one
+    # generator for the whole batch would) must fail the same check
+    real = torchback._sample_group
+    torchback._sample_group = lambda child, *a: real(
+        [child[0] + r for r in range(len(child))], *a)
+    try:
+        alone = torchback.sweep_traces([5], device=DEV, **SWEEP_KW)
+        batch = torchback.sweep_traces(seeds, device=DEV, **SWEEP_KW)
+    finally:
+        torchback._sample_group = real
+    assert _differs(alone, [batch[5]]), "batch-position fault not seen"
+    z, n_routes = _poisson_bounds(days, **SWEEP_KW)
+    print(f"sweep_traces: {len(seeds)} points x {SWEEP_KW['n_routes']} "
+          f"routes, {sum(d.requests for d in days):,} arrivals sampled on "
+          f"the card in {sample_s * 1e3:.3f} ms (synchronised; the first "
+          f"sampling of the run), again in {resample_s * 1e3:.3f} ms, "
+          f"bit-identical; sweep_traces([5]) equal to point 5 (the "
+          f"batch-position fault differs); {n_routes} routes within "
+          f"{SIGMAS:g} sigma (max |z| {z:.3f})")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with _MegaRuns() as runs:
+        t0 = time.perf_counter()
+        results = torchback.run_mega_sweep(
+            seeds=seeds, device=DEV, scenario_kw={"carbon_trace": ct},
+            **SWEEP_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launched(len(seeds), "sweep")
+    assert len(runs.walls) == len(seeds)
+    worst = 0.0
+    bulk = []
+    for tr, res, w in zip(days, results, runs.walls, strict=True):
+        assert res.requests == tr.requests, tr.seed
+        want = run_mega(tr.to_scenario(Breakeven, carbon_trace=ct),
+                        backend="numpy", compute_bound=False)
+        worst = max(worst, _compare_days(res, want, f"sweep point "
+                                         f"{tr.seed}", show=False))
+        bulk.append(res.phase_timings["bulk_scan_s"])
+        print(f"  sweep point {tr.seed}: {res.requests} requests, "
+              f"{res.cold_starts} cold starts, wall {w:.6f} s, "
+              f"bulk_scan_s {bulk[-1]:.6f}")
+    # the torch backend replays a day to the same bits (the batched
+    # planner's equality with serial rests on it)
+    again = run_mega(days[0].to_scenario(Breakeven, carbon_trace=ct),
+                     backend="torch", device=DEV, compute_bound=False)
+    _same_result(again, results[0], "sweep point 0 replayed")
+    print(f"run_mega_sweep: {len(seeds)} points in {wall:.3f} s on the "
+          f"card; each equal to the numpy backend on its trace (requests, "
+          f"cold starts, per-(device, state) joules and seconds bit-equal; "
+          f"carbon max rel diff {worst:.3e}); point 0 replayed bit-equal; "
+          f"launches {launches}")
+    return {"points": len(seeds), "sample_ms": sample_s * 1e3,
+            "resample_ms": resample_s * 1e3, "wall_s": wall, "point_wall_s": runs.walls, "bulk_scan_s": bulk,
+            "launches": launches["fused_meter"]}
+
+
+def check_sweep_acceptance():
+    """Phase 4c: one sweep point at the acceptance day's scale, sampled
+    on the card and replayed on both backends."""
+    import torch
+
+    from repro_torch.core.scheduler import Breakeven
+    from repro_torch.fleet import make_trace
+    from repro_torch.fleet.mega import torchback
+
+    ct = make_trace("solar-duck", 0.39)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    days = torchback.sweep_traces([ACCEPT_SWEEP_SEED], device=DEV,
+                                  **ACCEPT_SWEEP_KW)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    _same_days(torchback.sweep_traces([ACCEPT_SWEEP_SEED], device=DEV,
+                                      **ACCEPT_SWEEP_KW), days,
+               "acceptance-scale point sampled twice")
+    z, n_routes = _poisson_bounds(days, **ACCEPT_SWEEP_KW)
+    print(f"acceptance-scale sweep point: {days[0].requests:,} arrivals "
+          f"over {n_routes} routes sampled on the card in "
+          f"{sample_s * 1e3:.3f} ms (synchronised), a second sample "
+          f"bit-identical, every route within {SIGMAS:g} sigma (max |z| "
+          f"{z:.3f})")
+    launches = _drive(lambda: days[0].to_scenario(Breakeven,
+                                                  carbon_trace=ct),
+                      "acceptance-scale sweep point", compute_bound=False)
+    want = {k: 0 for k in launches}
+    want.update(fused_meter=1, ordered_segment_sum=1)
+    assert launches == want, launches
+    return {"sample_ms": sample_s * 1e3, "arrivals": days[0].requests,
+            "launches": launches["fused_meter"]}
+
+
+def _plan_key(p, skip=()):
+    return tuple(getattr(p, f) for f in PLAN_FIELDS if f not in skip)
+
+
+def _plan(base_fn, axes, label, **kw):
+    """``plan_fleet`` on the card, launch counts reset just before it and
+    checked just after against its mega-torch simulations."""
+    import torch
+
+    from repro_torch.fleet.planner import plan_fleet
+    from repro_torch.kernels import ops
+
+    base = base_fn()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with _MegaRuns() as runs:
+        res = plan_fleet(base, axes, backend="torch", device=DEV, **kw)
+    torch.cuda.synchronize()
+    _launched(len(runs.walls), label)
+    print(f"{label}: {res.stats['points']} points, wall "
+          f"{res.stats['wall_s']:.3f} s, sims {res.stats['sims']} "
+          f"({len(runs.walls)} mega-torch), compiles "
+          f"{res.stats['compiles']}, hypervolume {res.hypervolume!r}")
+    return res, len(runs.walls)
+
+
+def check_planner():
+    """Phase 4d: the Pareto planner on the torch backend: the pinned
+    20-point sweep against the numpy planner and the reference's
+    anchors, then plan_compare's 27-point grid batched against serial."""
+    from repro_torch.fleet.planner import (SPOT_ALL_FLEET, SPOT_H100_FLEET,
+                                           ZONES3_FLEET, PlanAxes,
+                                           pinned_day_axes, pinned_day_base,
+                                           plan_fleet)
+
+    t0 = time.perf_counter()
+    want = plan_fleet(pinned_day_base(), pinned_day_axes(), backend="numpy")
+    numpy_wall = time.perf_counter() - t0
+    got, n_pinned = _plan(pinned_day_base, pinned_day_axes(),
+                          "planner, pinned 24 h day")
+    assert len(got.points) == len(want.points) == 20
+    worst = 0.0
+    for g, w in zip(got.points + [got.reference],
+                    want.points + [want.reference]):
+        assert _plan_key(g, ("engine", "carbon_kg")) == \
+            _plan_key(w, ("engine", "carbon_kg")), g.label()
+        assert g.engine == w.engine.replace("mega-numpy", "mega-torch"), \
+            (g.label(), g.engine, w.engine)
+        worst = max(worst, abs(g.carbon_kg - w.carbon_kg)
+                    / abs(w.carbon_kg))
+    hv = abs(got.hypervolume - want.hypervolume) / abs(want.hypervolume)
+    assert worst <= REL_DAY and hv <= REL_DAY, (worst, hv)
+    assert [p.label() for p in got.frontier] == \
+        [p.label() for p in want.frontier]
+    ref_cost = got.reference.cost_usd
+    best = got.best("cost_usd")
+    best_carbon = got.best("carbon_kg").carbon_kg
+    for value, key in ((ref_cost, "reference_cost"),
+                       (best.cost_usd, "best_cost"),
+                       (best_carbon, "best_carbon")):
+        anchor = PLAN_ANCHORS[key]
+        assert abs(value - anchor) <= 1e-6 * anchor, (key, value, anchor)
+    assert best.fleet == SPOT_ALL_FLEET and best.preemptions > 0
+    print(f"planner, pinned 24 h day: every PlanPoint field equal to the "
+          f"numpy planner's (numpy wall {numpy_wall:.3f} s) but the "
+          f"engine label, carbon max rel diff {worst:.3e}, frontier labels "
+          f"equal, hypervolume rel diff {hv:.3e}; reference cost "
+          f"{ref_cost!r}, best cost {best.cost_usd!r} on {best.fleet} "
+          f"({best.preemptions} preemptions), best carbon {best_carbon!r}")
+    axes = PlanAxes(fleets=(ZONES3_FLEET, SPOT_H100_FLEET, SPOT_ALL_FLEET),
+                    routers=PLAN27_ROUTERS, price_tiers=PLAN27_TIERS)
+    batched, n_batched = _plan(pinned_day_base, axes,
+                               "planner, 27-point grid, batched",
+                               batched=True)
+    serial, n_serial = _plan(pinned_day_base, axes,
+                             "planner, 27-point grid, serial",
+                             batched=False)
+    assert len(batched.points) == len(serial.points) == 27
+    for a, b in zip(serial.points, batched.points):
+        assert _plan_key(a) == _plan_key(b), a.label()
+    assert [_plan_key(p) for p in serial.frontier] == \
+        [_plan_key(p) for p in batched.frontier]
+    assert _plan_key(serial.reference) == _plan_key(batched.reference)
+    assert serial.hypervolume == batched.hypervolume
+    print(f"planner, 27-point grid: batched equal to serial point for "
+          f"point (frontier, reference and hypervolume too)")
+    legs = {}
+    for name, res, n in (("pinned", got, n_pinned),
+                         ("grid27_batched", batched, n_batched),
+                         ("grid27_serial", serial, n_serial)):
+        legs[name] = {"wall_s": res.stats["wall_s"],
+                      "sims": res.stats["sims"],
+                      "compiles": res.stats["compiles"], "launches": n}
+    legs["pinned_numpy_wall_s"] = numpy_wall
+    return legs
+
+
+def drive_stack():
+    """Phases 4a-4d; returns what the kernels line and PERF.md read."""
+    t0 = time.perf_counter()
+    anchor = check_anchor()
+    sweep = check_sweep()
+    accept = check_sweep_acceptance()
+    plans = check_planner()
+    wall = time.perf_counter() - t0
+    print(f"phases 4a-4d: {wall:.3f} s")
+    return {"anchor": anchor, "sweep": sweep, "sweep_acceptance": accept,
+            "planner": plans, "wall_s": wall}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1940,9 +2373,17 @@ def main():
     hgmma = count_hgmma()
     stats = check_kernels()
     main_counts, unfused_counts = drive_days()
+    stack = drive_stack()
+    # the metering kernels' launches on each path of the stack
+    stack_launches = {
+        "anchor": stack["anchor"], "sweep": stack["sweep"]["launches"],
+        "sweep_acceptance": stack["sweep_acceptance"]["launches"],
+        **{f"planner_{k}": v["launches"]
+           for k, v in stack["planner"].items() if isinstance(v, dict)}}
     if "--metering" in sys.argv[1:]:        # phases 1-4 alone
         print(json.dumps({k: {x: y for x, y in v.items()}
                           for k, v in stats.items()}))
+        print(json.dumps({"stack": stack, "launches": stack_launches}))
         return 0
     attn = check_attention()
     check_flash_sm90(attn)
@@ -2005,6 +2446,8 @@ def main():
                 if k in stats[row["name"]]})
             if row["name"] == "ordered_segment_sum":
                 row["acceptance_longest_run"] = main_counts["longest_run"]
+            if row["name"] != "segment_trapz":
+                row["stack_launches"] = stack_launches
         if row["name"] == "flash_attention":
             # every launcher launch took the sm90 route (serve_launcher);
             # the simt kernel (float32, other head dims) timed beside it

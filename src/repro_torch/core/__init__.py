@@ -1,6 +1,6 @@
 """The paper's contribution: parking-tax power model, power-state
-machine, breakeven model, and eviction scheduling (port subset: the
-modules the fleet simulators need)."""
+machine, measurement pipeline, breakeven model, and eviction
+scheduling."""
 from repro_torch.core.power_model import (A100, H100, L40S, PROFILES,
                                           TPU_V5E, DeviceProfile,
                                           get_profile)
@@ -20,6 +20,7 @@ from repro_torch.core.coldstart import (LoaderSpec, TABLE4_LOADERS,
 from repro_torch.core.scheduler import (AdaptiveBreakeven, AlwaysOn,
                                         Breakeven, Clairvoyant,
                                         ExactBreakeven, FixedTTL, Policy)
+from repro_torch.core.simulator import SimResult, compare_policies, simulate
 
 __all__ = [
     "A100", "H100", "L40S", "TPU_V5E", "PROFILES", "DeviceProfile",
@@ -31,5 +32,6 @@ __all__ = [
     "LoaderSpec", "TABLE4_LOADERS", "QWEN25_7B_MEASURED", "PYTORCH_70B",
     "SERVERLESSLLM_70B", "RUNAI_STREAMER_8B", "loader_from_checkpoint",
     "Policy", "AlwaysOn", "FixedTTL", "Breakeven", "ExactBreakeven",
-    "AdaptiveBreakeven", "Clairvoyant",
+    "AdaptiveBreakeven", "Clairvoyant", "SimResult", "simulate",
+    "compare_policies",
 ]

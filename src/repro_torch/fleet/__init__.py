@@ -36,6 +36,9 @@ from repro_torch.fleet.mega import (FleetTrace, GENERATORS,
                                     flash_crowd, product_launch,
                                     regional_outage, run_mega,
                                     trace_from_records)
+from repro_torch.fleet.planner import (OBJECTIVES, PlanAxes, PlanPoint,
+                                       PlanResult, dominates, hypervolume,
+                                       pareto_front, plan_fleet)
 from repro_torch.fleet.pricing import (UNBILLED_STATES, CostBreakdown,
                                        PreemptionModel, Revocation,
                                        billed_seconds, device_gpu_usd,
@@ -58,10 +61,20 @@ __all__ = [
     "FleetModel", "FleetScenario", "FleetResult", "DeviceReport",
     "run_fleet", "single_device_scenario", "mixed_fleet_scenario",
     "clairvoyant_bound", "zone_decomposition",
-    "MegaUnsupportedError", "run_mega", "GENERATORS",
+    "MegaUnsupportedError", "run_mega", "run_mega_sweep", "GENERATORS",
     "FleetTrace", "RouteTrace", "flash_crowd", "product_launch",
     "regional_outage", "trace_from_records",
+    "OBJECTIVES", "PlanAxes", "PlanPoint", "PlanResult", "dominates",
+    "hypervolume", "pareto_front", "plan_fleet",
     "PRICE_TIERS", "normalize_tier", "UNBILLED_STATES", "CostBreakdown",
     "PreemptionModel", "Revocation", "billed_seconds", "device_gpu_usd",
     "device_tier_map", "price_fleet",
 ]
+
+
+def __getattr__(name):
+    # the sweep entry point is resolved lazily by the mega package
+    if name == "run_mega_sweep":
+        from repro_torch.fleet import mega
+        return mega.run_mega_sweep
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

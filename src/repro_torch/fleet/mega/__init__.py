@@ -20,6 +20,8 @@ from repro_torch.fleet.mega.traces import (
 __all__ = [
     "MegaUnsupportedError",
     "run_mega",
+    "run_mega_sweep",
+    "sweep_traces",
     "GENERATORS",
     "FleetTrace",
     "RouteTrace",
@@ -28,3 +30,14 @@ __all__ = [
     "regional_outage",
     "trace_from_records",
 ]
+
+_LAZY = {"run_mega_sweep", "sweep_traces"}
+
+
+def __getattr__(name):
+    # the sweep entry points live in torchback, which imports torch --
+    # resolved lazily (PEP 562) so importing the package stays light
+    if name in _LAZY:
+        from repro_torch.fleet.mega import torchback
+        return getattr(torchback, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

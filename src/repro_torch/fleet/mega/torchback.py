@@ -36,7 +36,13 @@ Everything is float64 on the device (Hopper has native FP64).  Both
 backends drive the identical event loop and see identical calls, so
 requests/cold starts are equal, per-(device, state) energy is
 bit-equal, and carbon totals agree to <=1e-9 relative -- pinned in
-``tests/test_torch_mega.py``.
+``tests/test_torch_mega.py``.  Every reduction is deterministic, so a
+day replays to the same bits.
+
+``sweep_traces`` / ``run_mega_sweep`` run batches of production-shaped
+days: each route's thinned-Poisson arrivals are sampled on the device
+from its own generator, then every point replays through
+``run_mega(backend="torch")`` (``tests/test_torch_sweep.py``).
 """
 from __future__ import annotations
 
@@ -45,13 +51,15 @@ import itertools
 import math
 import os
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.fleet.carbon import CarbonTrace
+from repro_torch.fleet.fleetsim import DAY, FleetResult
 from repro_torch.fleet.mega import megasim
+from repro_torch.fleet.mega.traces import FleetTrace, RouteTrace, _route_plan
 from repro_torch.kernels import ops, ref
 
 _J_PER_KWH = 3.6e6
@@ -133,8 +141,13 @@ def _energy_segsum(keys: torch.Tensor, dt: torch.Tensor, pw: torch.Tensor,
 
 
 def _segsum(x: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
+    """Per-key sums of ``x``, the same bits on every run: ``index_put_``
+    with ``accumulate=True`` adds each key's entries in a fixed order
+    (``index_add_`` on the GPU adds with atomics in whatever order the
+    threads land, so two replays of one day could differ in the last
+    bit)."""
     return torch.zeros(num, dtype=x.dtype, device=x.device) \
-        .index_add_(0, idx, x)
+        .index_put_((idx,), x, accumulate=True)
 
 
 def _carbon_fused(a, b, w, dev, bucket, pseg, pk, pw, kt, kv, cum, tbr, *,
@@ -176,15 +189,16 @@ def _meter_fused(keys, a, b, dt, pw, g, bucket, tdev, pseg, pk, pwp,
         end-bin + straddle-correction decomposition of
         ``_carbon_fused``, over raw log entries and with every zone's
         trace in one stacked-table launch;
-      * per-tier billed seconds -- a segment-sum of the SAME kernel
-        output (in mega scope every metered state is powered-on, so
-        raw seconds == billed seconds).
+      * per-tier billed seconds -- the per-(device, state) seconds
+        summed by their device's tier (in mega scope every metered
+        state is powered-on, so raw seconds == billed seconds): 3 x
+        n_dev values, not one run of the whole log per tier.
     """
     e, s, c, fa = ops.fused_meter(a, b, dt, pw, g, kts, kvs, cums, pers)
     es = ops.ordered_segment_sum(torch.stack([e, s]), keys, n_dev * 3)
     dev = keys // 3
     per_dev = _segsum(c, dev, n_dev) / _J_PER_KWH
-    tier_s = _segsum(s, tdev[dev], n_tier)
+    tier_s = _segsum(es[1], tdev.repeat_interleave(3), n_tier)
     full = torch.cumsum(_segsum(c, bucket, nb), 0)
     if nb > 1 and pseg.numel():
         Fb = ref.prefix_integral(                          # [G, nb-1]
@@ -554,3 +568,235 @@ class _TorchBulk:
         self._sync()
         self.t["energy_s"] += time.perf_counter() - t1
         return energy_j, dur_s, per_dev_l, timeline, tier_billed
+
+
+def compiled_program_count() -> int:
+    """How many compiled programs the torch backend holds in this
+    process: the CUDA libraries ``kernels/_build.py`` has built or
+    loaded.  Eager PyTorch keeps no jit cache, so this is not a count of
+    traced programs: a sweep pays its one build-and-load at its first
+    point on the card and adds 0 after it (on the CPU, where no kernel
+    launches, it stays 0).  The batched planner reports the delta per
+    sweep."""
+    from repro_torch.kernels import _build
+    return _build.loaded()
+
+
+# ---------------------------------------------------------------------------
+# Sweeps: many production-shaped days, their arrivals sampled on the device.
+# ---------------------------------------------------------------------------
+
+def _diurnal_hr_t(base_hr: float, t: torch.Tensor) -> torch.Tensor:
+    """Torch twin of ``traces._diurnal_hr`` (same day shape, same order
+    of operations)."""
+    h = (t / 3600.0) % 24.0
+    return base_hr * (0.55 + 0.45 * torch.sin((h - 9.0) * math.pi / 12.0))
+
+
+def _flash_rate(base_rate_hr: float, spike_x: float, spike_start_s: float,
+                spike_width_s: float):
+    """Route 0 of ``traces.flash_crowd``: the diurnal baseline times
+    ``1 + spike_x`` over the spike, then an exponential cool-down."""
+    tail_s = 2.0 * spike_width_s
+
+    def rate(t: torch.Tensor) -> torch.Tensor:
+        r = _diurnal_hr_t(base_rate_hr, t)
+        dt = t - spike_start_s
+        hot = (dt >= 0.0) & (dt < spike_width_s)
+        cool = (dt >= spike_width_s) & (dt < spike_width_s + tail_s)
+        boost = hot.to(t.dtype) * spike_x + torch.where(
+            cool, spike_x * torch.exp(-(dt - spike_width_s)
+                                      / (0.35 * spike_width_s)), 0.0)
+        return r * (1.0 + boost)
+
+    return rate
+
+
+def _launch_rate(t: torch.Tensor) -> torch.Tensor:
+    """Route 0 of ``traces.product_launch`` at its default launch: zero
+    before 9 h, then 600/h decaying to 60/h over 4 h."""
+    dt = t - 9 * 3600.0
+    surge = 60.0 + (600.0 - 60.0) * torch.exp(-torch.clamp(dt, min=0.0)
+                                              / (4 * 3600.0))
+    return torch.where(dt >= 0.0, surge, 0.0)
+
+
+def _outage_rate(base_rate_hr: float):
+    """Every route of ``traces.regional_outage`` at its default outage:
+    dark over [11 h, 12 h), then 3x the baseline for 30 minutes."""
+    out0, out1 = 11 * 3600.0, 12 * 3600.0
+
+    def rate(t: torch.Tensor) -> torch.Tensor:
+        r = _diurnal_hr_t(base_rate_hr, t)
+        dark = (t >= out0) & (t < out1)
+        surge = (t >= out1) & (t < out1 + 1800.0)
+        return torch.where(dark, 0.0, torch.where(surge, r * 3.0, r))
+
+    return rate
+
+
+def sweep_rates(generator: str, n_routes: int, *, base_rate_hr: float,
+                spike_x: float, spike_start_s: float, spike_width_s: float
+                ) -> List[Tuple[List[int],
+                                Callable[[torch.Tensor], torch.Tensor],
+                                float]]:
+    """The rate families of one sweep day: ``(route indices, rate
+    function of t in seconds -> arrivals per hour, envelope rate)`` per
+    family, each route in exactly one."""
+    if generator not in ("flash-crowd", "product-launch",
+                         "regional-outage"):
+        raise KeyError(f"unknown sweep generator {generator!r}")
+
+    def base(t):
+        return _diurnal_hr_t(base_rate_hr, t)
+
+    rest = list(range(1, n_routes))
+    if generator == "flash-crowd":
+        return [([0], _flash_rate(base_rate_hr, spike_x, spike_start_s,
+                                  spike_width_s),
+                 base_rate_hr * (1.0 + spike_x)),
+                (rest, base, base_rate_hr)]
+    if generator == "product-launch":
+        return [([0], _launch_rate, 600.0), (rest, base, base_rate_hr)]
+    return [(list(range(n_routes)), _outage_rate(base_rate_hr),
+             base_rate_hr * 3.0)]
+
+
+def _envelope_n(rate_max_hr: float, horizon_s: float) -> int:
+    """The static sample width of a family: the envelope's mean count
+    plus ~10 sigma of headroom."""
+    lam = rate_max_hr * horizon_s / 3600.0
+    return int(lam + 10.0 * math.sqrt(lam + 1.0) + 20.0)
+
+
+def _sample_group(child_seeds: Sequence[int], rate_fn, rate_max: float,
+                  horizon_s: float, n_max: int, device: torch.device
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Thinned inhomogeneous Poisson on ``device`` at a static shape,
+    one row per route: each route draws from its own generator on the
+    device, seeded with its child seed, the envelope count (clamped to
+    ``n_max``), ``n_max`` uniform times and ``n_max`` uniform marks in
+    float64, in that order, so a route's day depends on its seed alone.
+    The whole group is then thinned (``keep = i < count & mark <
+    rate(t)``) and sorted at once, rejected samples sent to +inf, and
+    copied to the host in one transfer."""
+    rows = len(child_seeds)
+    f64 = torch.float64
+    lam = torch.full((1,), rate_max * horizon_s / 3600.0, dtype=f64,
+                     device=device)
+    t = torch.empty((rows, n_max), dtype=f64, device=device)
+    u = torch.empty_like(t)
+    cnt = torch.empty(rows, dtype=f64, device=device)
+    for r, seed in enumerate(child_seeds):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        cnt[r:r + 1] = torch.poisson(lam, generator=gen)
+        t[r].uniform_(0.0, horizon_s, generator=gen)
+        u[r].uniform_(0.0, rate_max, generator=gen)
+    n = torch.clamp(cnt, max=float(n_max)).to(torch.int64)
+    keep = ((torch.arange(n_max, device=device)[None, :] < n[:, None])
+            & (u < rate_fn(t)))
+    ts = torch.where(keep, t, math.inf).sort(dim=1).values
+    return ts.cpu().numpy(), keep.sum(dim=1).cpu().numpy()
+
+
+def sweep_traces(seeds: Sequence[int], *, generator: str = "flash-crowd",
+                 n_routes: int = 8, fleet: str = "2xh100+2xa100+2xl40s",
+                 horizon_s: float = DAY, base_rate_hr: float = 40.0,
+                 spike_x: float = 40.0,
+                 spike_start_s: float = 13 * 3600.0,
+                 spike_width_s: float = 1800.0,
+                 device: Optional[str] = None) -> List[FleetTrace]:
+    """A batch of production-shaped days with their arrivals sampled on
+    ``device`` (``None`` means the GPU; see ``resolve_device``).
+
+    Each point keeps the numpy generators' route plan: child seeds and
+    checkpoint sizes come from ``traces._route_plan`` on the point's
+    seed.  The day shapes are those of ``traces.flash_crowd`` /
+    ``product_launch`` / ``regional_outage`` (the last two at their
+    default launch and outage), and all routes of all points that share
+    a rate family are thinned in one batch (``_sample_group``).  Each
+    route samples from its own device generator seeded with its child
+    seed, so the same seeds give a bit-identical batch on one device,
+    and a point's day is the same whichever other seeds share the
+    batch.  The streams are PyTorch's, not numpy's: the days are
+    statistically, not bitwise, the numpy generators' days, and CPU and
+    CUDA generators give different streams."""
+    groups = sweep_rates(generator, n_routes, base_rate_hr=base_rate_hr,
+                         spike_x=spike_x, spike_start_s=spike_start_s,
+                         spike_width_s=spike_width_s)
+    dev = resolve_device(device)
+    plans = [_route_plan(np.random.default_rng(int(s)), n_routes)
+             for s in seeds]
+    # (point, route) -> (family, row in that family's sample)
+    where: Dict[Tuple[int, int], Tuple[int, int]] = {}
+    sampled = []
+    for gi, (routes, rate_fn, rmax) in enumerate(groups):
+        child = []
+        for p, (child_seeds, _) in enumerate(plans):
+            for i in routes:
+                where[(p, i)] = (gi, len(child))
+                child.append(int(child_seeds[i]))
+        sampled.append(_sample_group(
+            child, rate_fn, rmax, horizon_s, _envelope_n(rmax, horizon_s),
+            dev) if child else None)
+    traces: List[FleetTrace] = []
+    for p, (seed, (_, ckpt)) in enumerate(zip(seeds, plans)):
+        routes = []
+        for i in range(n_routes):
+            gi, row = where[(p, i)]
+            ts, cnt = sampled[gi]
+            routes.append(RouteTrace(
+                route_id=f"r{i}", arrivals_s=ts[row, :int(cnt[row])].copy(),
+                checkpoint_gb=float(ckpt[i])))
+        traces.append(FleetTrace(name=f"{generator}-sweep", fleet=fleet,
+                                 horizon_s=horizon_s, routes=tuple(routes),
+                                 seed=int(seed)))
+    return traces
+
+
+def run_mega_sweep(scenarios=None, *, seeds: Optional[Sequence[int]] = None,
+                   policy_factory=None, router: str = "warm-first",
+                   compute_bound: bool = False,
+                   scenario_kw: Optional[dict] = None,
+                   on_unsupported: str = "raise",
+                   device: Optional[str] = None,
+                   **trace_kw) -> List[Optional[FleetResult]]:
+    """Run a sweep of mega days on the torch backend: either explicit
+    ``scenarios`` (any ``FleetScenario`` in run_mega's scope) or
+    ``seeds`` + generator kwargs (``generator=``, ``n_routes=``,
+    ``fleet=``, ... -- see ``sweep_traces``), whose arrivals are then
+    sampled on ``device`` in one batch per rate family.
+
+    The points replay through ``run_mega(backend="torch",
+    device=device)`` one after another (the structural event loop is
+    serial); the CUDA libraries load at the first point on the card and
+    are shared by the rest.  Returns one ``FleetResult`` per point, in
+    input order.  ``on_unsupported="skip"`` returns ``None`` for points
+    outside run_mega's scope (``MegaUnsupportedError``) instead of
+    raising -- the seam the batched planner dispatches event-loop
+    fallbacks behind."""
+    if (scenarios is None) == (seeds is None):
+        raise ValueError("pass exactly one of scenarios= or seeds=")
+    if on_unsupported not in ("raise", "skip"):
+        raise ValueError(f"on_unsupported={on_unsupported!r}")
+    if seeds is not None:
+        if policy_factory is None:
+            from repro_torch.core.scheduler import Breakeven
+            policy_factory = Breakeven
+        traces = sweep_traces(seeds, device=device, **trace_kw)
+        scenarios = [tr.to_scenario(policy_factory, router,
+                                    **(scenario_kw or {}))
+                     for tr in traces]
+    elif trace_kw:
+        raise ValueError(f"trace kwargs {sorted(trace_kw)} need seeds=")
+    out: List[Optional[FleetResult]] = []
+    for sc in scenarios:
+        try:
+            out.append(megasim.run_mega(sc, compute_bound=compute_bound,
+                                        backend="torch", device=device))
+        except megasim.MegaUnsupportedError:
+            if on_unsupported != "skip":
+                raise
+            out.append(None)
+    return out

@@ -104,6 +104,11 @@ def build_all() -> Dict[str, float]:
     return secs
 
 
+def loaded() -> int:
+    """How many of the libraries this process has loaded."""
+    return len(_libs)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if missing."""
     lib = _libs.get(name)

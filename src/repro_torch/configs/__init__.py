@@ -3,8 +3,9 @@
 Each module exports CONFIG (the full-scale config) and ``reduced()`` (a
 structurally identical small config for CPU tests).  ``get_config`` /
 ``ARCHS`` are the registry the launcher consumes (``--arch <id>``).
-The reference's other nine configs join as the blocks they need are
-ported (ROADMAP.md).
+Seven of the reference's eleven configs are here; MLA (minicpm3-4b,
+deepseek-v2-236b), the encoder tower (whisper-base) and the xLSTM blocks
+(xlstm-125m) join as the blocks they need are ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,6 +17,11 @@ from repro_torch.models.config import ArchConfig
 _MODULES = [
     "qwen2_5_7b",          # the paper's section 4.3 validation model
     "recurrentgemma_9b",   # hybrid: RG-LRU + local attention
+    "gemma3_1b",           # dense: 5:1 local:global windows and thetas
+    "granite_20b",         # dense: MQA (48 query heads over 1 kv head)
+    "command_r_35b",       # dense: GQA, the largest dense checkpoint
+    "internvl2_26b",       # vlm: 256 prefix embeddings before the tokens
+    "mixtral_8x22b",       # moe: 8 experts top-2, sliding window
 ]
 
 ARCHS: List[str] = [m.replace("_", "-") for m in _MODULES]

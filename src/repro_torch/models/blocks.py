@@ -7,9 +7,9 @@ writes the cache at offset 0 (prefill), or on one token against the
 cache (decode) -- the cache and its offset say which.
 
 The port has the attention mixer (the Qwen2.5 / Llama block) and the
-RG-LRU mixer (RecurrentGemma), each with the dense SwiGLU FFN.  Other
-mixers and FFNs raise ``NotImplementedError`` naming the slice that
-brings them.
+RG-LRU mixer (RecurrentGemma), each with the dense SwiGLU FFN or the
+MoE FFN (``models/moe.py``: Mixtral).  Other mixers and FFNs raise
+``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ArchConfig, BlockSpec, FFN, Mixer
 from repro_torch.models.layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
@@ -30,7 +31,6 @@ _LATER = {
     Mixer.MLA: "the MLA slice (DeepSeek-V2, MiniCPM3)",
     Mixer.MLSTM: "the xLSTM slice",
     Mixer.SLSTM: "the xLSTM slice",
-    FFN.MOE: "the MoE slice (Mixtral, DeepSeek-V2)",
     FFN.NONE: "the xLSTM slice",
 }
 
@@ -52,8 +52,9 @@ def block_param_specs(cfg: ArchConfig, blk: BlockSpec) -> Tree:
     d = cfg.d_model
     mixer = {"rglru": rec.rglru_specs(cfg)} if blk.mixer == Mixer.RGLRU \
         else {"attn": attn.gqa_specs(cfg)}
+    ffn = moe_lib.moe_specs(cfg) if blk.ffn == FFN.MOE else mlp_spec(cfg)
     return {"norm_mixer": rmsnorm_spec(d), **mixer,
-            "norm_ffn": rmsnorm_spec(d), "ffn": mlp_spec(cfg)}
+            "norm_ffn": rmsnorm_spec(d), "ffn": ffn}
 
 
 def block_cache_specs(cfg: ArchConfig, blk: BlockSpec, batch: int,
@@ -78,8 +79,11 @@ def apply_block(
     cache: Optional[Tree] = None,
     cache_offset=None,
     causal: bool = True,
+    moe_impl: Optional[str] = None,
+    moe_group: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Tree]]:
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache).  ``moe_impl`` / ``moe_group`` override the
+    MoE config's dispatch and group size (``RunFlags``)."""
     _supported(blk)
     # without per-layer overrides the BlockSpec's window / theta hold
     if cfg.layer_windows is None and cfg.layer_thetas is None:
@@ -104,4 +108,11 @@ def apply_block(
         new_cache = {"attn": nc} if cache is not None else None
     x = x + y
     h = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], h), new_cache
+    if blk.ffn == FFN.MOE:
+        # the router's auxiliary loss is a training term: prefill and
+        # decode drop it until the training slice adds ``train_loss``
+        y, _ = moe_lib.moe_ffn(p["ffn"], h, cfg, impl=moe_impl,
+                               group_size=moe_group)
+    else:
+        y = mlp(p["ffn"], h)
+    return x + y, new_cache

@@ -9,8 +9,8 @@ layout, so weights carry across as plain copies).  Per-layer *metadata*
 (attention window, rope theta) rides along per layer.
 
 The data classes are the reference's; dtypes are torch dtypes.  The
-MLA, MoE and encoder configs (and the xLSTM mixers) are kept as data:
-their blocks are not ported yet (``models/blocks.py`` raises for them).
+MLA and encoder configs (and the xLSTM mixers) are kept as data: their
+blocks are not ported yet (``models/blocks.py`` raises for them).
 """
 from __future__ import annotations
 

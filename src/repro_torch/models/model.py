@@ -5,7 +5,10 @@ are stacked with a leading "layers" axis, as in the reference, and the
 port walks the layers in a Python loop where the reference uses
 ``lax.scan``.  Everything runs eagerly; the attention and the RG-LRU
 recurrence inside each layer go through the port's kernels
-(``models/attention.py``, ``models/recurrent.py``).
+(``models/attention.py``, ``models/recurrent.py``), the MoE FFN's
+dispatch and expert products through plain PyTorch (``models/moe.py``).
+A vision-language config's prefix embeddings (``batch["prefix_embeds"]``)
+go before the token embeddings in a prefill.
 
 The training loss and the encoder tower come with later slices.
 """
@@ -28,9 +31,11 @@ Tree = Any
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """Per-step execution knobs (the reference's; this slice reads none
-    of them -- remat, scan unrolling, query chunking and MoE dispatch
-    belong to paths not ported yet -- and keeps them for its callers)."""
+    """Per-step execution knobs (the reference's).  The port reads
+    ``moe_impl`` and ``moe_group`` (the MoE dispatch) and its callers
+    ``cache_dtype``; remat, scan unrolling, query chunking and gradient
+    accumulation belong to paths not ported yet and are kept for their
+    callers."""
     remat: str = "full"            # none | full | dots
     moe_impl: Optional[str] = None  # override cfg.moe.impl
     scan_unroll: int = 1
@@ -129,6 +134,7 @@ def _run_groups(
     caches: Optional[Tree] = None,
     cache_offset=None,
     causal: bool = True,
+    flags: RunFlags = RunFlags(),
 ) -> Tuple[torch.Tensor, Optional[Tree]]:
     """Run every layer in order; returns (x, new caches or None)."""
     new_caches: Optional[Dict[str, Tree]] = {} if caches is not None \
@@ -146,7 +152,9 @@ def _run_groups(
                 x, nc = apply_block(
                     _layer(gp[key], r), blk, cfg, x, positions, meta,
                     cache=_layer(gc[key], r) if gc is not None else None,
-                    cache_offset=cache_offset, causal=causal)
+                    cache_offset=cache_offset, causal=causal,
+                    moe_impl=flags.moe_impl,
+                    moe_group=flags.moe_group or None)
                 layer_caches[key].append(nc)
         if new_caches is not None:
             new_caches[g.name] = {k: _stack(v)
@@ -160,16 +168,18 @@ def _run_groups(
 
 def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any]
                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Embed tokens.  Returns (x, positions, n_prefix)."""
-    if cfg.n_prefix_embeddings > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: prefix embeddings are not ported yet; they come "
-            f"with the vision-language slice (internvl2)")
+    """Embed tokens, prepend a VLM's prefix embeddings if any.
+    Returns (x, positions, n_prefix)."""
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg).to(cfg.compute_dtype)
+    n_prefix = 0
+    if cfg.n_prefix_embeddings > 0:
+        pre = batch["prefix_embeds"].to(cfg.compute_dtype)
+        n_prefix = pre.shape[1]
+        x = torch.cat([pre, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    return x, positions, 0
+    return x, positions, n_prefix
 
 
 def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
@@ -180,7 +190,7 @@ def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
     x, positions, _ = _prepare_inputs(params, cfg, batch)
     x, new_caches = _run_groups(
         params, cfg.groups, cfg, x, positions, build_meta(cfg),
-        caches=caches, cache_offset=0)
+        caches=caches, cache_offset=0, flags=flags)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg)[:, 0, :]
     return logits, new_caches
@@ -197,7 +207,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, caches: Tree,
     positions = (pos + torch.arange(s, device=x.device))[None].expand(b, s)
     x, new_caches = _run_groups(
         params, cfg.groups, cfg, x, positions, build_meta(cfg),
-        caches=caches, cache_offset=pos)
+        caches=caches, cache_offset=pos, flags=flags)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg)[:, -1, :]
     return logits, new_caches

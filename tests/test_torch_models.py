@@ -61,7 +61,8 @@ def weights():
 
 
 def test_registry_and_config_match_reference():
-    assert ARCHS == [ARCH, RG]
+    assert ARCHS == [ARCH, RG, "gemma3-1b", "granite-20b", "command-r-35b",
+                     "internvl2-26b", "mixtral-8x22b"]
     for ours, theirs in ((get_config(ARCH), jget_config(ARCH)),
                          (get_reduced(ARCH), jget_reduced(ARCH))):
         a, b = dataclasses.asdict(ours), dataclasses.asdict(theirs)
@@ -265,7 +266,7 @@ def test_cases_without_a_kernel_raise(weights):
     with pytest.raises(NotImplementedError, match="chunked prefill"):
         decode_step(params, toks, c2, 3, cfg, FLAGS)
     for mixer, ffn in ((Mixer.MLSTM, FFN.DENSE), (Mixer.MLA, FFN.DENSE),
-                       (Mixer.ATTN, FFN.MOE)):
+                       (Mixer.ATTN, FFN.NONE)):
         other = dataclasses.replace(
             cfg, groups=(ScanGroup("main", 2, (BlockSpec(mixer, ffn),)),),
             mla=True, moe=True, recurrent=True)

@@ -6,8 +6,9 @@ RecurrentGemma-9B, with the reference's own weights carried over through
 Contract: on every slot case of ``tests/test_serving.py`` (deterministic
 generation, slot isolation, exhaustion, release-and-reuse, admission
 under a full pool, interleaving) the port's greedy tokens equal the
-reference engine's; the launcher prints the same lines (requests, cold
-starts, Wh, parking-tax Wh, added latency) as the reference launcher.
+reference engine's, on reduced Qwen and on reduced Mixtral (MoE); the
+launcher prints the same lines (requests, cold starts, Wh, parking-tax
+Wh, added latency) as the reference launcher.
 The reference engine cannot serve reduced RecurrentGemma (its bfloat16
 conv-state slots refuse the float32 state its block returns), so there
 the port's engine is held against a chain of the reference's
@@ -48,20 +49,30 @@ from repro_torch.serving import ServingEngine
 
 ARCH = "qwen2-5-7b"
 RG = "recurrentgemma-9b"
+MOE = "mixtral-8x22b"
 
 
-@pytest.fixture(scope="module")
-def engines():
+def _engines(arch):
     """The reference engine and the port's, on the same weights."""
-    jcfg = jget_reduced(ARCH)
+    jcfg = jget_reduced(arch)
     jp = jmaterialize(jbuild_param_specs(jcfg), jax.random.PRNGKey(0))
-    cfg = get_reduced(ARCH)
+    cfg = get_reduced(arch)
     params = params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, jp),
                                "cpu")
     return (JServingEngine(jcfg, jp, max_batch=3, max_len=32,
                            flags=JRunFlags(remat="none")),
             ServingEngine(cfg, params, max_batch=3, max_len=32,
                           flags=RunFlags(remat="none"), device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def engines():
+    return _engines(ARCH)
+
+
+@pytest.fixture(scope="module")
+def moe_engines():
+    return _engines(MOE)
 
 
 def _deterministic(engine):
@@ -137,12 +148,21 @@ def _interleaved(engine):
     return solo_bg + solo_fg + toks
 
 
-@pytest.mark.parametrize("case", [_deterministic, _slots_isolated,
-                                  _exhaustion, _release_then_reuse,
-                                  _admit_when_full, _interleaved],
-                         ids=lambda f: f.__name__.strip("_"))
+CASES = (_deterministic, _slots_isolated, _exhaustion, _release_then_reuse,
+         _admit_when_full, _interleaved)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda f: f.__name__.strip("_"))
 def test_engine_tokens_match_reference(engines, case):
     jeng, eng = engines
+    assert case(eng) == case(jeng)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda f: f.__name__.strip("_"))
+def test_moe_engine_tokens_match_reference(moe_engines, case):
+    """Reduced Mixtral: a 1-5 token prompt dispatches at capacity
+    max(ceil(S * 2 * 2.0 / 4), 1), a decode step at 1 a sequence."""
+    jeng, eng = moe_engines
     assert case(eng) == case(jeng)
 
 

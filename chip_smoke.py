@@ -9,11 +9,12 @@ the card, drives ``repro_torch.fleet.run_mega(backend="torch")`` on the
 600-device, ~1M-request acceptance day and checks it against the port's
 numpy backend, drives the rest of the fleet-accounting stack
 (``core.simulator``, ``run_mega_sweep`` and ``plan_fleet``), then serves
-Qwen2.5-7B, RecurrentGemma-9B, gemma3-1b, granite-20b, command-r-35b,
-internvl2-26b and Mixtral-8x22B (12 of its 56 layers) through
-``ServingEngine``, ``repro_torch.launch.serve`` or, for internvl2's
-prefix embeddings, the model's ``prefill`` / ``decode_step``.  Phases,
-in order:
+all eleven of the reference's archs: Qwen2.5-7B, RecurrentGemma-9B,
+gemma3-1b, granite-20b, command-r-35b, internvl2-26b, Mixtral-8x22B (12
+of its 56 layers), minicpm3-4b, deepseek-v2-236b (7 of its 60 layers),
+whisper-base and xlstm-125m, through ``ServingEngine``,
+``repro_torch.launch.serve`` or, for internvl2's prefix embeddings, the
+model's ``prefill`` / ``decode_step``.  Phases, in order:
 
   1. the card (``nvidia-smi`` name and power limit) and the build time
      (every source in parallel, with its ``ptxas`` register and spill
@@ -101,7 +102,9 @@ in order:
      B=4, T=4096 and at the granite and gemma3 launchers' T=48, prefill
      at gemma3's 2048-token prompt under its 512-token window (the
      library's mask a boolean causal band) and at the granite
-     launcher's S=3;
+     launcher's S=3; and whisper's two rows: its encoder prefill
+     (B=1, 8 heads, S = T = 1500, D = 64, no causal mask) and its cross
+     decode (B=4, 8 heads over 8, T = 1500, split, views);
   6. Qwen2.5-7B's widths at depth 2 in float32, the same weights served
      on the card and on the CPU: logits within 2e-3 of their max
      magnitude, greedy tokens equal; each side's prefill logits beside a
@@ -176,17 +179,47 @@ in order:
       reason is printed; its wall;
   14. the new archs at full width in bf16, counted as phase 7: the
       gemma3-1b, granite-20b and command-r-35b launchers at full depth,
-      ``--hours 3`` (26, 52 and 40 launches of each kernel a call; every
+      ``--hours 2`` (26, 52 and 40 launches of each kernel a call; every
       prefill sm90,
       every decode single; energy lines equal to the ``--reduced`` CPU
       runs; ``max_memory_allocated`` printed), each profiled as phase 8;
       internvl2-26b at full depth at the model level (B = 4, 256 prefix
       embeddings + 16 tokens, 8 decode steps, 48 launches a call);
       Mixtral-8x22B at 12 of its 56 layers through ``ServingEngine``
-      with the launcher's settings on the launcher's 66 requests (12
+      with the launcher's settings on the launcher's 5 requests (12
       launches a call, drops of one request printed), then profiled;
       the card's cache emptied between runs; its wall;
-  15. one JSON line describing every kernel (the metering rows: the
+  15. both attention kernels at whisper-base's shapes (one query head a
+      kv head, D = 64), bf16 and float32, as phase 12, routes asserted:
+      the encoder's non-causal prefill at S = T = 1500, the cross
+      prefill of 3 tokens against the 1500 rows and the causal self
+      prefill against 48 rows (both through views), a self prefill at
+      S = T = 300; the cross decode of 4 slots over 1500 rows (split,
+      views; the planted combines must fail) and the self decode over
+      48 rows (single, views); its wall;
+  16. the new archs at full width in float32, cut in depth where they
+      are big, as phase 13 (each kernel call against float64 attention,
+      the calls exactly those of the config: none for MLA and xLSTM;
+      logits within 2e-3 of the CPU's and of float64's, greedy tokens
+      equal): whisper-base at full depth at the model level against
+      1500 source frames from a seed, xlstm-125m at full depth,
+      minicpm3-4b at depth 2, deepseek-v2 at depth 1 (its drops
+      printed) where the host has the memory, else the reason is
+      printed; its wall;
+  17. the new archs at full width in bf16, counted as phase 7 and each
+      profiled as phase 8: the minicpm3-4b (62 layers) and xlstm-125m
+      (12) launchers at ``--hours 2`` (5 requests; energy lines equal to
+      the ``--reduced`` CPU runs; no kernel launch at all: MLA and
+      xLSTM are plain PyTorch); whisper-base through ``ServingEngine``
+      with the launcher's settings on 24 of its requests, 1500 frames
+      from a seed as each ``admit``'s extras (the launcher itself raises
+      ``KeyError('source_embeds')``, as the reference's): exactly 18
+      ``flash_attention`` launches a prefill (6 encoder, 6 self, 6
+      cross; all sm90) and 12 ``decode_attention`` a step (6 single, 6
+      split); deepseek-v2 at 7 of its 60 layers (~57.7 GB) through
+      ``ServingEngine`` on 24 requests, no launch, drops printed; its
+      wall;
+  18. one JSON line describing every kernel (the metering rows: the
       input sets, FP64 instructions an entry or the longest run and the
       dependent-add latency; the flash row: the sm90
       kernel's time, the simt kernel's beside it, every timed prefill
@@ -196,10 +229,12 @@ in order:
       scan row: the serial route's time beside the chunked one's, and
       every timed shape; the metering rows also carry their launches
       on the paths of 4a-4d, ``stack_launches``);
-  16. as the last line, ``{"ok": true, "device": {...}}``.
+  19. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
-the last line.  It also exits non-zero without a CUDA device.
+the last line.  Phases 1-14 take 631-639 s on an H100 80GB HBM3 at
+700 W; phases 15-17 are sized to keep the whole under about 900 s of
+the 1200 s limit.  It also exits non-zero without a CUDA device.
 ``python3 chip_smoke.py --metering`` stops after phase 4d and prints
 the metering kernels' figures and the stack's walls and launches as two
 JSON lines instead of the last two.
@@ -705,6 +740,9 @@ DECODE_ROWS = (
     ("granite 4096", 4, 48, 1, 4096, 128, 4096, False),
     ("granite launcher", 4, 48, 1, 48, 128, 6, True),
     ("gemma3 launcher", 4, 4, 1, 48, 256, 6, True),
+    # whisper's cross-attention decode: 4 slots over the 1500 encoder
+    # rows of the engine's cache (one query head a kv head, split route)
+    ("whisper cross 1500", 4, 8, 8, 1500, 64, 1500, True),
 )
 # input sets a timed call rotates over: together at least this many
 # bytes, twice the 50 MB L2, so no call finds its inputs there
@@ -1150,26 +1188,31 @@ def time_attention(stats):
     return rows
 
 
-# bf16 prefill timing rows: (label, B, H, Hkv, S, T, D, window, views);
-# ``views``: q, k, v read through [B,S|T,heads,D] tensors, as the
-# launcher hands them over (a 3-token prompt against 48 cache rows)
+# bf16 prefill timing rows: (label, B, H, Hkv, S, T, D, window, views,
+# causal); ``views``: q, k, v read through [B,S|T,heads,D] tensors, as
+# the launcher hands them over (a 3-token prompt against 48 cache rows)
 FLASH_ROWS = (
-    ("qwen 2048", 1, 28, 4, 2048, 2048, 128, None, False),
-    ("recurrentgemma 2048", 1, 16, 1, 2048, 2048, 256, 2048, False),
-    ("qwen launcher", 1, 28, 4, 3, 48, 128, None, True),
-    ("recurrentgemma launcher", 1, 16, 1, 3, 48, 256, 2048, True),
-    ("gemma3 2048", 1, 4, 1, 2048, 2048, 256, 512, False),
-    ("granite launcher", 1, 48, 1, 3, 48, 128, None, True),
+    ("qwen 2048", 1, 28, 4, 2048, 2048, 128, None, False, True),
+    ("recurrentgemma 2048", 1, 16, 1, 2048, 2048, 256, 2048, False, True),
+    ("qwen launcher", 1, 28, 4, 3, 48, 128, None, True, True),
+    ("recurrentgemma launcher", 1, 16, 1, 3, 48, 256, 2048, True, True),
+    ("gemma3 2048", 1, 4, 1, 2048, 2048, 256, 512, False, True),
+    ("granite launcher", 1, 48, 1, 3, 48, 128, None, True, True),
+    # whisper's encoder layer: bidirectional over the 1500 frames
+    ("whisper encoder 1500", 1, 8, 8, 1500, 1500, 64, None, True, False),
 )
 
 
-def _flash_work(b, h, hkv, s, t, d, window):
-    """Bytes and operations a causal (windowed) prefill needs: q, out
-    and the kv rows some query sees, once each; 4 D operations per
-    visible (query, key) pair."""
-    pairs = sum(min(i + 1, t) - (max(0, i + 1 - window) if window else 0)
-                for i in range(s))
-    rows = min(s, t)
+def _flash_work(b, h, hkv, s, t, d, window, causal=True):
+    """Bytes and operations a prefill needs: q, out and the kv rows some
+    query sees, once each; 4 D operations per visible (query, key) pair
+    (every pair without the causal mask)."""
+    if causal:
+        pairs = sum(min(i + 1, t) - (max(0, i + 1 - window) if window
+                                     else 0) for i in range(s))
+        rows = min(s, t)
+    else:
+        pairs, rows = s * t, t
     return (2 * b * h * s * d + 2 * b * hkv * rows * d) * 2, \
         4 * b * h * pairs * d
 
@@ -1200,7 +1243,7 @@ def _library_ms(call, torch, rotate=()):
     return times[best], best, times
 
 
-def _raw_flash(q, k, v, out, window, route):
+def _raw_flash(q, k, v, out, window, route, causal=True):
     """One raw call of the ``route`` kernel (no checks, no count)."""
     import math
 
@@ -1210,7 +1253,7 @@ def _raw_flash(q, k, v, out, window, route):
     return _raw_attn(fmod, *fmod.ENTRY[route], fmod._SIG,
                      [*q.stride(), *k.stride(), *v.stride(), *out.stride()],
                      1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), b, h, hkv, s, t, d, 1,
+                     out.data_ptr(), b, h, hkv, s, t, d, int(causal),
                      int(window or 0), 1.0 / math.sqrt(d))
 
 
@@ -1229,7 +1272,7 @@ def time_flash(stats, routes=("sm90", "simt")):
     name = torch.cuda.get_device_name(0)
     dt = torch.bfloat16
     rows = []
-    for i, (label, b, h, hkv, s, t, d, window, views) in \
+    for i, (label, b, h, hkv, s, t, d, window, views, causal) in \
             enumerate(FLASH_ROWS):
         if views:
             q = _randn((b, s, h, d), 40 + i, dt, torch).transpose(1, 2)
@@ -1239,23 +1282,26 @@ def time_flash(stats, routes=("sm90", "simt")):
             q = _randn((b, h, s, d), 40 + i, dt, torch)
             k = _randn((b, hkv, t, d), 50 + i, dt, torch)
             v = _randn((b, hkv, t, d), 60 + i, dt, torch)
-        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
         row = {"label": label, "shape": f"B,H,Hkv,S,T,D={(b, h, hkv, s, t, d)}"
-               f" window={window} bf16 causal"}
+               f" window={window} bf16 {'causal' if causal else 'all keys'}"}
         row["bound_ms"], row["bound_by"] = _bound_ms(
-            name, *_flash_work(b, h, hkv, s, t, d, window), "bf16")
+            name, *_flash_work(b, h, hkv, s, t, d, window, causal), "bf16")
         for route in routes:
             out = torch.empty_like(q)
             reps = 5 if s > 512 else 20
-            row[route] = _time_ms(_raw_flash(q, k, v, out, window, route),
-                                  torch, reps=reps)
+            row[route] = _time_ms(_raw_flash(q, k, v, out, window, route,
+                                             causal), torch, reps=reps)
             torch.cuda.synchronize()
             row[route + "_err"] = _attn_close(out, want, 2e-2,
                                               f"{route} flash at {label}")
             _possible(row[route], row["bound_ms"], f"{route} flash {label}")
         row["plain_ms"] = _time_ms(lambda: ref.flash_attention_ref(
-            q, k, v, causal=True, window=window), torch, reps=2, rounds=3)
-        if window is None or window >= s:
+            q, k, v, causal=causal, window=window), torch, reps=2, rounds=3)
+        if not causal:
+            lib = {}
+        elif window is None or window >= s:
             # the window never bites (S <= window): is_causal alone is
             # the same function
             lib = dict(is_causal=True)
@@ -1781,12 +1827,13 @@ def _serve_lines(argv, **kw):
     return out
 
 
-def profile_serving(arch, requests=3, cfg=None):
+def profile_serving(arch, requests=3, cfg=None, extras=None):
     """Where the time of a served request goes at full width: the card's
     kernel time by name over a few requests (``torch.profiler``, after a
     warm-up request), against the host clock of the same requests run
     without the profiler.  ``cfg`` (a config cut in depth) replaces the
-    full config of ``arch``."""
+    full config of ``arch``; ``extras`` go to each request's ``admit``
+    (``_request``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1795,6 +1842,7 @@ def profile_serving(arch, requests=3, cfg=None):
     from repro_torch.models import RunFlags, build_param_specs, materialize
     from repro_torch.serving import ServingEngine
 
+    t_all = time.perf_counter()
     cfg = cfg or get_config(arch)
     params = materialize(build_param_specs(cfg),
                          torch.Generator().manual_seed(0), DEV)
@@ -1803,7 +1851,7 @@ def profile_serving(arch, requests=3, cfg=None):
 
     def serve():
         for _ in range(requests):
-            eng.generate([1, 2, 3], max_new=4)
+            _request(eng, extras)
         torch.cuda.synchronize()
 
     serve()                                           # warm-up
@@ -1828,7 +1876,9 @@ def profile_serving(arch, requests=3, cfg=None):
     print(f"profile {arch}: {requests} requests (4 forwards each) took "
           f"{1e3 * wall:.3f} ms of host clock without the profiler; the "
           f"card's kernels took {busy:.3f} ms under it, so the card was "
-          f"idle {100 * (1 - busy / (1e3 * wall)):.1f} % of the request time")
+          f"idle {100 * (1 - busy / (1e3 * wall)):.1f} % of the request "
+          f"time (the whole profile, weights and tracing included: "
+          f"{time.perf_counter() - t_all:.3f} s)")
     for key, ms, n in rows[:10]:
         print(f"  device {ms:10.3f} ms  {100 * ms / busy:5.1f} %  x{n:<6d} "
               f"{key[:90]}")
@@ -1838,14 +1888,19 @@ def profile_serving(arch, requests=3, cfg=None):
 
 def per_call_launches(cfg):
     """The kernel launches one prefill and one decode step of ``cfg``
-    make: each attention layer launches ``flash_attention`` (prefill) or
-    ``decode_attention`` (decode), each RG-LRU layer ``rglru_scan``."""
+    make: each attention layer and each cross-attention block launches
+    ``flash_attention`` (prefill) or ``decode_attention`` (decode), each
+    encoder layer ``flash_attention`` (prefill), each RG-LRU layer
+    ``rglru_scan``; MLA and xLSTM layers launch none (plain PyTorch, as
+    plain jnp in the reference)."""
     from repro_torch.models import Mixer
-    mixers = [blk.mixer for g in cfg.groups for _ in range(g.repeats)
+    blocks = [blk for g in cfg.groups for _ in range(g.repeats)
               for blk in g.pattern]
-    n_attn, n_rec = mixers.count(Mixer.ATTN), mixers.count(Mixer.RGLRU)
-    assert n_attn + n_rec == cfg.n_layers, mixers
-    return ({"flash_attention": n_attn, "rglru_scan": n_rec},
+    n_attn = sum(b.mixer == Mixer.ATTN for b in blocks) + \
+        sum(b.cross_attention for b in blocks)
+    n_rec = sum(b.mixer == Mixer.RGLRU for b in blocks)
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    return ({"flash_attention": n_attn + n_enc, "rglru_scan": n_rec},
             {"decode_attention": n_attn, "rglru_scan": n_rec})
 
 
@@ -1913,19 +1968,23 @@ def serve_launcher(arch, argv=None, cfg=None):
 GEMMA3, GRANITE, COMMAND_R = "gemma3-1b", "granite-20b", "command-r-35b"
 INTERNVL2, MIXTRAL = "internvl2-26b", "mixtral-8x22b"
 MIXTRAL_LAYERS = 12        # of 56: ~5.01 GB a layer in bf16, ~61 GB in all
-# the launcher's --hours for the new archs: 3 of its default 6 (66 of the
-# bursty trace's 123 requests) keep the whole script near 600 s
-NEW_HOURS = 3.0
+# the launcher's --hours for the new archs: 2 of its default 6 (5 of the
+# bursty trace's 123 requests; 3 hours hold 66) keep the whole script
+# well inside its limit on a slow host (each request is the same
+# ``generate([1, 2, 3], max_new=4)``, so the counts per call are the
+# same)
+NEW_HOURS = 2.0
 # prefills at the new archs' heads, in bf16 (sm90) and float32 (simt):
-# (label, B, H, Hkv, S, T, D, window, views); ``views`` as in SM90_CASES
+# (label, B, H, Hkv, S, T, D, window, views, causal); ``views`` as in
+# SM90_CASES
 NEW_FLASH_CASES = (
-    ("granite", 1, 48, 1, 300, 300, 128, None, False),
-    ("granite launcher", 1, 48, 1, 3, 48, 128, None, True),
-    ("gemma3 local", 1, 4, 1, 600, 600, 256, 512, False),
-    ("gemma3 global", 1, 4, 1, 600, 600, 256, None, False),
-    ("gemma3 launcher", 1, 4, 1, 3, 48, 256, 512, True),
-    ("command-r", 1, 64, 8, 272, 272, 128, None, False),
-    ("internvl2 / mixtral", 1, 48, 8, 272, 272, 128, None, False),
+    ("granite", 1, 48, 1, 300, 300, 128, None, False, True),
+    ("granite launcher", 1, 48, 1, 3, 48, 128, None, True, True),
+    ("gemma3 local", 1, 4, 1, 600, 600, 256, 512, False, True),
+    ("gemma3 global", 1, 4, 1, 600, 600, 256, None, False, True),
+    ("gemma3 launcher", 1, 4, 1, 3, 48, 256, 512, True, True),
+    ("command-r", 1, 64, 8, 272, 272, 128, None, False, True),
+    ("internvl2 / mixtral", 1, 48, 8, 272, 272, 128, None, False, True),
 )
 # decodes at the new archs' heads: (label, B, H, Hkv, T, D, lengths,
 # views, route); the launchers' and Mixtral's engine's 48-row caches (read
@@ -1955,14 +2014,16 @@ def _qkv(b, h, hkv, s, t, d, views, seed, dt, torch):
             _randn((b, hkv, t, d), seed + 2, dt, torch))
 
 
-def check_new_shapes(stats):
-    """Phase 12: both attention kernels at the new archs' head groups
-    (48, 8, 6 and 4 query heads a kv head), head dims and gemma3's
-    512-token window, in bf16 and float32 against their plain versions
-    (phase 5's tolerances), each call's route asserted.  A decode over
-    several splits is also run on the single route (a raw call of the
-    kernel with one split, on the same inputs), and with queries x4 the
-    planted wrong combines of ``_sees_combine`` must fail."""
+def check_new_shapes(stats, flash_cases=NEW_FLASH_CASES,
+                     decode_cases=NEW_DECODE_CASES):
+    """Phase 12 (and 15, with whisper's cases): both attention kernels at
+    the new archs' head groups (48, 8, 6, 4 and 1 query heads a kv head),
+    head dims, gemma3's 512-token window and whisper's non-causal
+    prefills, in bf16 and float32 against their plain versions (phase 5's
+    tolerances), each call's route asserted.  A decode over several
+    splits is also run on the single route (a raw call of the kernel with
+    one split, on the same inputs), and with queries x4 the planted wrong
+    combines of ``_sees_combine`` must fail."""
     import torch
 
     from repro_torch.kernels import decode_attention as dmod
@@ -1970,22 +2031,23 @@ def check_new_shapes(stats):
 
     for dt in (torch.bfloat16, torch.float32):
         tol = ATTN_TOL[str(dt).split(".")[-1]]
-        for i, (label, b, h, hkv, s, t, d, window, views) in \
-                enumerate(NEW_FLASH_CASES):
+        for i, (label, b, h, hkv, s, t, d, window, views, causal) in \
+                enumerate(flash_cases):
             q, k, v = _qkv(b, h, hkv, s, t, d, views, 400 + 3 * i, dt, torch)
-            got = _flash_routed(q, k, v, window)
-            want = ref.flash_attention_ref(q, k, v, causal=True,
+            got = _flash_routed(q, k, v, window, causal)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window)
             torch.cuda.synchronize()
             err = _attn_close(got, want, tol, f"flash {label} {dt}")
             stats["flash_attention"]["max_abs_err"] = max(
                 stats["flash_attention"]["max_abs_err"], err)
+            kernel = "sm90" if dt == torch.bfloat16 else "simt"
             print(f"flash_attention  {str(dt):14s} {label:20s} B,H,Hkv,S,T,"
                   f"D={(b, h, hkv, s, t, d)} window={window} views={views}"
-                  f" ({'sm90' if dt == torch.bfloat16 else 'simt'}): max "
-                  f"abs err {err:.3e} (tol {tol})")
+                  f" causal={causal} ({kernel}): max abs err {err:.3e} "
+                  f"(tol {tol})")
         for i, (label, b, h, hkv, t, d, lengths, views, way) in \
-                enumerate(NEW_DECODE_CASES):
+                enumerate(decode_cases):
             _, k, v = _qkv(b, h, hkv, 1, t, d, views, 500 + 3 * i, dt, torch)
             length = torch.tensor(lengths, dtype=torch.int32, device=DEV)
             pl = dmod.plan(b, h, hkv, t, d, dmod._sms(k.device))
@@ -2058,9 +2120,10 @@ def _host_free_bytes():
 
 
 def _model_generate(cfg, params, tokens, steps, dev, prefix=None,
-                    forced=None):
+                    forced=None, source=None):
     """A prefill of ``tokens`` [B, S] (after ``prefix`` embeddings where
-    given: the model level, as the engine cannot serve them) on ``dev``,
+    given: the model level, as the engine cannot serve them; against
+    ``source`` frame embeddings [B, T, D] for an encoder) on ``dev``,
     then ``steps`` decode steps at ``pos = n_prefix + S + i``, each fed
     the last greedy token or, with ``forced`` [B, steps], the given one.
     Returns (greedy tokens [B, steps + 1], the logits of every call on
@@ -2074,6 +2137,8 @@ def _model_generate(cfg, params, tokens, steps, dev, prefix=None,
     batch = {"tokens": tokens.to(dev)}
     if prefix is not None:
         batch["prefix_embeds"] = prefix.to(dev)
+    if source is not None:
+        batch["source_embeds"] = source.to(dev)
     caches = materialize(build_cache_specs(cfg, b, n + s + steps,
                                            cfg.compute_dtype),
                          torch.Generator(), dev)
@@ -2224,13 +2289,19 @@ GEMMA3_REL_F64 = 2e-2
 
 
 def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
-                f64_limit=REL_LOGITS, cpu_gate=True):
-    """Phase 13's check of one config cut in depth (float32, full width).
+                f64_limit=REL_LOGITS, cpu_gate=True, source=False,
+                weights=None):
+    """Phase 13's (and 16's) check of one config cut in depth (float32,
+    full width).
 
     The card serves a prompt and ``steps`` greedy decode steps through
-    ``ServingEngine`` (or, with ``prefix`` embeddings from a seed, at the
-    model level), every attention kernel call held against float64
-    attention on the same inputs (``_KernelSpy``).  The CPU in float32
+    ``ServingEngine`` (or, with ``prefix`` embeddings or an encoder's
+    ``source`` frame embeddings from a seed, at the model level), every
+    attention kernel call held against float64 attention on the same
+    inputs (``_KernelSpy``); the calls must be exactly those
+    ``per_call_launches`` gives (none for MLA and xLSTM).  ``weights``,
+    where given, changes the random weights in place before the run
+    (``_fan_in_d_model``).  The CPU in float32
     and a float64 run (on the card, attention in float64; the model's
     float32 leaves, norms, rope angles and router stay float32, as it
     defines them) then replay the same calls, fed the card's tokens.
@@ -2250,18 +2321,23 @@ def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
     from repro_torch.serving import ServingEngine
 
     t0 = time.perf_counter()
-    tag = f"depth {cfg.n_layers}: {cfg.name}"
+    tag = f"depth {cfg.n_layers}: {cfg.name}" + \
+        (f" ({weights.__name__})" if weights is not None else "")
     card = materialize(build_param_specs(cfg),
                        torch.Generator().manual_seed(0), DEV)
+    if weights is not None:
+        weights(card, cfg)
     host = _cast(card, "cpu")
     g = torch.Generator().manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=g)
     pre = torch.randn((1, cfg.n_prefix_embeddings, cfg.d_model),
                       generator=g) if prefix else None
+    src = torch.randn((1, cfg.encoder.source_len, cfg.d_model),
+                      generator=g) if source else None
     with _KernelSpy() as spy, card_ctx or contextlib.nullcontext():
-        if prefix:
+        if prefix or source:
             toks, card_l, _ = _model_generate(cfg, card, tokens, steps, DEV,
-                                              prefix=pre)
+                                              prefix=pre, source=src)
         else:
             with _Recorder(torch) as rec:
                 eng = ServingEngine(cfg, card, max_batch=1,
@@ -2275,7 +2351,7 @@ def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
     _free_card()
     fed = toks[:, :steps]
     cpu_l = _model_generate(cfg, host, tokens, steps, "cpu", prefix=pre,
-                            forced=fed)[1]
+                            forced=fed, source=src)[1]
     c64 = dataclasses.replace(cfg, param_dtype=torch.float64,
                               compute_dtype=torch.float64)
     # each leaf in its float64 spec's dtype: the float32 leaves (norm
@@ -2284,7 +2360,7 @@ def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
     del host
     with _Exact():
         f64_l = _model_generate(c64, w64, tokens, steps, DEV, prefix=pre,
-                                forced=fed)[1]
+                                forced=fed, source=src)[1]
     del w64
     _free_card()
     assert len(card_l) == len(cpu_l) == len(f64_l) == steps + 1
@@ -2306,8 +2382,13 @@ def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
         d_both = max(d_both, float((gl - cl).abs().max() / cl.abs().max()))
         flips += int(not torch.equal(torch.argmax(gl, -1),
                                      torch.argmax(cl, -1)))
+    extra = ""
+    if prefix:
+        extra = f" after {cfg.n_prefix_embeddings} prefix embeddings"
+    if source:
+        extra = f" against {cfg.encoder.source_len} source frames"
     print(f"{tag} d_model={cfg.d_model} float32, {prompt_len}-token prompt"
-          f"{f' after {cfg.n_prefix_embeddings} prefix embeddings' if prefix else ''}"
+          f"{extra}"
           f" + {steps} decode steps ({time.perf_counter() - t0:.1f} s): "
           f"kernel calls against float64 attention on the same inputs "
           f"(limit {ATTN_TOL['float32']} of the max): {spy.line()}; "
@@ -2319,7 +2400,11 @@ def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
           f"{steps + 1} greedy tokens differ ("
           + (f"limit {REL_LOGITS}, none" if cpu_gate else "not gated") +
           f"); card tokens {toks[0].tolist()}")
-    assert all(st["calls"] > 0 for st in spy.seen.values()), spy.seen
+    per_prefill, per_decode = per_call_launches(cfg)
+    assert spy.seen["flash_attention"]["calls"] == \
+        per_prefill["flash_attention"], spy.seen
+    assert spy.seen["decode_attention"]["calls"] == \
+        steps * per_decode["decode_attention"], spy.seen
     assert d_card <= f64_limit, (tag, d_card, f64_limit)
     if cpu_gate:
         assert d_both <= REL_LOGITS and flips == 0, (tag, d_both, flips)
@@ -2430,15 +2515,28 @@ def serve_internvl2():
     return counts, decodes["split"]
 
 
-def serve_mixtral(layers=MIXTRAL_LAYERS):
-    """Mixtral-8x22B at full width, ``layers`` of its 56 layers, bf16,
-    through ``ServingEngine`` with the launcher's settings (4 slots, 48
-    cache rows) on the launcher's request stream over NEW_HOURS
-    (``generate([1, 2, 3], max_new=4)`` for each request), counts reset
-    just before and
-    read just after: ``layers`` launches of ``flash_attention`` a prefill
-    (sm90) and of ``decode_attention`` a decode step (single).  Returns
-    the launch counts."""
+def _request(eng, extras=None):
+    """One launcher request, ``generate([1, 2, 3], max_new=4)``, with
+    ``extras`` (whisper's frames) passed to ``admit``; its tokens."""
+    if extras is None:
+        return eng.generate([1, 2, 3], max_new=4).tokens
+    slot = eng.admit([1, 2, 3], extras=extras)
+    toks = [int(eng._slot_last[slot])]
+    for _ in range(3):
+        toks.append(eng.step()[slot])
+    eng.release(slot)
+    return toks
+
+
+def serve_engine(cfg, label, extras=None, requests=24):
+    """``cfg`` at full width in bf16 through ``ServingEngine`` with the
+    launcher's settings (4 slots, 48 cache rows) on ``requests`` of the
+    launcher's requests (``_request``, with ``extras`` for admit),
+    counts reset just before and read just after: each kernel's launches
+    exactly those ``per_call_launches`` gives per recorded prefill and
+    decode step, every prefill on the sm90 route; the MoE dispatch's
+    drops of one more request (untimed) printed.  Returns the launch
+    counts and the decode routes."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2446,50 +2544,50 @@ def serve_mixtral(layers=MIXTRAL_LAYERS):
                                     materialize)
     from repro_torch.serving import ServingEngine
 
-    cfg = cut_depth(MIXTRAL, layers, torch.bfloat16)
     params = materialize(build_param_specs(cfg),
                          torch.Generator().manual_seed(0), DEV)
     eng = ServingEngine(cfg, params, max_batch=4, max_len=48,
                         flags=RunFlags(remat="none"), device=DEV)
-    n_req = _launcher_requests(NEW_HOURS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
     with _Recorder(torch) as rec:
-        toks = [eng.generate([1, 2, 3], max_new=4).tokens
-                for _ in range(n_req)]
+        toks = [_request(eng, extras) for _ in range(requests)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     routes = ops.route_counts()
     decodes = ops.route_counts("decode_attention")
-    # the dispatch's drops, counted on one more request (untimed)
     with _Drops() as drops:
-        assert eng.generate([1, 2, 3], max_new=4).tokens == toks[0]
+        assert _request(eng, extras) == toks[0]
     pre, dec = rec.calls["prefill"], rec.calls["decode"]
-    assert len(pre) == n_req and all(len(t) == 4 for t in toks)
-    assert all(bool(torch.isfinite(x).all()) for x in rec.logits)
-    want = {k: 0 for k in counts}
-    want.update(flash_attention=layers * len(pre),
-                decode_attention=layers * len(dec))
+    assert len(pre) == requests and all(len(t) == 4 for t in toks)
+    assert all(bool(torch.isfinite(x).all()) and x.shape[-1] ==
+               cfg.vocab_size for x in rec.logits)
+    per_prefill, per_decode = per_call_launches(cfg)
+    want = {k: per_prefill.get(k, 0) * len(pre) +
+            per_decode.get(k, 0) * len(dec) for k in counts}
     assert counts == want, (counts, want)
     assert routes == {"sm90": counts["flash_attention"], "simt": 0}, routes
-    assert decodes == {"split": 0, "single": counts["decode_attention"]}
-    dropped = sum(c[3] for c in drops.calls)
-    print(f"mixtral-8x22b {layers} of 56 layers, full width (bf16, "
-          f"ServingEngine, {n_req} launcher requests): wall {wall:.3f} s, "
-          f"{len(pre)} prefills (mean {1e3 * statistics.mean(pre):.6f} ms, "
-          f"median {1e3 * statistics.median(pre):.6f} ms), {len(dec)} decode "
-          f"steps (mean {1e3 * statistics.mean(dec):.6f} ms, median "
+    dropped = ""
+    if drops.calls:
+        dropped = (f"; one request's one-hot dispatch dropped "
+                   f"{sum(c[3] for c in drops.calls)} of "
+                   f"{sum(c[2] for c in drops.calls)} assignments")
+    print(f"{label} (bf16, ServingEngine, {requests} launcher requests): "
+          f"wall {wall:.3f} s, {len(pre)} prefills (mean "
+          f"{1e3 * statistics.mean(pre):.6f} ms, median "
+          f"{1e3 * statistics.median(pre):.6f} ms), {len(dec)} decode steps "
+          f"(mean {1e3 * statistics.mean(dec):.6f} ms, median "
           f"{1e3 * statistics.median(dec):.6f} ms), max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B; launches {counts}; "
-          f"tokens {toks[0]}; one request's one-hot dispatch dropped "
-          f"{dropped} of {sum(c[2] for c in drops.calls)} assignments "
-          f"(capacity {[c[1] for c in drops.calls[::layers]]} a call)")
+          f"{torch.cuda.max_memory_allocated()} B; launches {counts} "
+          f"(exactly {per_prefill} a prefill, {per_decode} a decode step); "
+          f"flash routes {routes}, decode routes {decodes}; tokens "
+          f"{toks[0]}{dropped}")
     del params, eng
     _free_card()
-    return counts
+    return counts, decodes
 
 
 def serve_new_archs():
@@ -2507,9 +2605,171 @@ def serve_new_archs():
         _free_card()
     counts[INTERNVL2], c = serve_internvl2()
     combines += c
-    counts[MIXTRAL] = serve_mixtral()
-    profile_serving(f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)",
-                    cfg=cut_depth(MIXTRAL, MIXTRAL_LAYERS, torch.bfloat16))
+    # Mixtral at MIXTRAL_LAYERS of 56 on the launcher's requests over
+    # NEW_HOURS, every decode on the single route (48 cache rows)
+    cfg = cut_depth(MIXTRAL, MIXTRAL_LAYERS, torch.bfloat16)
+    label = f"{MIXTRAL} ({MIXTRAL_LAYERS} of 56 layers)"
+    counts[MIXTRAL], decodes = serve_engine(
+        cfg, label, requests=_launcher_requests(NEW_HOURS))
+    assert decodes == {"split": 0,
+                       "single": counts[MIXTRAL]["decode_attention"]}, decodes
+    profile_serving(label, cfg=cfg)
+    _free_card()
+    return counts, combines
+
+
+# ---------------------------------------------------------------------------
+# Phases 15-17: MLA (minicpm3-4b, deepseek-v2-236b), the encoder-decoder
+# whisper-base and xLSTM (xlstm-125m).
+# ---------------------------------------------------------------------------
+
+MINICPM3, DEEPSEEK = "minicpm3-4b", "deepseek-v2-236b"
+WHISPER, XLSTM = "whisper-base", "xlstm-125m"
+DEEPSEEK_LAYERS = 7        # of 60: ~7.95 GB a layer in bf16, ~57.7 GB in all
+# the launcher's --hours for minicpm3 and xlstm (5 requests, as NEW_HOURS);
+# the engine runs (whisper, deepseek) take ``serve_engine``'s 24 requests
+SLICE9_HOURS = 2.0
+# whisper's prefills, bf16 (sm90) and float32 (simt), as NEW_FLASH_CASES:
+# the encoder's bidirectional layer over the 1500 frames (a ragged tail
+# on both axes), the decoder's cross prefill of the launcher's 3 tokens
+# against them and its causal self prefill against 48 cache rows, both
+# through [B,S|T,heads,D] views, and a causal self prefill at S = T = 300
+WHISPER_FLASH_CASES = (
+    ("whisper encoder", 1, 8, 8, 1500, 1500, 64, None, True, False),
+    ("whisper cross", 1, 8, 8, 3, 1500, 64, None, True, False),
+    ("whisper self", 1, 8, 8, 3, 48, 64, None, True, True),
+    ("whisper self 300", 1, 8, 8, 300, 300, 64, None, False, True),
+)
+# whisper's decodes, as NEW_DECODE_CASES: the cross decode of the engine's
+# 4 slots over all 1500 encoder rows (split), the self decode over its
+# 48-row cache (single), both through views
+WHISPER_DECODE_CASES = (
+    ("whisper cross", 4, 8, 8, 1500, 64, (1500,) * 4, True, "split"),
+    ("whisper self", 4, 8, 8, 48, 64, (48, 30, 6, 1), True, "single"),
+)
+
+
+def _fan_in_d_model(params, cfg, specs=None):
+    """Scale every [d_model, heads, head_dim] input projection (q, k, v
+    of attention and cross-attention, the xLSTM blocks' projections and
+    gates), in place, from the reference's init law -- fan-in read at
+    the heads axis, std 1/sqrt(heads) -- to the fan-in law over d_model,
+    1/sqrt(d_model): whisper's scores then spread over ~1 instead of
+    ~64, and xLSTM's gates leave saturation."""
+    from repro_torch.models import build_param_specs
+    specs = specs or build_param_specs(cfg)
+    for key, sub in params.items():
+        if isinstance(sub, dict):
+            _fan_in_d_model(sub, cfg, specs[key])
+        elif specs[key].axes[-3:-1] in (("embed", "heads"),
+                                        ("embed", "kv_heads")):
+            sub.mul_((sub.shape[-2] / sub.shape[-3]) ** 0.5)
+
+
+def check_slice9_depths():
+    """Phase 16: the new archs at full width in float32, the card
+    against the CPU and a float64 run (``check_depth``): whisper-base and
+    xlstm-125m at full depth (whisper at the model level against 1500
+    source frames from a seed; its groups are ``enc`` and ``dec``, which
+    ``cut_depth`` does not cut), minicpm3-4b at depth 2, deepseek-v2 at
+    depth 1 (about 20 GB of float32 on the host) where the host has the
+    memory, else the reason is printed.  Returns whether deepseek ran.
+
+    Whisper and xlstm run twice.  With the reference's init law their
+    [d_model, heads, head_dim] projections are sqrt(d_model / heads)
+    times the fan-in law over d_model (fan-in read at the 8 or 4 heads:
+    8x for whisper, 13.9x for xlstm), and the models are chaotic in
+    float32: whisper's scores spread over ~64 and its float32 runs on
+    the card and on the CPU land ~1.2 of the max from float64 and from
+    each other, though each kernel call is within ~3e-5 of float64 on
+    its own inputs; xlstm's saturated gates put its float32 runs 1e-2
+    to 1e-1 from float64.  So that run holds each
+    kernel call (``_KernelSpy``) and prints the logits' distances
+    ungated; the second, with those projections at the fan-in law over
+    d_model (``_fan_in_d_model``), takes every gate."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_param_specs, param_bytes
+
+    f32 = torch.float32
+    full = {a: dataclasses.replace(get_config(a), param_dtype=f32,
+                                   compute_dtype=f32)
+            for a in (WHISPER, XLSTM)}
+    for arch in (WHISPER, XLSTM):
+        check_depth(full[arch], source=arch == WHISPER, f64_limit=math.inf,
+                    cpu_gate=False)
+        check_depth(full[arch], source=arch == WHISPER,
+                    weights=_fan_in_d_model)
+    check_depth(cut_depth(MINICPM3, 2, f32))
+    cfg = cut_depth(DEEPSEEK, 1, f32)
+    need = param_bytes(build_param_specs(cfg))
+    free = _host_free_bytes()
+    if free < 1.5 * need:
+        print(f"depth 1: deepseek-v2-236b not checked: its float32 weights "
+              f"take {need} B of host memory and {free} B are free")
+        return False
+    drops = _Drops()
+    check_depth(cfg, card_ctx=drops)
+    pre = next(c for c in drops.calls if c[0] > 1)
+    print(f"depth 1: deepseek-v2 prefill routed {pre[2]} assignments of "
+          f"{pre[0]} tokens at capacity {pre[1]}: {pre[3]} dropped; decode "
+          f"steps dropped {sum(c[3] for c in drops.calls if c[0] == 1)}")
+    return True
+
+
+def serve_slice9():
+    """Phase 17: the new archs at full width in bf16, counted as phase 7
+    and each profiled as phase 8: the minicpm3-4b (62 layers) and
+    xlstm-125m (12) launchers at ``--hours`` SLICE9_HOURS (no kernel
+    launch at all: MLA and xLSTM are plain PyTorch), whisper-base through
+    ``ServingEngine`` with frames from a seed as extras (18
+    ``flash_attention`` launches a prefill, all sm90; 12
+    ``decode_attention`` a step, 6 split and 6 single), deepseek-v2 at
+    DEEPSEEK_LAYERS of its 60 layers through ``ServingEngine`` (none).
+    Returns the launch counts of each run and the combine launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dmod
+
+    counts, combines = {}, 0
+    for arch in (MINICPM3, XLSTM):
+        counts[arch], c = serve_launcher(
+            arch, argv=("--arch", arch, "--hours", str(SLICE9_HOURS)))
+        assert sum(counts[arch].values()) == 0, counts[arch]
+        combines += c
+        _free_card()
+        profile_serving(arch)
+        _free_card()
+    cfg = get_config(WHISPER)
+    # frame embeddings from a seed (the audio frontend is a stub in both
+    # packages)
+    extras = {"source_embeds": torch.randn(
+        (1, cfg.encoder.source_len, cfg.d_model),
+        generator=torch.Generator().manual_seed(5))}
+    counts[WHISPER], decodes = serve_engine(cfg, WHISPER, extras)
+    # a step's cross decodes (one a decoder layer) over the 4 slots' 1500
+    # encoder rows take the route the plan gives (split), its self
+    # decodes over the 48 cache rows single
+    n_cross = cfg.n_layers
+    steps = counts[WHISPER]["decode_attention"] // (2 * n_cross)
+    cross = dmod.plan(4, cfg.n_heads, cfg.n_kv_heads, cfg.encoder.source_len,
+                      cfg.head_dim_, dmod._sms(torch.device(DEV)))
+    want = {"split": 0, "single": n_cross * steps}
+    want["split" if cross.splits > 1 else "single"] += n_cross * steps
+    assert decodes == want, (decodes, want)
+    combines += decodes["split"]
+    profile_serving(WHISPER, extras=extras)
+    _free_card()
+    cfg = cut_depth(DEEPSEEK, DEEPSEEK_LAYERS, torch.bfloat16)
+    label = f"{DEEPSEEK} ({DEEPSEEK_LAYERS} of 60 layers)"
+    counts[DEEPSEEK], _ = serve_engine(cfg, label)
+    assert sum(counts[DEEPSEEK].values()) == 0, counts[DEEPSEEK]
+    profile_serving(label, cfg=cfg)
     _free_card()
     return counts, combines
 
@@ -3095,6 +3355,15 @@ def main():
     t0 = time.perf_counter()
     new_counts, new_combines = serve_new_archs()
     print(f"phase 14: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    check_new_shapes(stats, WHISPER_FLASH_CASES, WHISPER_DECODE_CASES)
+    print(f"phase 15: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    check_slice9_depths()
+    print(f"phase 16: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    s9_counts, s9_combines = serve_slice9()
+    print(f"phase 17: {time.perf_counter() - t0:.3f} s")
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
               "segment_trapz": csrc + "segment_trapz.cu",
@@ -3113,7 +3382,8 @@ def main():
     }
     # each path's own run: the fleet days for the metering kernels, every
     # serving run (summed) for the attention kernels
-    served = {ARCH: qwen_counts, RG_ARCH: rg_counts, **new_counts}
+    served = {ARCH: qwen_counts, RG_ARCH: rg_counts, **new_counts,
+              **s9_counts}
     launches = {"fused_meter": main_counts["fused_meter"],
                 "segment_trapz": unfused_counts["segment_trapz"],
                 "ordered_segment_sum": main_counts["ordered_segment_sum"],
@@ -3155,14 +3425,15 @@ def main():
             # the split route's time; the single route (one block a
             # (b, kv head, head group)) and the back-to-back time of one
             # input set beside it; every launcher decode took single
-            # (internvl2's 273-280-row decodes take split).
+            # (internvl2's 273-280-row decodes and whisper's cross
+            # decodes over 1500 rows take split).
             # ``launches`` counts op calls; a split-route call launches
             # the combine kernel too, counted in ``combine_launches``
             row.update(kernel_route="split",
                        launches_by_run={a: c["decode_attention"]
                                         for a, c in served.items()},
                        combine_launches=qwen_combines + rg_combines +
-                       new_combines,
+                       new_combines + s9_combines,
                        splits=stats["decode_attention"]["splits"],
                        single_ms=stats["decode_attention"]["single_ms"],
                        l2_ms=stats["decode_attention"]["l2_ms"],

@@ -1,11 +1,8 @@
-"""Architecture configs the port can build.
+"""Architecture configs the port can build: all eleven of the reference's.
 
 Each module exports CONFIG (the full-scale config) and ``reduced()`` (a
 structurally identical small config for CPU tests).  ``get_config`` /
 ``ARCHS`` are the registry the launcher consumes (``--arch <id>``).
-Seven of the reference's eleven configs are here; MLA (minicpm3-4b,
-deepseek-v2-236b), the encoder tower (whisper-base) and the xLSTM blocks
-(xlstm-125m) join as the blocks they need are ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -22,6 +19,10 @@ _MODULES = [
     "command_r_35b",       # dense: GQA, the largest dense checkpoint
     "internvl2_26b",       # vlm: 256 prefix embeddings before the tokens
     "mixtral_8x22b",       # moe: 8 experts top-2, sliding window
+    "minicpm3_4b",         # dense: MLA attention
+    "deepseek_v2_236b",    # moe: MLA + 160 routed / 2 shared experts
+    "whisper_base",        # audio: encoder tower + cross-attention
+    "xlstm_125m",          # ssm: mLSTM + sLSTM, no FFN
 ]
 
 ARCHS: List[str] = [m.replace("_", "-") for m in _MODULES]

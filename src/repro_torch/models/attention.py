@@ -1,7 +1,8 @@
-"""GQA/MQA/MHA attention mixer with its KV cache (full and sliding-window
-attention, in prefill and in decode).
+"""Attention mixers: GQA/MQA/MHA (full and sliding-window), cross-
+attention to an encoder's output, and MLA (multi-head latent attention),
+with their caches, in prefill and in decode.
 
-The attention itself goes through the port's kernels (``kernels/ops``):
+GQA and cross-attention go through the port's kernels (``kernels/ops``):
 ``flash_attention`` for a prefill at cache offset 0 (with or without a
 cache), ``decode_attention`` for a one-token step against the cache.
 On the card they are the hand-written CUDA kernels; on the CPU their
@@ -12,18 +13,32 @@ weights in float32 where the reference rounds them to the value dtype.
 
 A decode step hands ``decode_attention`` a view of the cache rows it
 may see: rows [off + 1 - window, off] with a window, [0, off] without.
-Cases the kernels cannot express raise ``NotImplementedError`` instead
-of being computed another way: a logit softcap and a multi-token step at
-a nonzero offset.  MLA and cross-attention come with later slices.
+Cross-attention (``kv_override``: the encoder's K/V, all of them valid)
+ropes no query and masks nothing: a prefill is a non-causal
+``flash_attention`` of S queries against the T encoder rows, a decode
+step a ``decode_attention`` over all T rows.  Cases the kernels cannot
+express raise ``NotImplementedError`` instead of being computed another
+way: a logit softcap and a multi-token GQA step at a nonzero offset.
 
-The KV cache is ``[B, T, Hkv, D]`` per layer (float32, bfloat16 or int8
-with per-(token, head) scales).  Writes are out of place
+MLA is the reference's plain computation (it reaches no Pallas kernel):
+the naive path (per-head K/V materialized from the latent) for prefill,
+the absorbed path (scores and outputs in the compressed ``kv_lora``
+space, against the ``c_kv`` / ``k_rope`` cache) for decode.  Its scores
+are float32 from float32 copies of the operands (the reference's
+``preferred_element_type``), and mixed dtypes are cast as jax promotes
+them.
+
+The GQA KV cache is ``[B, T, Hkv, D]`` per layer (float32, bfloat16 or
+int8 with per-(token, head) scales), the MLA cache ``c_kv [B, T, kvr]``
+and ``k_rope [B, T, qr]``.  Writes are out of place
 (``torch.slice_scatter``), as the reference's ``dynamic_update_slice``:
 the serving engine merges only the rows it stepped.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
+
+import math
 
 import torch
 
@@ -61,6 +76,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def gqa_specs(cfg: ArchConfig) -> Tree:
+    """GQA projections (also the cross-attention's, whose K/V read the
+    encoder output)."""
     d, hq, hkv, k = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     dt = cfg.param_dtype
     return {
@@ -97,9 +114,13 @@ def gqa_attention(
     causal: bool = True,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_offset=None,                    # int write index (0 if None)
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full/windowed GQA.  With a cache: writes K/V at ``cache_offset``
-    and attends over the cache up to the write frontier."""
+    and attends over the cache up to the write frontier.  With
+    ``kv_override`` (cross-attention: the encoder's K/V [B, T, Hkv, D]):
+    q is not roped, every key is visible, and ``cache`` is passed
+    through; ``cache_offset`` only says prefill (0) or decode step."""
     b, s, _ = x.shape
     off = 0 if cache_offset is None else int(cache_offset)
     if cfg.attn_logit_softcap is not None:
@@ -110,17 +131,20 @@ def gqa_attention(
         raise NotImplementedError(
             f"a {s}-token step at cache offset {off} (chunked prefill) has "
             f"no kernel; it comes with a later serving slice")
-    if off > 0 and cache is None:
+    if off > 0 and cache is None and kv_override is None:
         raise ValueError("a decode step at a nonzero offset needs a cache")
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if kv_override is not None:
+        k, v = kv_override
+        return _attend(p, q, k.to(q.dtype), v.to(q.dtype), off,
+                       causal=False, window=None), cache
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
 
     new_cache = None
-    lo = 0
     if cache is not None:
         t = cache["k"].shape[1]
         new_cache = dict(cache)
@@ -138,21 +162,30 @@ def gqa_attention(
             # frontier are masked by causality
             k = _kv_read(new_cache, "k", q.dtype)
             v = _kv_read(new_cache, "v", q.dtype)
-    k, v = k.to(q.dtype), v.to(q.dtype)
+    return _attend(p, q, k.to(q.dtype), v.to(q.dtype), off,
+                   causal=causal, window=window), new_cache
 
-    # the kernels take [B, heads, seq, D] views of the [B, seq, heads, D]
-    # activations and cache, by strides, with no copy
+
+def _attend(p: Tree, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            off: int, *, causal: bool,
+            window: Optional[int]) -> torch.Tensor:
+    """q [B,S,H,D] against k, v [B,T,Hkv,D] through the kernels, then the
+    output projection: a prefill (``off`` 0) by ``flash_attention``, a
+    one-token step by ``decode_attention`` over all T rows (the cache
+    rows the step may see, or the encoder's).  The kernels take
+    [B, heads, seq, D] views of the [B, seq, heads, D] activations and
+    cache, by strides, with no copy."""
+    b = q.shape[0]
     if off == 0:
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   window=window).transpose(1, 2)
     else:
-        length = torch.full((b,), off + 1 - lo, dtype=torch.int32,
-                            device=x.device)
+        length = torch.full((b,), k.shape[1], dtype=torch.int32,
+                            device=q.device)
         out = ops.decode_attention(q[:, 0], k.transpose(1, 2),
                                    v.transpose(1, 2), length)[:, None]
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, new_cache
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def _kv_write(cache: dict, name: str, val: torch.Tensor, off: int) -> dict:
@@ -205,3 +238,154 @@ def gqa_cache_spec(cfg: ArchConfig, batch: int, max_len: int,
                 [batch, max_len, hkv],
                 ["batch", "kv_len", "kv_heads"], torch.bfloat16, "ones")
     return c
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention) -- DeepSeek-V2 / MiniCPM3
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ArchConfig) -> Tree:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dt = cfg.param_dtype
+    qk = m.qk_nope_head_dim
+    qr = m.qk_rope_head_dim
+    return {
+        "wq_a": spec([d, m.q_lora_rank], ["embed", "lora"], dt),
+        "q_norm": spec([m.q_lora_rank], ["lora"], torch.float32, "ones"),
+        "wq_b": spec([m.q_lora_rank, h, qk + qr], ["lora", "heads", "hdim"],
+                     dt),
+        "wkv_a": spec([d, m.kv_lora_rank + qr], ["embed", "lora"], dt),
+        "kv_norm": spec([m.kv_lora_rank], ["lora"], torch.float32, "ones"),
+        "wk_b": spec([m.kv_lora_rank, h, qk], ["lora", "heads", "hdim"], dt),
+        "wv_b": spec([m.kv_lora_rank, h, m.v_head_dim],
+                     ["lora", "heads", "hdim"], dt),
+        "wo": spec([h, m.v_head_dim, d], ["heads", "hdim", "embed"], dt),
+    }
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm of the latents with a float32 scale, in float32."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (y * scale).to(x.dtype)
+
+
+def mla_project(p: Tree, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ArchConfig, rope_theta) -> Tuple[torch.Tensor, ...]:
+    """Shared projections: q_nope [B,S,H,qk], q_rope [B,S,H,qr],
+    c_kv [B,S,kvr], k_rope [B,S,qr] (one rope head shared by all
+    heads)."""
+    m = cfg.mla
+    qk = m.qk_nope_head_dim
+    q_lat = torch.einsum("bsd,dr->bsr", x, p["wq_a"])
+    q_lat = _rms(q_lat, p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"])
+    q_nope, q_rope = q[..., :qk], q[..., qk:]
+    q_rope = rope(q_rope, positions, rope_theta)
+
+    kv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
+    c_kv = _rms(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(k_rope[:, :, None, :], positions, rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def _softmax_masked(scores: torch.Tensor, mask: torch.Tensor
+                    ) -> torch.Tensor:
+    """softmax over the last axis of float32 ``scores`` [B,H,S,T] where
+    ``mask`` [B,S,T] holds, the rest at float32's lowest (as the
+    reference: a row with no valid key is uniform, not NaN)."""
+    low = torch.finfo(scores.dtype).min
+    return torch.softmax(scores.masked_fill(~mask[:, None], low), -1)
+
+
+def mla_attention_naive(
+    p: Tree, x: torch.Tensor, positions: torch.Tensor, *, cfg: ArchConfig,
+    rope_theta=10_000.0, cache: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Prefill path: per-head K/V materialized from the latent, causal
+    over ``positions``.  With a cache, also writes ``c_kv`` / ``k_rope``
+    at offset 0 from the same projections (the reference projects
+    twice)."""
+    q_nope, q_rope, c_kv, k_rope = mla_project(p, x, positions, cfg,
+                                               rope_theta)
+    k_nope = torch.einsum("btr,rhk->bthk", c_kv, p["wk_b"])
+    v = torch.einsum("btr,rhk->bthk", c_kv, p["wv_b"])
+    # float32 scores from float32 operands: bf16 products are exact there
+    scores = (torch.einsum("bshk,bthk->bhst", q_nope.float(),
+                           k_nope.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             k_rope.float())) * _mla_scale(cfg)
+    w = _softmax_masked(scores, _mask(positions, positions, None, True))
+    out = torch.einsum("bhst,bthk->bshk", w.to(v.dtype), v)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    new_cache = None
+    if cache is not None:
+        new_cache = {n: torch.slice_scatter(cache[n], val.to(cache[n].dtype),
+                                            1, 0, val.shape[1])
+                     for n, val in (("c_kv", c_kv), ("k_rope", k_rope))}
+    return y, new_cache
+
+
+def mla_attention_absorbed(
+    p: Tree, x: torch.Tensor, positions: torch.Tensor, *, cfg: ArchConfig,
+    cache: Dict[str, torch.Tensor], cache_offset, rope_theta=10_000.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode path: scores and outputs against the compressed cache.
+
+    q_c = q_nope @ wk_b (absorbed): [B,S,H,kvr]; scores = q_c . c_kv +
+    q_rope . k_rope; out = (attn @ c_kv) @ wv_b.  Writes the S new rows
+    at ``cache_offset`` and masks keys past a query's position or past
+    the write frontier, over the whole cache (a multi-token step at a
+    nonzero offset is legal).  Casts follow jax's promotion: with a
+    float32 cache, the context and the value absorption are float32,
+    cast to x's dtype before ``wo``."""
+    s = x.shape[1]
+    off = int(cache_offset)
+    q_nope, q_rope, c_kv_new, k_rope_new = mla_project(
+        p, x, positions, cfg, rope_theta)
+    t = cache["c_kv"].shape[1]
+    if off + s > t:
+        raise ValueError(f"cache write of {s} rows at {off} overruns {t} "
+                         f"rows")
+    c_kv = torch.slice_scatter(cache["c_kv"],
+                               c_kv_new.to(cache["c_kv"].dtype), 1, off,
+                               off + s)
+    k_rope = torch.slice_scatter(cache["k_rope"],
+                                 k_rope_new.to(cache["k_rope"].dtype), 1,
+                                 off, off + s)
+    new_cache = {"c_kv": c_kv, "k_rope": k_rope}
+
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])   # absorbed
+    scores = (torch.einsum("bshr,btr->bhst", q_c.float(),
+                           c_kv.to(q_c.dtype).float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             k_rope.to(q_rope.dtype).float())) * \
+        _mla_scale(cfg)
+    pos_k = torch.arange(t, device=x.device)[None, :]
+    mask = _mask(positions, pos_k, None, True) & \
+        (pos_k <= off + s - 1)[:, None, :]
+    w = _softmax_masked(scores, mask)
+    ctx = torch.einsum("bhst,btr->bshr", w.to(c_kv.dtype), c_kv)
+    # jax promotes ctx @ wv_b to the wider of the two dtypes
+    wide = torch.promote_types(ctx.dtype, p["wv_b"].dtype)
+    out = torch.einsum("bshr,rhk->bshk", ctx.to(wide), p["wv_b"].to(wide))
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
+    return y, new_cache
+
+
+def mla_cache_spec(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> Tree:
+    m = cfg.mla
+    return {
+        "c_kv": spec([batch, max_len, m.kv_lora_rank],
+                     ["batch", "kv_len", "lora"], dtype, "zeros"),
+        "k_rope": spec([batch, max_len, m.qk_rope_head_dim],
+                       ["batch", "kv_len", "hdim"], dtype, "zeros"),
+    }

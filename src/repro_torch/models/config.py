@@ -8,9 +8,7 @@ stacked along a leading "layers" axis (the reference's ``lax.scan``
 layout, so weights carry across as plain copies).  Per-layer *metadata*
 (attention window, rope theta) rides along per layer.
 
-The data classes are the reference's; dtypes are torch dtypes.  The
-MLA and encoder configs (and the xLSTM mixers) are kept as data: their
-blocks are not ported yet (``models/blocks.py`` raises for them).
+The data classes are the reference's; dtypes are torch dtypes.
 """
 from __future__ import annotations
 

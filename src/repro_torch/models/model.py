@@ -5,12 +5,17 @@ are stacked with a leading "layers" axis, as in the reference, and the
 port walks the layers in a Python loop where the reference uses
 ``lax.scan``.  Everything runs eagerly; the attention and the RG-LRU
 recurrence inside each layer go through the port's kernels
-(``models/attention.py``, ``models/recurrent.py``), the MoE FFN's
-dispatch and expert products through plain PyTorch (``models/moe.py``).
-A vision-language config's prefix embeddings (``batch["prefix_embeds"]``)
-go before the token embeddings in a prefill.
+(``models/attention.py``, ``models/recurrent.py``); MLA, the xLSTM
+blocks and the MoE FFN (``models/moe.py``) are plain PyTorch, as they
+are plain jnp in the reference.  A vision-language config's prefix
+embeddings (``batch["prefix_embeds"]``) go before the token embeddings
+in a prefill.  An encoder-decoder config (whisper) runs its
+bidirectional encoder tower over ``batch["source_embeds"]`` [B, T, D]
+at prefill (``_encode``); each decoder block's cross-attention K/V of
+the encoder output are written into the cache then, and decode steps
+read them from there.
 
-The training loss and the encoder tower come with later slices.
+The training loss comes with a later slice.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch
 
 from repro_torch.models.blocks import (WINDOW_INF, apply_block,
                                        block_cache_specs, block_param_specs)
-from repro_torch.models.config import ArchConfig, ScanGroup
+from repro_torch.models.config import (ArchConfig, BlockSpec, FFN, Mixer,
+                                       ScanGroup)
 from repro_torch.models.layers import embed, embed_specs, rmsnorm, \
     rmsnorm_spec, unembed
 from repro_torch.models.params import ParamSpec, tree_map_specs
@@ -56,30 +62,38 @@ def _stack_specs(tree: Tree, repeats: int) -> Tree:
         tree)
 
 
-def _no_encoder(cfg: ArchConfig) -> None:
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder tower is not ported yet; it comes "
-            f"with the encoder-decoder slice (whisper)")
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder tower reuses the arch dims with full bidirectional
+    attention, roped at the arch's theta."""
+    enc_blk = BlockSpec(Mixer.ATTN, FFN.DENSE, rope_theta=cfg.rope_theta)
+    return dataclasses.replace(
+        cfg, groups=(ScanGroup("enc", cfg.encoder.n_layers, (enc_blk,)),),
+        encoder=None)
+
+
+def _group_specs(cfg: ArchConfig) -> Tree:
+    return {g.name: {f"pos{j}": _stack_specs(
+        block_param_specs(cfg, blk), g.repeats)
+        for j, blk in enumerate(g.pattern)} for g in cfg.groups}
 
 
 def build_param_specs(cfg: ArchConfig) -> Tree:
     cfg.validate()
-    _no_encoder(cfg)
-    return {
-        "embed": embed_specs(cfg),
-        "final_norm": rmsnorm_spec(cfg.d_model),
-        "groups": {g.name: {f"pos{j}": _stack_specs(
-            block_param_specs(cfg, blk), g.repeats)
-            for j, blk in enumerate(g.pattern)} for g in cfg.groups},
-    }
+    p = {"embed": embed_specs(cfg),
+         "final_norm": rmsnorm_spec(cfg.d_model),
+         "groups": _group_specs(cfg)}
+    if cfg.encoder is not None:
+        p["encoder"] = {"final_norm": rmsnorm_spec(cfg.d_model),
+                        "groups": _group_specs(_encoder_cfg(cfg))}
+    return p
 
 
 def build_cache_specs(cfg: ArchConfig, batch: int, max_len: int,
                       dtype: torch.dtype = torch.bfloat16) -> Tree:
-    _no_encoder(cfg)
+    src = cfg.encoder.source_len if cfg.encoder is not None else 0
     return {g.name: {f"pos{j}": _stack_specs(
-        block_cache_specs(cfg, blk, batch, max_len, dtype), g.repeats)
+        block_cache_specs(cfg, blk, batch, max_len, source_len=src,
+                          dtype=dtype), g.repeats)
         for j, blk in enumerate(g.pattern)} for g in cfg.groups}
 
 
@@ -133,6 +147,7 @@ def _run_groups(
     *,
     caches: Optional[Tree] = None,
     cache_offset=None,
+    enc_out: Optional[torch.Tensor] = None,
     causal: bool = True,
     flags: RunFlags = RunFlags(),
 ) -> Tuple[torch.Tensor, Optional[Tree]]:
@@ -152,7 +167,8 @@ def _run_groups(
                 x, nc = apply_block(
                     _layer(gp[key], r), blk, cfg, x, positions, meta,
                     cache=_layer(gc[key], r) if gc is not None else None,
-                    cache_offset=cache_offset, causal=causal,
+                    cache_offset=cache_offset, enc_out=enc_out,
+                    causal=causal,
                     moe_impl=flags.moe_impl,
                     moe_group=flags.moe_group or None)
                 layer_caches[key].append(nc)
@@ -165,6 +181,19 @@ def _run_groups(
 # ---------------------------------------------------------------------------
 # model-level entry points
 # ---------------------------------------------------------------------------
+
+def _encode(params: Tree, cfg: ArchConfig, source_embeds: torch.Tensor,
+            flags: RunFlags) -> torch.Tensor:
+    """Run the bidirectional encoder tower (whisper-style) over
+    ``source_embeds`` [B, T, D]: no cache, no causal mask."""
+    ecfg = _encoder_cfg(cfg)
+    b, t, _ = source_embeds.shape
+    x = source_embeds.to(cfg.compute_dtype)
+    positions = torch.arange(t, device=x.device)[None].expand(b, t)
+    x, _ = _run_groups(params["encoder"], ecfg.groups, ecfg, x, positions,
+                       build_meta(ecfg), causal=False, flags=flags)
+    return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+
 
 def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any]
                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -188,9 +217,12 @@ def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
     """Process the full prompt, returning (last-token logits [B,V],
     populated caches)."""
     x, positions, _ = _prepare_inputs(params, cfg, batch)
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = _encode(params, cfg, batch["source_embeds"], flags)
     x, new_caches = _run_groups(
         params, cfg.groups, cfg, x, positions, build_meta(cfg),
-        caches=caches, cache_offset=0, flags=flags)
+        caches=caches, cache_offset=0, enc_out=enc_out, flags=flags)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg)[:, 0, :]
     return logits, new_caches

@@ -1,6 +1,8 @@
 """The port's dense, vision-language and MoE configs (gemma3-1b,
-granite-20b, command-r-35b, internvl2-26b, mixtral-8x22b) against the
-JAX package, with the reference's own weights carried over through
+granite-20b, command-r-35b, internvl2-26b, mixtral-8x22b), its MLA
+configs (minicpm3-4b, deepseek-v2-236b), the encoder-decoder
+whisper-base and xlstm-125m against the JAX package, with the
+reference's own weights carried over through
 ``convert.params_from_numpy``.
 
 Contract: each config's dataclasses equal the reference's (full and
@@ -8,10 +10,11 @@ reduced), and the full config's parameter count and bf16 checkpoint
 bytes equal the reference's; a reduced prefill and greedy decode steps
 give logits and every cache leaf within 1e-4 of the reference's
 ``prefill`` / ``decode_step`` (gemma3's prompt past its reduced window,
-internvl2 with its prefix embeddings); the int8 KV cache stays close to
-the float32 one on reduced command-r, as the reference's own test
-requires; the launcher prints the reference launcher's lines, and
-raises the reference launcher's ``KeyError`` for internvl2.
+internvl2 with its prefix embeddings, whisper with its source frame
+embeddings); the int8 KV cache stays close to the float32 one on
+reduced command-r, as the reference's own test requires; the launcher
+prints the reference launcher's lines, and raises the reference
+launcher's ``KeyError`` for internvl2 and whisper.
 """
 import contextlib
 import dataclasses
@@ -23,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JARCHS
 from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
 from repro.launch import serve as jserve
@@ -50,8 +54,13 @@ FULL = {
     "command-r-35b": (32_380_690_432, 64_762_707_968),
     "internvl2-26b": (19_861_260_288, 39_723_712_512),
     "mixtral-8x22b": (140_630_071_296, 281_267_036_160),
+    "minicpm3-4b": (4_261_902_848, 8_524_572_672),
+    "deepseek-v2-236b": (239_375_569_920, 478_850_928_640),
+    "whisper-base": (109_749_248, 219_531_264),
+    "xlstm-125m": (77_627_184, 155_274_336),
 }
 NEW = tuple(FULL)
+SLICE8 = NEW[:5]
 
 
 def _np_tree(tree):
@@ -69,7 +78,14 @@ def _fields(cfg, reference):
 
 
 def test_registry_holds_the_seven_archs():
+    assert ARCHS[:7] == ["qwen2-5-7b", "recurrentgemma-9b", *SLICE8]
+
+
+def test_registry_holds_the_eleven_archs():
+    """Every arch the reference can build, the last four after slice 8's
+    seven."""
     assert ARCHS == ["qwen2-5-7b", "recurrentgemma-9b", *NEW]
+    assert sorted(ARCHS) == sorted(JARCHS)
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -97,7 +113,8 @@ def _assert_leaves_close(jtree, tree, tol=1e-4):
 
 
 def _batches(cfg, b, s, seed):
-    """The same prompt (and prefix embeddings) for both packages."""
+    """The same prompt (and prefix or source frame embeddings) for both
+    packages."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (b, s))
     jb = {"tokens": jnp.asarray(toks, jnp.int32)}
@@ -107,15 +124,21 @@ def _batches(cfg, b, s, seed):
             (b, cfg.n_prefix_embeddings, cfg.d_model))).astype(np.float32)
         jb["prefix_embeds"] = jnp.asarray(pre)
         tb["prefix_embeds"] = torch.from_numpy(pre)
+    if cfg.encoder is not None:
+        src = rng.standard_normal(
+            (b, cfg.encoder.source_len, cfg.d_model)).astype(np.float32)
+        jb["source_embeds"] = jnp.asarray(src)
+        tb["source_embeds"] = torch.from_numpy(src)
     return jb, tb
 
 
 @pytest.mark.parametrize("arch", NEW)
 def test_prefill_and_decode_match_reference(arch):
     """Reduced config: a batch-2 12-token prompt (past gemma3's reduced
-    window of 8; after internvl2's 4 prefix embeddings) prefilled into a
-    longer cache, then 5 greedy decode steps at ``pos = S + n_prefix``;
-    logits at every step and every cache leaf within 1e-4."""
+    window of 8; after internvl2's 4 prefix embeddings; whisper's against
+    8 source frames) prefilled into a longer cache, then 5 greedy decode
+    steps at ``pos = S + n_prefix``; logits at every step and every cache
+    leaf (KV, MLA latents, cross K/V, xLSTM states) within 1e-4."""
     jcfg, cfg = jget_reduced(arch), get_reduced(arch)
     jp = jmaterialize(jbuild_param_specs(jcfg), jax.random.PRNGKey(0))
     params = params_from_numpy(cfg, _np_tree(jp), "cpu")
@@ -210,7 +233,9 @@ def _lines(main, argv, **kw):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "granite-20b",
-                                  "command-r-35b", "mixtral-8x22b"])
+                                  "command-r-35b", "mixtral-8x22b",
+                                  "minicpm3-4b", "deepseek-v2-236b",
+                                  "xlstm-125m"])
 def test_launcher_energy_lines_match_reference(arch):
     argv = ["--arch", arch, "--reduced", "--hours", "1"]
     got = _lines(serve.main, argv, device="cpu")
@@ -227,4 +252,18 @@ def test_launcher_cannot_serve_internvl2_as_the_reference():
         with pytest.raises(KeyError, match="prefix_embeds"):
             jserve.main(argv)
         with pytest.raises(KeyError, match="prefix_embeds"):
+            serve.main(argv, device="cpu")
+
+
+def test_launcher_cannot_serve_whisper_as_the_reference():
+    """The launcher's requests carry no source frame embeddings, so the
+    reference launcher's first prefill raises ``KeyError('source_embeds')``
+    in its encoder; the port's launcher raises the same (whisper is
+    served through ``ServingEngine`` with the frames as extras,
+    ``tests/test_torch_serving.py``)."""
+    argv = ["--arch", "whisper-base", "--reduced", "--hours", "1"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        with pytest.raises(KeyError, match="source_embeds"):
+            jserve.main(argv)
+        with pytest.raises(KeyError, match="source_embeds"):
             serve.main(argv, device="cpu")

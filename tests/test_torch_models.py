@@ -22,6 +22,7 @@ from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
 from repro.models import BlockSpec as JBlockSpec
 from repro.models import FFN as JFFN
+from repro.models import MLAConfig as JMLAConfig
 from repro.models import Mixer as JMixer
 from repro.models import RunFlags as JRunFlags
 from repro.models import ScanGroup as JScanGroup
@@ -33,10 +34,10 @@ from repro.models import param_bytes as jparam_bytes
 from repro.models import prefill as jprefill
 from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.convert import caches_from_numpy, params_from_numpy
-from repro_torch.models import (BlockSpec, FFN, Mixer, RunFlags, ScanGroup,
-                                build_cache_specs, build_param_specs,
-                                decode_step, materialize, param_bytes,
-                                param_count, prefill)
+from repro_torch.models import (BlockSpec, FFN, Mixer, MLAConfig, RunFlags,
+                                ScanGroup, build_cache_specs,
+                                build_param_specs, decode_step, materialize,
+                                param_bytes, param_count, prefill)
 from repro_torch.models.layers import rmsnorm, unembed
 from repro_torch.models.model import _prepare_inputs, _run_groups, \
     build_meta
@@ -62,7 +63,8 @@ def weights():
 
 def test_registry_and_config_match_reference():
     assert ARCHS == [ARCH, RG, "gemma3-1b", "granite-20b", "command-r-35b",
-                     "internvl2-26b", "mixtral-8x22b"]
+                     "internvl2-26b", "mixtral-8x22b", "minicpm3-4b",
+                     "deepseek-v2-236b", "whisper-base", "xlstm-125m"]
     for ours, theirs in ((get_config(ARCH), jget_config(ARCH)),
                          (get_reduced(ARCH), jget_reduced(ARCH))):
         a, b = dataclasses.asdict(ours), dataclasses.asdict(theirs)
@@ -234,10 +236,11 @@ def test_materialize_init_laws_and_independent_streams():
 
 
 def test_cases_without_a_kernel_raise(weights):
-    """Softcap and chunked prefill are not computed another way; blocks
-    of later slices raise at build time.  Windowed decode has its kernel
-    path now (a view of the window's cache rows): it matches the
-    reference's masked decode."""
+    """Softcap and chunked prefill are not computed another way.
+    Windowed decode has its kernel path now (a view of the window's cache
+    rows): it matches the reference's masked decode.  The blocks that
+    once raised at build time (mLSTM, MLA, no FFN) build now, with the
+    reference's parameter trees."""
     jcfg, jp, cfg, params = weights
     toks = torch.tensor([[1, 2, 3]])
     caches = materialize(build_cache_specs(cfg, 1, 8, torch.float32),
@@ -265,10 +268,18 @@ def test_cases_without_a_kernel_raise(weights):
                                    atol=1e-4)
     with pytest.raises(NotImplementedError, match="chunked prefill"):
         decode_step(params, toks, c2, 3, cfg, FLAGS)
+    mla = MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+                    qk_rope_head_dim=8, v_head_dim=16)
     for mixer, ffn in ((Mixer.MLSTM, FFN.DENSE), (Mixer.MLA, FFN.DENSE),
                        (Mixer.ATTN, FFN.NONE)):
         other = dataclasses.replace(
             cfg, groups=(ScanGroup("main", 2, (BlockSpec(mixer, ffn),)),),
-            mla=True, moe=True, recurrent=True)
-        with pytest.raises(NotImplementedError, match="slice"):
-            build_param_specs(other)
+            mla=mla)
+        jother = dataclasses.replace(
+            jcfg, groups=(JScanGroup("main", 2, (JBlockSpec(
+                JMixer(mixer.value), JFFN(ffn.value)),)),),
+            mla=JMLAConfig(**dataclasses.asdict(mla)))
+        got = build_param_specs(other)["groups"]["main"]["pos0"]
+        want = jbuild_param_specs(jother)["groups"]["main"]["pos0"]
+        assert {k: sorted(v) for k, v in got.items()} == \
+            {k: sorted(v) for k, v in want.items()}, (mixer, ffn)

@@ -9,6 +9,10 @@ under a full pool, interleaving) the port's greedy tokens equal the
 reference engine's, on reduced Qwen and on reduced Mixtral (MoE); the
 launcher prints the same lines (requests, cold starts, Wh, parking-tax
 Wh, added latency) as the reference launcher.
+On reduced whisper-base, with each request's source frame embeddings
+passed as ``admit``'s extras, the port's tokens equal the reference
+engine's (slots at different positions, a slot reused with other
+frames).
 The reference engine cannot serve reduced RecurrentGemma (its bfloat16
 conv-state slots refuse the float32 state its block returns), so there
 the port's engine is held against a chain of the reference's
@@ -50,6 +54,7 @@ from repro_torch.serving import ServingEngine
 ARCH = "qwen2-5-7b"
 RG = "recurrentgemma-9b"
 MOE = "mixtral-8x22b"
+WHISPER = "whisper-base"
 
 
 def _engines(arch):
@@ -164,6 +169,45 @@ def test_moe_engine_tokens_match_reference(moe_engines, case):
     max(ceil(S * 2 * 2.0 / 4), 1), a decode step at 1 a sequence."""
     jeng, eng = moe_engines
     assert case(eng) == case(jeng)
+
+
+def _whisper_requests(engine, frames):
+    """Two requests with their own frames decode together from different
+    positions; the first is released and a third, with other frames,
+    takes its slot (its cross K/V rows overwritten) beside the second."""
+    first = engine.admit([1, 2, 3], extras={"source_embeds": frames[0]})
+    second = engine.admit([4, 5], extras={"source_embeds": frames[1]})
+    toks = {s: [int(engine._slot_last[s])] for s in (first, second)}
+    for _ in range(3):
+        for s, tok in engine.step().items():
+            toks[s].append(tok)
+    engine.release(first)
+    third = engine.admit([6, 7, 8, 9], extras={"source_embeds": frames[2]})
+    assert third == first
+    out = [toks[first], toks[second]]
+    toks = {s: [int(engine._slot_last[s])] for s in (second, third)}
+    for _ in range(3):
+        for s, tok in engine.step().items():
+            toks[s].append(tok)
+    for s in (second, third):
+        engine.release(s)
+    with pytest.raises(KeyError, match="source_embeds"):
+        engine.generate([1, 2, 3])      # no frames: the encoder has none
+    engine.release(0)
+    return out + [toks[second], toks[third]]
+
+
+def test_whisper_engine_tokens_match_reference():
+    """Reduced whisper (8 source frames): each request's frames [1, 8,
+    64] from a seed, as ``admit``'s extras; the port's greedy tokens
+    equal the reference engine's."""
+    jeng, eng = _engines(WHISPER)
+    rng = np.random.default_rng(3)
+    frames = [rng.standard_normal((1, 8, 64)).astype(np.float32)
+              for _ in range(3)]
+    got = _whisper_requests(eng, frames)
+    assert got == _whisper_requests(jeng, frames)
+    assert len({tuple(t) for t in got}) > 1
 
 
 def _lines(main, argv, **kw):

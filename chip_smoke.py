@@ -14,7 +14,10 @@ gemma3-1b, granite-20b, command-r-35b, internvl2-26b, Mixtral-8x22B (12
 of its 56 layers), minicpm3-4b, deepseek-v2-236b (7 of its 60 layers),
 whisper-base and xlstm-125m, through ``ServingEngine``,
 ``repro_torch.launch.serve`` or, for internvl2's prefix embeddings, the
-model's ``prefill`` / ``decode_step``.  Phases, in order:
+model's ``prefill`` / ``decode_step``, and last trains: the kernels'
+gradients, ``train_loss``'s at full width, Qwen2.5-7B's widths through
+``training.trainer.train`` and the training launcher with resume.
+Phases, in order:
 
   1. the card (``nvidia-smi`` name and power limit) and the build time
      (every source in parallel, with its ``ptxas`` register and spill
@@ -219,7 +222,45 @@ model's ``prefill`` / ``decode_step``.  Phases, in order:
       split); deepseek-v2 at 7 of its 60 layers (~57.7 GB) through
       ``ServingEngine`` on 24 requests, no launch, drops printed; its
       wall;
-  18. one JSON line describing every kernel (the metering rows: the
+  18. the kernels' gradients (``ops``' autograd functions: the flash
+      kernel's forward with the plain version's recomputed gradient, the
+      scan kernel in both passes) against ``torch.autograd`` through the
+      plain versions on the card, within the forward contracts' 2e-3 /
+      2e-2 (flash, float32 / bf16) and 1e-4 (scan) of each gradient's
+      max: flash at Qwen2.5-7B's training shape (B = 1, 28 over 4 heads,
+      S = T = 4,096, D = 128), RecurrentGemma's local attention past its
+      2,048 window and whisper's non-causal 1,500-frame encoder, in
+      float32 and bf16, each call's route asserted; the scan at [1, 4096,
+      4096] (chunked) and [2, 40, 4096] (serial) with h0 nonzero, two
+      launches (forward and backward) on the route S picks; planted
+      faults modelled in plain torch must fail the same checks (the bare
+      kernel with no autograd; the scan's backward without the one-step
+      shift of ``a``);
+  19. ``train_loss``'s gradients at full width in float32 (Qwen2.5-7B at
+      1 layer; RecurrentGemma-9B's pattern once plus its tail, 5 layers;
+      B = 1, S = 256) with the kernels against the same call with the
+      plain versions patched into ``ops``: every leaf within 2e-3 of its
+      max, none zero where the plain run's is not, and exactly 2 flash
+      launches an attention layer (forward and remat recompute) and 3
+      scan launches an RG-LRU layer (and the backward) with the kernels,
+      none with the plain versions;
+  20. ``training.trainer.train`` on Qwen2.5-7B at full width, 4 of its
+      28 layers, float32 without TF32, S = 4,096 (the reference's
+      ``train_4k`` length), at the largest batch that fits (a two-step
+      run at one more row must run out of memory), 8 steps with a 2-step
+      warmup: the loss each step (the mean of the last 3 below the mean
+      of the first 3), ms a step, tokens a second, peak memory, exactly 8
+      flash launches a step (counters reset just before each step and
+      read just after), the card's idle share of the last step under
+      ``torch.profiler``; then the flash forward and its plain-recompute
+      backward at that shape, and the scan's kernel backward at [1, 4096,
+      4096] (CUDA events);
+  21. the training launcher (``repro_torch.launch.train``'s ``main`` in
+      this process) at the reduced Qwen config on the card: 10 steps, and
+      5 then 5 resumed from the checkpoint, final losses within rtol
+      1e-5 (bit-equality printed), and 10 steps with ``--grad-accum 2
+      --grad-compression``;
+  22. one JSON line describing every kernel (the metering rows: the
       input sets, FP64 instructions an entry or the longest run and the
       dependent-add latency; the flash row: the sm90
       kernel's time, the simt kernel's beside it, every timed prefill
@@ -228,18 +269,23 @@ model's ``prefill`` / ``decode_step``.  Phases, in order:
       time, every timed shape and the launches of each serving run; the
       scan row: the serial route's time beside the chunked one's, and
       every timed shape; the metering rows also carry their launches
-      on the paths of 4a-4d, ``stack_launches``);
-  19. as the last line, ``{"ok": true, "device": {...}}``.
+      on the paths of 4a-4d, ``stack_launches``; the flash and scan rows
+      also their gradient error, backward time and launches a train
+      step);
+  23. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
-the last line.  Phases 1-14 take 631-639 s on an H100 80GB HBM3 at
-700 W; phases 15-17 are sized to keep the whole under about 900 s of
-the 1200 s limit.  It also exits non-zero without a CUDA device.
-``python3 chip_smoke.py --metering`` stops after phase 4d and prints
-the metering kernels' figures and the stack's walls and launches as two
-JSON lines instead of the last two.
+the last line.  Phases 1-17 took 669-931 s on the hosts seen (an H100
+80GB HBM3 at 700 W); phases 18-21 take about a minute more, sized to
+keep the whole under 1000 s of the 1200 s limit.  It also exits
+non-zero without a CUDA device.  ``python3 chip_smoke.py --metering``
+stops after phase 4d and prints the metering kernels' figures and the
+stack's walls and launches as two JSON lines instead of the last two;
+``python3 chip_smoke.py --train`` runs phase 1 and phases 18-21 alone
+and prints their results as one JSON line instead of the last two.
 """
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -2743,7 +2789,9 @@ def serve_slice9():
         assert sum(counts[arch].values()) == 0, counts[arch]
         combines += c
         _free_card()
-        profile_serving(arch)
+        # one request: tracing minicpm3's 62 layers of eager MLA over
+        # three took a minute of the script's limit
+        profile_serving(arch, requests=1 if arch == MINICPM3 else 3)
         _free_card()
     cfg = get_config(WHISPER)
     # frame embeddings from a seed (the audio frontend is a stub in both
@@ -3298,6 +3346,458 @@ def drive_stack():
             "planner": plans, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# training (phases 18-21)
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # the forward contracts'
+SCAN_GRAD_TOL = 1e-4
+# (label, (B, H, Hkv, S, D), window, causal): Qwen2.5-7B's training
+# shape (S = T = 4,096), RecurrentGemma's local attention past its 2,048
+# window, whisper's non-causal 1,500-frame encoder
+TRAIN_FLASH_CASES = (
+    ("qwen2-5-7b train", (1, 28, 4, 4096, 128), None, True),
+    ("recurrentgemma-9b windowed", (1, 16, 1, 4096, 256), 2048, True),
+    ("whisper-base encoder", (1, 8, 8, 1500, 64), None, False),
+)
+# (B, S, W): RecurrentGemma's width at the training length (chunked) and
+# a short sequence (serial)
+TRAIN_SCAN_SHAPES = ((1, 4096, 4096), (2, 40, 4096))
+TRAIN_LAYERS = 4           # of Qwen2.5-7B's 28, at full width, float32
+TRAIN_SEQ = 4096           # the reference's train_4k length
+TRAIN_STEPS = 8
+TRAIN_BATCH = 4            # the largest batch that fits (phase 20 probes +1)
+GRAD_SEQ = 256             # phase 19's sequence
+
+
+def _grad_check(got, want, tol):
+    """(ok, worst): each gradient in ``got`` within ``tol`` of its
+    counterpart in ``want``, relative to that one's max |.|, finite, and
+    none missing (None) or all zero where ``want``'s is nonzero; worst =
+    the largest such relative error (inf for a missing one)."""
+    import torch
+    ok, worst = True, 0.0
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        if g is None or (scale > 0 and not bool(g.any())):
+            ok, worst = False, float("inf")
+            continue
+        err = float((g.float() - w.float()).abs().max())
+        rel = err / scale if scale else err
+        ok = ok and bool(torch.isfinite(g).all()) and rel <= tol
+        worst = max(worst, rel)
+    return ok, worst
+
+
+def _flash_grads(fn, q, k, v, r, causal, window):
+    """dL/d(q, k, v) of L = sum(out^2 * r), out = fn(q, k, v) (None where
+    out carries no gradient)."""
+    import torch
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*ins, causal=causal, window=window)
+    if out.grad_fn is None:
+        return (None, None, None)
+    loss = (out.float() ** 2 * r).sum()
+    return torch.autograd.grad(loss, ins, allow_unused=True)
+
+
+def _scan_grads(fn, a, b, h0, r):
+    """dL/d(a, b, h0) of L = sum(h^2 * r), h = fn(a, b, h0)."""
+    import torch
+    ins = [t.detach().requires_grad_() for t in (a, b, h0)]
+    h = fn(*ins)
+    if h.grad_fn is None:
+        return (None, None, None)
+    return torch.autograd.grad((h.float() ** 2 * r).sum(), ins,
+                               allow_unused=True)
+
+
+def _scan_grads_by(backward, scan, a, b, h0, r):
+    """The same gradients from a backward formula (``ref.rglru_scan_
+    backward`` or a planted fault) run with ``scan``."""
+    h = scan(a, b, h0)
+    return backward(a, h, h0, (2 * h.float() * r).to(h.dtype), scan=scan)
+
+
+def check_kernel_grads(stats):
+    """Phase 18: the kernels' gradients (``ops``' autograd functions)
+    against the plain versions' on the card, and the planted faults."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as rmod
+    t0 = time.perf_counter()
+    flash_worst, scan_worst = 0.0, 0.0
+    for label, (b, h, hkv, s, d), window, causal in TRAIN_FLASH_CASES:
+        for dt, tol in ((torch.float32, GRAD_TOL["float32"]),
+                        (torch.bfloat16, GRAD_TOL["bfloat16"])):
+            q = _randn((b, h, s, d), 1, dt, torch)
+            k = _randn((b, hkv, s, d), 2, dt, torch)
+            v = _randn((b, hkv, s, d), 3, dt, torch)
+            r = _randn((b, h, s, d), 4, torch.float32, torch)
+            want = _flash_grads(ref.flash_attention_ref, q, k, v, r, causal,
+                                window)
+            got = _routed("flash_attention", fmod.route(dt, d),
+                          lambda: _flash_grads(ops.flash_attention, q, k, v,
+                                               r, causal, window))
+            ok, worst = _grad_check(got, want, tol)
+            assert ok, f"{label} {dt}: gradients off by {worst:.3e}"
+            # planted fault: the bare kernel, no autograd
+            bare = _flash_grads(fmod.flash_attention, q, k, v, r, causal,
+                                window)
+            miss = _grad_check(bare, want, tol)
+            assert not miss[0], f"{label}: the bare kernel passed"
+            flash_worst = max(flash_worst, worst)
+            print(f"flash grads {label} {str(dt)[6:]}: dq/dk/dv within "
+                  f"{worst:.3e} of the max (tol {tol}); the bare kernel "
+                  f"misses ({miss[1]})")
+            del q, k, v, r, want, got, bare
+            torch.cuda.empty_cache()
+    for shape in TRAIN_SCAN_SHAPES:
+        a, x, h0 = _scan_inputs(shape, 7, torch.float32, torch)
+        r = _randn(shape, 8, torch.float32, torch)
+        want = _scan_grads(ref.rglru_scan_ref, a, x, h0, r)
+        way = rmod.route(shape[1])
+        before = ops.route_counts("rglru_scan")[way]
+        got = _scan_grads(ops.rglru_scan, a, x, h0, r)
+        # forward and backward each launch the kernel, on one route
+        assert ops.route_counts("rglru_scan")[way] == before + 2
+        ok, worst = _grad_check(got, want, SCAN_GRAD_TOL)
+        assert ok, f"scan grads {shape}: off by {worst:.3e}"
+        faults = {
+            "unshifted a": _scan_grads_by(ref.rglru_scan_backward_unshifted,
+                                          rmod.rglru_scan, a, x, h0, r),
+            "bare kernel": _scan_grads(rmod.rglru_scan, a, x, h0, r)}
+        misses = {n: _grad_check(f, want, SCAN_GRAD_TOL)
+                  for n, f in faults.items()}
+        assert not any(m[0] for m in misses.values()), misses
+        scan_worst = max(scan_worst, worst)
+        print(f"scan grads {list(shape)} ({way}): da/db/dh0 within "
+              f"{worst:.3e} of the max (tol {SCAN_GRAD_TOL}); faults miss: "
+              + ", ".join(f"{n} {m[1]:.3e}" for n, m in misses.items()))
+        del a, x, h0, r, want, got, faults
+    stats["flash_attention"]["grad_err"] = flash_worst
+    stats["rglru_scan"]["grad_err"] = scan_worst
+    print(f"phase 18: {time.perf_counter() - t0:.3f} s")
+
+
+def time_backward(stats, batch=1):
+    """The flash forward (kernel) and its plain-recompute backward at
+    Qwen2.5-7B's training shape (``batch`` rows, float32), and the scan's
+    kernel backward at [1, 4096, 4096]: CUDA events, median of 7 rounds."""
+    import torch
+
+    from repro_torch.kernels import ops
+    b, h, hkv, s, d = batch, 28, 4, TRAIN_SEQ, 128
+    q, k, v = (_randn((b, n, s, d), i, torch.float32, torch).requires_grad_()
+               for i, n in ((1, h), (2, hkv), (3, hkv)))
+    out = ops.flash_attention(q, k, v)
+    g = torch.randn_like(out)
+    fwd = _time_ms(lambda: ops.flash_attention(q, k, v), torch, reps=3)
+    bwd = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                               retain_graph=True), torch,
+                   reps=3)
+    del q, k, v, out, g
+    a, x, h0 = (t.requires_grad_() for t in _scan_inputs(
+        TRAIN_SCAN_SHAPES[0], 7, torch.float32, torch))
+    hh = ops.rglru_scan(a, x, h0)
+    gh = torch.randn_like(hh)
+    sbwd = _time_ms(lambda: torch.autograd.grad(hh, (a, x, h0), gh,
+                                                retain_graph=True), torch,
+                    reps=5)
+    del a, x, h0, hh, gh
+    torch.cuda.empty_cache()
+    stats["flash_attention"].update(train_shape=[b, h, hkv, s, d],
+                                    train_forward_ms=fwd, backward_ms=bwd,
+                                    backward="plain recompute")
+    stats["rglru_scan"].update(backward_ms=sbwd,
+                               backward="kernel (chunked, flipped inputs)")
+    print(f"flash at the training shape [{b}, {h}, {s}, {d}] float32: "
+          f"forward (simt kernel) {fwd:.4f} ms, backward (plain recompute) "
+          f"{bwd:.4f} ms; scan backward {list(TRAIN_SCAN_SHAPES[0])} "
+          f"{sbwd:.4f} ms")
+
+
+class _PlainOps:
+    """``ops.flash_attention`` / ``ops.rglru_scan`` replaced by the plain
+    versions for one call (restored in ``__exit__``)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.real = ops.flash_attention, ops.rglru_scan
+        ops.flash_attention = ref.flash_attention_ref
+        ops.rglru_scan = ref.rglru_scan_ref
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention, ops.rglru_scan = self.real
+
+
+def _loss_grads(cfg, params, batch):
+    """(loss, [(path, grad)]) of ``train_loss`` at ``params``."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import RunFlags
+    from repro_torch.models.params import leaves_with_paths
+    loss, grads = value_and_grad(params, batch, cfg, RunFlags())
+    return float(loss), list(leaves_with_paths(grads))
+
+
+def check_model_grads():
+    """Phase 19: ``train_loss``'s gradients at full width, float32, with
+    the kernels against the same call with the plain versions patched
+    into ``ops``: every leaf within 2e-3 of its max, none zero where the
+    plain run's is not, and the launches each run made."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import ScanGroup, build_param_specs, materialize
+    t0 = time.perf_counter()
+    rg = get_config(RG_ARCH)
+    cases = (
+        (f"{ARCH} (1 layer)", cut_depth(ARCH, 1, torch.float32)),
+        (f"{RG_ARCH} (main x 1 + tail)", dataclasses.replace(
+            rg, n_layers=sum(len(g.pattern) for g in rg.groups),
+            groups=tuple(ScanGroup(g.name, 1, g.pattern)
+                         for g in rg.groups),
+            param_dtype=torch.float32, compute_dtype=torch.float32)),
+    )
+    counts = {}
+    for label, cfg in cases:
+        params = materialize(build_param_specs(cfg),
+                             torch.Generator().manual_seed(0), DEV)
+        g = torch.Generator().manual_seed(1)
+        tok = torch.randint(0, cfg.vocab_size, (1, GRAD_SEQ + 1),
+                            generator=g, dtype=torch.int32).to(DEV)
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        ops.reset_launches()
+        loss, got = _loss_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+        kernel_counts = {k: n for k, n in ops.launch_counts().items() if n}
+        ops.reset_launches()
+        with _PlainOps():
+            want_loss, want = _loss_grads(cfg, params, batch)
+        plain_counts = {k: n for k, n in ops.launch_counts().items() if n}
+        assert not plain_counts, plain_counts
+        n_attn = sum(b.mixer.value == "attn" for grp in cfg.groups
+                     for b in grp.pattern * grp.repeats)
+        n_scan = cfg.n_layers - n_attn
+        # remat: each attention layer's forward runs twice (forward and
+        # recompute; its backward is the plain recompute); each RG-LRU
+        # layer's scan three times (forward, recompute, backward)
+        expect = {"flash_attention": 2 * n_attn, "rglru_scan": 3 * n_scan}
+        assert kernel_counts == {k: n for k, n in expect.items() if n}, \
+            (kernel_counts, expect)
+        ok, worst = _grad_check([gg for _, gg in got],
+                                [w for _, w in want], 2e-3)
+        assert ok, f"{label}: a gradient leaf off by {worst:.3e}"
+        assert abs(loss - want_loss) <= 2e-3 * abs(want_loss), \
+            (loss, want_loss)
+        counts[label] = kernel_counts
+        print(f"model grads {label}: loss {loss!r} (plain {want_loss!r}); "
+              f"{len(got)} leaves within {worst:.3e} of their max, none "
+              f"zero where the plain run's is not; launches with the "
+              f"kernels {kernel_counts}, with the plain versions "
+              f"{plain_counts or 'none'}")
+        del params, got, want
+        _free_card()
+    print(f"phase 19: {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+def _instrumented_steps(record, profile_step):
+    """Wrap ``trainer.make_train_step``: each step's kernel launches
+    (counters reset just before the step, read just after) go into
+    ``record``; step ``profile_step`` runs under ``torch.profiler`` and
+    its device busy time goes there too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.training import trainer
+    real = trainer.make_train_step
+
+    def make(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(state, batch):
+            ops.reset_launches()
+            if len(record["launches"]) != profile_step:
+                out = step(state, batch)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = step(state, batch)
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rows = [(e.key, e.self_device_time_total / 1e3)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.self_device_time_total > 0]
+                record["profile"] = {"wall_ms": 1e3 * wall,
+                                     "busy_ms": sum(ms for _, ms in rows),
+                                     "top": sorted(rows,
+                                                   key=lambda r: -r[1])[:8]}
+            record["launches"].append(
+                {k: n for k, n in ops.launch_counts().items() if n})
+            return out
+        return run
+    return real, make
+
+
+def train_full_width(stats):
+    """Phase 20: ``trainer.train`` on Qwen2.5-7B at full width, 4 of its
+    28 layers, float32, S = 4,096, at the largest batch that fits (a
+    two-step run at one more row runs out of memory), 8 steps with a
+    2-step warmup."""
+    import torch
+
+    from repro_torch.models import RunFlags
+    from repro_torch.training import trainer
+    from repro_torch.training.optimizer import AdamWConfig
+    t0 = time.perf_counter()
+    cfg = cut_depth(ARCH, TRAIN_LAYERS, torch.float32)
+
+    def tc(batch, steps):
+        return trainer.TrainConfig(
+            steps=steps, batch_size=batch, seq_len=TRAIN_SEQ, log_every=1,
+            opt=AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS),
+            flags=RunFlags())
+
+    def fits(batch):
+        # two steps: the second runs on the allocator's steady state
+        # (at 5 rows one step ran and the second did not)
+        try:
+            trainer.train(cfg, tc(batch, 2), log_fn=lambda s: None,
+                          device=DEV)
+            return True
+        except torch.cuda.OutOfMemoryError:
+            return False
+
+    # the largest batch that fits: TRAIN_BATCH, unless one more row runs
+    # (the card's cache is emptied after each probe, once the failed
+    # step's frames are gone)
+    batch = TRAIN_BATCH
+    while True:
+        more = fits(batch + 1)
+        _free_card()
+        if not more:
+            break
+        batch += 1
+    print(f"train: a step at {batch + 1} rows of {TRAIN_SEQ} tokens runs "
+          f"out of the card's memory; {batch} rows a step"
+          + ("" if batch == TRAIN_BATCH else
+             f" (TRAIN_BATCH is {TRAIN_BATCH}: raise it)"))
+    torch.cuda.reset_peak_memory_stats()
+    record = {"launches": []}
+    real, make = _instrumented_steps(record, profile_step=TRAIN_STEPS - 1)
+    trainer.make_train_step = make
+    try:
+        hist = trainer.train(cfg, tc(batch, TRAIN_STEPS),
+                             log_fn=lambda s: print(f"  {s}"), device=DEV)
+    finally:
+        trainer.make_train_step = real
+    peak = torch.cuda.max_memory_allocated()
+    losses = hist["loss"]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    assert all(map(math.isfinite, losses)) and last < first, losses
+    flash = [c.get("flash_attention", 0) for c in record["launches"]]
+    assert flash == [2 * TRAIN_LAYERS] * TRAIN_STEPS, record["launches"]
+    assert all(set(c) == {"flash_attention"} for c in record["launches"])
+    # the profiled step is the last; the others' host clock
+    times = hist["step_time_s"][1:-1]
+    step_ms = 1e3 * statistics.median(times)
+    prof = record["profile"]
+    # None: the profiler recorded no device time (not measured)
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"] if prof["busy_ms"] \
+        else None
+    tokens = batch * TRAIN_SEQ
+    print(f"train {cfg.name} x {TRAIN_LAYERS} layers float32, "
+          f"{batch} x {TRAIN_SEQ} tokens a step: losses {losses}; "
+          f"mean of the first 3 {first!r}, of the last 3 {last!r}")
+    print(f"train: {step_ms:.3f} ms a step (median of steps 2-7; step 1 "
+          f"{1e3 * hist['step_time_s'][0]:.3f} ms), "
+          f"{tokens / (step_ms / 1e3):.1f} tokens/s, max_memory_allocated "
+          f"{peak:,} B, flash launches a step {flash[0]} (2 x "
+          f"{TRAIN_LAYERS} layers: forward and remat recompute)")
+    print(f"train profile (last step): {prof['wall_ms']:.3f} ms of host "
+          f"clock, the card busy {prof['busy_ms']:.3f} ms: idle "
+          + ("not measured" if idle is None else f"{100 * idle:.1f} %"))
+    for key, ms in prof["top"]:
+        print(f"  device {ms:10.3f} ms  {100 * ms / prof['busy_ms']:5.1f} % "
+              f" {key[:90]}")
+    _free_card()
+    time_backward(stats, batch=batch)
+    result = {"arch": cfg.name, "layers": TRAIN_LAYERS, "batch": batch,
+              "seq": TRAIN_SEQ, "losses": losses, "step_ms": step_ms,
+              "tokens_per_s": tokens / (step_ms / 1e3), "peak_bytes": peak,
+              "idle": idle, "flash_launches_per_step": flash[0]}
+    print(f"phase 20: {time.perf_counter() - t0:.3f} s")
+    return result
+
+
+def _train_lines(argv):
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_launch
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert train_launch.main(list(argv)) == 0
+    out = buf.getvalue().splitlines()
+    for line in out:
+        print(f"  {line}")
+    final = [x for x in out if x.startswith("[train] final loss ")]
+    return float(final[-1].split()[3])
+
+
+def check_train_launcher(tmp):
+    """Phase 21: ``repro_torch.launch.train`` (its ``main``, in this
+    process) at the reduced Qwen config on the card: 10 steps straight,
+    5 then a resumed 5 from the checkpoint (final losses within rtol
+    1e-5, as the reference's ``test_train_resume_bitexact``), and a run
+    with ``--grad-accum 2 --grad-compression``."""
+    import shutil
+    t0 = time.perf_counter()
+    base = ["--arch", ARCH, "--reduced", "--torch-device", DEV]
+    shutil.rmtree(tmp, ignore_errors=True)
+    straight = _train_lines(base + ["--steps", "10", "--ckpt",
+                                    f"{tmp}/straight"])
+    _train_lines(base + ["--steps", "5", "--ckpt", f"{tmp}/resume"])
+    resumed = _train_lines(base + ["--steps", "10", "--ckpt",
+                                   f"{tmp}/resume"])
+    assert abs(resumed - straight) <= 1e-5 * abs(straight), \
+        (straight, resumed)
+    accum = _train_lines(base + ["--steps", "10", "--grad-accum", "2",
+                                 "--grad-compression"])
+    assert math.isfinite(accum)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"train launcher: final loss straight {straight!r}, resumed "
+          f"{resumed!r} (bit-equal: {straight == resumed}); accum 2 + "
+          f"compression {accum!r}")
+    print(f"phase 21: {time.perf_counter() - t0:.3f} s")
+    return {"straight": straight, "resumed": resumed,
+            "bit_equal": straight == resumed, "accum_compression": accum}
+
+
+def drive_training(stats):
+    """Phases 18-21."""
+    stats.setdefault("flash_attention", {})
+    stats.setdefault("rglru_scan", {})
+    check_kernel_grads(stats)
+    model = check_model_grads()
+    full = train_full_width(stats)
+    launcher = check_train_launcher(ROOT / "build" / "train_ckpt")
+    return {"model_grads": model, "full_width": full, "launcher": launcher}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3311,6 +3811,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     build()
     hgmma = count_hgmma()
+    if "--train" in sys.argv[1:]:           # phases 1 and 18-21 alone
+        stats = {}
+        training = drive_training(stats)
+        print(card)
+        print(json.dumps({"training": training, "kernels": stats}))
+        return 0
     stats = check_kernels()
     main_counts, unfused_counts = drive_days()
     stack = drive_stack()
@@ -3364,6 +3870,7 @@ def main():
     t0 = time.perf_counter()
     s9_counts, s9_combines = serve_slice9()
     print(f"phase 17: {time.perf_counter() - t0:.3f} s")
+    training = drive_training(stats)
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
               "segment_trapz": csrc + "segment_trapz.cu",
@@ -3411,6 +3918,17 @@ def main():
             if row["name"] != "segment_trapz":
                 row["stack_launches"] = stack_launches
         if row["name"] == "flash_attention":
+            # training: the simt forward and the plain-recompute backward
+            # at the training shape, the launches a train step (phase 20:
+            # 2 a layer under remat; phase 19's cuts)
+            row.update({k: stats["flash_attention"][k] for k in (
+                "grad_err", "train_shape", "train_forward_ms", "backward",
+                "backward_ms")},
+                train_launches_per_step={
+                    "qwen2-5-7b x 4 layers": training["full_width"][
+                        "flash_launches_per_step"],
+                    **{k: c.get("flash_attention", 0)
+                       for k, c in training["model_grads"].items()}})
             # every launcher launch took the sm90 route (serve_launcher);
             # the simt kernel (float32, other head dims) timed beside it
             row.update(kernel_route="sm90", hgmma=hgmma,
@@ -3443,7 +3961,14 @@ def main():
                            "bound_ms")} for r in decode_rows})
         if row["name"] == "rglru_scan":
             # the chunked route's time, the serial one's beside it; every
-            # launcher scan took serial
+            # launcher scan took serial.  Training: the backward's time
+            # (the kernel on the flipped inputs) and the launches a
+            # train step of phase 19's RecurrentGemma cut (3 a layer)
+            row.update({k: stats["rglru_scan"][k] for k in (
+                "grad_err", "backward", "backward_ms")},
+                train_launches_per_step={
+                    k: c.get("rglru_scan", 0)
+                    for k, c in training["model_grads"].items()})
             row.update(kernel_route="chunked",
                        serial_ms=stats["rglru_scan"]["serial_ms"],
                        rows={r["shape"]: {k: r[k] for k in (

@@ -18,6 +18,18 @@ permuted views need no copy), allocates the output with
 stream without synchronising, raises if the launch returns an error, and
 adds one to ``LAUNCHES["flash_attention"]`` and one to ``ROUTES[route]``
 per launch.
+
+``FlashAttention`` is the kernel with a gradient (``ops.flash_attention``
+on the card): an autograd function whose forward is the kernel, unchanged,
+and whose backward recomputes the plain version
+(``ref.flash_attention_ref``) from the saved q, k, v and differentiates
+it.  The Pallas kernel has no backward and the reference trains through
+plain jnp attention, so no backward kernel is owed; a hand-written
+FA2-style backward is later speed work (ROADMAP.md).  The recompute
+holds the [B,H,S,T] float32 scores and softmax weights and their
+gradients for the duration of the backward: at Qwen2.5-7B's training
+shape (B = 1, H = 28, S = T = 4,096) each is 1.9 GB, about 7.5 GB in
+all.  It launches no kernel; there is no fallback: a failure raises.
 """
 from __future__ import annotations
 
@@ -27,7 +39,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 # kernel launches since the last reset (ops.reset_launches), and which
 # route each took
@@ -166,3 +178,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     LAUNCHES["flash_attention"] += 1
     ROUTES[way] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``apply(q, k, v, causal, window)``: the kernel's forward; the
+    plain version's gradient (recomputed from the saved q, k, v)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = ref.flash_attention_ref(*ins, causal=ctx.causal,
+                                          window=ctx.window)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(ins, need) if n], grad))
+        return (*(next(grads) if n else None for n in need), None, None)

@@ -6,6 +6,11 @@ version (``kernels/ref.py``).  This is the reference's
 ``use_pallas=None`` policy -- the kernel on real hardware, the plain
 version where no kernel can run -- decided by where the tensor lies,
 with no fallback for a CUDA tensor: it launches or raises.
+``flash_attention`` and ``rglru_scan`` are differentiable on both
+devices: on the card through the wrappers' autograd functions
+(``FlashAttention``: the flash kernel's forward with the plain version's
+gradient; ``RGLRUScan``: the scan kernel in both passes), on the CPU
+through the plain versions themselves.
 
 ``launch_counts()`` reads the kernel launches per op since the last
 ``reset_launches()`` (plain-version calls never count), so a caller can
@@ -93,7 +98,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Prefill attention, q [B,H,S,D] against k, v [B,Hkv,T,D] (see
     ``ref.flash_attention_ref``)."""
     if _on_cuda("flash_attention", q):
-        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+        return _flash.FlashAttention.apply(q, k, v, causal, window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
@@ -114,5 +119,5 @@ def rglru_scan(a, b, h0) -> torch.Tensor:
     """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` over a, b
     [B,S,W] from h0 [B,W] (see ``ref.rglru_scan_ref``)."""
     if _on_cuda("rglru_scan", a):
-        return _rglru.rglru_scan(a, b, h0)
+        return _rglru.RGLRUScan.apply(a, b, h0)
     return ref.rglru_scan_ref(a, b, h0)

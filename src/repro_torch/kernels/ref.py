@@ -72,6 +72,38 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _scan_backward(a, h, h0, grad, scan, shift):
+    a_next = torch.cat([a[:, shift:], torch.zeros_like(a[:, :shift])], 1) \
+        if shift else a
+    g = scan(a_next.flip(1), grad.flip(1).contiguous(),
+             torch.zeros(h0.shape, dtype=torch.float32,
+                         device=a.device)).flip(1)
+    h_prev = torch.cat([h0[:, None].to(h.dtype), h[:, :-1]], 1)
+    da = (g.float() * h_prev.float()).to(a.dtype)
+    dh0 = (a[:, 0].float() * g[:, 0].float()).to(h0.dtype)
+    return da, g, dh0
+
+
+def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                        grad: torch.Tensor, scan=rglru_scan_ref):
+    """The gradients (da, db, dh0) of ``h = scan(a, b, h0)`` given
+    ``grad`` = dL/dh [B,S,W], from a and h alone.  The adjoint
+    ``g_t = grad_t + a_{t+1} g_{t+1}`` is the same recurrence run
+    backwards in time, so it is ``scan`` itself on the flipped sequences
+    of a shifted one step (0 past the end) and ``grad``, from a zero
+    state; then ``db = g``, ``da_t = g_t h_{t-1}`` (``h_{-1} = h0``) and
+    ``dh0 = a_0 g_0``.  ``scan`` is the plain version here and the CUDA
+    kernel in ``kernels/rglru_scan.py``'s autograd function."""
+    return _scan_backward(a, h, h0, grad, scan, 1)
+
+
+def rglru_scan_backward_unshifted(a, h, h0, grad, scan=rglru_scan_ref):
+    """A wrong ``rglru_scan_backward`` (a planted fault for checks that
+    must be able to fail): the adjoint scanned with ``a_t`` where
+    ``a_{t+1}`` belongs."""
+    return _scan_backward(a, h, h0, grad, scan, 0)
+
+
 def decode_split_partials(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, length, chunk: int, *,
                           tile: int = 64):

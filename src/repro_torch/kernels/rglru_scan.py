@@ -15,6 +15,12 @@ Same contract as the attention wrappers: CUDA tensors only
 checked, passed by strides, launched on the current stream without
 synchronising, raising on a CUDA error, and counted: one in
 ``LAUNCHES["rglru_scan"]`` and one in ``ROUTES[route]`` per call.
+
+``RGLRUScan`` is the scan with a gradient (``ops.rglru_scan`` on the
+card): an autograd function whose backward is this kernel too, run on
+the flipped, one-step-shifted decays and the incoming gradient
+(``ref.rglru_scan_backward``), so a training step launches the kernel
+in the forward and once more in the backward, on the same route.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import c_fn, launch
 
 # kernel launches since the last reset (ops.reset_launches), and which
@@ -115,3 +122,26 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     LAUNCHES["rglru_scan"] += 1
     ROUTES[way] += 1
     return out
+
+
+class RGLRUScan(torch.autograd.Function):
+    """``apply(a, b, h0)``: the kernel in both passes, the forward scan
+    and the adjoint scan of ``ref.rglru_scan_backward``; saves a, h0
+    and h."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        ctx.b_dtype = b.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, h0, h = ctx.saved_tensors
+        da, db, dh0 = ref.rglru_scan_backward(a, h, h0, grad.to(a.dtype),
+                                              scan=rglru_scan)
+        need_a, need_b, need_h0 = ctx.needs_input_grad
+        return (da if need_a else None,
+                db.to(ctx.b_dtype) if need_b else None,
+                dh0 if need_h0 else None)

@@ -114,11 +114,15 @@ def apply_block(
     causal: bool = True,
     moe_impl: Optional[str] = None,
     moe_group: Optional[int] = None,
-) -> Tuple[torch.Tensor, Optional[Tree]]:
-    """Returns (x, new_cache).  A decode step is a call with a cache at
-    an offset above 0; ``enc_out`` feeds a cross-attention block's K/V
-    in any other call.  ``moe_impl`` / ``moe_group`` override the MoE
-    config's dispatch and group size (``RunFlags``)."""
+) -> Tuple[torch.Tensor, Optional[Tree], torch.Tensor]:
+    """Returns (x, new_cache, aux): aux is the MoE router's auxiliary
+    loss (a float32 scalar tensor; the float 0.0 for other FFNs, so a
+    dense model's serving step launches nothing for it), which
+    ``train_loss`` adds to the loss and prefill / decode ignore.  A
+    decode step is a call with a cache at an offset above 0;
+    ``enc_out`` feeds a cross-attention block's K/V in any other call.
+    ``moe_impl`` / ``moe_group`` override the MoE config's dispatch and
+    group size (``RunFlags``)."""
     # without per-layer overrides the BlockSpec's window / theta hold
     if cfg.layer_windows is None and cfg.layer_thetas is None:
         window = blk.window
@@ -128,6 +132,7 @@ def apply_block(
         window = None if window >= WINDOW_INF else window
         theta = meta["theta"]
     decode = cache is not None and int(cache_offset or 0) > 0
+    aux = 0.0
     new_cache: Optional[Dict[str, Tree]] = {} if cache is not None else None
 
     h = rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
@@ -183,11 +188,9 @@ def apply_block(
     if blk.ffn != FFN.NONE:
         h = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
         if blk.ffn == FFN.MOE:
-            # the router's auxiliary loss is a training term: prefill and
-            # decode drop it until the training slice adds ``train_loss``
-            y, _ = moe_lib.moe_ffn(p["ffn"], h, cfg, impl=moe_impl,
-                                   group_size=moe_group)
+            y, aux = moe_lib.moe_ffn(p["ffn"], h, cfg, impl=moe_impl,
+                                     group_size=moe_group)
         else:
             y = mlp(p["ffn"], h)
         x = x + y
-    return x, new_cache
+    return x, new_cache, aux

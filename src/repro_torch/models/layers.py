@@ -1,7 +1,4 @@
-"""Shared layers: RMSNorm, SwiGLU MLP, embeddings.
-
-The training loss (``softmax_xent``) comes with the training slice.
-"""
+"""Shared layers: RMSNorm, SwiGLU MLP, embeddings, the training loss."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -68,3 +65,30 @@ def unembed(p: Tree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, p["table"])
     return torch.einsum("bsd,dv->bsv", x, p["head"])
+
+
+# -- loss -------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy.  logits [B,S,V] (any float dtype,
+    reduced in float32), labels [B,S] int32 (widened to int64 to index),
+    ``mask`` [B,S] optional.
+
+    The label's log-probability is a ``torch.gather``; the reference
+    takes it as a one-hot product (``repro/models/layers.py``), which
+    keeps GSPMD's vocab sharding and sums the same single nonzero term.
+    The gather saves the [B,S,V] float32 one-hot (2.49 GB a batch row at
+    V = 152,064, S = 4,096).  The max is detached, as the reference's
+    ``stop_gradient``."""
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    ll = torch.gather(shifted, -1, labels.long()[..., None])[..., 0] + \
+        m[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

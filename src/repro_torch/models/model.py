@@ -1,4 +1,4 @@
-"""The composable LM stack: param-spec construction + prefill/decode.
+"""The composable LM stack: param-spec construction + train/prefill/decode.
 
 Layer stacks run over *scan groups* (config.py): parameters and caches
 are stacked with a leading "layers" axis, as in the reference, and the
@@ -15,21 +15,31 @@ at prefill (``_encode``); each decoder block's cross-attention K/V of
 the encoder output are written into the cache then, and decode steps
 read them from there.
 
-The training loss comes with a later slice.
+``train_loss`` is the reference's: the no-cache path of every block
+(MLA naive, mLSTM parallel, sLSTM over the sequence, RG-LRU from a zero
+state), the MoE router's auxiliary loss summed over layers, and under
+``RunFlags.remat == "full"`` (the default) each layer's blocks wrapped
+in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+scan body), so the backward recomputes them.  On the card the attention
+and the RG-LRU scan launch the kernels in the forward and again in the
+recompute; their gradients come from ``torch.autograd.Function``s
+(``kernels/flash_attention.py``, ``kernels/rglru_scan.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import (WINDOW_INF, apply_block,
                                        block_cache_specs, block_param_specs)
 from repro_torch.models.config import (ArchConfig, BlockSpec, FFN, Mixer,
                                        ScanGroup)
 from repro_torch.models.layers import embed, embed_specs, rmsnorm, \
-    rmsnorm_spec, unembed
+    rmsnorm_spec, softmax_xent, unembed
 from repro_torch.models.params import ParamSpec, tree_map_specs
 
 Tree = Any
@@ -38,10 +48,13 @@ Tree = Any
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
     """Per-step execution knobs (the reference's).  The port reads
-    ``moe_impl`` and ``moe_group`` (the MoE dispatch) and its callers
-    ``cache_dtype``; remat, scan unrolling, query chunking and gradient
-    accumulation belong to paths not ported yet and are kept for their
-    callers."""
+    ``remat`` in ``train_loss`` ("full" or "none"; "dots" raises),
+    ``grad_accum`` in ``launch/steps.make_train_step``, ``moe_impl`` and
+    ``moe_group`` (the MoE dispatch), and its callers ``cache_dtype``.
+    ``scan_unroll`` and ``attn_chunk`` shape the reference's XLA program
+    (``lax.scan`` unrolling, query-chunked jnp attention) and have no
+    counterpart in an eager stack whose attention is the flash kernel;
+    they are kept so the flags carry over."""
     remat: str = "full"            # none | full | dots
     moe_impl: Optional[str] = None  # override cfg.moe.impl
     scan_unroll: int = 1
@@ -137,6 +150,27 @@ def _stack(trees: List[Tree]) -> Tree:
     return torch.stack(trees)
 
 
+def _apply_layer(h: torch.Tensor, r: int, g: ScanGroup, gp: Tree, gm: Tree,
+                 gc: Optional[Tree], cfg: ArchConfig,
+                 positions: torch.Tensor, cache_offset, enc_out, causal: bool,
+                 flags: RunFlags):
+    """Layer ``r`` of group ``g`` (every block of its pattern): (h, the
+    blocks' aux summed, each block's new cache)."""
+    aux = 0.0
+    ncs = []
+    for j, blk in enumerate(g.pattern):
+        key = f"pos{j}"
+        meta = {k: v[r] for k, v in gm[key].items()}
+        h, nc, a = apply_block(
+            _layer(gp[key], r), blk, cfg, h, positions, meta,
+            cache=_layer(gc[key], r) if gc is not None else None,
+            cache_offset=cache_offset, enc_out=enc_out, causal=causal,
+            moe_impl=flags.moe_impl, moe_group=flags.moe_group or None)
+        aux = aux + a
+        ncs.append(nc)
+    return h, aux, ncs
+
+
 def _run_groups(
     params: Tree,
     groups: Tuple[ScanGroup, ...],
@@ -145,37 +179,47 @@ def _run_groups(
     positions: torch.Tensor,
     metas: Tree,
     *,
+    train: bool = False,
     caches: Optional[Tree] = None,
     cache_offset=None,
     enc_out: Optional[torch.Tensor] = None,
     causal: bool = True,
     flags: RunFlags = RunFlags(),
-) -> Tuple[torch.Tensor, Optional[Tree]]:
-    """Run every layer in order; returns (x, new caches or None)."""
+) -> Tuple[torch.Tensor, Optional[Tree], torch.Tensor]:
+    """Run every layer in order; returns (x, new caches or None, the
+    auxiliary loss summed over layers: 0.0 without an MoE FFN).
+    ``train`` (no cache) wraps each layer in ``checkpoint`` unless
+    ``flags.remat`` is ``"none"``."""
+    if train and flags.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={flags.remat!r}: only 'full' and 'none' are ported; "
+            f"'dots' (save the matmul outputs, recompute the rest) is a "
+            f"follow-up in ROADMAP.md")
+    remat = train and flags.remat == "full"
     new_caches: Optional[Dict[str, Tree]] = {} if caches is not None \
         else None
+    aux_total = 0.0
     for g in groups:
-        gp = params["groups"][g.name]
-        gm = metas[g.name]
         gc = caches[g.name] if caches is not None else None
         layer_caches: Dict[str, List[Tree]] = {
             f"pos{j}": [] for j in range(len(g.pattern))}
         for r in range(g.repeats):
-            for j, blk in enumerate(g.pattern):
-                key = f"pos{j}"
-                meta = {k: v[r] for k, v in gm[key].items()}
-                x, nc = apply_block(
-                    _layer(gp[key], r), blk, cfg, x, positions, meta,
-                    cache=_layer(gc[key], r) if gc is not None else None,
-                    cache_offset=cache_offset, enc_out=enc_out,
-                    causal=causal,
-                    moe_impl=flags.moe_impl,
-                    moe_group=flags.moe_group or None)
-                layer_caches[key].append(nc)
+            run = functools.partial(
+                _apply_layer, r=r, g=g, gp=params["groups"][g.name],
+                gm=metas[g.name], gc=gc, cfg=cfg, positions=positions,
+                cache_offset=cache_offset, enc_out=enc_out, causal=causal,
+                flags=flags)
+            if remat:
+                x, aux, _ = checkpoint(run, x, use_reentrant=False)
+            else:
+                x, aux, ncs = run(x)
+                for j, nc in enumerate(ncs):
+                    layer_caches[f"pos{j}"].append(nc)
+            aux_total = aux_total + aux
         if new_caches is not None:
             new_caches[g.name] = {k: _stack(v)
                                   for k, v in layer_caches.items()}
-    return x, new_caches
+    return x, new_caches, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -183,15 +227,17 @@ def _run_groups(
 # ---------------------------------------------------------------------------
 
 def _encode(params: Tree, cfg: ArchConfig, source_embeds: torch.Tensor,
-            flags: RunFlags) -> torch.Tensor:
+            flags: RunFlags, train: bool = False) -> torch.Tensor:
     """Run the bidirectional encoder tower (whisper-style) over
-    ``source_embeds`` [B, T, D]: no cache, no causal mask."""
+    ``source_embeds`` [B, T, D]: no cache, no causal mask; rematerialized
+    as the decoder in ``train``."""
     ecfg = _encoder_cfg(cfg)
     b, t, _ = source_embeds.shape
     x = source_embeds.to(cfg.compute_dtype)
     positions = torch.arange(t, device=x.device)[None].expand(b, t)
-    x, _ = _run_groups(params["encoder"], ecfg.groups, ecfg, x, positions,
-                       build_meta(ecfg), causal=False, flags=flags)
+    x, _, _ = _run_groups(params["encoder"], ecfg.groups, ecfg, x,
+                          positions, build_meta(ecfg), train=train,
+                          causal=False, flags=flags)
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
@@ -211,6 +257,26 @@ def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any]
     return x, positions, n_prefix
 
 
+def train_loss(params: Tree, batch: Dict[str, Any], cfg: ArchConfig,
+               flags: RunFlags = RunFlags()) -> torch.Tensor:
+    """Mean next-token loss (+ MoE aux).  batch: tokens, labels,
+    [source_embeds], [prefix_embeds], [loss_mask]."""
+    x, positions, n_prefix = _prepare_inputs(params, cfg, batch)
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = _encode(params, cfg, batch["source_embeds"], flags,
+                          train=True)
+    x, _, aux = _run_groups(params, cfg.groups, cfg, x, positions,
+                            build_meta(cfg), train=True, enc_out=enc_out,
+                            flags=flags)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if n_prefix > 0:
+        x = x[:, n_prefix:, :]
+    logits = unembed(params["embed"], x, cfg)
+    return softmax_xent(logits, batch["labels"], batch.get("loss_mask")) \
+        + aux
+
+
 def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
             cfg: ArchConfig, flags: RunFlags = RunFlags()
             ) -> Tuple[torch.Tensor, Tree]:
@@ -220,7 +286,7 @@ def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
     enc_out = None
     if cfg.encoder is not None:
         enc_out = _encode(params, cfg, batch["source_embeds"], flags)
-    x, new_caches = _run_groups(
+    x, new_caches, _ = _run_groups(
         params, cfg.groups, cfg, x, positions, build_meta(cfg),
         caches=caches, cache_offset=0, enc_out=enc_out, flags=flags)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
@@ -237,7 +303,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, caches: Tree,
     x = embed(params["embed"], tokens, cfg).to(cfg.compute_dtype)
     b, s, _ = x.shape
     positions = (pos + torch.arange(s, device=x.device))[None].expand(b, s)
-    x, new_caches = _run_groups(
+    x, new_caches, _ = _run_groups(
         params, cfg.groups, cfg, x, positions, build_meta(cfg),
         caches=caches, cache_offset=pos, flags=flags)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

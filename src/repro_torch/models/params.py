@@ -12,7 +12,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
+from typing import (Any, Callable, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -58,6 +59,34 @@ def leaves_with_paths(tree: Tree, path: str = "") -> Iterator[Tuple[str, Any]]:
             yield from leaves_with_paths(tree[k], f"{path}[{k!r}]")
     else:
         yield path, tree
+
+
+def tree_leaves(tree: Tree) -> List[Any]:
+    """The leaves in sorted-key order (``jax.tree_util.tree_leaves``'s
+    order for a tree of dicts)."""
+    return [leaf for _, leaf in leaves_with_paths(tree)]
+
+
+def tree_unflatten(tree: Tree, leaves: Iterable[Any]) -> Tree:
+    """A tree of ``tree``'s structure holding ``leaves``, taken in
+    sorted-key order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(tree)
+
+
+def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` on each leaf of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
 
 
 def param_bytes(tree: Tree) -> int:

@@ -208,8 +208,8 @@ def test_decode_matches_teacher_forcing(weights):
 
     full = torch.cat([tok, t1], dim=1)
     x, positions, _ = _prepare_inputs(params, cfg, {"tokens": full})
-    h, _ = _run_groups(params, cfg.groups, cfg, x, positions,
-                       build_meta(cfg))
+    h, _, _ = _run_groups(params, cfg.groups, cfg, x, positions,
+                          build_meta(cfg))
     h = rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
     want = unembed(params["embed"], h, cfg)[:, 0, :]
     np.testing.assert_allclose(logits_dec.numpy(), want.numpy(), rtol=2e-3,

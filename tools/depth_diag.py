@@ -88,10 +88,10 @@ def main():
             self.real, self.xs = mmod.apply_block, []
 
             def run(*a, **kw):
-                x, nc = self.real(*a, **kw)
+                x, nc, aux = self.real(*a, **kw)
                 if x.shape[1] > 1:
                     self.xs.append(x.detach().double().cpu())
-                return x, nc
+                return x, nc, aux
             mmod.apply_block = run
             return self
 

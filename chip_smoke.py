@@ -14,9 +14,11 @@ gemma3-1b, granite-20b, command-r-35b, internvl2-26b, Mixtral-8x22B (12
 of its 56 layers), minicpm3-4b, deepseek-v2-236b (7 of its 60 layers),
 whisper-base and xlstm-125m, through ``ServingEngine``,
 ``repro_torch.launch.serve`` or, for internvl2's prefix embeddings, the
-model's ``prefill`` / ``decode_step``, and last trains: the kernels'
+model's ``prefill`` / ``decode_step``, then trains: the kernels'
 gradients, ``train_loss``'s at full width, Qwen2.5-7B's widths through
-``training.trainer.train`` and the training launcher with resume.
+``training.trainer.train`` and the training launcher with resume, and
+last runs the sharded cells (``launch.steps.jit_cell``), the GPipe
+pipeline and ``remat="dots"``.
 Phases, in order:
 
   1. the card (``nvidia-smi`` name and power limit) and the build time
@@ -260,7 +262,36 @@ Phases, in order:
       5 then 5 resumed from the checkpoint, final losses within rtol
       1e-5 (bit-equality printed), and 10 steps with ``--grad-accum 2
       --grad-compression``;
-  22. one JSON line describing every kernel (the metering rows: the
+  22. the sharded cells, the pipeline and ``remat="dots"`` on the card,
+      on a (1, 1) ("data", "model") ``DeviceMesh`` over NCCL at world
+      size 1 (a ``FileStore`` under ``build/``, no network; one
+      all-reduce first): ``jit_cell``'s train cell (TRAIN_RULES) on
+      Qwen2.5-7B at full width, 2 of its 28 layers, float32 without TF32,
+      2 x 4,096 tokens, ``remat="full"``, two steps beside
+      ``make_train_step``'s two on the same state made again from the
+      same seed (loss, grad norm and every parameter leaf within 1e-6 of
+      its max, bit-equality printed; exactly 4 simt flash launches a
+      step; ms a step and ``max_memory_allocated``); the prefill (2 x
+      2,048 tokens) and decode (at position 2,048 of 4,096 cache rows
+      whose first 2,048 hold seeded values) cells (SERVE rules) in bf16
+      against ``make_prefill_step`` / ``make_decode_step`` (logits within
+      1e-6, equality printed; exactly 2 sm90 flash launches and 2 decode
+      launches on the route the split plan names); the GPipe loss at one
+      stage on a ("pod",) mesh, 2 microbatches, ``remat="none"``, B = 2,
+      S = 1,024 (within rel 1e-4 of ``train_loss``, every gradient leaf
+      within 2e-3 of its max, exactly 4 flash launches in the forward);
+      ``remat="dots"`` against ``"full"`` at phase 19's cuts (every leaf
+      within 2e-3, the launches of each: the kernels are recomputed under
+      both), then Qwen at 4 layers x 2 x 4,096 tokens under both, 3
+      steps each, ms a step and peak memory; planted faults modelled in
+      plain torch must fail their checks (two data ranks' gradients
+      summed, not averaged; a pipeline that drops its last microbatch;
+      every layer recomputed with the last layer's closure under
+      "dots"); and the flash row's float32 training shape [4, 28, 4096,
+      128]: its bound and ``scaled_dot_product_attention`` under each
+      backend that takes float32, forward and forward + backward; one
+      JSON line for the phase;
+  23. one JSON line describing every kernel (the metering rows: the
       input sets, FP64 instructions an entry or the longest run and the
       dependent-add latency; the flash row: the sm90
       kernel's time, the simt kernel's beside it, every timed prefill
@@ -271,18 +302,21 @@ Phases, in order:
       every timed shape; the metering rows also carry their launches
       on the paths of 4a-4d, ``stack_launches``; the flash and scan rows
       also their gradient error, backward time and launches a train
-      step);
-  23. as the last line, ``{"ok": true, "device": {...}}``.
+      step; the flash, decode and scan rows their launches in phase 22,
+      ``distributed_launches``, and the flash row its training shape's
+      bound and library times);
+  24. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line.  Phases 1-17 took 669-931 s on the hosts seen (an H100
-80GB HBM3 at 700 W); phases 18-21 take about a minute more, sized to
-keep the whole under 1000 s of the 1200 s limit.  It also exits
+80GB HBM3 at 700 W); phases 18-21 take about a minute more and phase 22
+about 25 s (the whole script took 738.6 s with all 22), sized to keep
+the whole under 1000 s of the 1200 s limit.  It also exits
 non-zero without a CUDA device.  ``python3 chip_smoke.py --metering``
 stops after phase 4d and prints the metering kernels' figures and the
 stack's walls and launches as two JSON lines instead of the last two;
-``python3 chip_smoke.py --train`` runs phase 1 and phases 18-21 alone
-and prints their results as one JSON line instead of the last two.
+``python3 chip_smoke.py --train`` runs phase 1 and phases 18-22 alone
+and prints their results as one JSON line instead of the last three.
 """
 import json
 import math
@@ -3798,6 +3832,592 @@ def drive_training(stats):
     return {"model_grads": model, "full_width": full, "launcher": launcher}
 
 
+# ---------------------------------------------------------------------------
+# sharded cells, the pipeline and remat="dots" (phase 22)
+# ---------------------------------------------------------------------------
+
+DIST_BACKEND = "nccl"      # world size 1 on the card
+DIST_LAYERS = 2            # of Qwen2.5-7B's 28, at full width
+CELL_RTOL = 1e-6           # jit_cell vs make_*_step, of each leaf's max
+DECODE_POS = 2048          # the decode cell's write offset
+PIPE_SHAPE = (2, 1024)     # (B, S) of the pipelined loss
+PIPE_MICRO = 2
+DOTS_LAYERS = 4            # phase 20's cut, timed under "dots" and "full"
+DOTS_BATCH = 2
+DOTS_STEPS = 3
+TRAIN_SHAPE = (4, 28, 4, 4096, 128)   # phase 20's flash shape, float32
+
+
+def _dist_shapes():
+    from repro_torch.launch.steps import ShapeSpec
+    return (ShapeSpec("train_cell", "train", TRAIN_SEQ, 2),
+            ShapeSpec("prefill_cell", "prefill", DECODE_POS, 2),
+            ShapeSpec("decode_cell", "decode", 2 * DECODE_POS, 2))
+
+
+def _process_group(store):
+    """torch.distributed's default group at world size 1 over a
+    ``FileStore`` under ``build/`` (no network); destroyed by the
+    caller."""
+    import torch.distributed as dist
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group(DIST_BACKEND, rank=0, world_size=1,
+                            store=dist.FileStore(str(store), 1))
+
+
+def _rel_max(got, want):
+    """max |got - want| over max |want| (abs error where want is 0)."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if w.numel() else 0.0
+    scale = float(w.abs().max()) if w.numel() else 0.0
+    return err / scale if scale else err
+
+
+def _cell_check(got, want, rtol=CELL_RTOL):
+    """(ok, worst, bit-equal) over paired lists of tensors: each within
+    ``rtol`` of its counterpart's max |.|, finite."""
+    import torch
+    worst = max(_rel_max(g, w) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    return finite and worst <= rtol, worst, equal
+
+
+def _tokens(cfg, b, s, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                         dtype=torch.int32).to(DEV)
+
+
+def _timed(fn, steps):
+    """(outputs, ms a call by the host clock ending in a synchronize,
+    launches of each call) of ``steps`` calls ``fn(i)``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    outs, ms, launches = [], [], []
+    for i in range(steps):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fn(i))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append({k: n for k, n in ops.launch_counts().items() if n})
+    return outs, ms, launches
+
+
+def _flash_per_call(launches, n, route):
+    from repro_torch.kernels import ops
+    assert all(c == {"flash_attention": n} for c in launches), launches
+    assert ops.route_counts()[route] == n, ops.route_counts()
+
+
+def _two_rank_stand_in(cfg, state, batch, opt, fault):
+    """One train step modelled in plain torch at two data ranks, each on
+    half the rows: the right reduction averages the ranks' loss means
+    and gradients, ``fault`` sums them (the gradients not reduced as the
+    global batch's mean)."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import RunFlags
+    from repro_torch.models.params import tree_map
+    from repro_torch.training.optimizer import adamw_update
+    halves = [{k: v[i::2] for k, v in batch.items()} for i in range(2)]
+    (l0, g0), (l1, g1) = (value_and_grad(state["params"], h, cfg,
+                                         RunFlags()) for h in halves)
+    w = 1.0 if fault else 0.5
+    loss = (l0 + l1) * w
+    grads = tree_map(lambda a, b: (a + b) * w, g0, g1)
+    _, _, _, gnorm = adamw_update(state["params"], grads, state["mu"],
+                                  state["nu"], state["step"], opt)
+    return loss, gnorm
+
+
+def check_train_cell(mesh):
+    """Phase 22.1: ``jit_cell``'s train cell on Qwen2.5-7B at full width,
+    DIST_LAYERS layers, float32, 2 x TRAIN_SEQ tokens, ``remat="full"``,
+    two steps, beside ``make_train_step``'s two on the same state (made
+    again from the same seed; only the first run's params are kept)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (input_specs, jit_cell,
+                                          make_train_step)
+    from repro_torch.models import RunFlags, materialize
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig
+    shape = _dist_shapes()[0]
+    cfg = cut_depth(ARCH, DIST_LAYERS, torch.float32)
+    opt, flags = AdamWConfig(warmup_steps=0, total_steps=10), RunFlags()
+
+    def state():
+        return materialize(input_specs(cfg, shape)["state"],
+                           torch.Generator().manual_seed(0), DEV)
+
+    batches = [{"tokens": _tokens(cfg, 2, shape.seq_len, 30 + i),
+                "labels": _tokens(cfg, 2, shape.seq_len, 40 + i)}
+               for i in range(2)]
+    ref = make_train_step(cfg, opt, flags)
+    st = state()
+
+    def ref_step(i):
+        nonlocal st
+        st, m = ref(st, batches[i])
+        return {k: v.clone() for k, v in m.items()}
+
+    want_m, ref_ms, ref_launches = _timed(ref_step, 2)
+    want = [t.clone() for t in tree_leaves(st["params"])]
+    del st                      # one copy of the state at a time
+    _free_card()
+    step, args = jit_cell(cfg, shape, mesh, flags, opt)
+    assert all(t.is_meta for a in args for t in tree_leaves(a))
+    st = state()
+    torch.cuda.reset_peak_memory_stats()
+
+    def cell_step(i):
+        nonlocal st
+        st, m = step(st, batches[i])
+        return {k: v.full_tensor() for k, v in m.items()}
+
+    got_m, ms, launches = _timed(cell_step, 2)
+    peak = torch.cuda.max_memory_allocated()
+    for c in (ref_launches, launches):
+        assert all(x == {"flash_attention": 2 * DIST_LAYERS} for x in c), c
+    assert ops.route_counts()["simt"] == 2 * DIST_LAYERS      # float32
+    got = [t.full_tensor() for t in tree_leaves(st["params"])]
+    scalars = [m[k] for m in got_m for k in ("loss", "grad_norm")]
+    ok, worst, equal = _cell_check(scalars + got, [
+        m[k] for m in want_m for k in ("loss", "grad_norm")] + want)
+    assert ok, f"train cell: off by {worst:.3e} of the max"
+    del st, got, want
+    _free_card()
+    # planted fault: the ranks' gradients summed, not averaged (modelled
+    # at phase 19's cut, which keeps it cheap)
+    small = cut_depth(ARCH, 1, torch.float32)
+    sb = {"tokens": _tokens(small, 2, GRAD_SEQ, 50),
+          "labels": _tokens(small, 2, GRAD_SEQ, 51)}
+
+    def small_state():
+        return materialize(input_specs(small, shape)["state"],
+                           torch.Generator().manual_seed(0), DEV)
+
+    _, wm = make_train_step(small, opt, flags)(small_state(), sb)
+    fine = _two_rank_stand_in(small, small_state(), sb, opt, fault=False)
+    bad = _two_rank_stand_in(small, small_state(), sb, opt, fault=True)
+    want_s = [wm["loss"], wm["grad_norm"]]
+    fine_chk = _cell_check(list(fine), want_s)
+    bad_chk = _cell_check(list(bad), want_s)
+    assert not bad_chk[0], f"the check passes unreduced gradients {bad_chk}"
+    _free_card()
+    print(f"train cell {cfg.name} x {DIST_LAYERS} layers float32, 2 x "
+          f"{shape.seq_len} tokens, mesh {mesh.shape} ({DIST_BACKEND}): "
+          f"losses {[float(m['loss']) for m in got_m]}, params and "
+          f"metrics within {worst:.3e} of their max of make_train_step's "
+          f"(tol {CELL_RTOL}), bit-equal {equal}; {statistics.median(ms):.3f}"
+          f" ms a step (make_train_step {statistics.median(ref_ms):.3f} ms), "
+          f"max_memory_allocated {peak:,} B, flash launches a step "
+          f"{launches[0]}; planted fault (two ranks summed) misses by "
+          f"{bad_chk[1]:.3e}, the right two-rank stand-in sits at "
+          f"{fine_chk[1]:.3e}")
+    return {"losses": [float(m["loss"]) for m in got_m], "worst": worst,
+            "bit_equal": equal, "ms": ms, "ref_ms": ref_ms,
+            "peak_bytes": peak, "flash_per_step": 2 * DIST_LAYERS,
+            "fault_miss": bad_chk[1], "stand_in": fine_chk[1]}
+
+
+def check_serve_cells(mesh):
+    """Phase 22.2: ``jit_cell``'s prefill and decode cells (SERVE rules)
+    on Qwen2.5-7B at full width, DIST_LAYERS layers, bf16, against
+    ``make_prefill_step`` / ``make_decode_step`` on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (input_specs, jit_cell,
+                                          make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models import materialize
+    from repro_torch.models.params import tree_leaves, tree_map
+    pre, dec = _dist_shapes()[1:]
+    cfg = cut_depth(ARCH, DIST_LAYERS, torch.bfloat16)
+    params = materialize(input_specs(cfg, pre)["params"],
+                         torch.Generator().manual_seed(0), DEV)
+    batch = {"tokens": _tokens(cfg, 2, pre.seq_len, 60)}
+    caches = materialize(input_specs(cfg, pre)["caches"],
+                         torch.Generator().manual_seed(1), DEV)
+    want, want_c = make_prefill_step(cfg)(params, batch,
+                                          tree_map(torch.clone, caches))
+    step, _ = jit_cell(cfg, pre, mesh)
+    (out,), ms_pre, launches = _timed(lambda i: step(params, batch, caches),
+                                      1)
+    _flash_per_call(launches, DIST_LAYERS, "sm90")
+    got, got_c = out
+    pre_equal = torch.equal(got.full_tensor(), want) and all(
+        torch.equal(g.full_tensor(), w) for g, w in
+        zip(tree_leaves(got_c), tree_leaves(want_c)))
+    ok, pre_worst, _ = _cell_check([got.full_tensor()], [want])
+    assert ok, f"prefill cell: logits off by {pre_worst:.3e}"
+    # decode at DECODE_POS over caches whose first DECODE_POS rows hold
+    # seeded values
+    caches = materialize(input_specs(cfg, dec)["caches"],
+                         torch.Generator().manual_seed(2), DEV)
+    for i, leaf in enumerate(tree_leaves(caches)):
+        leaf[:, :, :DECODE_POS] = _randn(
+            (leaf.shape[0], leaf.shape[1], DECODE_POS) + leaf.shape[3:],
+            70 + i, leaf.dtype, torch)
+    tok = _tokens(cfg, 2, 1, 61)
+    want, _ = make_decode_step(cfg)(params, tok, tree_map(torch.clone,
+                                                          caches),
+                                    DECODE_POS)
+    step, _ = jit_cell(cfg, dec, mesh)
+    b, h, hkv, d = 2, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    way = "split" if dmod.plan(b, h, hkv, DECODE_POS + 1, d, dmod._sms(
+        torch.device(DEV))).splits > 1 else "single"
+    (out,), ms_dec, launches = _timed(
+        lambda i: step(params, tok, caches, DECODE_POS), 1)
+    assert launches == [{"decode_attention": DIST_LAYERS}], launches
+    assert ops.route_counts("decode_attention")[way] == DIST_LAYERS
+    got = out[0].full_tensor()
+    dec_equal = torch.equal(got, want)
+    ok, dec_worst, _ = _cell_check([got], [want])
+    assert ok, f"decode cell: logits off by {dec_worst:.3e}"
+    del params, caches, out
+    _free_card()
+    print(f"serve cells {cfg.name} x {DIST_LAYERS} layers bf16: prefill "
+          f"2 x {pre.seq_len} ({ms_pre[0]:.3f} ms, flash {DIST_LAYERS} "
+          f"sm90) logits and caches equal to make_prefill_step's: "
+          f"{pre_equal} (within {pre_worst:.3e}); decode at {DECODE_POS} "
+          f"over {dec.seq_len} cache rows ({ms_dec[0]:.3f} ms, decode "
+          f"{DIST_LAYERS} {way}) equal to make_decode_step's: {dec_equal} "
+          f"(within {dec_worst:.3e})")
+    return {"prefill_equal": pre_equal, "prefill_worst": pre_worst,
+            "prefill_ms": ms_pre[0], "decode_equal": dec_equal,
+            "decode_worst": dec_worst, "decode_ms": ms_dec[0],
+            "decode_route": way, "flash": DIST_LAYERS,
+            "decode": DIST_LAYERS}
+
+
+def _drop_last_loss(cfg, params, batch, m):
+    """The pipelined loss with the last microbatch dropped (its rows'
+    final activations zero), modelled in plain torch: a planted fault."""
+    import torch
+
+    from repro_torch.models import RunFlags
+    from repro_torch.models import model as mm
+    from repro_torch.models.layers import rmsnorm, softmax_xent, unembed
+    x, positions, _ = mm._prepare_inputs(params, cfg, batch)
+    rows = x.shape[0] // m
+    hs = [mm._run_groups(params, cfg.groups, cfg, x[i * rows:(i + 1) * rows],
+                         positions[:rows], mm.build_meta(cfg), train=True,
+                         flags=RunFlags(remat="none"))[0]
+          for i in range(m - 1)]
+    h = torch.cat(hs + [torch.zeros_like(x[:rows])])
+    logits = unembed(params["embed"], rmsnorm(params["final_norm"], h,
+                                              cfg.norm_eps), cfg)
+    return softmax_xent(logits, batch["labels"])
+
+
+def _loss_and_grads(loss_fn, params):
+    """(loss, gradients of each leaf) of ``loss_fn(params)``."""
+    import torch
+
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    loss = loss_fn(tree_unflatten(params, leaves))
+    return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+def check_pipeline(mesh):
+    """Phase 22.3: the GPipe loss at one stage on a ("pod",) mesh of
+    size 1, PIPE_MICRO microbatches, ``remat="none"``, Qwen2.5-7B at full
+    width, DIST_LAYERS layers, float32, against ``train_loss``, at the
+    d_model fan-in law (``_fan_in_d_model``): at the reference's init the
+    float32 rounding of another microbatch split alone moves a gradient
+    leaf by ~1e-2 of its max, pipeline or not (``tools/pipeline_diag.py``;
+    PERF.md section 6)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import RunFlags, build_param_specs, materialize
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.training.pipeline import (make_pipelined_train_loss,
+                                               split_stage_params)
+    cfg = cut_depth(ARCH, DIST_LAYERS, torch.float32)
+    flags = RunFlags(remat="none")
+    b, s = PIPE_SHAPE
+    params = materialize(build_param_specs(cfg),
+                         torch.Generator().manual_seed(0), DEV)
+    _fan_in_d_model(params, cfg)
+    batch = {"tokens": _tokens(cfg, b, s, 80), "labels": _tokens(cfg, b, s,
+                                                                 81)}
+    loss_fn = make_pipelined_train_loss(cfg, mesh, n_microbatches=PIPE_MICRO,
+                                        flags=flags)
+    staged = split_stage_params(params, cfg, n_stages=1)
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(staged)]
+    ops.reset_launches()
+    loss = loss_fn(tree_unflatten(staged, leaves), batch)
+    torch.cuda.synchronize()
+    fwd = {k: n for k, n in ops.launch_counts().items() if n}
+    assert fwd == {"flash_attention": PIPE_MICRO * DIST_LAYERS}, fwd
+    grads = [g.reshape(w.shape) for g, w in zip(
+        torch.autograd.grad(loss, leaves), tree_leaves(params))]
+    loss = float(loss.detach())
+    want_loss, want = value_and_grad(params, batch, cfg, flags)
+    want_loss, want = float(want_loss), tree_leaves(want)
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss), (loss, want_loss)
+    ok, worst = _grad_check(grads, want, 2e-3)
+    assert ok, f"pipeline: a gradient leaf off by {worst:.3e}"
+    del grads
+    # planted fault: the last microbatch dropped
+    bad_loss, bad = _loss_and_grads(
+        lambda p: _drop_last_loss(cfg, p, batch, PIPE_MICRO), params)
+    bad_ok = abs(bad_loss - want_loss) <= 1e-4 * abs(want_loss) and \
+        _grad_check(bad, want, 2e-3)[0]
+    assert not bad_ok, "the check passes a pipeline that drops a microbatch"
+    del params, want, bad
+    _free_card()
+    print(f"pipeline {cfg.name} x {DIST_LAYERS} layers float32, 1 stage, "
+          f"{PIPE_MICRO} microbatches of {b // PIPE_MICRO} x {s}: loss "
+          f"{loss!r} (train_loss {want_loss!r}), gradient leaves within "
+          f"{worst:.3e} of their max; forward launches {fwd}; planted "
+          f"fault (last microbatch dropped) loss {bad_loss!r}")
+    return {"loss": loss, "train_loss": want_loss, "grad_worst": worst,
+            "forward_launches": fwd, "fault_loss": bad_loss}
+
+
+def _late_closure_loss(cfg, params, batch):
+    """``train_loss`` under "dots" with every layer's checkpoint closing
+    over the loop's variables, so the backward's recompute runs every
+    layer with the last layer's: a planted fault (the first remat
+    loop's mistake, ROADMAP.md section 3, fault 5)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import RunFlags
+    from repro_torch.models import model as mm
+    from repro_torch.models.layers import rmsnorm, softmax_xent, unembed
+    x, positions, _ = mm._prepare_inputs(params, cfg, batch)
+    metas, flags = mm.build_meta(cfg), RunFlags(remat="dots")
+    for g in cfg.groups:
+        for r in range(g.repeats):
+            def run(h):
+                return mm._apply_layer(
+                    h, r=r, g=g, gp=params["groups"][g.name],
+                    gm=metas[g.name], gc=None, cfg=cfg, positions=positions,
+                    cache_offset=None, enc_out=None, causal=True,
+                    flags=flags)
+            x = checkpoint(run, x, use_reentrant=False,
+                           context_fn=mm._save_dots)[0]
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return softmax_xent(unembed(params["embed"], x, cfg), batch["labels"])
+
+
+def check_dots():
+    """Phase 22.4: ``remat="dots"`` against ``"full"`` at phase 19's cuts
+    (every leaf within 2e-3 of its max; the launches of each), the
+    planted late-closure fault, then Qwen2.5-7B at DOTS_LAYERS layers x
+    TRAIN_SEQ x DOTS_BATCH rows under both, DOTS_STEPS steps each."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import RunFlags, build_param_specs, materialize
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.trainer import init_state
+    cuts = {}
+    for label, cfg in _grad_cuts():
+        params = materialize(build_param_specs(cfg),
+                             torch.Generator().manual_seed(0), DEV)
+        batch = {"tokens": _tokens(cfg, 1, GRAD_SEQ, 1),
+                 "labels": _tokens(cfg, 1, GRAD_SEQ, 2)}
+        runs = {}
+        for remat in ("full", "dots"):
+            (out,), _, launches = _timed(lambda i: value_and_grad(
+                params, batch, cfg, RunFlags(remat=remat)), 1)
+            runs[remat] = (float(out[0]), tree_leaves(out[1]), launches[0])
+        ok, worst = _grad_check(runs["dots"][1], runs["full"][1], 2e-3)
+        assert ok, f"dots {label}: a leaf off by {worst:.3e}"
+        assert runs["dots"][2] == runs["full"][2], (runs["dots"][2],
+                                                    runs["full"][2])
+        cuts[label] = {"worst": worst, "dots_launches": runs["dots"][2],
+                       "full_launches": runs["full"][2]}
+        print(f"dots {label}: leaves within {worst:.3e} of \"full\"'s max; "
+              f"launches a step dots {runs['dots'][2]}, full "
+              f"{runs['full'][2]}")
+        del params, runs
+        _free_card()
+    # planted fault: every layer recomputed with the last one's closure,
+    # on two layers of one structure (RecurrentGemma's groups differ in
+    # their blocks, and there the recompute's saved-tensor count differs
+    # and torch's own check raises before any gradient is compared)
+    cfg = cut_depth(ARCH, 2, torch.float32)
+    params = materialize(build_param_specs(cfg),
+                         torch.Generator().manual_seed(0), DEV)
+    batch = {"tokens": _tokens(cfg, 1, GRAD_SEQ, 1),
+             "labels": _tokens(cfg, 1, GRAD_SEQ, 2)}
+    _, want = value_and_grad(params, batch, cfg, RunFlags(remat="dots"))
+    _, bad = _loss_and_grads(lambda p: _late_closure_loss(cfg, p, batch),
+                             params)
+    miss = _grad_check(bad, tree_leaves(want), 2e-3)
+    assert not miss[0], "the check passes a late-closure recompute"
+    print(f"dots planted fault (every layer recomputed with the last "
+          f"one's closure, {ARCH} x 2 layers): misses by {miss[1]:.3e}")
+    del params, want, bad
+    _free_card()
+    cfg = cut_depth(ARCH, DOTS_LAYERS, torch.float32)
+    timed = {}
+    for remat in ("dots", "full"):
+        flags = RunFlags(remat=remat)
+        step = make_train_step(cfg, flags=flags)
+        st = init_state(cfg, 0, device=DEV)
+        torch.cuda.reset_peak_memory_stats()
+
+        def one(i):
+            nonlocal st
+            st, m = step(st, {"tokens": _tokens(cfg, DOTS_BATCH, TRAIN_SEQ,
+                                                90 + i),
+                              "labels": _tokens(cfg, DOTS_BATCH, TRAIN_SEQ,
+                                                95 + i)})
+            return float(m["loss"])
+
+        losses, ms, launches = _timed(one, DOTS_STEPS)
+        timed[remat] = {"losses": losses, "ms": ms,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "launches": launches[0]}
+        assert launches == [{"flash_attention": 2 * DOTS_LAYERS}] * \
+            DOTS_STEPS, launches
+        del st
+        _free_card()
+    assert timed["dots"]["losses"][0] == timed["full"]["losses"][0] or \
+        abs(timed["dots"]["losses"][0] - timed["full"]["losses"][0]) <= \
+        1e-5 * abs(timed["full"]["losses"][0]), timed
+    for remat, t in timed.items():
+        print(f"{remat}: {cfg.name} x {DOTS_LAYERS} layers float32, "
+              f"{DOTS_BATCH} x {TRAIN_SEQ} tokens: "
+              f"{statistics.median(t['ms'][1:]):.3f} ms a step (steps 2-"
+              f"{DOTS_STEPS}; step 1 {t['ms'][0]:.3f} ms), "
+              f"max_memory_allocated {t['peak_bytes']:,} B, losses "
+              f"{t['losses']}, launches a step {t['launches']}")
+    return {"cuts": cuts, "fault_miss": miss[1], "timed": timed}
+
+
+def _grad_cuts():
+    """Phase 19's cuts: Qwen2.5-7B at 1 layer, RecurrentGemma-9B's
+    pattern once plus its tail (5 layers), full width, float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ScanGroup
+    rg = get_config(RG_ARCH)
+    return ((f"{ARCH} (1 layer)", cut_depth(ARCH, 1, torch.float32)),
+            (f"{RG_ARCH} (main x 1 + tail)", dataclasses.replace(
+                rg, n_layers=sum(len(g.pattern) for g in rg.groups),
+                groups=tuple(ScanGroup(g.name, 1, g.pattern)
+                             for g in rg.groups),
+                param_dtype=torch.float32, compute_dtype=torch.float32)))
+
+
+def flash_train_library(stats):
+    """Phase 22.6: the flash row's float32 training shape (phase 20's
+    [4, 28, 4096, 128], causal): its bound on the FP32 pipe, and
+    ``scaled_dot_product_attention`` under each backend that takes
+    float32, forward and forward + backward (k and v expanded to the 28
+    query heads beforehand, outside the timing)."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, h, hkv, s, d = TRAIN_SHAPE
+    nbytes, flops = _flash_work(b, h, hkv, s, s, d, None)
+    nbytes *= 2                        # float32: 4 bytes, not bf16's 2
+    bound, by = _bound_ms(torch.cuda.get_device_name(0), nbytes, flops,
+                          "fp32")
+    q = _randn((b, h, s, d), 1, torch.float32, torch).requires_grad_()
+    k, v = (_randn((b, hkv, s, d), i, torch.float32, torch)
+            .repeat_interleave(h // hkv, dim=1).requires_grad_()
+            for i in (2, 3))
+    g = _randn((b, h, s, d), 4, torch.float32, torch)
+    times = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def fwd():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), (q, k, v), g)
+        try:
+            with sdpa_kernel(be), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                with torch.no_grad():
+                    fwd()
+                torch.cuda.synchronize()
+                with torch.no_grad():
+                    f_ms = _time_ms(fwd, torch, reps=2, rounds=3)
+                fb_ms = _time_ms(fwd_bwd, torch, reps=1, rounds=3)
+        except (RuntimeError, torch.cuda.OutOfMemoryError):
+            continue
+        times[be.name] = {"forward_ms": f_ms, "forward_backward_ms": fb_ms}
+        _free_card()
+    del q, k, v, g
+    _free_card()
+    assert times, "no scaled_dot_product_attention backend took float32"
+    row = stats["flash_attention"]
+    row.update(train_bound_ms=bound, train_bound_by=by,
+               train_library=times)
+    simt = row.get("train_forward_ms")
+    if simt is not None:
+        _possible(simt, bound, "flash (simt) at the training shape")
+    print(f"flash at the training shape {list(TRAIN_SHAPE)} float32: bound "
+          f"{bound:.4f} ms ({by}); simt kernel "
+          + (f"{simt:.4f} ms, plain-recompute backward "
+             f"{row['backward_ms']:.4f} ms" if simt is not None
+             else "not timed in this run")
+          + "; scaled_dot_product_attention "
+          + ", ".join(f"{n} forward {t['forward_ms']:.4f} ms, forward + "
+                      f"backward {t['forward_backward_ms']:.4f} ms"
+                      for n, t in times.items()))
+    return {"bound_ms": bound, "bound_by": by, "library": times}
+
+
+def drive_distributed(stats):
+    """Phase 22: a (1, 1) ("data", "model") mesh on DIST_BACKEND at world
+    size 1: the train, prefill and decode cells, the pipeline on a
+    ("pod",) mesh, remat="dots", the planted faults, the flash row's
+    training-shape bound and library times."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    stats.setdefault("flash_attention", {})
+    _process_group(ROOT / "build" / "dist_store")
+    try:
+        one = torch.ones(1, device=DEV)
+        dist.all_reduce(one)
+        assert float(one) == 1.0
+        mesh = make_host_mesh(device_type=torch.device(DEV).type)
+        train = check_train_cell(mesh)
+        serve = check_serve_cells(mesh)
+        from torch.distributed.device_mesh import init_device_mesh
+        pod = Mesh(init_device_mesh(torch.device(DEV).type, (1,),
+                                    mesh_dim_names=("pod",)))
+        pipe = check_pipeline(pod)
+    finally:
+        dist.destroy_process_group()
+    dots = check_dots()
+    library = flash_train_library(stats)
+    wall = time.perf_counter() - t0
+    print(f"phase 22: {wall:.3f} s")
+    return {"backend": DIST_BACKEND, "train_cell": train,
+            "serve_cells": serve, "pipeline": pipe, "dots": dots,
+            "flash_train_shape": library, "wall_s": wall}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3811,11 +4431,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     build()
     hgmma = count_hgmma()
-    if "--train" in sys.argv[1:]:           # phases 1 and 18-21 alone
+    if "--train" in sys.argv[1:]:           # phases 1 and 18-22 alone
         stats = {}
         training = drive_training(stats)
+        distributed = drive_distributed(stats)
         print(card)
-        print(json.dumps({"training": training, "kernels": stats}))
+        print(json.dumps({"training": training, "distributed": distributed,
+                          "kernels": stats}))
         return 0
     stats = check_kernels()
     main_counts, unfused_counts = drive_days()
@@ -3871,6 +4493,7 @@ def main():
     s9_counts, s9_combines = serve_slice9()
     print(f"phase 17: {time.perf_counter() - t0:.3f} s")
     training = drive_training(stats)
+    distributed = drive_distributed(stats)
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
               "segment_trapz": csrc + "segment_trapz.cu",
@@ -3974,8 +4597,31 @@ def main():
                        rows={r["shape"]: {k: r[k] for k in (
                            "chunked", "serial", "plain_ms", "bound_ms")}
                            for r in scan_rows})
+    # phase 22's launches: a train-cell step, a prefill / decode cell, the
+    # pipeline's forward, a "dots" step at phase 19's cuts
+    dots_cuts = distributed["dots"]["cuts"]
+    dist_launches = {
+        "flash_attention": {
+            "train_cell_per_step": distributed["train_cell"][
+                "flash_per_step"],
+            "prefill_cell": distributed["serve_cells"]["flash"],
+            "pipeline_forward": distributed["pipeline"][
+                "forward_launches"]["flash_attention"],
+            **{f"dots {k}": c["dots_launches"].get("flash_attention", 0)
+               for k, c in dots_cuts.items()}},
+        "decode_attention": {
+            "decode_cell": distributed["serve_cells"]["decode"]},
+        "rglru_scan": {f"dots {k}": c["dots_launches"].get("rglru_scan", 0)
+                       for k, c in dots_cuts.items()}}
+    for row in kernels:
+        if row["name"] in dist_launches:
+            row["distributed_launches"] = dist_launches[row["name"]]
+        if row["name"] == "flash_attention":
+            row.update({k: stats["flash_attention"][k] for k in (
+                "train_bound_ms", "train_bound_by", "train_library")})
     for row in kernels:
         _possible(row["ms"], row["bound_ms"], row["name"])
+    print(json.dumps({"distributed": distributed}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ hand-written kernel (``kernels/segment_trapz.py``,
 version (``kernels/ref.py``).  This is the reference's
 ``use_pallas=None`` policy -- the kernel on real hardware, the plain
 version where no kernel can run -- decided by where the tensor lies,
-with no fallback for a CUDA tensor: it launches or raises.
+with no fallback for a CUDA tensor: it launches or raises.  A DTensor
+raises on either device.
 ``flash_attention`` and ``rglru_scan`` are differentiable on both
 devices: on the card through the wrappers' autograd functions
 (``FlashAttention``: the flash kernel's forward with the plain version's
@@ -25,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -60,6 +62,10 @@ def route_counts(op: str = "flash_attention") -> Dict[str, int]:
 
 
 def _on_cuda(op: str, t: torch.Tensor) -> bool:
+    if isinstance(t, DTensor):
+        # the kernels read raw data_ptr()s: a sharded step body hands
+        # them its local tensors (``launch/steps.jit_cell``)
+        raise TypeError(f"{op}: got a DTensor; pass plain (local) tensors")
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":

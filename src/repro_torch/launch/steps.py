@@ -1,29 +1,61 @@
-"""The step functions (the reference's ``repro/launch/steps.py``,
-without the sharded-input specs).
+"""Step builders + abstract input specs for every (arch x shape) cell
+(the reference's ``repro/launch/steps.py``).
 
+``input_specs(cfg, shape)`` returns the spec trees of every input of a
+cell (tokens, labels, caches, frontend stubs, the train state) with the
+logical axes the sharding rules consume; ``abstract_inputs`` their meta
+tensors (no allocation), ``input_shardings`` their shardings on a mesh.
 ``make_train_step`` returns the training step the reference's trainer
 jits: loss and gradients (gradient accumulation over microbatches cut
 from the batch's leading axis, summed in float32 over a Python loop
 where the reference uses ``lax.scan``), int8 error-feedback compression
 of the gradients, then AdamW.  ``make_prefill_step`` /
-``make_decode_step`` wrap ``prefill`` / ``decode_step``.  The shape
-cells (``SHAPES``) are the reference's.  ``input_specs``, ``jit_cell``
-and ``rules_for`` need the sharding rules (``distributed/sharding``),
-which are not ported yet.
+``make_decode_step`` wrap ``prefill`` / ``decode_step``.
+
+``jit_cell(cfg, shape, mesh)`` is the reference's jit-with-shardings of
+one cell, run eagerly: it returns ``(step, abstract_args)``, and
+``step`` distributes its inputs to ``input_shardings``, runs the step
+body and returns DTensors laid out as the reference's out-shardings,
+writing the new state (train) or caches (prefill, decode) into the
+inputs it was given (the reference donates them).  The body computes on
+plain local tensors, so no DTensor reaches the kernels: every weight is
+gathered whole (``full_tensor()``: the ZeRO resolution of TRAIN_RULES'
+``"embed" -> data``, and the tensor-parallel dims gathered too), each
+rank runs its block of the batch's rows (``sharding.BatchShards``: the
+mesh axes the "batch" dim is split over), the loss and the MoE router
+take their share of the global batch's statistics, the gradients are
+summed over the batch's ranks, and each rank keeps its block of the new
+state.  The math is the unsharded step's, not its speed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (LONG_SERVE_BIG_RULES,
+                                              LONG_SERVE_RULES,
+                                              SERVE_BIG_RULES, SERVE_RULES,
+                                              TRAIN_RULES, BatchShards, Mesh,
+                                              NamedSharding, PartitionSpec,
+                                              RuleSet,
+                                              activation_sharding,
+                                              partition_spec,
+                                              shardings_for_specs)
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import RunFlags, decode_step, prefill, \
-    train_loss
-from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.model import (RunFlags, build_cache_specs,
+                                      build_param_specs, decode_step,
+                                      prefill, train_loss)
+from repro_torch.models.params import (ParamSpec, abstract, spec,
+                                       tree_leaves, tree_map,
+                                       tree_unflatten)
 from repro_torch.training.compression import compress_grads
-from repro_torch.training.optimizer import AdamWConfig, adamw_update
+from repro_torch.training.optimizer import AdamWConfig, adamw_init_specs, \
+    adamw_update
 
 Tree = Any
 
@@ -44,6 +76,113 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """(runs?, reason-if-skipped): the reference's skip rules."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: O(seq) KV per layer at "
+                       "524k is architecturally unbounded; skipped per "
+                       "assignment (DESIGN.md section 4)")
+    return True, ""
+
+
+def rules_for(shape: ShapeSpec, cfg: Optional[ArchConfig] = None
+              ) -> RuleSet:
+    if shape.kind == "train":
+        return TRAIN_RULES
+    big = cfg is not None and cfg.param_count() * 2 / 16 > 12e9
+    if shape.global_batch == 1:
+        return LONG_SERVE_BIG_RULES if big else LONG_SERVE_RULES
+    return SERVE_BIG_RULES if big else SERVE_RULES
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs (meta tensors) + logical axes, per shape kind
+# ---------------------------------------------------------------------------
+
+def _batch_specs(cfg: ArchConfig, b: int, s: int) -> Tree:
+    t = {"tokens": spec([b, s], ["batch", "seq"], torch.int32, "zeros"),
+         "labels": spec([b, s], ["batch", "seq"], torch.int32, "zeros")}
+    if cfg.encoder is not None:
+        t["source_embeds"] = spec(
+            [b, cfg.encoder.source_len, cfg.d_model],
+            ["batch", "seq", None], torch.bfloat16, "zeros")
+    if cfg.n_prefix_embeddings > 0:
+        t["prefix_embeds"] = spec(
+            [b, cfg.n_prefix_embeddings, cfg.d_model],
+            ["batch", "seq", None], torch.bfloat16, "zeros")
+    return t
+
+
+def train_state_specs(cfg: ArchConfig, *, compression: bool = False
+                      ) -> Tree:
+    p = build_param_specs(cfg)
+    mu, nu = adamw_init_specs(p)
+    state = {"params": p, "mu": mu, "nu": nu,
+             "step": spec([], [], torch.int32, "zeros")}
+    if compression:
+        # error-feedback residuals for int8 gradient compression
+        ef, _ = adamw_init_specs(p)
+        state["ef"] = ef
+    return state
+
+
+def _cache_dt(flags: Optional[RunFlags]) -> torch.dtype:
+    if flags is not None and flags.cache_dtype == "int8":
+        return torch.int8
+    return torch.bfloat16
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec,
+                flags: Optional[RunFlags] = None) -> Dict[str, Tree]:
+    """All inputs of one cell as spec trees, keyed by step argument."""
+    if shape.kind == "train":
+        return {"state": train_state_specs(cfg),
+                "batch": _batch_specs(cfg, shape.global_batch,
+                                      shape.seq_len)}
+    if shape.kind == "prefill":
+        batch = _batch_specs(cfg, shape.global_batch, shape.seq_len)
+        batch.pop("labels")
+        # VLM prefix embeddings extend the prefill sequence past seq_len
+        cache_len = shape.seq_len + cfg.n_prefix_embeddings
+        return {"params": build_param_specs(cfg),
+                "batch": batch,
+                "caches": build_cache_specs(cfg, shape.global_batch,
+                                            cache_len, _cache_dt(flags))}
+    if shape.kind == "decode":
+        b = shape.global_batch
+        return {"params": build_param_specs(cfg),
+                "tokens": spec([b, 1], ["batch", "seq"], torch.int32,
+                               "zeros"),
+                "caches": build_cache_specs(cfg, b, shape.seq_len,
+                                            _cache_dt(flags)),
+                "pos": spec([], [], torch.int32, "zeros")}
+    raise ValueError(shape.kind)
+
+
+def abstract_inputs(cfg: ArchConfig, shape: ShapeSpec,
+                    flags: Optional[RunFlags] = None) -> Dict[str, Tree]:
+    return {k: abstract(v)
+            for k, v in input_specs(cfg, shape, flags).items()}
+
+
+def input_shardings(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
+                    flags: Optional[RunFlags] = None) -> Dict[str, Tree]:
+    rules = rules_for(shape, cfg)
+    return {k: shardings_for_specs(v, rules, mesh)
+            for k, v in input_specs(cfg, shape, flags).items()}
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
+
+def _act_ctx(mesh: Optional[Mesh], rules: Optional[RuleSet]):
+    """Activation-hint context for step bodies (no-op when unset)."""
+    if mesh is None or rules is None:
+        return contextlib.nullcontext()
+    return activation_sharding(mesh, rules)
+
+
 def value_and_grad(params: Tree, batch: Tree, cfg: ArchConfig,
                    flags: RunFlags) -> Tuple[torch.Tensor, Tree]:
     """(train_loss, its gradient tree) at ``params`` (which need not
@@ -57,59 +196,183 @@ def value_and_grad(params: Tree, batch: Tree, cfg: ArchConfig,
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def _reduce_over_batch(loss: torch.Tensor, grads: Tree
+                       ) -> Tuple[torch.Tensor, Tree]:
+    """Inside a sharded step body: the ranks' loss shares and gradients
+    summed over the batch's ranks (the global batch's loss and gradient);
+    elsewhere as they are."""
+    shards = sharding.batch_shards()
+    if shards is None:
+        return loss, grads
+    for g in tree_leaves(grads):
+        shards.sum(g)
+    return shards.sum(loss.clone()), grads
+
+
 def make_train_step(cfg: ArchConfig, opt: AdamWConfig = AdamWConfig(),
                     flags: RunFlags = RunFlags(),
+                    mesh: Optional[Mesh] = None,
+                    rules: Optional[RuleSet] = None,
                     compression: bool = False) -> Callable:
     """``train_step(state, batch) -> (new_state, {"loss",
     "grad_norm"})``.  The step donates ``state``, as the reference's
     jitted step does (``donate_argnums=(0,)``): the parameters and
     moments are updated in place and the new state holds them."""
     def train_step(state: Tree, batch: Tree) -> Tuple[Tree, Tree]:
-        accum = max(flags.grad_accum, 1)
-        if accum == 1:
-            loss, grads = value_and_grad(state["params"], batch, cfg, flags)
-        else:
-            # microbatch gradient accumulation: splits the global batch
-            # on the leading axis
-            dev = state["step"].device
-            n = torch.tensor(accum, dtype=torch.float32, device=dev)
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device),
-                state["params"])
-            for i in range(accum):
-                mb = {k: v.reshape((accum, v.shape[0] // accum)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                l, g = value_and_grad(state["params"], mb, cfg, flags)
-                grads = tree_map(lambda a, b: a + b.to(a.dtype), grads, g)
-                loss = loss + l
-            loss = loss / n
-            grads = tree_map(lambda g: g / n, grads)
-        new_ef = None
-        if compression:
-            # int8 round trip + error feedback before the optimizer
-            grads, new_ef = compress_grads(grads, state["ef"])
-        new_p, new_mu, new_nu, gnorm = adamw_update(
-            state["params"], grads, state["mu"], state["nu"],
-            state["step"], opt)
-        new_state = {"params": new_p, "mu": new_mu, "nu": new_nu,
-                     "step": state["step"] + 1}
-        if compression:
-            new_state["ef"] = new_ef
-        return new_state, {"loss": loss, "grad_norm": gnorm}
+        with _act_ctx(mesh, rules):
+            accum = max(flags.grad_accum, 1)
+            if accum == 1:
+                loss, grads = value_and_grad(state["params"], batch, cfg,
+                                             flags)
+            else:
+                # microbatch gradient accumulation: splits the global
+                # batch on the leading axis
+                dev = state["step"].device
+                n = torch.tensor(accum, dtype=torch.float32, device=dev)
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+                grads = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device),
+                    state["params"])
+                for i in range(accum):
+                    mb = {k: v.reshape((accum, v.shape[0] // accum)
+                                       + tuple(v.shape[1:]))[i]
+                          for k, v in batch.items()}
+                    l, g = value_and_grad(state["params"], mb, cfg, flags)
+                    grads = tree_map(lambda a, b: a + b.to(a.dtype), grads,
+                                     g)
+                    loss = loss + l
+                loss = loss / n
+                grads = tree_map(lambda g: g / n, grads)
+            loss, grads = _reduce_over_batch(loss, grads)
+            new_ef = None
+            if compression:
+                # int8 round trip + error feedback before the optimizer
+                grads, new_ef = compress_grads(grads, state["ef"])
+            new_p, new_mu, new_nu, gnorm = adamw_update(
+                state["params"], grads, state["mu"], state["nu"],
+                state["step"], opt)
+            new_state = {"params": new_p, "mu": new_mu, "nu": new_nu,
+                         "step": state["step"] + 1}
+            if compression:
+                new_state["ef"] = new_ef
+            return new_state, {"loss": loss, "grad_norm": gnorm}
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig,
-                      flags: RunFlags = RunFlags()) -> Callable:
+def make_prefill_step(cfg: ArchConfig, flags: RunFlags = RunFlags(),
+                      mesh: Optional[Mesh] = None,
+                      rules: Optional[RuleSet] = None) -> Callable:
     def prefill_step(params: Tree, batch: Tree, caches: Tree):
-        return prefill(params, batch, caches, cfg, flags)
+        with _act_ctx(mesh, rules):
+            return prefill(params, batch, caches, cfg, flags)
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig,
-                     flags: RunFlags = RunFlags()) -> Callable:
+def make_decode_step(cfg: ArchConfig, flags: RunFlags = RunFlags(),
+                     mesh: Optional[Mesh] = None,
+                     rules: Optional[RuleSet] = None) -> Callable:
     def serve_step(params: Tree, tokens: torch.Tensor, caches: Tree, pos):
-        return decode_step(params, tokens, caches, pos, cfg, flags)
+        with _act_ctx(mesh, rules):
+            return decode_step(params, tokens, caches, pos, cfg, flags)
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# one cell on a mesh
+# ---------------------------------------------------------------------------
+
+_ARGS = {"train": ("state", "batch"),
+         "prefill": ("params", "batch", "caches"),
+         "decode": ("params", "tokens", "caches", "pos")}
+
+
+def _batch_dim(s: ParamSpec) -> Optional[int]:
+    return s.axes.index("batch") if "batch" in s.axes else None
+
+
+def _local(x: Any, s: ParamSpec, shards: Optional[BatchShards],
+           groups: int) -> torch.Tensor:
+    """The plain tensor the body computes on: the global value, or this
+    rank's rows of it where the leaf has a batch dim."""
+    full = sharding.gather(x)
+    dim = _batch_dim(s)
+    if shards is None or dim is None:
+        return full
+    return shards.rows(full, dim, groups)
+
+
+def _laid_out(local: torch.Tensor, sh: NamedSharding, dim: Optional[int],
+              shards: Optional[BatchShards]) -> DTensor:
+    """A DTensor laid out as ``sh`` from this rank's value: its rows
+    (``dim``: the batch dim) or, without one, the global value."""
+    mesh = sh.mesh
+    dm = mesh.device_mesh
+    held = [Replicate()] * dm.ndim
+    if shards is not None and dim is not None:
+        for a in shards.axes:
+            held[mesh.axis_names.index(a)] = Shard(dim)
+    return DTensor.from_local(local, dm, held, run_check=False) \
+        .redistribute(dm, sh.placements)
+
+
+def _donate(dst: DTensor, new: torch.Tensor, s: ParamSpec,
+            sh: NamedSharding, shards: Optional[BatchShards]) -> DTensor:
+    """Write this rank's block of ``new`` into ``dst``'s local tensor."""
+    src = _laid_out(new, sh, _batch_dim(s), shards).to_local()
+    out = dst.to_local()
+    if out.data_ptr() != src.data_ptr():
+        with torch.no_grad():
+            out.copy_(src)
+    return dst
+
+
+def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
+             flags: RunFlags = RunFlags(),
+             opt: AdamWConfig = AdamWConfig()):
+    """One (arch x shape) cell on ``mesh``.  Returns ``(step,
+    abstract_args)``: ``step`` takes the cell's inputs (plain tensors,
+    the same global value on every rank, or DTensors), lays them out as
+    ``input_shardings`` and runs the body on local tensors (module
+    docstring); ``abstract_args`` are the inputs' meta-tensor trees."""
+    specs = input_specs(cfg, shape, flags)
+    rules = rules_for(shape, cfg)
+    shard = {k: shardings_for_specs(v, rules, mesh)
+             for k, v in specs.items()}
+    names = _ARGS[shape.kind]
+    tokens = shard["tokens"] if shape.kind == "decode" \
+        else shard["batch"]["tokens"]
+    axes = sharding.entry_axes(tokens.spec[0])
+    shards = BatchShards(mesh, axes) if axes else None
+    train = shape.kind == "train"
+    groups = max(flags.grad_accum, 1) if train else 1
+    if train:
+        fn = make_train_step(cfg, opt, flags, mesh=mesh, rules=rules)
+    elif shape.kind == "prefill":
+        fn = make_prefill_step(cfg, flags, mesh=mesh, rules=rules)
+    else:
+        fn = make_decode_step(cfg, flags, mesh=mesh, rules=rules)
+    logits_sh = NamedSharding(mesh, partition_spec(
+        ("batch", "vocab"), (shape.global_batch, cfg.vocab_size), rules,
+        mesh))
+    replicated = NamedSharding(mesh, PartitionSpec())
+
+    def step(*args):
+        ins = {n: tree_map(sharding.distribute, a, shard[n])
+               for n, a in zip(names, args)}
+        local = [tree_map(lambda x, s: _local(x, s, shards, groups),
+                          ins[n], specs[n]) for n in names]
+        if train:
+            with sharding.data_parallel(shards):
+                new_state, metrics = fn(*local)
+            state = tree_map(lambda d, x, s, sh: _donate(d, x, s, sh, shards),
+                             ins["state"], new_state, specs["state"],
+                             shard["state"])
+            return state, {k: _laid_out(v, replicated, None, None)
+                           for k, v in metrics.items()}
+        logits, caches = fn(*local)
+        caches = tree_map(lambda d, x, s, sh: _donate(d, x, s, sh, shards),
+                          ins["caches"], caches, specs["caches"],
+                          shard["caches"])
+        return _laid_out(logits, logits_sh, 0, shards), caches
+
+    return step, tuple(abstract(specs[n]) for n in names)

@@ -6,6 +6,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import spec
 
@@ -80,7 +81,13 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     keeps GSPMD's vocab sharding and sums the same single nonzero term.
     The gather saves the [B,S,V] float32 one-hot (2.49 GB a batch row at
     V = 152,064, S = 4,096).  The max is detached, as the reference's
-    ``stop_gradient``."""
+    ``stop_gradient``.
+
+    Inside a sharded step body (``sharding.batch_shards()`` set) the
+    rows are this rank's block of the global batch, and the result is
+    this rank's share of the global mean: the local mean over the number
+    of blocks, or the masked sum over the mask's all-reduced count; the
+    shares sum to the reference's loss over the whole batch."""
     logits = logits.float()
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = logits - m
@@ -88,7 +95,13 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     ll = torch.gather(shifted, -1, labels.long()[..., None])[..., 0] + \
         m[..., 0]
     nll = lse - ll
+    shards = sharding.batch_shards()
     if mask is not None:
         nll = nll * mask
-        return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+        count = mask.sum()
+        if shards is not None:
+            count = shards.sum(count.detach().clone())
+        return nll.sum() / torch.clamp_min(count, 1.0)
+    if shards is not None:
+        return nll.mean() / shards.size
     return nll.mean()

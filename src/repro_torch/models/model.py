@@ -20,10 +20,15 @@ read them from there.
 state), the MoE router's auxiliary loss summed over layers, and under
 ``RunFlags.remat == "full"`` (the default) each layer's blocks wrapped
 in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
-scan body), so the backward recomputes them.  On the card the attention
-and the RG-LRU scan launch the kernels in the forward and again in the
-recompute; their gradients come from ``torch.autograd.Function``s
-(``kernels/flash_attention.py``, ``kernels/rglru_scan.py``).
+scan body), so the backward recomputes them.  ``remat == "dots"`` is the
+reference's ``checkpoint_dots`` policy: the same checkpoint with a
+selective policy that saves every matrix product's output (``aten.mm``,
+``bmm``, ``addmm``, ``matmul``: the einsums) and recomputes the rest.
+On the card the attention and the RG-LRU scan launch the kernels in the
+forward and again in the recompute under either policy (a ctypes launch
+is no aten op the policy could save); their gradients come from
+``torch.autograd.Function``s (``kernels/flash_attention.py``,
+``kernels/rglru_scan.py``).
 """
 from __future__ import annotations
 
@@ -32,8 +37,11 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
+from repro_torch.distributed import sharding
 from repro_torch.models.blocks import (WINDOW_INF, apply_block,
                                        block_cache_specs, block_param_specs)
 from repro_torch.models.config import (ArchConfig, BlockSpec, FFN, Mixer,
@@ -48,7 +56,7 @@ Tree = Any
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
     """Per-step execution knobs (the reference's).  The port reads
-    ``remat`` in ``train_loss`` ("full" or "none"; "dots" raises),
+    ``remat`` in ``train_loss`` ("full", "dots" or "none"),
     ``grad_accum`` in ``launch/steps.make_train_step``, ``moe_impl`` and
     ``moe_group`` (the MoE dispatch), and its callers ``cache_dtype``.
     ``scan_unroll`` and ``attn_chunk`` shape the reference's XLA program
@@ -153,22 +161,45 @@ def _stack(trees: List[Tree]) -> Tree:
 def _apply_layer(h: torch.Tensor, r: int, g: ScanGroup, gp: Tree, gm: Tree,
                  gc: Optional[Tree], cfg: ArchConfig,
                  positions: torch.Tensor, cache_offset, enc_out, causal: bool,
-                 flags: RunFlags):
+                 flags: RunFlags, shards=None):
     """Layer ``r`` of group ``g`` (every block of its pattern): (h, the
-    blocks' aux summed, each block's new cache)."""
+    blocks' aux summed, each block's new cache).  ``shards`` is the
+    caller's ``batch_shards()``, set again here because a recompute in
+    the backward may run on another thread (the card's autograd worker)
+    that does not see the caller's context."""
     aux = 0.0
     ncs = []
-    for j, blk in enumerate(g.pattern):
-        key = f"pos{j}"
-        meta = {k: v[r] for k, v in gm[key].items()}
-        h, nc, a = apply_block(
-            _layer(gp[key], r), blk, cfg, h, positions, meta,
-            cache=_layer(gc[key], r) if gc is not None else None,
-            cache_offset=cache_offset, enc_out=enc_out, causal=causal,
-            moe_impl=flags.moe_impl, moe_group=flags.moe_group or None)
-        aux = aux + a
-        ncs.append(nc)
+    with sharding.data_parallel(shards):
+        for j, blk in enumerate(g.pattern):
+            key = f"pos{j}"
+            meta = {k: v[r] for k, v in gm[key].items()}
+            h, nc, a = apply_block(
+                _layer(gp[key], r), blk, cfg, h, positions, meta,
+                cache=_layer(gc[key], r) if gc is not None else None,
+                cache_offset=cache_offset, enc_out=enc_out, causal=causal,
+                moe_impl=flags.moe_impl, moe_group=flags.moe_group or None)
+            aux = aux + a
+            ncs.append(nc)
     return h, aux, ncs
+
+
+# the outputs "dots" saves: every matrix product (the einsums
+# decompose into these below autograd)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.matmul.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+# remat -> the checkpoint's context_fn (None: no checkpoint)
+_REMAT = {"none": None, "full": noop_context_fn, "dots": _save_dots}
 
 
 def _run_groups(
@@ -189,13 +220,12 @@ def _run_groups(
     """Run every layer in order; returns (x, new caches or None, the
     auxiliary loss summed over layers: 0.0 without an MoE FFN).
     ``train`` (no cache) wraps each layer in ``checkpoint`` unless
-    ``flags.remat`` is ``"none"``."""
-    if train and flags.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={flags.remat!r}: only 'full' and 'none' are ported; "
-            f"'dots' (save the matmul outputs, recompute the rest) is a "
-            f"follow-up in ROADMAP.md")
-    remat = train and flags.remat == "full"
+    ``flags.remat`` is ``"none"``; under ``"dots"`` the checkpoint saves
+    the matrix products' outputs (``_save_dots``)."""
+    if train and flags.remat not in _REMAT:
+        raise ValueError(f"remat={flags.remat!r}: expected one of "
+                         f"{sorted(_REMAT)}")
+    remat = _REMAT[flags.remat] if train else None
     new_caches: Optional[Dict[str, Tree]] = {} if caches is not None \
         else None
     aux_total = 0.0
@@ -208,9 +238,10 @@ def _run_groups(
                 _apply_layer, r=r, g=g, gp=params["groups"][g.name],
                 gm=metas[g.name], gc=gc, cfg=cfg, positions=positions,
                 cache_offset=cache_offset, enc_out=enc_out, causal=causal,
-                flags=flags)
-            if remat:
-                x, aux, _ = checkpoint(run, x, use_reentrant=False)
+                flags=flags, shards=sharding.batch_shards())
+            if remat is not None:
+                x, aux, _ = checkpoint(run, x, use_reentrant=False,
+                                       context_fn=remat)
             else:
                 x, aux, ncs = run(x)
                 for j, nc in enumerate(ncs):

@@ -25,6 +25,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.config import ArchConfig, MoEConfig
 from repro_torch.models.layers import mlp, mlp_spec
 from repro_torch.models.params import spec
@@ -53,7 +54,13 @@ def moe_specs(cfg: ArchConfig) -> Tree:
 
 def _router(p: Tree, x: torch.Tensor, m: MoEConfig
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (gates [B,S,k] float32, expert_idx [B,S,k] int64, aux)."""
+    """Returns (gates [B,S,k] float32, expert_idx [B,S,k] int64, aux).
+
+    Inside a sharded step body (``sharding.batch_shards()`` set) ``x``
+    holds this rank's block of the batch: the dispatch fractions are
+    all-reduced to the global batch's, and the probability fractions
+    taken as this rank's share of the global mean, so that the ranks'
+    aux losses (and their gradients) sum to the reference's."""
     logits = torch.einsum("bsd,de->bse", x.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, m.top_k, dim=-1)     # sorted descending
@@ -63,6 +70,10 @@ def _router(p: Tree, x: torch.Tensor, m: MoEConfig
     dispatch_frac = torch.mean(
         F.one_hot(idx[..., 0], e).to(torch.float32), dim=(0, 1))
     prob_frac = torch.mean(probs, dim=(0, 1))
+    shards = sharding.batch_shards()
+    if shards is not None:
+        dispatch_frac = shards.sum(dispatch_frac) / shards.size
+        prob_frac = prob_frac / shards.size
     aux = e * torch.sum(dispatch_frac * prob_frac) * m.router_aux_loss
     return gates, idx, aux
 

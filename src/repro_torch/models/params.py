@@ -2,10 +2,11 @@
 
 A model is defined once as a nested dict of ``ParamSpec`` leaves (shape,
 dtype, *logical axes*, init law).  ``materialize(tree, generator,
-device)`` turns it into tensors; ``param_bytes`` / ``param_count`` read
+device)`` turns it into tensors, ``abstract`` into meta tensors (shape
+and dtype, no storage); ``param_bytes`` / ``param_count`` read
 sizes off the specs without allocating.  The logical axes ("embed",
-"heads", "layers", "kv_len", ...) are the reference's names; the port
-keeps them as data (no mesh is built on this path).
+"heads", "layers", "kv_len", ...) are the reference's names, which the
+sharding rules (``distributed/sharding.py``) map onto a mesh.
 """
 from __future__ import annotations
 
@@ -87,6 +88,13 @@ def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
     return fn(tree, *rest)
+
+
+def abstract(tree: Tree) -> Tree:
+    """Meta-tensor stand-ins of a spec tree: shapes and dtypes, no
+    allocation (the reference's ``ShapeDtypeStruct`` trees)."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), tree)
 
 
 def param_bytes(tree: Tree) -> int:

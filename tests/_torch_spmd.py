@@ -1,0 +1,229 @@
+"""Multi-process checks of the port's sharded steps and pipeline on the
+CPU: ``spawn(job, world, tmp_path, timeout)`` starts ``world`` gloo
+processes over a ``FileStore`` (no network), each runs ``JOBS[job]``,
+and a failure in any rank fails the caller.  This module imports no
+JAX, so each spawned process starts with torch alone.
+"""
+import math
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.configs import get_reduced
+from repro_torch.distributed.sharding import entry_axes
+from repro_torch.models import RunFlags, materialize
+from repro_torch.models.params import leaves_with_paths, tree_map
+from repro_torch.training.optimizer import AdamWConfig
+
+OPT = AdamWConfig(warmup_steps=0, total_steps=10)
+FLAGS = RunFlags(remat="full")
+RTOL = 1e-5
+
+
+def _batch(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                                .astype(np.int32))
+            for k in ("tokens", "labels")}
+
+
+def _close(got, want, label, rtol=RTOL):
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    assert err <= rtol * scale, (label, err, scale)
+
+
+def block(full, spec, mesh):
+    """The block of ``full`` the reference's spec assigns to this rank:
+    a dimension split over axes (a1, a2, ...) is cut into prod(sizes)
+    equal runs and this rank takes run sum_i coord(a_i) x (sizes after
+    a_i), major to minor."""
+    dm = mesh.device_mesh
+    out = full
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        n = math.prod(mesh.shape[a] for a in axes)
+        idx = 0
+        for a in axes:
+            idx = idx * mesh.shape[a] + dm.get_local_rank(a)
+        size = full.shape[dim] // n
+        out = out.narrow(dim, idx * size, size)
+    return out
+
+
+def _check_blocks(tree, shardings, mesh, label):
+    for (path, d), (_, sh) in zip(leaves_with_paths(tree),
+                                  leaves_with_paths(shardings)):
+        assert torch.equal(d.to_local(), block(d.full_tensor(), sh.spec,
+                                               mesh)), (label, path)
+
+
+def _train_cell(arch, mesh):
+    from repro_torch.launch.steps import (ShapeSpec, input_shardings,
+                                          input_specs, jit_cell,
+                                          make_train_step)
+    from repro_torch.models import moe
+    cfg = get_reduced(arch)
+    shape = ShapeSpec("tiny_train", "train", 32, 4)
+
+    def state():
+        return materialize(input_specs(cfg, shape)["state"],
+                           torch.Generator().manual_seed(0), "cpu")
+
+    step, _ = jit_cell(cfg, shape, mesh, FLAGS, OPT)
+    ref = make_train_step(cfg, OPT, FLAGS)
+    got, want = state(), state()
+    for i in range(2):
+        batch = _batch(cfg, 4, 32, 10 + i)
+        got, gm = step(got, batch)
+        want, wm = ref(want, batch)
+        for k in ("loss", "grad_norm"):
+            _close(gm[k].full_tensor(), wm[k], f"{arch} step {i} {k}")
+    for key in ("params", "mu", "nu"):
+        for (path, g), (_, w) in zip(leaves_with_paths(got[key]),
+                                     leaves_with_paths(want[key])):
+            _close(g.full_tensor(), w, f"{arch} {key}{path}")
+    _check_blocks(got, input_shardings(cfg, shape, mesh)["state"], mesh,
+                  arch)
+    if cfg.moe is None:
+        return
+    # the router's statistics must be the global batch's: with each rank's
+    # own fractions (and no share) the loss misses the unsharded one
+    real = moe.sharding
+    moe.sharding = type("NoShards", (), {"batch_shards": staticmethod(
+        lambda: None)})
+    try:
+        step, _ = jit_cell(cfg, shape, mesh, FLAGS, OPT)
+        _, gm = step(state(), _batch(cfg, 4, 32, 10))
+    finally:
+        moe.sharding = real
+    _, wm = make_train_step(cfg, OPT, FLAGS)(state(), _batch(cfg, 4, 32, 10))
+    miss = abs(float(gm["loss"].full_tensor()) - float(wm["loss"]))
+    assert miss > 10 * RTOL * abs(float(wm["loss"])), miss
+
+
+def _serve_cells(mesh):
+    from repro_torch.launch.steps import (ShapeSpec, input_shardings,
+                                          input_specs, jit_cell,
+                                          make_decode_step,
+                                          make_prefill_step)
+    cfg = get_reduced("granite-20b")
+    pre = ShapeSpec("tiny_prefill", "prefill", 16, 4)
+    dec = ShapeSpec("tiny_decode", "decode", 32, 4)
+    params = materialize(input_specs(cfg, pre)["params"],
+                         torch.Generator().manual_seed(0), "cpu")
+    tokens = _batch(cfg, 4, 16, 3)["tokens"]
+    caches = materialize(input_specs(cfg, pre)["caches"],
+                         torch.Generator().manual_seed(1), "cpu")
+    want, want_c = make_prefill_step(cfg)(params, {"tokens": tokens},
+                                          tree_map(torch.clone, caches))
+    step, _ = jit_cell(cfg, pre, mesh)
+    got, got_c = step(params, {"tokens": tokens}, caches)
+    _close(got.full_tensor(), want, "prefill logits")
+    _check_blocks(got_c, input_shardings(cfg, pre, mesh)["caches"], mesh,
+                  "prefill caches")
+    for (path, g), (_, w) in zip(leaves_with_paths(got_c),
+                                 leaves_with_paths(want_c)):
+        _close(g.full_tensor(), w, f"prefill cache{path}")
+    caches = materialize(input_specs(cfg, dec)["caches"],
+                         torch.Generator().manual_seed(2), "cpu")
+    tok = _batch(cfg, 4, 1, 4)["tokens"]
+    want, _ = make_decode_step(cfg)(params, tok, tree_map(torch.clone,
+                                                          caches), 20)
+    step, _ = jit_cell(cfg, dec, mesh)
+    got, _ = step(params, tok, caches, 20)
+    _close(got.full_tensor(), want, "decode logits")
+
+
+def _dtensor_refused(mesh):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 2, 8, 16)
+    dq = distribute_tensor(q, mesh.device_mesh,
+                           [Replicate()] * mesh.device_mesh.ndim)
+    try:
+        ops.flash_attention(dq, dq, dq)
+    except TypeError as e:
+        assert "DTensor" in str(e)
+    else:
+        raise AssertionError("a DTensor reached the flash kernel wrapper")
+
+
+def sharded_steps(rank, world):
+    """The train cells of reduced granite-20b and mixtral-8x22b on a
+    {data: 2, model: world / 2} mesh against the unsharded step, the
+    serving cells of granite, and a DTensor refused by ``ops``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=2, model=world // 2, device_type="cpu")
+    assert mesh.shape == {"data": 2, "model": world // 2}
+    for arch in ("granite-20b", "mixtral-8x22b"):
+        _train_cell(arch, mesh)
+    _serve_cells(mesh)
+    _dtensor_refused(mesh)
+
+
+def pipeline_two_stages(rank, world):
+    """GPipe over 2 stages of reduced granite-20b against ``train_loss``:
+    loss within rel 1e-5, every gradient leaf within 1e-5 of its max."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import build_param_specs
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.training.pipeline import (make_pipelined_train_loss,
+                                               split_stage_params)
+    cfg = get_reduced("granite-20b")
+    flags = RunFlags(remat="none")
+    mesh = Mesh(init_device_mesh("cpu", (world,), mesh_dim_names=("pod",)))
+    params = materialize(build_param_specs(cfg),
+                         torch.Generator().manual_seed(0), "cpu")
+    batch = _batch(cfg, 4, 16, 1)
+    want_loss, want = value_and_grad(params, batch, cfg, flags)
+    staged = split_stage_params(params, cfg, n_stages=world)
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(staged)]
+    loss_fn = make_pipelined_train_loss(cfg, mesh, n_microbatches=2,
+                                        flags=flags)
+    loss = loss_fn(tree_unflatten(staged, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    got = split_stage_params(want, cfg, n_stages=world)   # same layout
+    assert abs(float(loss.detach()) - float(want_loss)) <= RTOL * abs(
+        float(want_loss)), (float(loss), float(want_loss))
+    for (path, w), g in zip(leaves_with_paths(got), grads):
+        _close(g, w, f"pipeline grad{path}")
+
+
+JOBS = {"sharded_steps": sharded_steps,
+        "pipeline_two_stages": pipeline_two_stages}
+
+
+def _run(rank, world, store, job):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        JOBS[job](rank, world)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(job, world, tmp_path, timeout):
+    """Run ``JOBS[job]`` on ``world`` gloo processes; raise if any fails
+    or if they have not all finished within ``timeout`` seconds."""
+    ctx = mp.start_processes(_run, args=(world, str(tmp_path / "store"),
+                                         job),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{job} at world size {world}: not done "
+                               f"after {timeout} s")

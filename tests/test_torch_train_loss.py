@@ -8,8 +8,9 @@ within 1e-4 of that leaf's max |g| plus 1e-7 (reference
 ``jax.value_and_grad`` against the port's ``torch.autograd``; the MoE
 router's auxiliary loss included); three ``make_train_step`` steps
 (``warmup_steps=0``, ``grad_accum=2``, compression on) with params, mu,
-nu and ef within rtol 1e-5, atol 1e-7; ``remat="full"`` equal to
-``"none"``, recomputing each layer's kernels once.
+nu and ef within rtol 1e-5, atol 1e-7; ``remat="full"`` and ``"dots"`` equal to
+``"none"``, recomputing each layer's kernels once, and ``"dots"``
+against the reference's ``"dots"``.
 
 The gradient bound is held at two inits of the same weights.  At the
 d_model fan-in law (every [d_model, heads, head_dim] projection scaled
@@ -91,20 +92,21 @@ def _batch(cfg, b=2, s=16, seed=0):
     return out
 
 
-def _both(arch, fan_in_d_model=False):
+def _both(arch, fan_in_d_model=False, remat="full"):
     """(reference loss, grads by keystr path, port loss, port grads)."""
     jcfg, cfg, tree = _weights(arch, fan_in_d_model)
     batch = _batch(cfg)
-    if arch not in _JIT:
-        _JIT[arch] = jax.jit(jax.value_and_grad(
-            lambda p, b: jtrain_loss(p, b, jcfg, JRunFlags())))
-    jl, jg = _JIT[arch](jax.tree_util.tree_map(jnp.asarray, tree),
-                        {k: jnp.asarray(v) for k, v in batch.items()})
+    if (arch, remat) not in _JIT:
+        _JIT[arch, remat] = jax.jit(jax.value_and_grad(
+            lambda p, b: jtrain_loss(p, b, jcfg, JRunFlags(remat=remat))))
+    jl, jg = _JIT[arch, remat](jax.tree_util.tree_map(jnp.asarray, tree),
+                               {k: jnp.asarray(v) for k, v in batch.items()})
     want = {jax.tree_util.keystr(k): np.asarray(v) for k, v in
             jax.tree_util.tree_flatten_with_path(jg)[0]}
     loss, grads = value_and_grad(
         params_from_numpy(cfg, tree, "cpu"),
-        {k: torch.from_numpy(v) for k, v in batch.items()}, cfg, RunFlags())
+        {k: torch.from_numpy(v) for k, v in batch.items()}, cfg,
+        RunFlags(remat=remat))
     return float(jl), want, float(loss), dict(leaves_with_paths(grads))
 
 
@@ -160,6 +162,23 @@ def test_remat_full_equals_none_and_recomputes_each_layer(arch, monkeypatch):
     gives the same loss and gradients as ``"none"``, and runs each
     layer's attention and scan twice (forward and recompute), as the
     card's launch counts (``chip_smoke.py`` phases 19-20) expect."""
+    runs = _counted_runs(arch, ("none", "full"), monkeypatch)
+    _same_runs(runs["full"], runs["none"])
+    assert runs["full"][2] == {k: 2 * n for k, n in runs["none"][2].items()}
+    assert runs["none"][2]["flash_attention"] > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_dots_matches_reference_dots(arch):
+    """``remat="dots"`` (the matrix products' outputs saved, the rest
+    recomputed) against the reference's ``jax.value_and_grad`` under its
+    ``checkpoint_dots`` policy, at the d_model fan-in law, within the
+    bounds above."""
+    _hold(*_both(arch, fan_in_d_model=True, remat="dots"))
+
+
+def _counted_runs(arch, remats, monkeypatch):
+    """{remat: (loss, grads, the ops calls of one value_and_grad)}."""
     _, cfg, tree = _weights(arch)
     params = params_from_numpy(cfg, tree, "cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
@@ -172,27 +191,42 @@ def test_remat_full_equals_none_and_recomputes_each_layer(arch, monkeypatch):
             return _real(*a, **kw)
         monkeypatch.setattr(ops, name, counted)
     runs = {}
-    for remat in ("none", "full"):
+    for remat in remats:
         for k in calls:
             calls[k] = 0
         loss, grads = value_and_grad(params, batch, cfg,
                                      RunFlags(remat=remat))
         runs[remat] = (loss, grads, dict(calls))
-    assert float(runs["full"][0]) == float(runs["none"][0])
-    for (p, a), (_, b) in zip(leaves_with_paths(runs["full"][1]),
-                              leaves_with_paths(runs["none"][1])):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+    return runs
+
+
+def _same_runs(a, b):
+    assert float(a[0]) == float(b[0])
+    for (p, x), (_, y) in zip(leaves_with_paths(a[1]),
+                              leaves_with_paths(b[1])):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-6,
                                    atol=1e-9, err_msg=p)
-    assert runs["full"][2] == {k: 2 * n for k, n in runs["none"][2].items()}
+
+
+def test_remat_dots_equals_none_and_recomputes_each_layer(monkeypatch):
+    """``"dots"`` gives ``"none"``'s loss and gradients (rtol 1e-6) on
+    RecurrentGemma's two groups, and runs each layer's attention and scan
+    twice, as ``"full"`` does: the kernels are no aten matrix product,
+    so the policy recomputes them (the card's launch counts,
+    ``chip_smoke.py`` phase 22, expect the same)."""
+    runs = _counted_runs("recurrentgemma-9b", ("none", "dots"), monkeypatch)
+    _same_runs(runs["dots"], runs["none"])
+    assert runs["dots"][2] == {k: 2 * n for k, n in runs["none"][2].items()}
     assert runs["none"][2]["flash_attention"] > 0
+    assert runs["none"][2]["rglru_scan"] > 0
 
 
-def test_remat_dots_is_not_ported():
+def test_unknown_remat_raises():
     _, cfg, tree = _weights("qwen2-5-7b")
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="remat"):
         value_and_grad(params_from_numpy(cfg, tree, "cpu"), batch, cfg,
-                       RunFlags(remat="dots"))
+                       RunFlags(remat="all"))
 
 
 def _reference_state(jcfg, cfg, compression):

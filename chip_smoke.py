@@ -80,7 +80,13 @@ Phases, in order:
      2e-2; rows past ``length`` ignored to 1e-5; the launcher's ragged
      shapes through permuted cache views), each prefill asserting the
      route that took it: bfloat16 at D in {32, 64, 128, 256} the sm90
-     kernel (wgmma + TMA), float32 the simt kernel (FP32 FMAs); then
+     kernel (wgmma + TMA), float32 there the f32tc kernel (3xTF32
+     mma.sync), other head dims the simt kernel (FP32 FMAs); the f32tc
+     kernel against float64 at one kv head's group of the training
+     shape ([1, 7, 1, 4096, 128]): its max abs error at most 4x the
+     plain float32 version's (TF32 off), and a planted single-pass
+     TF32 version (the plain version with TF32 matmuls) must miss that
+     bound; then
      the sm90 route at RecurrentGemma's heads (16 over 1, D = 256,
      S = T = 300, window None and 64), at both launchers' 3-token
      prompts against 48 cache rows through views, and without the
@@ -168,15 +174,17 @@ Phases, in order:
       on the model's own inputs (within 2e-3 of the output's max; the
       kernel's and the float32 plain version's worst printed); the CPU
       in float32 and a float64 run (float64 attention) replay the card's
-      tokens; the card's logits within 2e-3 of float64's (gemma3: within
-      GEMMA3_REL_F64, its chaotic trajectory's reading), each side's
+      tokens; the card's logits within 2e-3 of float64's, each side's
       greedy token float64's wherever float64's top-two gap exceeds
-      twice that side's distance, and, but for gemma3 (where two float64
-      runs, CPU and card, differ by 0.2 of the max), phase 6's gate:
-      card within 2e-3 of the CPU, greedy tokens equal:
+      twice that side's distance, and phase 6's gate: card within 2e-3
+      of the CPU, greedy tokens equal:
       granite at depth 2; gemma3 at depth 6 (one 5-local + 1-global
       superlayer) on a 600-token prompt, past the 512 window in prefill
-      and decode; Mixtral at depth 1 on a 48-token prompt (capacity 15:
+      and decode, twice as whisper and xlstm in phase 16 (at the
+      reference's init, chaotic in float32 -- two float64 runs, CPU and
+      card, differ by 0.2 of the max -- each kernel call held and the
+      logits printed ungated; at the d_model fan-in law every gate);
+      Mixtral at depth 1 on a 48-token prompt (capacity 15:
       the prefill's drops printed, decode drops none), onehot dispatch;
       internvl2 at depth 2 at the model level with 256 prefix
       embeddings from a seed; command-r at depth 2 (about 23 GB of
@@ -224,39 +232,67 @@ Phases, in order:
       split); deepseek-v2 at 7 of its 60 layers (~57.7 GB) through
       ``ServingEngine`` on 24 requests, no launch, drops printed; its
       wall;
-  18. the kernels' gradients (``ops``' autograd functions: the flash
-      kernel's forward with the plain version's recomputed gradient, the
-      scan kernel in both passes) against ``torch.autograd`` through the
+  18. the kernels' gradients (``ops``' autograd functions: in float32
+      the f32tc forward and its backward kernel, in bf16 the sm90
+      forward with the plain version's recomputed gradient, the scan
+      kernel in both passes) against ``torch.autograd`` through the
       plain versions on the card, within the forward contracts' 2e-3 /
       2e-2 (flash, float32 / bf16) and 1e-4 (scan) of each gradient's
       max: flash at Qwen2.5-7B's training shape (B = 1, 28 over 4 heads,
       S = T = 4,096, D = 128), RecurrentGemma's local attention past its
       2,048 window and whisper's non-causal 1,500-frame encoder, in
-      float32 and bf16, each call's route asserted; the scan at [1, 4096,
+      float32 and bf16, each call's route asserted and in float32 one
+      backward kernel launch; in float32 the backward kernel on its own
+      against ``ref.flash_attention_bwd_ref`` on the same inputs, and a
+      second gradient bit-equal to the first; both f32tc kernels on
+      their own at 11 small shapes (every head dim, causal / windowed /
+      non-causal, GQA groups of 1-16, ragged S != T, [B, S, heads, D]
+      views): out, lse and dq / dk / dv within 2e-3 of their plain
+      versions', two backward calls bit-equal; the backward against
+      float64 at one kv head's group of the training shape ([1, 7, 1,
+      4096, 128]): each gradient's error at most 4x the plain float32
+      version's; the scan at [1, 4096,
       4096] (chunked) and [2, 40, 4096] (serial) with h0 nonzero, two
       launches (forward and backward) on the route S picks; planted
       faults modelled in plain torch must fail the same checks (the bare
-      kernel with no autograd; the scan's backward without the one-step
-      shift of ``a``);
+      kernel with no autograd; the float32 backward with Delta dropped,
+      and with dK / dV of one query head of the group where the group
+      has more than one; the scan's backward without the one-step shift
+      of ``a``);
   19. ``train_loss``'s gradients at full width in float32 (Qwen2.5-7B at
       1 layer; RecurrentGemma-9B's pattern once plus its tail, 5 layers;
       B = 1, S = 256) with the kernels against the same call with the
-      plain versions patched into ``ops``: every leaf within 2e-3 of its
-      max, none zero where the plain run's is not, and exactly 2 flash
-      launches an attention layer (forward and remat recompute) and 3
-      scan launches an RG-LRU layer (and the backward) with the kernels,
-      none with the plain versions;
+      plain versions patched into ``ops``: every kernel call (f32tc
+      forward and backward, the scan forward and adjoint) held against
+      its plain version on its own inputs, every leaf within 2e-3 of its
+      max, none zero where the plain run's is not (RecurrentGemma twice:
+      at the reference's init, where its float32 gradients are
+      ill-conditioned, the leaves' distance printed ungated; with its
+      attention projections at the d_model fan-in law, every gate), and
+      exactly 2 flash
+      launches an attention layer (forward and remat recompute, both
+      f32tc) and one of its backward kernel, and 3 scan launches an
+      RG-LRU layer (and the backward) with the kernels, none with the
+      plain versions;
   20. ``training.trainer.train`` on Qwen2.5-7B at full width, 4 of its
       28 layers, float32 without TF32, S = 4,096 (the reference's
       ``train_4k`` length), at the largest batch that fits (a two-step
       run at one more row must run out of memory), 8 steps with a 2-step
       warmup: the loss each step (the mean of the last 3 below the mean
       of the first 3), ms a step, tokens a second, peak memory, exactly 8
-      flash launches a step (counters reset just before each step and
-      read just after), the card's idle share of the last step under
-      ``torch.profiler``; then the flash forward and its plain-recompute
-      backward at that shape, and the scan's kernel backward at [1, 4096,
-      4096] (CUDA events);
+      flash launches a step, all f32tc, and 4 of its backward kernel
+      (counters reset just before each step and read just after), the
+      card's idle share of the last step under ``torch.profiler``; the
+      same for 4 steps at COMPARE_BATCH = 4 rows (phase 20's batch while
+      the backward recomputed the plain version); both f32tc kernels at
+      that run's own shape ([rows, 28, 4096, 128], through views) against
+      their plain versions run a batch row at a time (2e-3); then at
+      TRAIN_SHAPE
+      [4, 28, 4096, 128] the f32tc forward and its backward kernel
+      against their plain versions (2e-3) and their bounds, beside the
+      simt kernel's forward and the plain recompute's backward on the
+      same inputs, and the scan's kernel backward at [1, 4096, 4096]
+      (CUDA events);
   21. the training launcher (``repro_torch.launch.train``'s ``main`` in
       this process) at the reduced Qwen config on the card: 10 steps, and
       5 then 5 resumed from the checkpoint, final losses within rtol
@@ -270,8 +306,9 @@ Phases, in order:
       2 x 4,096 tokens, ``remat="full"``, two steps beside
       ``make_train_step``'s two on the same state made again from the
       same seed (loss, grad norm and every parameter leaf within 1e-6 of
-      its max, bit-equality printed; exactly 4 simt flash launches a
-      step; ms a step and ``max_memory_allocated``); the prefill (2 x
+      its max, bit-equality printed; exactly 4 f32tc flash launches and
+      2 of its backward kernel a step; ms a step and
+      ``max_memory_allocated``); the prefill (2 x
       2,048 tokens) and decode (at position 2,048 of 4,096 cache rows
       whose first 2,048 hold seeded values) cells (SERVE rules) in bf16
       against ``make_prefill_step`` / ``make_decode_step`` (logits within
@@ -287,31 +324,41 @@ Phases, in order:
       plain torch must fail their checks (two data ranks' gradients
       summed, not averaged; a pipeline that drops its last microbatch;
       every layer recomputed with the last layer's closure under
-      "dots"); and the flash row's float32 training shape [4, 28, 4096,
-      128]: its bound and ``scaled_dot_product_attention`` under each
-      backend that takes float32, forward and forward + backward; one
-      JSON line for the phase;
+      "dots"); and at the float32 training shape [4, 28, 4096, 128]
+      ``scaled_dot_product_attention`` under each backend that takes
+      float32, forward and forward + backward, and the efficient
+      backend's backward on its own
+      (``aten._scaled_dot_product_efficient_attention_backward``, its
+      gradients held against the backward kernel's), beside the f32tc
+      kernels;
+      one JSON line for the phase;
   23. one JSON line describing every kernel (the metering rows: the
       input sets, FP64 instructions an entry or the longest run and the
       dependent-add latency; the flash row: the sm90
       kernel's time, the simt kernel's beside it, every timed prefill
-      shape and the launches of each serving run; the decode row: the
-      single route's time beside the split route's, the back-to-back
-      time, every timed shape and the launches of each serving run; the
-      scan row: the serial route's time beside the chunked one's, and
+      shape and the launches of each serving run; the f32tc forward and
+      backward rows (``flash_attention_f32``, ``flash_attention_bwd``):
+      their times at the training shape, both bounds (3xTF32 and the
+      FP32 pipe), the simt forward's and the plain recompute's times,
+      the library's, their gradient and float64 errors and their
+      launches in phase 20's run, a train step and phase 22; the decode
+      row: the single route's time beside the split route's, the
+      back-to-back time, every timed shape and the launches of each
+      serving run; the scan row: the serial route's time beside the
+      chunked one's, and
       every timed shape; the metering rows also carry their launches
-      on the paths of 4a-4d, ``stack_launches``; the flash and scan rows
-      also their gradient error, backward time and launches a train
-      step; the flash, decode and scan rows their launches in phase 22,
-      ``distributed_launches``, and the flash row its training shape's
-      bound and library times);
+      on the paths of 4a-4d, ``stack_launches``; the scan row also its
+      gradient error, backward time and launches a train step; the
+      attention and scan rows their launches in phase 22,
+      ``distributed_launches``);
   24. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line.  Phases 1-17 took 669-931 s on the hosts seen (an H100
-80GB HBM3 at 700 W); phases 18-21 take about a minute more and phase 22
-about 25 s (the whole script took 738.6 s with all 22), sized to keep
-the whole under 1000 s of the 1200 s limit.  It also exits
+80GB HBM3 at 700 W); phases 18-21 take about 80 s more and phase 22
+about 25 s (the whole script took 738.6 s with all 22, and 861.9 s with
+the float32 backward kernel's checks and phase 20's two batches), sized
+to keep the whole under 1000 s of the 1200 s limit.  It also exits
 non-zero without a CUDA device.  ``python3 chip_smoke.py --metering``
 stops after phase 4d and prints the metering kernels' figures and the
 stack's walls and launches as two JSON lines instead of the last two;
@@ -337,17 +384,18 @@ REL_DAY = 1e-9             # torch backend vs numpy backend totals
 DEV = "cuda"
 
 # NVIDIA H100 data sheet: memory bandwidth, FP64 and FP32 (non-tensor)
-# peaks and dense BF16 tensor-core peak per form factor, matched against
-# torch.cuda.get_device_name().
-_PEAKS = (("PCIe", 2.0e12, 26e12, 51e12, 756e12),
-          ("NVL", 3.9e12, 30e12, 60e12, 835e12),
-          ("", 3.35e12, 34e12, 67e12, 989e12))
+# peaks and dense BF16 and TF32 tensor-core peaks (TF32 half of BF16) per
+# form factor, matched against torch.cuda.get_device_name().
+_PEAKS = (("PCIe", 2.0e12, 26e12, 51e12, 756e12, 378e12),
+          ("NVL", 3.9e12, 30e12, 60e12, 835e12, 417.5e12),
+          ("", 3.35e12, 34e12, 67e12, 989e12, 494.5e12))
 
 
 def _peaks(name):
-    for key, bw, fp64, fp32, bf16 in _PEAKS:
+    for key, bw, fp64, fp32, bf16, tf32 in _PEAKS:
         if key in name:
-            return bw, {"fp64": fp64, "fp32": fp32, "bf16": bf16}
+            return bw, {"fp64": fp64, "fp32": fp32, "bf16": bf16,
+                        "tf32": tf32}
     raise AssertionError("unreachable")
 
 
@@ -894,6 +942,60 @@ def _routed(op, way, call):
     return out
 
 
+def _flash_row(route):
+    """The kernels line's row of a flash route: the sm90 kernel is the
+    ``flash_attention`` row (serving), the f32tc kernel its own (float32
+    prefill and training); the simt kernel is timed in the former."""
+    return "flash_attention_f32" if route == "f32tc" else "flash_attention"
+
+
+# one kv head's query group of the float32 training shape (TRAIN_SHAPE's
+# 28 / 4 = 7 heads over 1, S = T = 4,096, D = 128), causal
+F32_ACC_SLICE = (1, 7, 1, 4096, 128)
+
+
+def check_f32_accuracy(stats):
+    """Phase 5: the f32tc kernel (3xTF32) against float64 at
+    F32_ACC_SLICE: its max abs error at most 4x that of the plain float32
+    version (TF32 off), and a planted single-pass TF32 version (the plain
+    version with TF32 matmuls) must miss that bound; lse within 2e-3 of
+    the float64 one."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ref
+    b, h, hkv, s, d = F32_ACC_SLICE
+    q = _randn((b, h, s, d), 21, torch.float32, torch)
+    k = _randn((b, hkv, s, d), 22, torch.float32, torch)
+    v = _randn((b, hkv, s, d), 23, torch.float32, torch)
+    want, want_lse = ref.flash_attention_lse_ref(q.double(), k.double(),
+                                                 v.double())
+    got, lse = _routed("flash_attention", "f32tc",
+                       lambda: fmod.flash_attention_lse(q, k, v))
+    plain = ref.flash_attention_ref(q, k, v)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = ref.flash_attention_ref(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    errs = {n: float((x.double() - want).abs().max())
+            for n, x in (("kernel", got), ("plain_f32", plain),
+                         ("single_pass_tf32", tf32))}
+    lse_err = _attn_close(lse, want_lse, ATTN_TOL["float32"],
+                          "f32tc lse against float64")
+    assert errs["kernel"] <= 4 * errs["plain_f32"], errs
+    assert errs["single_pass_tf32"] > 4 * errs["plain_f32"], \
+        f"the accuracy check passes a single TF32 pass: {errs}"
+    stats["flash_attention_f32"]["accuracy_vs_float64"] = errs
+    print(f"flash_attention  f32tc accuracy at {list(F32_ACC_SLICE)} "
+          f"against float64: max abs err kernel {errs['kernel']:.3e}, "
+          f"plain float32 {errs['plain_f32']:.3e} (bound 4x: "
+          f"{4 * errs['plain_f32']:.3e}), planted single-pass TF32 "
+          f"{errs['single_pass_tf32']:.3e} (misses); lse {lse_err:.3e}")
+
+
 def _flash_routed(q, k, v, window, causal=True):
     """``ops.flash_attention``, asserting that the route the wrapper
     names for q's dtype and head dim took the launch."""
@@ -982,10 +1084,13 @@ def check_attention():
 
     from repro_torch.kernels import ops, ref
 
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    from repro_torch.kernels import flash_attention as fmod
+    worst = {"flash_attention": 0.0, "flash_attention_f32": 0.0,
+             "decode_attention": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[str(dt).split(".")[-1]]
         for b, h, hkv, s, d in FLASH_SHAPES:
+            row = _flash_row(fmod.route(dt, d))
             q = _randn((b, h, s, d), 0, dt, torch)
             k = _randn((b, hkv, s, d), 1, dt, torch)
             v = _randn((b, hkv, s, d), 2, dt, torch)
@@ -998,7 +1103,7 @@ def check_attention():
                 err = _attn_close(got, want, tol,
                                   f"flash {dt} {(b, h, hkv, s, d)} "
                                   f"window={window}")
-                worst["flash_attention"] = max(worst["flash_attention"], err)
+                worst[row] = max(worst[row], err)
                 print(f"flash_attention  {str(dt):14s} B,H,Hkv,S,D="
                       f"{(b, h, hkv, s, d)} window={window}: max abs err "
                       f"{err:.3e} (tol {tol})")
@@ -1029,7 +1134,8 @@ def check_attention():
         want = ref.flash_attention_ref(qt, kt, vt, causal=True)
         torch.cuda.synchronize()
         err = _attn_close(got, want, tol, f"flash {dt} S=3 T=48")
-        worst["flash_attention"] = max(worst["flash_attention"], err)
+        row = _flash_row(fmod.route(dt, 128))
+        worst[row] = max(worst[row], err)
         kb = _randn((4, 48, 4, 128), 6, dt, torch).transpose(1, 2)
         vb = _randn((4, 48, 4, 128), 7, dt, torch).transpose(1, 2)
         qd = _randn((4, 28, 128), 8, dt, torch)
@@ -1324,7 +1430,8 @@ def _library_ms(call, torch, rotate=()):
 
 
 def _raw_flash(q, k, v, out, window, route, causal=True):
-    """One raw call of the ``route`` kernel (no checks, no count)."""
+    """One raw call of the ``route`` kernel (sm90 or simt; no checks, no
+    count)."""
     import math
 
     from repro_torch.kernels import flash_attention as fmod
@@ -1332,9 +1439,9 @@ def _raw_flash(q, k, v, out, window, route, causal=True):
     hkv, t = k.shape[1], k.shape[2]
     return _raw_attn(fmod, *fmod.ENTRY[route], fmod._SIG,
                      [*q.stride(), *k.stride(), *v.stride(), *out.stride()],
-                     1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), b, h, hkv, s, t, d, int(causal),
-                     int(window or 0), 1.0 / math.sqrt(d))
+                     fmod._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), b, h, hkv, s, t, d,
+                     int(causal), int(window or 0), 1.0 / math.sqrt(d))
 
 
 def time_flash(stats, routes=("sm90", "simt")):
@@ -1776,7 +1883,8 @@ def check_bf16_model(cfg, prompt_len=300):
     kern = forward(c16, w16)
     routes = ops.route_counts()
     n_attn = ops.launch_counts()["flash_attention"]
-    assert n_attn > 0 and routes == {"sm90": n_attn, "simt": 0}, routes
+    assert n_attn > 0 and routes == {"sm90": n_attn, "f32tc": 0,
+                                      "simt": 0}, routes
     # a long prompt's scans take the chunked kernel
     n_scan = ops.launch_counts()["rglru_scan"]
     scans = ops.route_counts("rglru_scan")
@@ -2027,7 +2135,8 @@ def serve_launcher(arch, argv=None, cfg=None):
     assert counts == want, (counts, want)
     # the launchers serve bf16 at head dims the sm90 route takes; their
     # 48-row caches are one split, their 3- and 1-step scans serial
-    assert routes == {"sm90": counts["flash_attention"], "simt": 0}, routes
+    assert routes == {"sm90": counts["flash_attention"], "f32tc": 0,
+                      "simt": 0}, routes
     assert decodes == {"split": 0,
                        "single": counts["decode_attention"]}, decodes
     assert scans == {"chunked": 0, "serial": counts["rglru_scan"]}, scans
@@ -2054,7 +2163,7 @@ MIXTRAL_LAYERS = 12        # of 56: ~5.01 GB a layer in bf16, ~61 GB in all
 # ``generate([1, 2, 3], max_new=4)``, so the counts per call are the
 # same)
 NEW_HOURS = 2.0
-# prefills at the new archs' heads, in bf16 (sm90) and float32 (simt):
+# prefills at the new archs' heads, in bf16 (sm90) and float32 (f32tc):
 # (label, B, H, Hkv, S, T, D, window, views, causal); ``views`` as in
 # SM90_CASES
 NEW_FLASH_CASES = (
@@ -2107,6 +2216,7 @@ def check_new_shapes(stats, flash_cases=NEW_FLASH_CASES,
     import torch
 
     from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ref
 
     for dt in (torch.bfloat16, torch.float32):
@@ -2119,9 +2229,9 @@ def check_new_shapes(stats, flash_cases=NEW_FLASH_CASES,
                                            window=window)
             torch.cuda.synchronize()
             err = _attn_close(got, want, tol, f"flash {label} {dt}")
-            stats["flash_attention"]["max_abs_err"] = max(
-                stats["flash_attention"]["max_abs_err"], err)
-            kernel = "sm90" if dt == torch.bfloat16 else "simt"
+            kernel = fmod.route(dt, d)
+            row = stats[_flash_row(kernel)]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
             print(f"flash_attention  {str(dt):14s} {label:20s} B,H,Hkv,S,T,"
                   f"D={(b, h, hkv, s, t, d)} window={window} views={views}"
                   f" causal={causal} ({kernel}): max abs err {err:.3e} "
@@ -2356,16 +2466,6 @@ class _KernelSpy:
             for n, st in self.seen.items())
 
 
-# phase 13: gemma3-1b's card logits against the float64 run, relative to
-# its max.  A fixed limit set from the H100's readings (7.187e-3 against
-# a float64 run with float32 attention; 1.35e-2 at the model level
-# against a float64 run), not a rounding bound: at depth 6 on 600
-# tokens the random-weight model is chaotic (two float64 runs, one on the
-# CPU and one on the card, differ by 0.227 of the max; the card's float32
-# run with its weights moved by one ulp lands 1.6e-3 to 4.6e-2 away), so
-# the card's reading is one deterministic trajectory; each kernel call is
-# held on its own inputs by ``_KernelSpy``
-GEMMA3_REL_F64 = 2e-2
 
 
 def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
@@ -2502,9 +2602,16 @@ def check_new_depths():
     f32 = torch.float32
     check_depth(cut_depth(GRANITE, 2, f32))
     # one (5 local + 1 global) superlayer; 600 tokens, past the 512 window
-    # in prefill and in every decode step
-    check_depth(cut_depth(GEMMA3, 6, f32), prompt_len=600,
-                f64_limit=GEMMA3_REL_F64, cpu_gate=False)
+    # in prefill and in every decode step.  At the reference's init law
+    # the model is chaotic in float32 (two float64 runs, on the CPU and
+    # on the card, differ by 0.227 of the max; a one-ulp move of the
+    # weights moves the card's float32 logits 1.6e-3 to 4.6e-2), so that
+    # run holds each kernel call and prints the logits ungated; at the
+    # fan-in law over d_model it takes every gate, as whisper and xlstm
+    # do in phase 16
+    gemma3 = cut_depth(GEMMA3, 6, f32)
+    check_depth(gemma3, prompt_len=600, f64_limit=math.inf, cpu_gate=False)
+    check_depth(gemma3, prompt_len=600, weights=_fan_in_d_model)
     # one layer; a 48-token prompt: capacity ceil(48 * 2 * 1.25 / 8) = 15
     drops = _Drops()
     check_depth(cut_depth(MIXTRAL, 1, f32), card_ctx=drops)
@@ -2579,7 +2686,7 @@ def serve_internvl2():
     want = {k: 0 for k in counts}
     want.update(flash_attention=n, decode_attention=8 * n)
     assert counts == want, (counts, want)
-    assert routes == {"sm90": n, "simt": 0}, routes
+    assert routes == {"sm90": n, "f32tc": 0, "simt": 0}, routes
     assert all(bool(torch.isfinite(x).all()) and x.shape == (
         4, cfg.vocab_size) for x in logits)
     print(f"internvl2-26b full width and depth (bf16, model level): B=4, "
@@ -2649,7 +2756,8 @@ def serve_engine(cfg, label, extras=None, requests=24):
     want = {k: per_prefill.get(k, 0) * len(pre) +
             per_decode.get(k, 0) * len(dec) for k in counts}
     assert counts == want, (counts, want)
-    assert routes == {"sm90": counts["flash_attention"], "simt": 0}, routes
+    assert routes == {"sm90": counts["flash_attention"], "f32tc": 0,
+                      "simt": 0}, routes
     dropped = ""
     if drops.calls:
         dropped = (f"; one request's one-hot dispatch dropped "
@@ -2709,7 +2817,7 @@ DEEPSEEK_LAYERS = 7        # of 60: ~7.95 GB a layer in bf16, ~57.7 GB in all
 # the launcher's --hours for minicpm3 and xlstm (5 requests, as NEW_HOURS);
 # the engine runs (whisper, deepseek) take ``serve_engine``'s 24 requests
 SLICE9_HOURS = 2.0
-# whisper's prefills, bf16 (sm90) and float32 (simt), as NEW_FLASH_CASES:
+# whisper's prefills, bf16 (sm90) and float32 (f32tc), as NEW_FLASH_CASES:
 # the encoder's bidirectional layer over the 1500 frames (a ragged tail
 # on both axes), the decoder's cross prefill of the launcher's 3 tokens
 # against them and its causal self prefill against 48 cache rows, both
@@ -3397,10 +3505,29 @@ TRAIN_FLASH_CASES = (
 # (B, S, W): RecurrentGemma's width at the training length (chunked) and
 # a short sequence (serial)
 TRAIN_SCAN_SHAPES = ((1, 4096, 4096), (2, 40, 4096))
+# the f32tc kernels on their own at small shapes, float32: (B, H, Hkv, S,
+# T, D, causal, window, views) -- every head dim, causal / windowed /
+# non-causal, GQA groups of 1 to 16, ragged S != T (a 3-row prefill
+# against 48 keys), and [B, S|T, heads, D] views as the model hands them
+F32TC_CASES = (
+    (1, 4, 4, 128, 128, 64, True, None, False),
+    (2, 8, 2, 256, 256, 64, True, 64, False),
+    (1, 4, 1, 256, 256, 128, True, None, False),
+    (2, 2, 2, 512, 512, 32, True, None, False),
+    (1, 16, 1, 300, 300, 256, True, 64, False),
+    (1, 7, 1, 300, 300, 128, True, None, True),
+    (1, 28, 4, 3, 48, 128, True, None, True),
+    (2, 8, 2, 200, 300, 128, False, None, False),
+    (2, 4, 4, 300, 200, 64, False, 64, False),
+    (1, 8, 8, 150, 150, 64, False, None, True),
+    (1, 16, 1, 260, 260, 256, True, None, False),
+)
 TRAIN_LAYERS = 4           # of Qwen2.5-7B's 28, at full width, float32
 TRAIN_SEQ = 4096           # the reference's train_4k length
 TRAIN_STEPS = 8
-TRAIN_BATCH = 4            # the largest batch that fits (phase 20 probes +1)
+TRAIN_BATCH = 6            # the largest batch that fits (phase 20 probes +1)
+COMPARE_BATCH = 4          # phase 20's batch before the backward kernel
+COMPARE_STEPS = 4
 GRAD_SEQ = 256             # phase 19's sequence
 
 
@@ -3472,9 +3599,15 @@ def check_kernel_grads(stats):
             r = _randn((b, h, s, d), 4, torch.float32, torch)
             want = _flash_grads(ref.flash_attention_ref, q, k, v, r, causal,
                                 window)
-            got = _routed("flash_attention", fmod.route(dt, d),
+            way = fmod.route(dt, d)
+            n_bwd = ops.launch_counts()["flash_attention_bwd"]
+            got = _routed("flash_attention", way,
                           lambda: _flash_grads(ops.flash_attention, q, k, v,
                                                r, causal, window))
+            # the f32tc route's backward is the kernel (one launch a
+            # call); the others recompute the plain version
+            n_bwd = ops.launch_counts()["flash_attention_bwd"] - n_bwd
+            assert n_bwd == (way == "f32tc"), (label, dt, n_bwd)
             ok, worst = _grad_check(got, want, tol)
             assert ok, f"{label} {dt}: gradients off by {worst:.3e}"
             # planted fault: the bare kernel, no autograd
@@ -3482,10 +3615,15 @@ def check_kernel_grads(stats):
                                 window)
             miss = _grad_check(bare, want, tol)
             assert not miss[0], f"{label}: the bare kernel passed"
-            flash_worst = max(flash_worst, worst)
-            print(f"flash grads {label} {str(dt)[6:]}: dq/dk/dv within "
-                  f"{worst:.3e} of the max (tol {tol}); the bare kernel "
-                  f"misses ({miss[1]})")
+            more = ""
+            if way == "f32tc":
+                flash_worst = max(flash_worst, worst)
+                more = "; " + _check_bwd_kernel(stats, label, q, k, v, r,
+                                                causal, window, got, want,
+                                                tol)
+            print(f"flash grads {label} {str(dt)[6:]} ({way}): dq/dk/dv "
+                  f"within {worst:.3e} of the max (tol {tol}); the bare "
+                  f"kernel misses ({miss[1]}){more}")
             del q, k, v, r, want, got, bare
             torch.cuda.empty_cache()
     for shape in TRAIN_SCAN_SHAPES:
@@ -3511,28 +3649,232 @@ def check_kernel_grads(stats):
               f"{worst:.3e} of the max (tol {SCAN_GRAD_TOL}); faults miss: "
               + ", ".join(f"{n} {m[1]:.3e}" for n, m in misses.items()))
         del a, x, h0, r, want, got, faults
-    stats["flash_attention"]["grad_err"] = flash_worst
+    # the float32 (f32tc) cases' worst; the bf16 ones are printed above
+    stats["flash_attention_f32"]["grad_err"] = flash_worst
     stats["rglru_scan"]["grad_err"] = scan_worst
+    check_f32tc_cases(stats)
     print(f"phase 18: {time.perf_counter() - t0:.3f} s")
 
 
-def time_backward(stats, batch=1):
-    """The flash forward (kernel) and its plain-recompute backward at
-    Qwen2.5-7B's training shape (``batch`` rows, float32), and the scan's
-    kernel backward at [1, 4096, 4096]: CUDA events, median of 7 rounds."""
+def check_f32tc_cases(stats):
+    """Phase 18, the f32tc kernels on their own: at each F32TC_CASES
+    shape ``flash_attention_lse`` (out and lse) against
+    ``ref.flash_attention_lse_ref`` and ``flash_attention_bwd`` against
+    ``ref.flash_attention_bwd_ref`` on the same inputs, each within 2e-3
+    of its max (lse: of 1, -inf where no key is visible), and two
+    backward calls bit-equal; then the backward at F32_ACC_SLICE against
+    float64: each gradient's max abs error, over its max, at most 4x
+    that of the plain float32 version (as phase 5 holds the forward)."""
     import torch
 
-    from repro_torch.kernels import ops
-    b, h, hkv, s, d = batch, 28, 4, TRAIN_SEQ, 128
-    q, k, v = (_randn((b, n, s, d), i, torch.float32, torch).requires_grad_()
-               for i, n in ((1, h), (2, hkv), (3, hkv)))
-    out = ops.flash_attention(q, k, v)
-    g = torch.randn_like(out)
-    fwd = _time_ms(lambda: ops.flash_attention(q, k, v), torch, reps=3)
-    bwd = _time_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
-                                               retain_graph=True), torch,
-                   reps=3)
-    del q, k, v, out, g
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ref
+    tol = GRAD_TOL["float32"]
+    worst = {"out": 0.0, "lse": 0.0, "dq/dk/dv": 0.0}
+    for i, (b, h, hkv, s, t, d, causal, window, views) in enumerate(
+            F32TC_CASES):
+        label = f"f32tc case {F32TC_CASES[i]}"
+        q, k, v = _qkv(b, h, hkv, s, t, d, views, 10 * i, torch.float32,
+                       torch)
+        dout = _randn((b, h, s, d), 10 * i + 5, torch.float32, torch)
+        out, lse = fmod.flash_attention_lse(q, k, v, causal=causal,
+                                            window=window)
+        w_out, w_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal,
+                                                   window=window)
+        grads = fmod.flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, window=window)
+        again = fmod.flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, window=window)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                           causal=causal, window=window)
+        assert all(bool(torch.equal(a, c)) for a, c in zip(grads, again)), \
+            f"{label}: two backward calls differ"
+        ok, rel = _grad_check([out], [w_out], tol)
+        assert ok, f"{label}: out off by {rel:.3e}"
+        # a row that sees no key: -inf in both
+        assert bool(torch.equal(lse == -math.inf, w_lse == -math.inf)), label
+        seen = lse != -math.inf
+        lse_err = float((lse[seen] - w_lse[seen]).abs().max()) \
+            if bool(seen.any()) else 0.0
+        assert lse_err <= tol, f"{label}: lse off by {lse_err:.3e}"
+        ok, grel = _grad_check(grads, want, tol)
+        assert ok, f"{label}: dq/dk/dv off by {grel:.3e}"
+        for n, e in (("out", rel), ("lse", lse_err), ("dq/dk/dv", grel)):
+            worst[n] = max(worst[n], e)
+    print(f"f32tc kernels at {len(F32TC_CASES)} small shapes: out, lse and "
+          f"dq/dk/dv within " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                         worst.items())
+          + f" of their max (tol {tol}); two backward calls bit-equal in "
+          "each")
+    b, h, hkv, s, d = F32_ACC_SLICE
+    q, k, v = _qkv(b, h, hkv, s, s, d, False, 700, torch.float32, torch)
+    dout = _randn((b, h, s, d), 705, torch.float32, torch)
+    out, lse = fmod.flash_attention_lse(q, k, v)
+    got = fmod.flash_attention_bwd(q, k, v, out, lse, dout)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout)
+    exact = ref.flash_attention_bwd_ref(*(x.double() for x in (
+        q, k, v, out, lse, dout)))
+    acc = {}
+    for n, g, p, w in zip(("dq", "dk", "dv"), got, plain, exact):
+        m = float(w.abs().max())
+        acc[n] = {"kernel": float((g.double() - w).abs().max()) / m,
+                  "plain_f32": float((p.double() - w).abs().max()) / m}
+    assert all(e["kernel"] <= 4 * e["plain_f32"] for e in acc.values()), acc
+    stats["flash_attention_bwd"]["accuracy_vs_float64"] = acc
+    print(f"f32tc backward at {list(F32_ACC_SLICE)} against float64, max "
+          f"abs err over the max: " + "; ".join(
+              f"{n} kernel {e['kernel']:.3e}, plain float32 "
+              f"{e['plain_f32']:.3e}" for n, e in acc.items())
+          + " (bound 4x plain)")
+
+
+def _check_bwd_kernel(stats, label, q, k, v, r, causal, window, got, want,
+                      tol):
+    """Phase 18, float32: the f32tc backward kernel on its own against
+    its plain version (``ref.flash_attention_bwd_ref``) on the same
+    inputs (the kernel forward's out and lse, dout = 2 out r), within
+    ``tol`` of each gradient's max; a second ``ops.flash_attention``
+    gradient bit-equal to the first; the two planted backward faults of
+    ``ref.flash_attention_bwd_faults`` must miss the gradient check.
+    Returns a line for the log."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ops, ref
+    again = _flash_grads(ops.flash_attention, q, k, v, r, causal, window)
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    assert equal, f"{label}: two backward calls differ"
+    del again
+    out, lse = fmod.flash_attention_lse(q, k, v, causal=causal,
+                                        window=window)
+    dout = 2 * out * r
+    kern = fmod.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                    window=window)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                        causal=causal, window=window)
+    ok, rel = _grad_check(kern, plain, tol)
+    assert ok, f"{label}: the backward kernel off its plain version by {rel}"
+    row = stats["flash_attention_bwd"]
+    row["max_abs_err"] = max(row["max_abs_err"], *(
+        float((a - b).abs().max()) for a, b in zip(kern, plain)))
+    del kern, plain
+    # with one query head a kv head the group's sum is that head: only
+    # the dropped Delta is a fault there
+    faults = {n: _grad_check(f, want, tol)
+              for n, f in ref.flash_attention_bwd_faults(
+                  q, k, v, out, lse, dout, causal=causal,
+                  window=window).items()
+              if q.shape[1] > k.shape[1] or n == "delta dropped"}
+    assert not any(m[0] for m in faults.values()), faults
+    return (f"backward kernel within {rel:.3e} of its plain version's max, "
+            f"two calls bit-equal; faults miss: " + ", ".join(
+                f"{n} {m[1]:.3e}" for n, m in faults.items()))
+
+
+def _bwd_work(b, h, hkv, s, d):
+    """Bytes and operations of the causal float32 backward at S = T:
+    q, k, v, out, dout and lse read and dq, dk, dv written once each;
+    FlashAttention-2's 5 products of 2 D operations per visible pair."""
+    nbytes, flops = _flash_work(b, h, hkv, s, s, d, None)
+    return 2 * (2 * nbytes) + 4 * b * h * s, 2.5 * flops
+
+
+def check_train_batch(stats, batch):
+    """Phase 20's own flash shape, [batch, 28, 4096, 128] float32 causal
+    through [B, S, heads, D] views as the model hands them: the f32tc
+    forward (out, lse) and its backward kernel against their plain
+    versions, run one batch row at a time (a row's attention depends on
+    that row alone; the plain versions' [B, H, S, T] tensors of all rows
+    at once would not fit beside the backward's), out within 2e-3
+    (``_attn_close``), lse within 2e-3, dq / dk / dv within 2e-3 of
+    each row's max."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ref
+    _, h, hkv, s, d = TRAIN_SHAPE
+    q, k, v = _qkv(batch, h, hkv, s, s, d, True, 30, torch.float32, torch)
+    dout = _randn((batch, s, h, d), 35, torch.float32, torch).transpose(1, 2)
+    out, lse = fmod.flash_attention_lse(q, k, v)
+    grads = fmod.flash_attention_bwd(q, k, v, out, lse, dout)
+    tol = GRAD_TOL["float32"]
+    errs = {"out": 0.0, "lse": 0.0, "dq/dk/dv": 0.0}
+    for r in range(batch):
+        row = slice(r, r + 1)
+        w_out, w_lse = ref.flash_attention_lse_ref(q[row], k[row], v[row])
+        errs["out"] = max(errs["out"], _attn_close(
+            out[row], w_out, ATTN_TOL["float32"],
+            f"f32tc forward at row {r} of {batch}"))
+        errs["lse"] = max(errs["lse"], _attn_close(
+            lse[row], w_lse, tol, f"f32tc lse at row {r} of {batch}"))
+        del w_out, w_lse
+        want = ref.flash_attention_bwd_ref(q[row], k[row], v[row], out[row],
+                                           lse[row], dout[row])
+        ok, rel = _grad_check([g[row] for g in grads], want, tol)
+        assert ok, f"f32tc backward at row {r} of {batch}: off by {rel:.3e}"
+        errs["dq/dk/dv"] = max(errs["dq/dk/dv"], rel)
+        del want
+    del q, k, v, dout, out, lse, grads
+    _free_card()
+    stats["flash_attention_f32"]["train_batch_errs"] = errs
+    print(f"f32tc at phase 20's shape [{batch}, {h}, {hkv}, {s}, {d}] "
+          f"float32 causal (views), against the plain versions a row at a "
+          f"time: out max abs err {errs['out']:.3e}, lse {errs['lse']:.3e}, "
+          f"dq/dk/dv {errs['dq/dk/dv']:.3e} of each row's max (tol {tol})")
+
+
+def time_backward(stats):
+    """At TRAIN_SHAPE ([4, 28, 4096, 128] float32, causal): the f32tc
+    forward and its backward kernel against their plain versions
+    (``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``:
+    within 2e-3 of each output's max) and their bounds (3xTF32 on the
+    tensor cores; the FP32 pipe's beside them), the simt kernel's
+    forward and the plain recompute's backward (the route's previous
+    kernels) on the same inputs; and the scan's kernel backward at
+    [1, 4096, 4096].  CUDA events, median of the rounds."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ops, ref
+    name = torch.cuda.get_device_name(0)
+    b, h, hkv, s, d = TRAIN_SHAPE
+    q = _randn((b, h, s, d), 1, torch.float32, torch)
+    k = _randn((b, hkv, s, d), 2, torch.float32, torch)
+    v = _randn((b, hkv, s, d), 3, torch.float32, torch)
+    dout = _randn((b, h, s, d), 4, torch.float32, torch)
+    out, lse = fmod.flash_attention_lse(q, k, v)
+    fwd = _time_ms(lambda: fmod.flash_attention_lse(q, k, v), torch, reps=5)
+    bwd = _time_ms(lambda: fmod.flash_attention_bwd(q, k, v, out, lse,
+                                                    dout), torch, reps=3)
+    grads = fmod.flash_attention_bwd(q, k, v, out, lse, dout)
+    simt_out = torch.empty_like(q)
+    simt = _time_ms(_raw_flash(q, k, v, simt_out, None, "simt"), torch,
+                    reps=2, rounds=3)
+    torch.cuda.synchronize()
+    plain_out, _ = ref.flash_attention_lse_ref(q, k, v)
+    errs = {"out": _attn_close(out, plain_out, ATTN_TOL["float32"],
+                               "f32tc forward at the training shape"),
+            "simt out": _attn_close(simt_out, plain_out, ATTN_TOL["float32"],
+                                    "simt forward at the training shape")}
+    del plain_out, simt_out
+    plain_fwd = _time_ms(lambda: ref.flash_attention_lse_ref(q, k, v),
+                         torch, reps=1, rounds=3)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout)
+    ok, rel = _grad_check(grads, plain, GRAD_TOL["float32"])
+    assert ok, f"the backward kernel at the training shape: off by {rel}"
+    errs["dq/dk/dv"] = max(float((a - p).abs().max())
+                           for a, p in zip(grads, plain))
+    del plain, grads
+    plain_bwd = _time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, dout), torch, reps=1, rounds=3)
+
+    def recompute():       # the backward the route had before its kernel
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(ref.flash_attention_ref(*ins), ins, dout)
+
+    recomp = _time_ms(recompute, torch, reps=1, rounds=3)
+    del q, k, v, out, lse, dout
+    torch.cuda.empty_cache()
     a, x, h0 = (t.requires_grad_() for t in _scan_inputs(
         TRAIN_SCAN_SHAPES[0], 7, torch.float32, torch))
     hh = ops.rglru_scan(a, x, h0)
@@ -3542,14 +3884,37 @@ def time_backward(stats, batch=1):
                     reps=5)
     del a, x, h0, hh, gh
     torch.cuda.empty_cache()
-    stats["flash_attention"].update(train_shape=[b, h, hkv, s, d],
-                                    train_forward_ms=fwd, backward_ms=bwd,
-                                    backward="plain recompute")
+    nbytes, flops = _flash_work(b, h, hkv, s, s, d, None)
+    fb, fby = _bound_ms(name, 2 * nbytes, 3 * flops, "tf32")
+    f32b = _bound_ms(name, 2 * nbytes, flops, "fp32")[0]
+    bbytes, bflops = _bwd_work(b, h, hkv, s, d)
+    bb, bby = _bound_ms(name, bbytes, 3 * bflops, "tf32")
+    b32b = _bound_ms(name, bbytes, bflops, "fp32")[0]
+    _possible(fwd, fb, "f32tc flash forward at the training shape")
+    _possible(bwd, bb, "f32tc flash backward at the training shape")
+    shape = f"B,H,Hkv,S,T,D={(b, h, hkv, s, s, d)} float32 causal"
+    f32_row, bwd_row = stats["flash_attention_f32"], \
+        stats["flash_attention_bwd"]
+    f32_row["max_abs_err"] = max(f32_row["max_abs_err"], errs["out"])
+    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], errs["dq/dk/dv"])
+    f32_row.update(
+        ms=fwd, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby,
+        bound="3xTF32 tensor cores", fp32_pipe_bound_ms=f32b, shape=shape,
+        simt_ms=simt, simt_source="src/repro_torch/kernels/csrc/"
+        "flash_attention.cu", train_shape_errs=errs)
+    bwd_row.update(
+        ms=bwd, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby,
+        bound="3xTF32 tensor cores, 5 products a pair",
+        fp32_pipe_bound_ms=b32b, shape=shape, plain_recompute_ms=recomp)
     stats["rglru_scan"].update(backward_ms=sbwd,
                                backward="kernel (chunked, flipped inputs)")
-    print(f"flash at the training shape [{b}, {h}, {s}, {d}] float32: "
-          f"forward (simt kernel) {fwd:.4f} ms, backward (plain recompute) "
-          f"{bwd:.4f} ms; scan backward {list(TRAIN_SCAN_SHAPES[0])} "
+    print(f"flash at the training shape {list(TRAIN_SHAPE)} float32 causal: "
+          f"f32tc forward {fwd:.4f} ms (bound {fb:.4f} ms 3xTF32, "
+          f"{f32b:.4f} ms on the FP32 pipe; simt kernel {simt:.4f} ms; "
+          f"plain {plain_fwd:.4f} ms), backward kernel {bwd:.4f} ms (bound "
+          f"{bb:.4f} ms 3xTF32, {b32b:.4f} ms on the FP32 pipe; plain "
+          f"{plain_bwd:.4f} ms, plain recompute {recomp:.4f} ms); max abs "
+          f"errs {errs}; scan backward {list(TRAIN_SCAN_SHAPES[0])} "
           f"{sbwd:.4f} ms")
 
 
@@ -3578,40 +3943,144 @@ def _loss_grads(cfg, params, batch):
     return float(loss), list(leaves_with_paths(grads))
 
 
+class _GradSpy:
+    """Holds every kernel call of a gradient run (``ops``' autograd
+    functions call these) on its own inputs, failing on the first call
+    beyond its bound.  Each f32tc forward (out and lse) and each backward
+    kernel call (dq, dk, dv) against its plain version run in float64
+    (``ref.flash_attention_lse_ref``, ``ref.flash_attention_bwd_ref``),
+    each output's max abs error over its max: within 2e-3, or no more
+    than 4x the plain float32 version's on the same inputs (as phase 5
+    holds the forward), where float32 itself lands farther (at the
+    reference's init, plain float32 sits ~1e-3 of the max from float64
+    on a RecurrentGemma backward call); each scan, forward or adjoint,
+    against
+    ``ref.rglru_scan_ref`` (a float32 state), within 1e-4 of its max.
+    Keeps each kernel's calls, its worst error and the plain float32
+    version's, and how many calls only the 4x bound held."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import flash_attention as fmod
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import rglru_scan as rmod
+        self.mods = fmod, rmod
+        self.real = (fmod.flash_attention_lse, fmod.flash_attention_bwd,
+                     rmod.rglru_scan)
+        lse_fn, bwd_fn, scan_fn = self.real
+        self.seen = {n: {"calls": 0, "kernel": 0.0, "plain": 0.0,
+                         "by_4x": 0} for n in (
+            "flash_attention", "flash_attention_bwd", "rglru_scan")}
+
+        def rel(x, w):
+            # -inf lse (a row that sees no key) in the same places
+            fin = torch.isfinite(w)
+            assert bool(torch.equal(fin, torch.isfinite(x)))
+            x, w = x.double()[fin], w.double()[fin]
+            return float((x - w).abs().max() / w.abs().max()) \
+                if x.numel() and bool(w.any()) else 0.0
+
+        def held(name, got, plain, exact, tol):
+            e_k = max(rel(x, w) for x, w in zip(got, exact))
+            e_p = max(rel(x, w) for x, w in zip(plain, exact))
+            st = self.seen[name]
+            assert e_k <= tol or e_k <= 4 * e_p, \
+                f"{name} call {st['calls']}: {e_k:.3e} of the max from " \
+                f"float64 (plain float32 {e_p:.3e}; tol {tol} or 4x plain)"
+            st["calls"] += 1
+            st["kernel"] = max(st["kernel"], e_k)
+            st["plain"] = max(st["plain"], e_p)
+            st["by_4x"] += int(e_k > tol)
+
+        def flash_lse(q, k, v, *, causal=True, window=None):
+            got = lse_fn(q, k, v, causal=causal, window=window)
+            held("flash_attention", got, ref.flash_attention_lse_ref(
+                q, k, v, causal=causal, window=window),
+                ref.flash_attention_lse_ref(q.double(), k.double(),
+                                            v.double(), causal=causal,
+                                            window=window),
+                GRAD_TOL["float32"])
+            return got
+
+        def flash_bwd(q, k, v, out, lse, dout, *, causal=True, window=None):
+            got = bwd_fn(q, k, v, out, lse, dout, causal=causal,
+                         window=window)
+            ins = (q, k, v, out, lse, dout)
+            held("flash_attention_bwd", got, ref.flash_attention_bwd_ref(
+                *ins, causal=causal, window=window),
+                ref.flash_attention_bwd_ref(*(x.double() for x in ins),
+                                            causal=causal, window=window),
+                GRAD_TOL["float32"])
+            return got
+
+        def scan(a, b, h0):
+            h = scan_fn(a, b, h0)
+            want = ref.rglru_scan_ref(a, b, h0)
+            held("rglru_scan", [h], [want], [want], SCAN_GRAD_TOL)
+            return h
+
+        fmod.flash_attention_lse, fmod.flash_attention_bwd = flash_lse, \
+            flash_bwd
+        rmod.rglru_scan = scan
+        return self
+
+    def __exit__(self, *exc):
+        fmod, rmod = self.mods
+        fmod.flash_attention_lse, fmod.flash_attention_bwd, \
+            rmod.rglru_scan = self.real
+
+    def line(self):
+        return "; ".join(
+            f"{n} {st['calls']} calls, worst {st['kernel']:.3e} of the max "
+            + ("from the plain version" if n == "rglru_scan" else
+               f"from float64 (plain float32 {st['plain']:.3e}; "
+               f"{st['by_4x']} held by the 4x bound)")
+            for n, st in self.seen.items() if st["calls"])
+
+
 def check_model_grads():
     """Phase 19: ``train_loss``'s gradients at full width, float32, with
     the kernels against the same call with the plain versions patched
-    into ``ops``: every leaf within 2e-3 of its max, none zero where the
-    plain run's is not, and the launches each run made."""
-    import dataclasses
-
+    into ``ops``: every kernel call held against its plain version on
+    its own inputs (``_GradSpy``), every leaf within 2e-3 of its max,
+    none zero where the plain run's is not, and the launches each run
+    made.  The RecurrentGemma cut runs twice.  At the reference's init
+    law (its attention's [d_model, heads, head_dim] projections 16x the
+    fan-in law over d_model) its float32 gradients are ill-conditioned:
+    float32 runs whose kernels differ only in rounding put the leaves
+    8e-4 to 3.7e-3 of their max from the plain run's, and one backward
+    call 2.4e-3 from its plain version on the same inputs (``PERF.md``
+    §6-7), so that run holds each kernel call and prints the leaves'
+    distance ungated; the second, with those
+    projections at the fan-in law over d_model (``_fan_in_d_model``),
+    takes every gate, as phases 13 and 16 do for gemma3, whisper and
+    xlstm."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import ScanGroup, build_param_specs, materialize
+    from repro_torch.models import build_param_specs, materialize
     t0 = time.perf_counter()
-    rg = get_config(RG_ARCH)
-    cases = (
-        (f"{ARCH} (1 layer)", cut_depth(ARCH, 1, torch.float32)),
-        (f"{RG_ARCH} (main x 1 + tail)", dataclasses.replace(
-            rg, n_layers=sum(len(g.pattern) for g in rg.groups),
-            groups=tuple(ScanGroup(g.name, 1, g.pattern)
-                         for g in rg.groups),
-            param_dtype=torch.float32, compute_dtype=torch.float32)),
-    )
+    (qwen, qwen_cfg), (rg, rg_cfg) = _grad_cuts()
+    # (label, config, weights, gated)
+    cases = ((qwen, qwen_cfg, None, True), (rg, rg_cfg, None, False),
+             (f"{rg} (_fan_in_d_model)", rg_cfg, _fan_in_d_model, True))
     counts = {}
-    for label, cfg in cases:
+    for label, cfg, weights, gated in cases:
         params = materialize(build_param_specs(cfg),
                              torch.Generator().manual_seed(0), DEV)
+        if weights is not None:
+            weights(params, cfg)
         g = torch.Generator().manual_seed(1)
         tok = torch.randint(0, cfg.vocab_size, (1, GRAD_SEQ + 1),
                             generator=g, dtype=torch.int32).to(DEV)
         batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
         ops.reset_launches()
-        loss, got = _loss_grads(cfg, params, batch)
+        with _GradSpy() as spy:
+            loss, got = _loss_grads(cfg, params, batch)
         torch.cuda.synchronize()
         kernel_counts = {k: n for k, n in ops.launch_counts().items() if n}
+        kernel_routes = ops.route_counts()
         ops.reset_launches()
         with _PlainOps():
             want_loss, want = _loss_grads(cfg, params, batch)
@@ -3621,22 +4090,33 @@ def check_model_grads():
                      for b in grp.pattern * grp.repeats)
         n_scan = cfg.n_layers - n_attn
         # remat: each attention layer's forward runs twice (forward and
-        # recompute; its backward is the plain recompute); each RG-LRU
-        # layer's scan three times (forward, recompute, backward)
-        expect = {"flash_attention": 2 * n_attn, "rglru_scan": 3 * n_scan}
+        # recompute, on the f32tc route) and its backward kernel once;
+        # each RG-LRU layer's scan three times (forward, recompute,
+        # backward)
+        expect = {"flash_attention": 2 * n_attn,
+                  "flash_attention_bwd": n_attn, "rglru_scan": 3 * n_scan}
         assert kernel_counts == {k: n for k, n in expect.items() if n}, \
             (kernel_counts, expect)
+        assert {k: st["calls"] for k, st in spy.seen.items()} == expect, \
+            (spy.seen, expect)
+        assert kernel_routes["f32tc"] == 2 * n_attn == sum(
+            kernel_routes.values()), kernel_routes
         ok, worst = _grad_check([gg for _, gg in got],
                                 [w for _, w in want], 2e-3)
-        assert ok, f"{label}: a gradient leaf off by {worst:.3e}"
-        assert abs(loss - want_loss) <= 2e-3 * abs(want_loss), \
-            (loss, want_loss)
+        # ungated, the leaves must still all be there and finite
+        assert math.isfinite(worst) and all(
+            bool(torch.isfinite(gg).all()) for _, gg in got), label
+        assert ok or not gated, f"{label}: a gradient leaf off by {worst:.3e}"
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        assert loss_rel <= 2e-3 or not gated, (loss, want_loss)
         counts[label] = kernel_counts
         print(f"model grads {label}: loss {loss!r} (plain {want_loss!r}); "
-              f"{len(got)} leaves within {worst:.3e} of their max, none "
-              f"zero where the plain run's is not; launches with the "
-              f"kernels {kernel_counts}, with the plain versions "
-              f"{plain_counts or 'none'}")
+              f"kernel calls against their plain versions: {spy.line()}; "
+              f"{len(got)} leaves within {worst:.3e} of their max ("
+              + ("limit 2e-3" if gated else "not gated: the reference's "
+                 "init") + "), none zero where the plain run's is not; "
+              f"launches with the kernels {kernel_counts}, with the plain "
+              f"versions {plain_counts or 'none'}")
         del params, got, want
         _free_card()
     print(f"phase 19: {time.perf_counter() - t0:.3f} s")
@@ -3681,6 +4161,7 @@ def _instrumented_steps(record, profile_step):
                                                    key=lambda r: -r[1])[:8]}
             record["launches"].append(
                 {k: n for k, n in ops.launch_counts().items() if n})
+            record.setdefault("routes", []).append(ops.route_counts())
             return out
         return run
     return real, make
@@ -3729,38 +4210,58 @@ def train_full_width(stats):
           f"out of the card's memory; {batch} rows a step"
           + ("" if batch == TRAIN_BATCH else
              f" (TRAIN_BATCH is {TRAIN_BATCH}: raise it)"))
-    torch.cuda.reset_peak_memory_stats()
-    record = {"launches": []}
-    real, make = _instrumented_steps(record, profile_step=TRAIN_STEPS - 1)
-    trainer.make_train_step = make
-    try:
-        hist = trainer.train(cfg, tc(batch, TRAIN_STEPS),
-                             log_fn=lambda s: print(f"  {s}"), device=DEV)
-    finally:
-        trainer.make_train_step = real
-    peak = torch.cuda.max_memory_allocated()
-    losses = hist["loss"]
+    runs = {}
+    for rows, steps in ((batch, TRAIN_STEPS), (COMPARE_BATCH, COMPARE_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        record = {"launches": []}
+        real, make = _instrumented_steps(record, profile_step=steps - 1)
+        trainer.make_train_step = make
+        try:
+            hist = trainer.train(cfg, tc(rows, steps),
+                                 log_fn=lambda s: print(f"  {s}"),
+                                 device=DEV)
+        finally:
+            trainer.make_train_step = real
+        peak = torch.cuda.max_memory_allocated()
+        losses = hist["loss"]
+        assert all(map(math.isfinite, losses)), losses
+        # every step: 2 forward launches a layer (forward and remat
+        # recompute) and 1 backward launch, all on the f32tc route
+        want = {"flash_attention": 2 * TRAIN_LAYERS,
+                "flash_attention_bwd": TRAIN_LAYERS}
+        assert record["launches"] == [want] * steps, record["launches"]
+        assert all(r["f32tc"] == 2 * TRAIN_LAYERS and sum(r.values()) ==
+                   2 * TRAIN_LAYERS for r in record["routes"]), \
+            record["routes"]
+        # the profiled step is the last; the others' host clock
+        step_ms = 1e3 * statistics.median(hist["step_time_s"][1:-1])
+        runs[rows] = {"losses": losses, "step_ms": step_ms,
+                      "first_step_ms": 1e3 * hist["step_time_s"][0],
+                      "tokens_per_s": rows * TRAIN_SEQ / (step_ms / 1e3),
+                      "peak_bytes": peak, "profile": record["profile"],
+                      "launches": record["launches"]}
+        _free_card()
+    main = runs[batch]
+    losses = main["losses"]
     first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
-    assert all(map(math.isfinite, losses)) and last < first, losses
-    flash = [c.get("flash_attention", 0) for c in record["launches"]]
-    assert flash == [2 * TRAIN_LAYERS] * TRAIN_STEPS, record["launches"]
-    assert all(set(c) == {"flash_attention"} for c in record["launches"])
-    # the profiled step is the last; the others' host clock
-    times = hist["step_time_s"][1:-1]
-    step_ms = 1e3 * statistics.median(times)
-    prof = record["profile"]
+    assert last < first, losses
+    prof = main["profile"]
     # None: the profiler recorded no device time (not measured)
     idle = 1 - prof["busy_ms"] / prof["wall_ms"] if prof["busy_ms"] \
         else None
-    tokens = batch * TRAIN_SEQ
+    step_ms, peak = main["step_ms"], main["peak_bytes"]
+    flash = [c["flash_attention"] for c in main["launches"]]
     print(f"train {cfg.name} x {TRAIN_LAYERS} layers float32, "
           f"{batch} x {TRAIN_SEQ} tokens a step: losses {losses}; "
           f"mean of the first 3 {first!r}, of the last 3 {last!r}")
-    print(f"train: {step_ms:.3f} ms a step (median of steps 2-7; step 1 "
-          f"{1e3 * hist['step_time_s'][0]:.3f} ms), "
-          f"{tokens / (step_ms / 1e3):.1f} tokens/s, max_memory_allocated "
-          f"{peak:,} B, flash launches a step {flash[0]} (2 x "
-          f"{TRAIN_LAYERS} layers: forward and remat recompute)")
+    for rows, r in runs.items():
+        print(f"train at {rows} rows: {r['step_ms']:.3f} ms a step (median "
+              f"of steps 2-{len(r['losses']) - 1}; step 1 "
+              f"{r['first_step_ms']:.3f} ms), {r['tokens_per_s']:.1f} "
+              f"tokens/s, max_memory_allocated {r['peak_bytes']:,} B, "
+              f"launches a step {r['launches'][0]} (flash: 2 x "
+              f"{TRAIN_LAYERS} layers, forward and remat recompute, f32tc; "
+              f"its backward kernel once a layer)")
     print(f"train profile (last step): {prof['wall_ms']:.3f} ms of host "
           f"clock, the card busy {prof['busy_ms']:.3f} ms: idle "
           + ("not measured" if idle is None else f"{100 * idle:.1f} %"))
@@ -3768,11 +4269,19 @@ def train_full_width(stats):
         print(f"  device {ms:10.3f} ms  {100 * ms / prof['busy_ms']:5.1f} % "
               f" {key[:90]}")
     _free_card()
-    time_backward(stats, batch=batch)
+    check_train_batch(stats, batch)
+    time_backward(stats)
     result = {"arch": cfg.name, "layers": TRAIN_LAYERS, "batch": batch,
               "seq": TRAIN_SEQ, "losses": losses, "step_ms": step_ms,
-              "tokens_per_s": tokens / (step_ms / 1e3), "peak_bytes": peak,
-              "idle": idle, "flash_launches_per_step": flash[0]}
+              "tokens_per_s": main["tokens_per_s"], "peak_bytes": peak,
+              "idle": idle, "flash_launches_per_step": flash[0],
+              "launches_per_step": main["launches"][0],
+              "flash_bwd_launches": sum(c["flash_attention_bwd"]
+                                        for c in main["launches"]),
+              "flash_launches": sum(flash),
+              "at_compare_batch": {k: runs[COMPARE_BATCH][k] for k in (
+                  "step_ms", "tokens_per_s", "peak_bytes", "losses")},
+              "compare_batch": COMPARE_BATCH}
     print(f"phase 20: {time.perf_counter() - t0:.3f} s")
     return result
 
@@ -3823,8 +4332,9 @@ def check_train_launcher(tmp):
 
 def drive_training(stats):
     """Phases 18-21."""
-    stats.setdefault("flash_attention", {})
     stats.setdefault("rglru_scan", {})
+    for row in ("flash_attention_f32", "flash_attention_bwd"):
+        stats.setdefault(row, {"max_abs_err": 0.0})
     check_kernel_grads(stats)
     model = check_model_grads()
     full = train_full_width(stats)
@@ -3984,8 +4494,9 @@ def check_train_cell(mesh):
     got_m, ms, launches = _timed(cell_step, 2)
     peak = torch.cuda.max_memory_allocated()
     for c in (ref_launches, launches):
-        assert all(x == {"flash_attention": 2 * DIST_LAYERS} for x in c), c
-    assert ops.route_counts()["simt"] == 2 * DIST_LAYERS      # float32
+        assert all(x == {"flash_attention": 2 * DIST_LAYERS,
+                         "flash_attention_bwd": DIST_LAYERS} for x in c), c
+    assert ops.route_counts()["f32tc"] == 2 * DIST_LAYERS     # float32
     got = [t.full_tensor() for t in tree_leaves(st["params"])]
     scalars = [m[k] for m in got_m for k in ("loss", "grad_norm")]
     ok, worst, equal = _cell_check(scalars + got, [
@@ -4018,12 +4529,13 @@ def check_train_cell(mesh):
           f"(tol {CELL_RTOL}), bit-equal {equal}; {statistics.median(ms):.3f}"
           f" ms a step (make_train_step {statistics.median(ref_ms):.3f} ms), "
           f"max_memory_allocated {peak:,} B, flash launches a step "
-          f"{launches[0]}; planted fault (two ranks summed) misses by "
+          f"{launches[0]} (f32tc); planted fault (two ranks summed) misses by "
           f"{bad_chk[1]:.3e}, the right two-rank stand-in sits at "
           f"{fine_chk[1]:.3e}")
     return {"losses": [float(m["loss"]) for m in got_m], "worst": worst,
             "bit_equal": equal, "ms": ms, "ref_ms": ref_ms,
             "peak_bytes": peak, "flash_per_step": 2 * DIST_LAYERS,
+            "flash_bwd_per_step": DIST_LAYERS,
             "fault_miss": bad_chk[1], "stand_in": fine_chk[1]}
 
 
@@ -4285,7 +4797,8 @@ def check_dots():
         timed[remat] = {"losses": losses, "ms": ms,
                         "peak_bytes": torch.cuda.max_memory_allocated(),
                         "launches": launches[0]}
-        assert launches == [{"flash_attention": 2 * DOTS_LAYERS}] * \
+        assert launches == [{"flash_attention": 2 * DOTS_LAYERS,
+                             "flash_attention_bwd": DOTS_LAYERS}] * \
             DOTS_STEPS, launches
         del st
         _free_card()
@@ -4320,22 +4833,62 @@ def _grad_cuts():
                 param_dtype=torch.float32, compute_dtype=torch.float32)))
 
 
+def _efficient_backward(q, k, v, dout):
+    """The library's float32 attention backward on its own at
+    TRAIN_SHAPE: one call of
+    ``aten._scaled_dot_product_efficient_attention_backward`` (SDPA's
+    efficient backend, causal) on q and on k and v expanded to the query
+    heads, given the out and lse of its own forward (taken outside the
+    timing) and dout.  Its dq, and its dk / dv summed over each kv head's
+    group, are held against the f32tc backward kernel's on the same
+    inputs (2e-3 of each gradient's max), so the time is of the same
+    function.  Returns (ms: CUDA events, median of the rounds; that
+    error)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fmod
+    aten = torch.ops.aten
+    out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+        q, k, v, None, True, 0.0, True)
+
+    def bwd():
+        return aten._scaled_dot_product_efficient_attention_backward(
+            dout, q, k, v, None, out, lse, seed, offset, 0.0,
+            [True, True, True, False], True)
+
+    b, h, s, d = q.shape
+    hkv = TRAIN_SHAPE[2]
+    lib = bwd()[:3]
+    lib = (lib[0], *(x.reshape(b, hkv, h // hkv, s, d).sum(2)
+                     for x in lib[1:]))
+    # k and v are repeat_interleave'd: kv head i is query head i * group's
+    kk, vv = (x[:, ::h // hkv].contiguous() for x in (k, v))
+    o, l = fmod.flash_attention_lse(q, kk, vv)
+    ok, err = _grad_check(lib, fmod.flash_attention_bwd(q, kk, vv, o, l,
+                                                        dout),
+                          GRAD_TOL["float32"])
+    assert ok, f"SDPA efficient backward against the f32tc kernel: {err}"
+    del lib, kk, vv, o, l
+    ms = _time_ms(bwd, torch, reps=2, rounds=3)
+    return ms, err
+
+
 def flash_train_library(stats):
-    """Phase 22.6: the flash row's float32 training shape (phase 20's
-    [4, 28, 4096, 128], causal): its bound on the FP32 pipe, and
-    ``scaled_dot_product_attention`` under each backend that takes
-    float32, forward and forward + backward (k and v expanded to the 28
-    query heads beforehand, outside the timing)."""
+    """Phase 22.6: the float32 training shape TRAIN_SHAPE ([4, 28, 4096,
+    128], causal): ``scaled_dot_product_attention`` under each backend
+    that takes float32, forward and forward + backward (k and v expanded
+    to the 28 query heads beforehand, outside the timing), beside the
+    f32tc forward and its backward kernel (timed in phase 20 against
+    their bounds: 3xTF32 and, beside it, the FP32 pipe).  The fastest
+    forward is the f32tc row's ``library_ms``; the backward row's is the
+    efficient backend's backward on its own (``_efficient_backward``),
+    with each backend's forward + backward less its forward beside it."""
     import warnings
 
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     b, h, hkv, s, d = TRAIN_SHAPE
-    nbytes, flops = _flash_work(b, h, hkv, s, s, d, None)
-    nbytes *= 2                        # float32: 4 bytes, not bf16's 2
-    bound, by = _bound_ms(torch.cuda.get_device_name(0), nbytes, flops,
-                          "fp32")
     q = _randn((b, h, s, d), 1, torch.float32, torch).requires_grad_()
     k, v = (_randn((b, hkv, s, d), i, torch.float32, torch)
             .repeat_interleave(h // hkv, dim=1).requires_grad_()
@@ -4360,27 +4913,39 @@ def flash_train_library(stats):
                 fb_ms = _time_ms(fwd_bwd, torch, reps=1, rounds=3)
         except (RuntimeError, torch.cuda.OutOfMemoryError):
             continue
-        times[be.name] = {"forward_ms": f_ms, "forward_backward_ms": fb_ms}
+        times[be.name] = {"forward_ms": f_ms, "forward_backward_ms": fb_ms,
+                          "backward_ms_by_difference": fb_ms - f_ms}
         _free_card()
+    assert times, "no scaled_dot_product_attention backend took float32"
+    lib_bwd, lib_err = _efficient_backward(q.detach(), k.detach(),
+                                           v.detach(), g)
     del q, k, v, g
     _free_card()
-    assert times, "no scaled_dot_product_attention backend took float32"
-    row = stats["flash_attention"]
-    row.update(train_bound_ms=bound, train_bound_by=by,
-               train_library=times)
-    simt = row.get("train_forward_ms")
-    if simt is not None:
-        _possible(simt, bound, "flash (simt) at the training shape")
-    print(f"flash at the training shape {list(TRAIN_SHAPE)} float32: bound "
-          f"{bound:.4f} ms ({by}); simt kernel "
-          + (f"{simt:.4f} ms, plain-recompute backward "
-             f"{row['backward_ms']:.4f} ms" if simt is not None
-             else "not timed in this run")
-          + "; scaled_dot_product_attention "
-          + ", ".join(f"{n} forward {t['forward_ms']:.4f} ms, forward + "
-                      f"backward {t['forward_backward_ms']:.4f} ms"
-                      for n, t in times.items()))
-    return {"bound_ms": bound, "bound_by": by, "library": times}
+    best = min(times, key=lambda n: times[n]["forward_ms"])
+    fwd_row, bwd_row = stats["flash_attention_f32"], \
+        stats["flash_attention_bwd"]
+    fwd_row.update(library_ms=times[best]["forward_ms"], library=best,
+                   train_library=times)
+    bwd_row.update(library_ms=lib_bwd, library="aten._scaled_dot_product_"
+                   "efficient_attention_backward", library_grad_err=lib_err,
+                   train_library=times)
+    print(f"flash at the training shape {list(TRAIN_SHAPE)} float32: "
+          f"f32tc forward {fwd_row['ms']:.4f} ms (bound "
+          f"{fwd_row['bound_ms']:.4f} ms 3xTF32, "
+          f"{fwd_row['fp32_pipe_bound_ms']:.4f} ms FP32 pipe; simt "
+          f"{fwd_row['simt_ms']:.4f} ms), backward kernel "
+          f"{bwd_row['ms']:.4f} ms (bound {bwd_row['bound_ms']:.4f} ms "
+          f"3xTF32, {bwd_row['fp32_pipe_bound_ms']:.4f} ms FP32 pipe; plain "
+          f"recompute {bwd_row['plain_recompute_ms']:.4f} ms; the efficient "
+          f"backend's backward alone {lib_bwd:.4f} ms, its gradients within "
+          f"{lib_err:.3e} of the kernel's); "
+          "scaled_dot_product_attention " + ", ".join(
+              f"{n} forward {t['forward_ms']:.4f} ms, forward + backward "
+              f"{t['forward_backward_ms']:.4f} ms (backward by difference "
+              f"{t['backward_ms_by_difference']:.4f} ms)"
+              for n, t in times.items()))
+    return {"library": times, "forward_ms": fwd_row["ms"],
+            "backward_ms": bwd_row["ms"], "library_backward_ms": lib_bwd}
 
 
 def drive_distributed(stats):
@@ -4394,7 +4959,8 @@ def drive_distributed(stats):
     from repro_torch.distributed.sharding import Mesh
     from repro_torch.launch.mesh import make_host_mesh
     t0 = time.perf_counter()
-    stats.setdefault("flash_attention", {})
+    for row in ("flash_attention_f32", "flash_attention_bwd"):
+        stats.setdefault(row, {"max_abs_err": 0.0})
     _process_group(ROOT / "build" / "dist_store")
     try:
         one = torch.ones(1, device=DEV)
@@ -4454,6 +5020,7 @@ def main():
         print(json.dumps({"stack": stack, "launches": stack_launches}))
         return 0
     attn = check_attention()
+    check_f32_accuracy(attn)
     check_flash_sm90(attn)
     check_decode_split(attn)
     decode_rows = time_attention(attn)
@@ -4499,6 +5066,8 @@ def main():
               "segment_trapz": csrc + "segment_trapz.cu",
               "ordered_segment_sum": csrc + "segment_trapz.cu",
               "flash_attention": csrc + "flash_attention_sm90.cu",
+              "flash_attention_f32": csrc + "flash_attention_f32.cu",
+              "flash_attention_bwd": csrc + "flash_attention_f32_bwd.cu",
               "decode_attention": csrc + "decode_attention.cu",
               "rglru_scan": csrc + "rglru_scan.cu"}
     replaces = {
@@ -4507,6 +5076,10 @@ def main():
         # not a Pallas kernel: the jax.ops.segment_sum it replaces
         "ordered_segment_sum": "src/repro/fleet/mega/jaxback.py:236",
         "flash_attention": "src/repro/kernels/flash_attention.py:78",
+        "flash_attention_f32": "src/repro/kernels/flash_attention.py:78",
+        # the backward of that kernel's function (the Pallas kernel has
+        # none; the reference differentiates plain jnp attention)
+        "flash_attention_bwd": "src/repro/kernels/flash_attention.py:78",
         "decode_attention": "src/repro/kernels/decode_attention.py:57",
         "rglru_scan": "src/repro/kernels/rglru_scan.py:40",
     }
@@ -4521,7 +5094,12 @@ def main():
                                        for c in served.values()),
                 "decode_attention": sum(c["decode_attention"]
                                         for c in served.values()),
-                "rglru_scan": rg_counts["rglru_scan"]}
+                "rglru_scan": rg_counts["rglru_scan"],
+                # the training path: phase 20's trainer run
+                "flash_attention_f32": training["full_width"][
+                    "flash_launches"],
+                "flash_attention_bwd": training["full_width"][
+                    "flash_bwd_launches"]}
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": v["max_abs_err"], "ms": v["ms"],
@@ -4540,20 +5118,28 @@ def main():
                 row["acceptance_longest_run"] = main_counts["longest_run"]
             if row["name"] != "segment_trapz":
                 row["stack_launches"] = stack_launches
-        if row["name"] == "flash_attention":
-            # training: the simt forward and the plain-recompute backward
-            # at the training shape, the launches a train step (phase 20:
-            # 2 a layer under remat; phase 19's cuts)
-            row.update({k: stats["flash_attention"][k] for k in (
-                "grad_err", "train_shape", "train_forward_ms", "backward",
-                "backward_ms")},
+        if row["name"] in ("flash_attention_f32", "flash_attention_bwd"):
+            # the float32 training route: times at TRAIN_SHAPE (phase
+            # 20), both bounds, the route's previous kernels' times, the
+            # launches a train step (phase 20; phase 19's cuts)
+            op = "flash_attention" if row["name"] == "flash_attention_f32" \
+                else "flash_attention_bwd"
+            f = stats[row["name"]]
+            row.update({k: f[k] for k in (
+                "shape", "bound", "fp32_pipe_bound_ms", "train_library",
+                "grad_err", "accuracy_vs_float64", "simt_ms", "simt_source",
+                "plain_recompute_ms", "train_shape_errs", "library",
+                "library_grad_err", "train_batch_errs")
+                if k in f}, kernel_route="f32tc",
                 train_launches_per_step={
-                    "qwen2-5-7b x 4 layers": training["full_width"][
-                        "flash_launches_per_step"],
-                    **{k: c.get("flash_attention", 0)
+                    f"qwen2-5-7b x {TRAIN_LAYERS} layers, "
+                    f"{training['full_width']['batch']} rows":
+                        training["full_width"]["launches_per_step"][op],
+                    **{k: c.get(op, 0)
                        for k, c in training["model_grads"].items()}})
+        if row["name"] == "flash_attention":
             # every launcher launch took the sm90 route (serve_launcher);
-            # the simt kernel (float32, other head dims) timed beside it
+            # the simt kernel (other head dims) timed beside it in bf16
             row.update(kernel_route="sm90", hgmma=hgmma,
                        launches_by_run={a: c["flash_attention"]
                                         for a, c in served.items()},
@@ -4602,12 +5188,19 @@ def main():
     dots_cuts = distributed["dots"]["cuts"]
     dist_launches = {
         "flash_attention": {
+            "prefill_cell": distributed["serve_cells"]["flash"]},
+        "flash_attention_f32": {
             "train_cell_per_step": distributed["train_cell"][
                 "flash_per_step"],
-            "prefill_cell": distributed["serve_cells"]["flash"],
             "pipeline_forward": distributed["pipeline"][
                 "forward_launches"]["flash_attention"],
             **{f"dots {k}": c["dots_launches"].get("flash_attention", 0)
+               for k, c in dots_cuts.items()}},
+        "flash_attention_bwd": {
+            "train_cell_per_step": distributed["train_cell"][
+                "flash_bwd_per_step"],
+            **{f"dots {k}": c["dots_launches"].get("flash_attention_bwd",
+                                                    0)
                for k, c in dots_cuts.items()}},
         "decode_attention": {
             "decode_cell": distributed["serve_cells"]["decode"]},
@@ -4616,9 +5209,6 @@ def main():
     for row in kernels:
         if row["name"] in dist_launches:
             row["distributed_launches"] = dist_launches[row["name"]]
-        if row["name"] == "flash_attention":
-            row.update({k: stats["flash_attention"][k] for k in (
-                "train_bound_ms", "train_bound_by", "train_library")})
     for row in kernels:
         _possible(row["ms"], row["bound_ms"], row["name"])
     print(json.dumps({"distributed": distributed}))

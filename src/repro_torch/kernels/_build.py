@@ -34,6 +34,10 @@ _SOURCES = {
     "flash_attention": (_BASE_FLAGS + _LIB_FLAGS,
                         ("attention_common.cuh",)),
     "flash_attention_sm90": (_BASE_FLAGS + _LIB_FLAGS, ()),
+    "flash_attention_f32": (_BASE_FLAGS + _LIB_FLAGS,
+                            ("attention_tf32.cuh",)),
+    "flash_attention_f32_bwd": (_BASE_FLAGS + _LIB_FLAGS,
+                                ("attention_tf32.cuh",)),
     "decode_attention": (_BASE_FLAGS + _LIB_FLAGS,
                          ("attention_common.cuh",)),
     "rglru_scan": (_BASE_FLAGS + _LIB_FLAGS, ()),

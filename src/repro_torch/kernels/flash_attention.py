@@ -1,14 +1,22 @@
 """Launch wrapper of the CUDA prefill attention kernels (the port of the
-Pallas kernel ``repro/kernels/flash_attention.py``), on two routes fixed
-by dtype and head dim (``route``), never by a failure:
+Pallas kernel ``repro/kernels/flash_attention.py``), on three routes
+fixed by dtype and head dim (``route``), never by a failure:
 
 * ``"sm90"``: bfloat16 with D in {32, 64, 128, 256},
   ``csrc/flash_attention_sm90.cu`` -- wgmma tensor-core tiles fed by TMA.
   TMA needs 16-byte aligned bases and strides that are multiples of 8
   elements; a view that breaks that is refused (``tma_check``), never
   copied.
-* ``"simt"``: float32 (which must not round through TF32) and every
-  other D, ``csrc/flash_attention.cu`` -- float32 FMAs.
+* ``"f32tc"``: float32 with D in {32, 64, 128, 256},
+  ``csrc/flash_attention_f32.cu`` -- mma.sync tensor-core tiles at float32
+  accuracy (three TF32 products a float32 product, never one: float32
+  must not round through TF32), K / V staged by cp.async.  It also
+  writes each row's log-sum-exp (``flash_attention_lse``) for its
+  backward kernel.  Rows are copied in 16-byte pieces, so q, k and v
+  need 16-byte aligned bases and strides that are multiples of 4
+  elements (``check_16b`` refuses the rest).
+* ``"simt"``: every other head dim, in either dtype,
+  ``csrc/flash_attention.cu`` -- float32 FMAs.
 
 The wrapper takes CUDA tensors only (``kernels/ops.py`` routes CPU
 tensors to ``ref.flash_attention_ref``), checks device, dtype, shape and
@@ -20,16 +28,19 @@ adds one to ``LAUNCHES["flash_attention"]`` and one to ``ROUTES[route]``
 per launch.
 
 ``FlashAttention`` is the kernel with a gradient (``ops.flash_attention``
-on the card): an autograd function whose forward is the kernel, unchanged,
-and whose backward recomputes the plain version
-(``ref.flash_attention_ref``) from the saved q, k, v and differentiates
-it.  The Pallas kernel has no backward and the reference trains through
-plain jnp attention, so no backward kernel is owed; a hand-written
-FA2-style backward is later speed work (ROADMAP.md).  The recompute
-holds the [B,H,S,T] float32 scores and softmax weights and their
-gradients for the duration of the backward: at Qwen2.5-7B's training
-shape (B = 1, H = 28, S = T = 4,096) each is 1.9 GB, about 7.5 GB in
-all.  It launches no kernel; there is no fallback: a failure raises.
+on the card).  On the f32tc route its forward is ``flash_attention_lse``
+and its backward ``flash_attention_bwd``: the hand-written deterministic
+FlashAttention-2 backward (``csrc/flash_attention_f32_bwd.cu``, three
+launches, no float atomics, so two calls are bit-equal), which adds one
+to ``LAUNCHES["flash_attention_bwd"]`` a call and holds no [B,H,S,T]
+tensor.  On the sm90 and simt routes the forward is the kernel and the
+backward recomputes the plain version (``ref.flash_attention_ref``) from
+the saved q, k, v and differentiates it: that holds the [B,H,S,T]
+float32 scores and softmax weights and their gradients for the duration
+of the backward (1.9 GB each at B = 1, H = 28, S = T = 4,096) and
+launches no kernel.  The Pallas kernel has no backward (the reference
+trains through plain jnp attention), so neither backward is a port.
+There is no fallback: a failure raises.
 """
 from __future__ import annotations
 
@@ -43,8 +54,8 @@ from repro_torch.kernels import _build, ref
 
 # kernel launches since the last reset (ops.reset_launches), and which
 # route each took
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
-ROUTES: Dict[str, int] = {"sm90": 0, "simt": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
+ROUTES: Dict[str, int] = {"sm90": 0, "f32tc": 0, "simt": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -55,13 +66,22 @@ _SIG = [_I, _P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float, _P, _P]
 # route -> (library, C entry point); both take _SIG
 ENTRY = {"sm90": ("flash_attention_sm90", "flash_attention_sm90_fwd"),
          "simt": ("flash_attention", "flash_attention_fwd")}
-SM90_HEAD_DIMS = (32, 64, 128, 256)
+# the f32tc kernels: forward (q, k, v, out, lse, 6 ints, causal, window,
+# scale) and backward (q, k, v, out, lse, dout, delta, dq, dk, dv, ...)
+F32_FWD = ("flash_attention_f32", "flash_attention_f32_fwd")
+F32_BWD = ("flash_attention_f32_bwd", "flash_attention_f32_bwd")
+_F32_FWD_SIG = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P, _P]
+_F32_BWD_SIG = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P, _P]
+TC_HEAD_DIMS = (32, 64, 128, 256)     # the sm90 and f32tc routes
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that takes a prefill of this dtype and head dim."""
-    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
-        return "sm90"
+    if head_dim in TC_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "sm90"
+        if dtype == torch.float32:
+            return "f32tc"
     return "simt"
 
 
@@ -140,13 +160,9 @@ def launch(op: str, fn, device: torch.device, strides: Sequence[int],
                            f"for the others)")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q: [B,H,S,D]; k, v: [B,Hkv,T,D], float32 or bfloat16 alike, any
-    strides with a unit-stride D.  Query row i sits at position i and key
-    row j at position j; ``causal`` masks j > i, ``window`` masks
-    i - j >= window.  Returns [B,H,S,D] in q's dtype and layout."""
+def _check_shapes(q, k, v, window) -> int:
+    """The checks common to the forwards and the backward; returns the
+    dtype code."""
     code = check("flash_attention", (q, k, v), ("q", "k", "v"), (4, 4, 4))
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
@@ -160,14 +176,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got "
                          f"{window}")
+    return code
+
+
+def _like(q: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of q's shape and layout with a unit-stride last
+    dim."""
     out = torch.empty_like(q)
     if out.stride(-1) != 1:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: [B,H,S,D]; k, v: [B,Hkv,T,D], float32 or bfloat16 alike, any
+    strides with a unit-stride D.  Query row i sits at position i and key
+    row j at position j; ``causal`` masks j > i, ``window`` masks
+    i - j >= window.  Returns [B,H,S,D] in q's dtype and layout."""
+    way = route(q.dtype, q.shape[-1])
+    if way == "f32tc":
+        return flash_attention_lse(q, k, v, causal=causal, window=window)[0]
+    code = _check_shapes(q, k, v, window)
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    out = _like(q)
     if out.numel() == 0:
         return out
     if t == 0:
         return out.zero_()
-    way = route(q.dtype, d)
     if way == "sm90":
         tma_check((q, k, v), ("q", "k", "v"))
     strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride()]
@@ -180,22 +218,120 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None):
+    """The f32tc route's forward (float32, D in TC_HEAD_DIMS): (out, lse)
+    with out as ``flash_attention`` and lse [B,H,S] float32 the natural
+    log-sum-exp of each row's scaled, masked scores (-inf, and an output
+    of 0, for a row that sees no key)."""
+    _check_shapes(q, k, v, window)
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if route(q.dtype, d) != "f32tc":
+        raise ValueError(f"flash_attention_lse: takes float32 with D in "
+                         f"{TC_HEAD_DIMS}, got {q.dtype}, D = {d}")
+    check_16b((q, k, v), ("q", "k", "v"),
+              "flash_attention: the f32tc route copies 16-byte pieces of")
+    out = _like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    if t == 0:
+        return out.zero_(), lse.fill_(-math.inf)
+    strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride()]
+    launch("flash_attention", c_fn(*F32_FWD, _F32_FWD_SIG), q.device,
+           strides, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), lse.data_ptr(), b, h, hkv, s, t, d, int(causal),
+           int(window or 0), 1.0 / math.sqrt(d))
+    LAUNCHES["flash_attention"] += 1
+    ROUTES["f32tc"] += 1
+    return out, lse
+
+
+def _rows16(t: torch.Tensor) -> torch.Tensor:
+    """t itself if its rows can be copied in 16-byte pieces, else a
+    contiguous copy (an incoming gradient may be expanded or strided)."""
+    per = 16 // t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
+            st % per for st, n in zip(t.stride()[:-1], t.shape[:-1])
+            if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """The f32tc route's backward: (dq, dk, dv) of ``flash_attention_lse``
+    given its (out, lse) and the gradient ``dout`` of out; dq in q's
+    layout, dk and dv contiguous [B,Hkv,T,D] (summed over each kv head's
+    query heads).  Deterministic: no float atomics."""
+    _check_shapes(q, k, v, window)
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if route(q.dtype, d) != "f32tc":
+        raise ValueError(f"flash_attention_bwd: takes float32 with D in "
+                         f"{TC_HEAD_DIMS}, got {q.dtype}, D = {d}")
+    if out.shape != q.shape or dout.shape != q.shape or \
+            lse.shape != (b, h, s):
+        raise ValueError(f"flash_attention_bwd: out and dout must be "
+                         f"{tuple(q.shape)} and lse {(b, h, s)}, got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)} and "
+                         f"{tuple(lse.shape)}")
+    dout, lse = _rows16(dout), lse.contiguous()
+    check("flash_attention_bwd", (q, out, dout, lse), ("q", "out", "dout",
+                                                       "lse"), (4, 4, 4, 3))
+    check_16b((q, k, v, out), ("q", "k", "v", "out"),
+              "flash_attention_bwd copies 16-byte pieces of")
+    dq = _like(q)
+    dk = torch.empty((b, hkv, t, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or t == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride(),
+               *dout.stride(), *dq.stride()]
+    launch("flash_attention_bwd", c_fn(*F32_BWD, _F32_BWD_SIG), q.device,
+           strides, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           b, h, hkv, s, t, d, int(causal), int(window or 0),
+           1.0 / math.sqrt(d))
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
-    """``apply(q, k, v, causal, window)``: the kernel's forward; the
-    plain version's gradient (recomputed from the saved q, k, v)."""
+    """``apply(q, k, v, causal, window)``: on the f32tc route the
+    kernel's forward (saving out and lse) and the backward kernel; on the
+    others the kernel's forward and the plain version's gradient
+    (recomputed from the saved q, k, v)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
+        if route(q.dtype, q.shape[-1]) == "f32tc":
+            out, lse = flash_attention_lse(q, k, v, causal=causal,
+                                           window=window)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return flash_attention(q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, grad):
         need = ctx.needs_input_grad[:3]
+        saved = ctx.saved_tensors     # unpacked once (remat allows one)
+        if len(saved) == 5:
+            grads = flash_attention_bwd(*saved, grad, causal=ctx.causal,
+                                        window=ctx.window)
+            return (*(g if n else None for g, n in zip(grads, need)), None,
+                    None)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
+                   for t, n in zip(saved, need)]
             out = ref.flash_attention_ref(*ins, causal=ctx.causal,
                                           window=ctx.window)
             grads = iter(torch.autograd.grad(

@@ -9,14 +9,16 @@ with no fallback for a CUDA tensor: it launches or raises.  A DTensor
 raises on either device.
 ``flash_attention`` and ``rglru_scan`` are differentiable on both
 devices: on the card through the wrappers' autograd functions
-(``FlashAttention``: the flash kernel's forward with the plain version's
-gradient; ``RGLRUScan``: the scan kernel in both passes), on the CPU
-through the plain versions themselves.
+(``FlashAttention``: on the float32 f32tc route the forward kernel and
+its backward kernel, on the others the forward kernel with the plain
+version's gradient; ``RGLRUScan``: the scan kernel in both passes), on
+the CPU through the plain versions themselves.
 
 ``launch_counts()`` reads the kernel launches per op since the last
-``reset_launches()`` (plain-version calls never count), so a caller can
-show that a run really went through the kernels; ``route_counts()``
-splits the ``flash_attention`` launches by the kernel that took them,
+``reset_launches()`` (plain-version calls never count; the f32tc
+backward counts as ``flash_attention_bwd``), so a caller can show that a
+run really went through the kernels; ``route_counts()`` splits the
+``flash_attention`` launches by the kernel that took them,
 ``route_counts("decode_attention")`` its calls by ``"split"`` /
 ``"single"``, ``route_counts("rglru_scan")`` by ``"chunked"`` /
 ``"serial"``.
@@ -56,7 +58,8 @@ def launch_counts() -> Dict[str, int]:
 def route_counts(op: str = "flash_attention") -> Dict[str, int]:
     """``op``'s kernel calls per route since the last
     ``reset_launches()``: ``flash_attention`` (the default) by kernel
-    (``"sm90"``, ``"simt"``), ``decode_attention`` by ``"split"`` /
+    (``"sm90"``, ``"f32tc"``, ``"simt"``), ``decode_attention`` by
+    ``"split"`` /
     ``"single"``, ``rglru_scan`` by ``"chunked"`` / ``"serial"``."""
     return dict(_ROUTES[op])
 

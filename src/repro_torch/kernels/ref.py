@@ -39,6 +39,93 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhst,bhtd->bhsd", w, vv).to(q.dtype)
 
 
+def _flash_scores(q, k, v, causal, window):
+    """(scores [B,H,S,T] scaled and masked with -inf, the mask, k and v
+    repeated over each kv head's query heads), in float64 for float64
+    inputs and float32 otherwise."""
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s, d = q.shape[2], q.shape[3]
+    t = k.shape[2]
+    g = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(g, dim=1).to(dt)
+    vv = v.repeat_interleave(g, dim=1).to(dt)
+    scores = torch.einsum("bhsd,bhtd->bhst", q.to(dt), kk) / math.sqrt(d)
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= qi - ki < window
+    return scores.masked_fill(~mask, -math.inf), mask, kk, vv
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None):
+    """The f32tc kernel's forward: (out, lse).  out is
+    ``flash_attention_ref``'s, with 0 (as the Pallas kernel's
+    ``acc / max(l, 1e-20)`` gives) for a row that sees no key; lse
+    [B,H,S] is the natural log-sum-exp of each row's scaled, masked
+    scores (-inf for such a row).  float64 inputs compute in float64."""
+    scores, _, _, vv = _flash_scores(q, k, v, causal, window)
+    lse = torch.logsumexp(scores, dim=-1)
+    out = torch.einsum("bhst,bhtd->bhsd", torch.softmax(scores, dim=-1), vv)
+    out = out.masked_fill(torch.isinf(lse)[..., None], 0)
+    return out.to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, delta=True,
+               group_sum=True):
+    scores, mask, kk, vv = _flash_scores(q, k, v, causal, window)
+    dt = scores.dtype
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    lse = lse.to(dt)[..., None]
+    # P = exp(S - lse), 0 where masked (and on a row with lse = -inf)
+    p = torch.exp(scores - lse.masked_fill(torch.isinf(lse), 0))
+    p = p.masked_fill(~mask, 0)
+    do = dout.to(dt)
+    dp = torch.einsum("bhsd,bhtd->bhst", do, vv)
+    rows = (do * out.to(dt)).sum(-1, keepdim=True) if delta else 0
+    ds = p * (dp - rows)
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kk) / math.sqrt(d)
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, q.to(dt)) / math.sqrt(d)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, do)
+    if group_sum:
+        dk, dv = (x.reshape(b, hkv, h // hkv, t, d).sum(2) for x in (dk, dv))
+    else:
+        dk, dv = dk[:, ::h // hkv], dv[:, ::h // hkv]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None):
+    """The f32tc backward kernel's equations (FlashAttention-2's, not
+    autograd): with P = exp(scale Q K^T - lse) (0 where masked),
+    dP = dO V^T, Delta = rowsum(dO * O) and dS = P * (dP - Delta),
+    dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO, dK and dV summed
+    over each kv head's query heads.  Returns (dq, dk, dv) in q's, k's
+    and v's dtypes; float64 inputs compute in float64, others in
+    float32."""
+    return _flash_bwd(q, k, v, out, lse, dout, causal, window)
+
+
+def flash_attention_bwd_faults(q, k, v, out, lse, dout, *, causal=True,
+                               window=None):
+    """Two wrong backwards the gradient checks must reject: Delta dropped
+    (dS = P * dP), and dK / dV taken from the first query head of each
+    group instead of the group's sum."""
+    return {
+        "delta dropped": _flash_bwd(q, k, v, out, lse, dout, causal, window,
+                                    delta=False),
+        "one head of the group": _flash_bwd(q, k, v, out, lse, dout, causal,
+                                            window, group_sum=False)}
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          length) -> torch.Tensor:
     """Single-token GQA decode.  q: [B,H,D]; k,v: [B,Hkv,T,D]; ``length``

@@ -264,7 +264,7 @@ def test_route_counts_per_op_are_zero_on_the_cpu_and_reset():
     count only on the card and are zeroed by ``reset_launches()``."""
     cuda_decode.ROUTES["split"] += 2
     ops.reset_launches()
-    assert ops.route_counts() == {"sm90": 0, "simt": 0}
+    assert ops.route_counts() == {"sm90": 0, "f32tc": 0, "simt": 0}
     assert ops.route_counts("decode_attention") == {"split": 0, "single": 0}
     assert ops.route_counts("rglru_scan") == {"chunked": 0, "serial": 0}
     q = torch.zeros((2, 4, 64), dtype=torch.bfloat16)

@@ -42,8 +42,8 @@ MODEL_SHAPES = [
 
 
 @pytest.mark.parametrize("dtype,d,want", [
-    (torch.float32, 32, "simt"), (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
+    (torch.float32, 32, "f32tc"), (torch.float32, 64, "f32tc"),
+    (torch.float32, 128, "f32tc"), (torch.float32, 256, "f32tc"),
     (torch.bfloat16, 32, "sm90"), (torch.bfloat16, 64, "sm90"),
     (torch.bfloat16, 128, "sm90"), (torch.bfloat16, 256, "sm90"),
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 48, "simt"),
@@ -198,8 +198,8 @@ def test_routes_count_on_the_card_only_and_reset():
     zeroes the route counts with the launch counts."""
     cuda_flash.ROUTES["sm90"] += 3
     ops.reset_launches()
-    assert ops.route_counts() == {"sm90": 0, "simt": 0}
+    assert ops.route_counts() == {"sm90": 0, "f32tc": 0, "simt": 0}
     q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
     ops.flash_attention(q, q, q, causal=True)
-    assert ops.route_counts() == {"sm90": 0, "simt": 0}
+    assert ops.route_counts() == {"sm90": 0, "f32tc": 0, "simt": 0}
     assert ops.launch_counts()["flash_attention"] == 0

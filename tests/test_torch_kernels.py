@@ -167,6 +167,7 @@ def test_cpu_tensors_never_launch():
     assert ops.launch_counts() == {"fused_meter": 0, "segment_trapz": 0,
                                    "ordered_segment_sum": 0,
                                    "flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "decode_attention": 0,
                                    "rglru_scan": 0}
     with pytest.raises(ValueError, match="expected a tensor on"):

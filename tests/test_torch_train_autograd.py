@@ -2,7 +2,9 @@
 
 On the card ``ops.flash_attention`` and ``ops.rglru_scan`` go through
 autograd functions (``kernels/flash_attention.FlashAttention``: the
-kernel's forward, the plain version's recomputed gradient;
+kernel's forward and, on the sm90 and simt routes, the plain version's
+recomputed gradient -- the f32tc route's backward kernel is held in
+``test_torch_flash_f32.py``;
 ``kernels/rglru_scan.RGLRUScan``: the kernel in both passes, the backward
 being ``ref.rglru_scan_backward`` on the flipped, shifted sequences).
 The kernels run only on the card (``chip_smoke.py`` phase 18); here the
@@ -41,8 +43,15 @@ def _scan_inputs(b=2, s=37, w=24, seed=0):
 @pytest.fixture
 def plain_kernels(monkeypatch):
     """The raw wrappers replaced by the plain versions (as the CPU has no
-    kernel): the autograd functions run as on the card."""
+    kernel): the autograd functions run as on the card.  The f32tc
+    route's entry points (float32 at D in 32-256) get theirs too; the
+    shapes here (D = 16) take the simt route's plain recompute, and
+    ``test_torch_flash_f32.py`` runs the f32tc wiring."""
     monkeypatch.setattr(fmod, "flash_attention", ref.flash_attention_ref)
+    monkeypatch.setattr(fmod, "flash_attention_lse",
+                        ref.flash_attention_lse_ref)
+    monkeypatch.setattr(fmod, "flash_attention_bwd",
+                        ref.flash_attention_bwd_ref)
     monkeypatch.setattr(rmod, "rglru_scan", ref.rglru_scan_ref)
 
 

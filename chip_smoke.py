@@ -16,9 +16,11 @@ whisper-base and xlstm-125m, through ``ServingEngine``,
 ``repro_torch.launch.serve`` or, for internvl2's prefix embeddings, the
 model's ``prefill`` / ``decode_step``, then trains: the kernels'
 gradients, ``train_loss``'s at full width, Qwen2.5-7B's widths through
-``training.trainer.train`` and the training launcher with resume, and
-last runs the sharded cells (``launch.steps.jit_cell``), the GPipe
-pipeline and ``remat="dots"``.
+``training.trainer.train`` and the training launcher with resume, runs
+the sharded cells (``launch.steps.jit_cell``), the GPipe pipeline and
+``remat="dots"``, and last drives the attention logit softcap and
+multi-token steps at a cache offset (chunked prefill through
+``decode_step``) through every attention kernel.
 Phases, in order:
 
   1. the card (``nvidia-smi`` name and power limit) and the build time
@@ -332,7 +334,40 @@ Phases, in order:
       gradients held against the backward kernel's), beside the f32tc
       kernels;
       one JSON line for the phase;
-  23. one JSON line describing every kernel (the metering rows: the
+  23. the logit softcap and the query offset (``--cap-offset`` runs
+      phases 1 and 23 alone): (a) every attention kernel against its
+      plain version with a cap of 5 on unit-normal inputs and Gemma 2's
+      50 with the queries x8 (tolerance 2e-3 / 2e-2, each route
+      asserted): sm90 and f32tc at Qwen's heads (1,024 queries at
+      q_offset 3,072 against 4,096 rows, and the first chunk) and
+      gemma3's (384 queries under its 512 window at the offset whose rows
+      straddle the window's edge, and the first chunk), simt in float32
+      at D = 96, decode's split and single routes at Qwen's B = 4,
+      T = 4,096 and gemma3's G = 4, D = 256 (bf16 and float32); planted
+      faults in plain torch (the cap dropped, the cap after the mask,
+      the offset ignored) must each miss under one cap or the other; the
+      f32tc forward and backward with the cap against float64 at [1, 7,
+      1, 4096, 128] (4x plain float32's error, two backward calls
+      bit-equal) and the backward against its plain version at Qwen's
+      and gemma3's training shapes, where the backward without the cap's
+      derivative must miss; CUDA-event times with the cap off and on;
+      (b) Qwen2.5-7B at full width and depth in bf16: a 4,096-token
+      prompt prefilled at once and as a 1,024-token prefill plus three
+      1,024-token ``decode_step``s, then 8 one-token steps from each
+      cache (last logits within 2e-2, greedy tokens equal where the
+      top-two gap exceeds twice the distance; exactly 28 sm90 flash
+      launches and no decode launch a chunk, 28 decode launches a step);
+      (c) gemma3-1b at full width: a 1,536-token prompt in chunks of 384
+      against one-shot, then with ``attn_logit_softcap`` 50 in bf16
+      against float32 (kernels no farther than 2x the plain attention),
+      then cut to 6 layers in float32 at the d_model fan-in law with
+      every kernel call held against float64 capped attention; (d)
+      capped ``train_loss`` gradients at gemma3-1b's width, 6 layers,
+      S = 1,024, against the plain versions (2e-3; 2 f32tc forward and 1
+      backward launch a layer); (e) whisper-base's 3-token step at
+      offset 48 (causal flash at q_offset 48, non-causal cross flash
+      over 1,500 rows) against the plain versions; its wall;
+  24. one JSON line describing every kernel (the metering rows: the
       input sets, FP64 instructions an entry or the longest run and the
       dependent-add latency; the flash row: the sm90
       kernel's time, the simt kernel's beside it, every timed prefill
@@ -350,20 +385,25 @@ Phases, in order:
       on the paths of 4a-4d, ``stack_launches``; the scan row also its
       gradient error, backward time and launches a train step; the
       attention and scan rows their launches in phase 22,
-      ``distributed_launches``);
-  24. as the last line, ``{"ok": true, "device": {...}}``.
+      ``distributed_launches``; the attention rows phase 23's times with
+      the cap off and on, ``softcap_ms``, its worst errors and the
+      launches of a chunk and a step of Qwen's chunked prefill);
+  25. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line.  Phases 1-17 took 669-931 s on the hosts seen (an H100
 80GB HBM3 at 700 W); phases 18-21 take about 80 s more and phase 22
 about 25 s (the whole script took 738.6 s with all 22, and 861.9 s with
 the float32 backward kernel's checks and phase 20's two batches), sized
-to keep the whole under 1000 s of the 1200 s limit.  It also exits
-non-zero without a CUDA device.  ``python3 chip_smoke.py --metering``
+to keep the whole under 1000 s of the 1200 s limit; phase 23 adds about
+90 s (its wall is printed).  It also exits non-zero without a CUDA
+device.  ``python3 chip_smoke.py --metering``
 stops after phase 4d and prints the metering kernels' figures and the
 stack's walls and launches as two JSON lines instead of the last two;
 ``python3 chip_smoke.py --train`` runs phase 1 and phases 18-22 alone
-and prints their results as one JSON line instead of the last three.
+and prints their results as one JSON line instead of the last three;
+``python3 chip_smoke.py --cap-offset`` runs phases 1 and 23 alone, the
+same way.
 """
 import json
 import math
@@ -1195,7 +1235,7 @@ def _possible(ms, bound, label):
                          f"impossible")
 
 
-def _raw_decode(q, k, v, length, out, pl):
+def _raw_decode(q, k, v, length, out, pl, softcap=None):
     """One raw call of the decode kernel with plan ``pl`` (no checks, no
     count; its partials' scratch allocated here and kept by the call)."""
     import math
@@ -1219,7 +1259,7 @@ def _raw_decode(q, k, v, length, out, pl):
         v.data_ptr(), length.data_ptr(), out.data_ptr(),
         acc.data_ptr() if acc is not None else None,
         ml.data_ptr() if ml is not None else None, b, h, hkv, t, d,
-        pl.splits, pl.chunk, 1.0 / math.sqrt(d))
+        pl.splits, pl.chunk, 1.0 / math.sqrt(d), float(softcap or 0.0))
     run.scratch = (acc, ml)
     return run
 
@@ -1429,7 +1469,8 @@ def _library_ms(call, torch, rotate=()):
     return times[best], best, times
 
 
-def _raw_flash(q, k, v, out, window, route, causal=True):
+def _raw_flash(q, k, v, out, window, route, causal=True, softcap=None,
+               q_offset=0):
     """One raw call of the ``route`` kernel (sm90 or simt; no checks, no
     count)."""
     import math
@@ -1441,7 +1482,8 @@ def _raw_flash(q, k, v, out, window, route, causal=True):
                      [*q.stride(), *k.stride(), *v.stride(), *out.stride()],
                      fmod._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), out.data_ptr(), b, h, hkv, s, t, d,
-                     int(causal), int(window or 0), 1.0 / math.sqrt(d))
+                     int(causal), int(window or 0), int(q_offset),
+                     1.0 / math.sqrt(d), float(softcap or 0.0))
 
 
 def time_flash(stats, routes=("sm90", "simt")):
@@ -2351,40 +2393,44 @@ def _model_generate(cfg, params, tokens, steps, dev, prefix=None,
     return torch.stack(toks, 1).cpu(), out, secs
 
 
-def _attention64(q, k, v, mask):
-    """softmax(q k^T / sqrt(D), where ``mask``) v in float64: q [B,H,S,D],
-    k and v [B,Hkv,T,D], ``mask`` broadcasting to [B,H,S,T] (the plain
-    versions compute in float32 whatever their inputs)."""
+def _attention64(q, k, v, mask, softcap=None):
+    """softmax(cap(q k^T / sqrt(D)), where ``mask``) v in float64:
+    q [B,H,S,D], k and v [B,Hkv,T,D], ``mask`` broadcasting to
+    [B,H,S,T], ``softcap`` c capping the scores at c tanh(s / c) (the
+    plain versions compute in float32 whatever their inputs)."""
     import math
 
     import torch
+
+    from repro_torch.kernels import ref
     g = q.shape[1] // k.shape[1]
     kk = k.double().repeat_interleave(g, dim=1)
     vv = v.double().repeat_interleave(g, dim=1)
-    scores = torch.einsum("bhsd,bhtd->bhst", q.double(), kk) / \
-        math.sqrt(q.shape[-1])
+    scores = ref.cap_scores(torch.einsum("bhsd,bhtd->bhst", q.double(), kk)
+                            / math.sqrt(q.shape[-1]), softcap)
     w = torch.softmax(scores.masked_fill(~mask, -math.inf), dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", w, vv)
 
 
-def _flash64(q, k, v, causal=True, window=None):
+def _flash64(q, k, v, causal=True, window=None, softcap=None, q_offset=0):
     """``flash_attention``'s function in float64."""
     import torch
     s, t = q.shape[2], k.shape[2]
-    i = torch.arange(s, device=q.device)[:, None]
+    i = q_offset + torch.arange(s, device=q.device)[:, None]
     j = torch.arange(t, device=q.device)[None, :]
     mask = (j <= i) if causal else torch.ones_like(i - j, dtype=bool)
     if window is not None:
         mask = mask & (i - j < window)
-    return _attention64(q, k, v, mask)
+    return _attention64(q, k, v, mask, softcap)
 
 
-def _decode64(q, k, v, length):
+def _decode64(q, k, v, length, softcap=None):
     """``decode_attention``'s function in float64."""
     import torch
     lens = torch.as_tensor(length, device=q.device).reshape(-1, 1)
     mask = torch.arange(k.shape[2], device=q.device)[None] < lens
-    return _attention64(q[:, :, None], k, v, mask[:, None, None])[:, :, 0]
+    return _attention64(q[:, :, None], k, v, mask[:, None, None],
+                        softcap)[:, :, 0]
 
 
 class _Exact:
@@ -2394,10 +2440,11 @@ class _Exact:
     def __enter__(self):
         from repro_torch.kernels import ops
         self.ops, self.real = ops, (ops.flash_attention, ops.decode_attention)
-        ops.flash_attention = lambda q, k, v, *, causal=True, window=None: \
-            _flash64(q, k, v, causal, window).to(q.dtype)
-        ops.decode_attention = lambda q, k, v, length: \
-            _decode64(q, k, v, length).to(q.dtype)
+        ops.flash_attention = lambda q, k, v, *, causal=True, window=None, \
+            softcap=None, q_offset=0: _flash64(
+                q, k, v, causal, window, softcap, q_offset).to(q.dtype)
+        ops.decode_attention = lambda q, k, v, length, *, softcap=None: \
+            _decode64(q, k, v, length, softcap).to(q.dtype)
         return self
 
     def __exit__(self, *exc):
@@ -2440,17 +2487,20 @@ class _KernelSpy:
             st["farther"] += int(e_k > 1.05 * e_p)
             return out
 
-        def flash(q, k, v, *, causal=True, window=None):
-            return held("flash_attention",
-                        self.real[0](q, k, v, causal=causal, window=window),
-                        ref.flash_attention_ref(q, k, v, causal=causal,
-                                                window=window),
-                        _flash64(q, k, v, causal, window))
+        def flash(q, k, v, *, causal=True, window=None, softcap=None,
+                  q_offset=0):
+            kw = dict(causal=causal, window=window, softcap=softcap,
+                      q_offset=q_offset)
+            return held("flash_attention", self.real[0](q, k, v, **kw),
+                        ref.flash_attention_ref(q, k, v, **kw),
+                        _flash64(q, k, v, **kw))
 
-        def decode(q, k, v, length):
-            return held("decode_attention", self.real[1](q, k, v, length),
-                        ref.decode_attention_ref(q, k, v, length),
-                        _decode64(q, k, v, length))
+        def decode(q, k, v, length, *, softcap=None):
+            return held("decode_attention",
+                        self.real[1](q, k, v, length, softcap=softcap),
+                        ref.decode_attention_ref(q, k, v, length,
+                                                 softcap=softcap),
+                        _decode64(q, k, v, length, softcap))
 
         ops.flash_attention, ops.decode_attention = flash, decode
         return self
@@ -2470,7 +2520,7 @@ class _KernelSpy:
 
 def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
                 f64_limit=REL_LOGITS, cpu_gate=True, source=False,
-                weights=None):
+                weights=None, cpu=True):
     """Phase 13's (and 16's) check of one config cut in depth (float32,
     full width).
 
@@ -2491,7 +2541,8 @@ def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
     float64's (no rounding can flip it there).  With ``cpu_gate``,
     ``serve_depth``'s gate too: the card's logits within REL_LOGITS of
     the CPU's and every greedy token equal; without it (gemma3) that
-    distance is printed only."""
+    distance is printed only.  Without ``cpu`` there is no CPU replay
+    (and no CPU gate): the card against float64 alone."""
     import contextlib
     import dataclasses
 
@@ -2531,7 +2582,8 @@ def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
     _free_card()
     fed = toks[:, :steps]
     cpu_l = _model_generate(cfg, host, tokens, steps, "cpu", prefix=pre,
-                            forced=fed, source=src)[1]
+                            forced=fed, source=src)[1] if cpu else card_l
+    cpu_gate = cpu_gate and cpu
     c64 = dataclasses.replace(cfg, param_dtype=torch.float64,
                               compute_dtype=torch.float64)
     # each leaf in its float64 spec's dtype: the float32 leaves (norm
@@ -2578,7 +2630,8 @@ def check_depth(cfg, prompt_len=48, steps=8, prefix=False, card_ctx=None,
           f"({ties} of {2 * (steps + 1)} side-calls closer); card against "
           f"CPU: max |card - CPU| / max|CPU| = {d_both:.3e}, {flips} of "
           f"{steps + 1} greedy tokens differ ("
-          + (f"limit {REL_LOGITS}, none" if cpu_gate else "not gated") +
+          + (f"limit {REL_LOGITS}, none" if cpu_gate else "not gated" if cpu
+             else "no CPU run: the card's own logits") +
           f"); card tokens {toks[0].tolist()}")
     per_prefill, per_decode = per_call_launches(cfg)
     assert spy.seen["flash_attention"]["calls"] == \
@@ -3993,24 +4046,20 @@ class _GradSpy:
             st["plain"] = max(st["plain"], e_p)
             st["by_4x"] += int(e_k > tol)
 
-        def flash_lse(q, k, v, *, causal=True, window=None):
-            got = lse_fn(q, k, v, causal=causal, window=window)
+        def flash_lse(q, k, v, **kw):
+            got = lse_fn(q, k, v, **kw)
             held("flash_attention", got, ref.flash_attention_lse_ref(
-                q, k, v, causal=causal, window=window),
-                ref.flash_attention_lse_ref(q.double(), k.double(),
-                                            v.double(), causal=causal,
-                                            window=window),
+                q, k, v, **kw), ref.flash_attention_lse_ref(
+                    q.double(), k.double(), v.double(), **kw),
                 GRAD_TOL["float32"])
             return got
 
-        def flash_bwd(q, k, v, out, lse, dout, *, causal=True, window=None):
-            got = bwd_fn(q, k, v, out, lse, dout, causal=causal,
-                         window=window)
+        def flash_bwd(q, k, v, out, lse, dout, **kw):
+            got = bwd_fn(q, k, v, out, lse, dout, **kw)
             ins = (q, k, v, out, lse, dout)
             held("flash_attention_bwd", got, ref.flash_attention_bwd_ref(
-                *ins, causal=causal, window=window),
-                ref.flash_attention_bwd_ref(*(x.double() for x in ins),
-                                            causal=causal, window=window),
+                *ins, **kw), ref.flash_attention_bwd_ref(
+                    *(x.double() for x in ins), **kw),
                 GRAD_TOL["float32"])
             return got
 
@@ -4984,7 +5033,682 @@ def drive_distributed(stats):
             "flash_train_shape": library, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the attention logit softcap and multi-token steps at a cache
+# offset (chunked prefill through ``decode_step``)
+# ---------------------------------------------------------------------------
+
+# (softcap, query scale): a cap of 5 on unit-normal inputs, and Gemma 2's
+# published attn_logit_softcapping of 50 with the queries x8 so that it
+# binds (at 50 on unit inputs tanh is nearly linear, and a dropped cap
+# would pass 2e-3)
+CAPS = ((5.0, 1.0), (50.0, 8.0))
+CAP_FAULTS = ("cap dropped", "cap after the mask", "offset ignored")
+# prefills with a cap and a query offset, through the model's
+# [B, S|T, heads, D] views: (label, B, H, Hkv, S, T, D, window, q_offset,
+# the planted faults that must miss under one cap or the other).  Qwen's
+# last 1,024-token chunk of a 4,096-token prompt and its first chunk (at
+# offset 0 a row sees few keys, so the cap applied after the mask leaks
+# most of its weight to the masked ones; past a long offset the leak is
+# e^-5 a key spread over thousands of random values, below the bf16
+# tolerance); gemma3's 384-token chunk at 768 under its 512 window, as the
+# model hands it the cache rows [257, 1152) at q_offset 511 (the window's
+# edge crosses the chunk); the simt kernel at a head dim outside the
+# tensor-core routes
+CAP_FLASH_CASES = (
+    ("qwen chunk at 3072", 1, 28, 4, 1024, 4096, 128, None, 3072,
+     ("cap dropped", "offset ignored")),
+    ("qwen first chunk", 1, 28, 4, 1024, 1024, 128, None, 0,
+     ("cap dropped", "cap after the mask")),
+    ("gemma3 chunk at 768", 1, 4, 1, 384, 895, 256, 512, 511,
+     ("cap dropped", "offset ignored")),
+    ("gemma3 first chunk", 1, 4, 1, 384, 384, 256, 512, 0,
+     ("cap dropped", "cap after the mask")),
+    ("D=96 chunk at 512", 1, 8, 2, 256, 768, 96, None, 512,
+     ("cap dropped", "offset ignored")),
+    ("D=96 windowed chunk at 200", 1, 8, 2, 256, 456, 96, 128, 200,
+     ("cap dropped", "offset ignored")),
+)
+# decodes with a cap: (label, B, H, Hkv, T, D) at DECODE_RAGGED lengths
+# (the length-17 row's masked keys expose the cap after the mask)
+CAP_DECODE_CASES = (("qwen", 4, 28, 4, 4096, 128),
+                    ("gemma3", 4, 4, 1, 4096, 256))
+# the f32tc backward with a cap at the training shapes: (label, (B, H,
+# Hkv, S, D), window)
+CAP_BWD_CASES = (("qwen", (1, 28, 4, 4096, 128), None),
+                 ("gemma3 windowed", (1, 4, 1, 4096, 256), 512))
+CHUNK_PROMPT, CHUNK = 4096, 1024          # Qwen's chunked prefill
+GEMMA3_PROMPT, GEMMA3_CHUNK = 1536, 384
+GEMMA2_CAP = 50.0                         # Gemma 2's published softcap
+TRAIN_CAP, CAP_GRAD_LAYERS, CAP_GRAD_SEQ = 5.0, 6, 1024
+WHISPER_STEP = (48, 3)                    # (offset, tokens) of its step
+
+
+def _fold_misses(seen, want, faults, tol):
+    """Fold each planted fault's check into ``seen`` {name: (missed under
+    some cap so far, its largest max abs error from ``want``)}: a fault
+    misses where ``_close(fault, want, tol)`` fails."""
+    for name, f in faults.items():
+        ok, err = _close(f, want, tol)
+        missed, worst = seen.get(name, (False, 0.0))
+        seen[name] = (missed or not ok, max(worst, err))
+
+
+def check_cap_kernels():
+    """Phase 23a: every attention kernel with a softcap (and the flash
+    kernels with a query offset) against its plain version on the same
+    inputs, each call's route asserted, tolerance 2e-3 float32 / 2e-2
+    bf16, under both CAPS: the sm90 and f32tc kernels at CAP_FLASH_CASES'
+    tensor-core head dims, the simt kernel in float32 at D = 96, the
+    decode kernel's split and single routes at CAP_DECODE_CASES in bf16
+    and float32.  The planted faults of ``ref.flash_attention_faults``
+    and ``ref.decode_attention_faults`` must each miss the check under
+    one cap or the other wherever a case lists them (every decode case
+    lists both of its faults), and every fault must miss somewhere.  Returns {kernel: worst
+    error}."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ops, ref
+    worst = {"flash_attention": 0.0, "flash_attention_f32": 0.0,
+             "flash_attention_simt": 0.0, "decode_attention": 0.0}
+    missed = {n: 0 for n in CAP_FAULTS}
+    for i, (label, b, h, hkv, s, t, d, window, off, must) in enumerate(
+            CAP_FLASH_CASES):
+        dts = (torch.float32,) if d not in fmod.TC_HEAD_DIMS else \
+            (torch.bfloat16, torch.float32)
+        for dt in dts:
+            tol = ATTN_TOL[str(dt).split(".")[-1]]
+            way = fmod.route(dt, d)
+            seen, errs = {}, []
+            for cap, scale in CAPS:
+                q, k, v = _qkv(b, h, hkv, s, t, d, True, 600 + 10 * i, dt,
+                               torch)
+                q = (q.float() * scale).to(dt)
+                kw = dict(causal=True, window=window, softcap=cap,
+                          q_offset=off)
+                got = _routed("flash_attention", way,
+                              lambda: ops.flash_attention(q, k, v, **kw))
+                want = ref.flash_attention_ref(q, k, v, **kw)
+                errs.append(_attn_close(got, want, tol,
+                                        f"{way} {label} cap {cap}"))
+                _fold_misses(seen, want, ref.flash_attention_faults(
+                    q, k, v, **kw), tol)
+                del q, k, v, got, want
+            for n in must:
+                assert seen[n][0], (f"{way} {label}: the check passes the "
+                                    f"planted fault {n} under both caps "
+                                    f"({seen[n][1]:.3e})")
+            for n, (miss, _) in seen.items():
+                missed[n] += int(miss)
+            row = {"sm90": "flash_attention", "f32tc": "flash_attention_f32",
+                   "simt": "flash_attention_simt"}[way]
+            worst[row] = max(worst[row], *errs)
+            print(f"cap {way:5s} {label:28s} {str(dt)[6:]:8s} B,H,Hkv,S,T,D="
+                  f"{(b, h, hkv, s, t, d)} window={window} q_offset={off}: "
+                  f"max abs err " + ", ".join(
+                      f"cap {c} {e:.3e}" for (c, _), e in zip(CAPS, errs))
+                  + f" (tol {tol}); faults " + ", ".join(
+                      f"{n} {e:.3e}" + (" misses" if m else "")
+                      for n, (m, e) in seen.items()))
+    for i, (label, b, h, hkv, t, d) in enumerate(CAP_DECODE_CASES):
+        for dt in (torch.bfloat16, torch.float32):
+            tol = ATTN_TOL[str(dt).split(".")[-1]]
+            pl = dmod.plan(b, h, hkv, t, d, dmod._sms(torch.device(DEV)))
+            way = "split" if pl.splits > 1 else "single"
+            one = dmod.Plan(1, -(-t // dmod.TILE) * dmod.TILE)
+            length = torch.tensor(DECODE_RAGGED, dtype=torch.int32,
+                                  device=DEV)
+            seen, errs = {}, []
+            for cap, scale in CAPS:
+                q = (_randn((b, h, d), 700 + 10 * i, torch.float32, torch)
+                     * scale).to(dt)
+                k = _randn((b, t, hkv, d), 701 + 10 * i, dt,
+                           torch).transpose(1, 2)
+                v = _randn((b, t, hkv, d), 702 + 10 * i, dt,
+                           torch).transpose(1, 2)
+                want = ref.decode_attention_ref(q, k, v, length,
+                                                softcap=cap)
+                got = _routed("decode_attention", way,
+                              lambda: ops.decode_attention(
+                                  q, k, v, length, softcap=cap))
+                single = torch.empty_like(q)
+                _raw_decode(q, k, v, length, single, one, softcap=cap)()
+                errs.append(max(
+                    _attn_close(got, want, tol, f"{way} decode {label}"),
+                    _attn_close(single, want, tol,
+                                f"single decode {label}")))
+                _fold_misses(seen, want, ref.decode_attention_faults(
+                    q, k, v, length, softcap=cap), tol)
+            for n, (miss, e) in seen.items():
+                assert miss, (f"decode {label}: the check passes the "
+                              f"planted fault {n} under both caps ({e:.3e})")
+                missed[n] += 1
+            worst["decode_attention"] = max(worst["decode_attention"], *errs)
+            print(f"cap decode {way}+single {label:8s} {str(dt)[6:]:8s} "
+                  f"B,H,Hkv,T,D={(b, h, hkv, t, d)} lengths "
+                  f"{list(DECODE_RAGGED)}: max abs err " + ", ".join(
+                      f"cap {c} {e:.3e}" for (c, _), e in zip(CAPS, errs))
+                  + f" (tol {tol}); faults " + ", ".join(
+                      f"{n} {e:.3e} misses" for n, (m, e) in seen.items()))
+    assert all(missed.values()), missed
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_cap_f32tc():
+    """Phase 23a, float32 training route with the cap: the f32tc forward
+    and its backward kernel against float64 at F32_ACC_SLICE under both
+    CAPS (each output's and gradient's max abs error over its max at
+    most 4x the plain float32 version's; two backward calls bit-equal);
+    then the backward kernel against ``ref.flash_attention_bwd_ref`` with
+    the cap at CAP_BWD_CASES (Qwen's training shape and gemma3's windowed
+    one), within 2e-3 of each gradient's max, where the planted backward
+    faults (Delta dropped, one head of the group where the group has
+    several, and the cap's derivative 1 - (Sc / c)^2 dropped) must miss.
+    Returns the float64 errors."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ref
+    b, h, hkv, s, d = F32_ACC_SLICE
+    acc = {}
+    for cap, scale in CAPS:
+        q, k, v = _qkv(b, h, hkv, s, s, d, False, 800, torch.float32, torch)
+        q = q * scale
+        dout = _randn((b, h, s, d), 805, torch.float32, torch)
+        out, lse = _routed("flash_attention", "f32tc", lambda: (
+            fmod.flash_attention_lse(q, k, v, softcap=cap)))
+        plain_out = ref.flash_attention_ref(q, k, v, softcap=cap)
+        exact_out, _ = ref.flash_attention_lse_ref(
+            q.double(), k.double(), v.double(), softcap=cap)
+        got = fmod.flash_attention_bwd(q, k, v, out, lse, dout, softcap=cap)
+        again = fmod.flash_attention_bwd(q, k, v, out, lse, dout,
+                                         softcap=cap)
+        assert all(bool(torch.equal(x, y)) for x, y in zip(got, again)), \
+            f"cap {cap}: two backward calls differ"
+        plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                            softcap=cap)
+        exact = ref.flash_attention_bwd_ref(*(x.double() for x in (
+            q, k, v, out, lse, dout)), softcap=cap)
+        e = {}
+        for n, g, pl_, w in (("out", out, plain_out, exact_out),
+                             *zip(("dq", "dk", "dv"), got, plain, exact)):
+            m = float(w.abs().max())
+            e[n] = {"kernel": float((g.double() - w).abs().max()) / m,
+                    "plain_f32": float((pl_.double() - w).abs().max()) / m}
+        assert all(x["kernel"] <= 4 * x["plain_f32"] for x in e.values()), \
+            (cap, e)
+        acc[f"cap {cap}"] = e
+        print(f"cap f32tc at {list(F32_ACC_SLICE)} cap {cap} (queries "
+              f"x{scale:g}) against float64, max abs err over the max: "
+              + "; ".join(f"{n} kernel {x['kernel']:.3e}, plain float32 "
+                          f"{x['plain_f32']:.3e}" for n, x in e.items())
+              + " (bound 4x plain); two backward calls bit-equal")
+        del q, k, v, out, lse, got, again, plain, exact
+    tol = GRAD_TOL["float32"]
+    bwd = {}
+    for label, (b, h, hkv, s, d), window in CAP_BWD_CASES:
+        q, k, v = _qkv(b, h, hkv, s, s, d, True, 820, torch.float32, torch)
+        dout = _randn((b, s, h, d), 825, torch.float32, torch).transpose(1, 2)
+        kw = dict(causal=True, window=window, softcap=TRAIN_CAP)
+        out, lse = fmod.flash_attention_lse(q, k, v, **kw)
+        kern = fmod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        ok, rel = _grad_check(kern, plain, tol)
+        assert ok, f"cap backward {label}: off its plain version by {rel}"
+        faults = {n: _grad_check(f, plain, tol)
+                  for n, f in ref.flash_attention_bwd_faults(
+                      q, k, v, out, lse, dout, **kw).items()
+                  if h > hkv or n != "one head of the group"}
+        assert not any(m[0] for m in faults.values()), faults
+        bwd[label] = rel
+        print(f"cap f32tc backward {label} [{b}, {h}, {hkv}, {s}, {d}] "
+              f"window={window} cap {TRAIN_CAP}: within {rel:.3e} of its "
+              f"plain version's max (tol {tol}); faults miss: " + ", ".join(
+                  f"{n} {m[1]:.3e}" for n, m in faults.items()))
+        del q, k, v, out, lse, kern, plain
+        _free_card()
+    return {"accuracy_vs_float64": acc, "backward_vs_plain": bwd}
+
+
+def time_cap():
+    """CUDA-event times with the cap off and on, on the same inputs, off
+    / on / on / off (the median of each pair): the sm90 kernel at Qwen's
+    causal S = T = 2,048 (bf16), the f32tc forward and its backward at
+    TRAIN_SHAPE, and the decode kernel's split route at Qwen's B = 4,
+    T = 4,096 (bf16, every row at full length, rotating over input sets
+    of >= ROTATE_BYTES).  Returns {kernel: {"off": ms, "on": ms}}."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    out = {}
+
+    def pair(fn_off, fn_on, **kw):
+        a = [_time_ms(fn_off, torch, **kw), _time_ms(fn_on, torch, **kw)]
+        a += [_time_ms(fn_on, torch, **kw), _time_ms(fn_off, torch, **kw)]
+        return {"off": statistics.median((a[0], a[3])),
+                "on": statistics.median((a[1], a[2])), "turns": a}
+
+    b, h, hkv, s, d = 1, 28, 4, 2048, 128
+    q, k, v = _qkv(b, h, hkv, s, s, d, True, 900, torch.bfloat16, torch)
+    o = torch.empty_like(q)
+    out["flash_attention"] = pair(
+        _raw_flash(q, k, v, o, None, "sm90"),
+        _raw_flash(q, k, v, o, None, "sm90", softcap=GEMMA2_CAP))
+    out["flash_attention"]["shape"] = f"B,H,Hkv,S=T,D={(b, h, hkv, s, d)} " \
+        "causal bf16"
+    del q, k, v, o
+    b, h, hkv, s, d = TRAIN_SHAPE
+    q, k, v = _qkv(b, h, hkv, s, s, d, False, 910, torch.float32, torch)
+    dout = _randn((b, h, s, d), 915, torch.float32, torch)
+    res = {}
+    for cap in (None, TRAIN_CAP):
+        res[cap] = fmod.flash_attention_lse(q, k, v, softcap=cap)
+    out["flash_attention_f32"] = pair(
+        lambda: fmod.flash_attention_lse(q, k, v),
+        lambda: fmod.flash_attention_lse(q, k, v, softcap=TRAIN_CAP), reps=5)
+    out["flash_attention_bwd"] = pair(
+        lambda: fmod.flash_attention_bwd(q, k, v, *res[None], dout),
+        lambda: fmod.flash_attention_bwd(q, k, v, *res[TRAIN_CAP], dout,
+                                         softcap=TRAIN_CAP), reps=5)
+    for n in ("flash_attention_f32", "flash_attention_bwd"):
+        out[n]["shape"] = f"B,H,Hkv,S=T,D={TRAIN_SHAPE} causal float32"
+    del q, k, v, dout, res
+    _free_card()
+    b, h, hkv, t, d = DECODE_TIMED
+    q = _randn((b, h, d), 920, torch.bfloat16, torch)
+    sets = [(_randn((b, hkv, t, d), 921 + 2 * j, torch.bfloat16, torch),
+             _randn((b, hkv, t, d), 922 + 2 * j, torch.bfloat16, torch))
+            for j in range(_sets(2 * b * hkv * t * d * 2))]
+    length = torch.full((b,), t, dtype=torch.int32, device=DEV)
+    pl = dmod.plan(b, h, hkv, t, d, dmod._sms(q.device))
+    outs = [torch.empty_like(q) for _ in sets]
+
+    def rot(cap):
+        fns = [_raw_decode(q, k_, v_, length, o_, pl, softcap=cap)
+               for (k_, v_), o_ in zip(sets, outs)]
+        return lambda: _time_rot(fns, torch)
+
+    a = [rot(None)(), rot(GEMMA2_CAP)(), rot(GEMMA2_CAP)(), rot(None)()]
+    out["decode_attention"] = {
+        "off": statistics.median((a[0], a[3])),
+        "on": statistics.median((a[1], a[2])), "turns": a,
+        "shape": f"B,H,Hkv,T,D={DECODE_TIMED} length {t} bf16, "
+                 f"{pl.splits} splits"}
+    del q, sets, outs
+    for n, r in out.items():
+        print(f"time cap {n:20s} {r['shape']}: cap off {r['off']:.4f} ms, "
+              f"on {r['on']:.4f} ms ({r['on'] / r['off']:.3f}x; turns "
+              + ", ".join(f"{x:.4f}" for x in r["turns"]) + ")")
+    return out
+
+
+def _greedy_pair(a, b, label):
+    """Two runs' logits [B, V] of one call: their max abs distance over
+    the max of ``a``, and whether b's greedy token equals a's wherever
+    a's top-two gap exceeds twice the distance (asserted); returns
+    (relative distance, rows whose gap was too close to call)."""
+    import torch
+    dist = float((a - b).abs().max())
+    top2 = torch.topk(a, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    clear = gap > 2 * dist
+    assert torch.equal(torch.argmax(a, -1)[clear],
+                       torch.argmax(b, -1)[clear]), label
+    return dist / float(a.abs().max()), int((~clear).sum())
+
+
+def _chunked_run(cfg, params, tokens, chunk, steps, forced=None):
+    """``prefill`` of the first ``chunk`` tokens, then ``decode_step`` of
+    ``chunk`` tokens at each later offset (a chunked prefill), then
+    ``steps`` one-token steps fed ``forced`` [B, steps] (or the greedy
+    token), into a cache of len(tokens) + steps + 8 rows; each call's
+    launches counted (counters reset just before, read just after) and
+    timed (host clock, synchronised).  With ``chunk`` the whole prompt it
+    is a one-shot prefill.  Returns (the prompt's last logits, each
+    step's logits, the tokens the steps were fed [B, steps], [(kind,
+    ms, launches, routes)])."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import (build_cache_specs, decode_step,
+                                    materialize, prefill)
+    b, n = tokens.shape
+    caches = materialize(build_cache_specs(cfg, b, n + steps + 8,
+                                           cfg.compute_dtype),
+                         torch.Generator(), DEV)
+    calls = []
+
+    def call(kind, fn):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        calls.append((kind, (time.perf_counter() - t0) * 1e3,
+                      {k: c for k, c in ops.launch_counts().items() if c},
+                      ops.route_counts()))
+        assert bool(torch.isfinite(res[0]).all()), kind
+        return res
+
+    logits, caches = call("prefill", lambda: prefill(
+        params, {"tokens": tokens[:, :chunk]}, caches, cfg))
+    for off in range(chunk, n, chunk):
+        logits, caches = call("chunk", lambda: decode_step(
+            params, tokens[:, off:off + chunk], caches, off, cfg))
+    last, outs, fed = logits.float(), [], []
+    feed = torch.argmax(logits, -1)
+    for i in range(steps):
+        if forced is not None:
+            feed = forced[:, i]
+        fed.append(feed)
+        logits, caches = call("step", lambda: decode_step(
+            params, feed[:, None], caches, n + i, cfg))
+        outs.append(logits.float())
+        feed = torch.argmax(logits, -1)
+    del caches
+    return last, outs, torch.stack(fed, 1), calls
+
+
+def _chunk_counts(calls, n_attn, chunked):
+    """The launch counts each call of ``_chunked_run`` must show: a
+    prefill or a chunk ``n_attn`` sm90 ``flash_attention`` launches and
+    no decode launch; a one-token step ``n_attn`` ``decode_attention``
+    launches and no flash launch."""
+    for kind, _, launches, routes in calls:
+        if kind in ("prefill", "chunk"):
+            assert launches == {"flash_attention": n_attn} and \
+                routes["sm90"] == n_attn, (kind, launches, routes)
+        else:
+            assert launches == {"decode_attention": n_attn}, (kind, launches)
+    assert chunked == any(c[0] == "chunk" for c in calls)
+
+
+def _chunk_compare(cfg, params, tokens, chunk, label, gated=True):
+    """A one-shot prefill of ``tokens`` and a chunked one (chunks of
+    ``chunk``), then 8 one-token steps from each cache fed the one-shot
+    run's greedy tokens (``_chunked_run``), after a warm-up of both
+    (the calls time the card's work, not the first use of a shape): exact
+    launch counts, and with ``gated`` the last logits within 2e-2 of
+    their max and each step's greedy token equal wherever the top-two
+    gap exceeds twice the distance (otherwise printed only).  Returns
+    the figures."""
+    import torch
+    _chunked_run(cfg, params, tokens, tokens.shape[1], 1)       # warm-up
+    _chunked_run(cfg, params, tokens[:, :2 * chunk], chunk, 1)
+    one = _chunked_run(cfg, params, tokens, tokens.shape[1], 8)
+    chunked = _chunked_run(cfg, params, tokens, chunk, 8, forced=one[2])
+    _chunk_counts(one[3], cfg.n_layers, False)
+    _chunk_counts(chunked[3], cfg.n_layers, True)
+    pairs = [(one[0], chunked[0])] + list(zip(one[1], chunked[1]))
+    if gated:
+        dists = [_greedy_pair(a, b, f"{label} call {i}")
+                 for i, (a, b) in enumerate(pairs)]
+    else:
+        dists = [(float((a - b).abs().max() / a.abs().max()), 0)
+                 for a, b in pairs]
+    res = {"one_shot_prefill_ms": one[3][0][1],
+           "chunk_ms": [c[1] for c in chunked[3] if c[0] != "step"],
+           "step_ms": [c[1] for c in chunked[3] if c[0] == "step"],
+           "last_logits_rel": dists[0][0],
+           "step_logits_rel": max(x[0] for x in dists[1:]),
+           "too_close_to_call": sum(x[1] for x in dists),
+           "launches_per_chunk": chunked[3][1][2],
+           "launches_per_step": chunked[3][-1][2], "gated": gated}
+    if gated:
+        assert res["last_logits_rel"] <= ATTN_TOL["bfloat16"], res
+    n = tokens.shape[1]
+    print(f"chunked {label} bf16, {n}-token prompt: one-shot prefill "
+          f"{res['one_shot_prefill_ms']:.2f} ms; chunks of {chunk} (prefill "
+          f"then decode_step at {list(range(chunk, n, chunk))}) "
+          + ", ".join(f"{x:.2f}" for x in res["chunk_ms"]) + " ms; last "
+          f"logits {res['last_logits_rel']:.3e} of the max from one-shot ("
+          + (f"limit {ATTN_TOL['bfloat16']}" if gated else "not gated")
+          + f"); 8 steps fed the one-shot greedy tokens: logits within "
+          f"{res['step_logits_rel']:.3e}" + (
+              f", greedy tokens equal where called "
+              f"({res['too_close_to_call']} calls too close)" if gated
+              else "") + f"; launches a chunk {res['launches_per_chunk']} "
+          f"(all sm90), a step {res['launches_per_step']}; step ms "
+          + ", ".join(f"{x:.2f}" for x in res["step_ms"]))
+    del one, chunked
+    return res
+
+
+def check_chunked_qwen():
+    """Phase 23b: Qwen2.5-7B at full width and depth (28 layers), bf16,
+    random weights: a 4,096-token prompt prefilled at once, and as a
+    1,024-token prefill then three ``decode_step``s of 1,024 tokens at
+    1,024, 2,048 and 3,072, each into a 4,104-row cache, then 8 one-token
+    steps from each cache fed the one-shot run's greedy tokens: last
+    logits within 2e-2 of their max, every step's greedy token equal
+    wherever the top-two gap exceeds twice the distance, exactly 28 sm90
+    flash launches and no decode launch a chunk, 28 decode launches a
+    step; ms a chunk beside ms of the one-shot prefill
+    (``_chunk_compare``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_param_specs, materialize
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    params = materialize(build_param_specs(cfg),
+                         torch.Generator().manual_seed(0), DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (1, CHUNK_PROMPT),
+                           generator=torch.Generator().manual_seed(3)).to(DEV)
+    res = _chunk_compare(cfg, params, tokens, CHUNK, "qwen2-5-7b full "
+                         "width and depth")
+    del params
+    _free_card()
+    print(f"phase 23b: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def check_chunked_gemma3():
+    """Phase 23c: gemma3-1b at full width (26 layers), bf16: a 1,536-
+    token prompt prefilled at once and in chunks of 384 (its local
+    layers' 512 window crossed inside chunks), as phase 23b, twice: at
+    the reference's init, where gemma3 is chaotic (phase 13: float32
+    runs that differ only in rounding land 0.2 of the max apart), every
+    kernel call held against float64 attention on its own inputs
+    (``_KernelSpy``, 2e-2 of the output's max) and the logits printed
+    ungated; at the d_model fan-in law every gate of phase 23b.  Then,
+    on the fan-in weights, with ``attn_logit_softcap`` = 50 (Gemma 2's
+    published value; the scores there spread over ~1, so these runs hold
+    the cap's plumbing at full width, and 23a binds it): the first chunk
+    and 8 steps in bf16 with the kernels and with the plain attention
+    swapped in, each against float32 with the kernels on the same
+    weights, the kernel run no farther from float32 than 2x the plain
+    one (phase 6's gate); then the capped config cut to 6 layers (one
+    superlayer) in float32 at the d_model fan-in law (``check_depth``
+    with every kernel call held against float64 capped attention on its
+    own inputs, the logits against a float64 run)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_param_specs, materialize
+    t0 = time.perf_counter()
+    cfg = get_config(GEMMA3)
+    params = materialize(build_param_specs(cfg),
+                         torch.Generator().manual_seed(0), DEV)
+    tokens = torch.randint(0, cfg.vocab_size, (1, GEMMA3_PROMPT),
+                           generator=torch.Generator().manual_seed(4)).to(DEV)
+    res = {}
+    with _KernelSpy() as spy:
+        res["reference_init"] = _chunk_compare(
+            cfg, params, tokens, GEMMA3_CHUNK, "gemma3-1b full width, the "
+            "reference's init", gated=False)
+    print(f"gemma3-1b chunked at the reference's init: kernel calls "
+          f"against float64 attention: {spy.line()}")
+    _fan_in_d_model(params, cfg)
+    res["fan_in_d_model"] = _chunk_compare(
+        cfg, params, tokens, GEMMA3_CHUNK, "gemma3-1b full width, "
+        "_fan_in_d_model")
+    capped = dataclasses.replace(cfg, attn_logit_softcap=GEMMA2_CAP)
+    c32 = dataclasses.replace(capped, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    w32 = _cast(params, torch.float32)
+    short = tokens[:, :GEMMA3_CHUNK]
+    kern = _chunked_run(capped, params, short, GEMMA3_CHUNK, 8)
+    with _Plain("flash_attention"), _Plain("decode_attention"):
+        plain = _chunked_run(capped, params, short, GEMMA3_CHUNK, 8,
+                             forced=kern[2])
+    f32 = _chunked_run(c32, w32, short, GEMMA3_CHUNK, 8, forced=kern[2])
+    assert not plain[3][0][2], plain[3][0][2]
+    _chunk_counts(kern[3], cfg.n_layers, False)
+    dk, dp = [], []
+    for a, b, c in zip([kern[0]] + kern[1], [plain[0]] + plain[1],
+                       [f32[0]] + f32[1]):
+        m = float(c.abs().max())
+        dk.append(float((a - c).abs().max()) / m)
+        dp.append(float((b - c).abs().max()) / m)
+    assert max(dk) <= 2 * max(dp), (dk, dp)
+    res["capped_bf16_vs_f32"] = {"kernels": max(dk), "plain": max(dp)}
+    print(f"gemma3-1b bf16 with attn_logit_softcap {GEMMA2_CAP}, "
+          f"{GEMMA3_CHUNK}-token prompt + 8 steps: max |logits - float32| "
+          f"/ max|float32| {max(dk):.3e} with the kernels, {max(dp):.3e} "
+          f"with the plain attention (limit 2x)")
+    del params, w32, kern, plain, f32
+    _free_card()
+    c6 = dataclasses.replace(cut_depth(GEMMA3, 6, torch.float32),
+                             attn_logit_softcap=GEMMA2_CAP)
+    res["depth6_f32"] = check_depth(c6, prompt_len=600,
+                                    weights=_fan_in_d_model, cpu=False)
+    print(f"phase 23c: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def check_cap_grads():
+    """Phase 23d: ``train_loss``'s gradients with ``attn_logit_softcap``
+    = 5 at gemma3-1b's width, 6 layers (one superlayer), float32, S =
+    1,024, at the d_model fan-in law: the kernels (every f32tc forward and
+    backward call held against its plain version in float64, ``_GradSpy``)
+    against the same call with the plain versions patched into ``ops``;
+    every leaf within 2e-3 of its max, exactly 2 f32tc forward launches
+    and 1 backward launch an attention layer, none with the plain
+    versions."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_param_specs, materialize
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(
+        cut_depth(GEMMA3, CAP_GRAD_LAYERS, torch.float32),
+        attn_logit_softcap=TRAIN_CAP)
+    params = materialize(build_param_specs(cfg),
+                         torch.Generator().manual_seed(0), DEV)
+    _fan_in_d_model(params, cfg)
+    tok = torch.randint(0, cfg.vocab_size, (1, CAP_GRAD_SEQ + 1),
+                        generator=torch.Generator().manual_seed(5),
+                        dtype=torch.int32).to(DEV)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    ops.reset_launches()
+    with _GradSpy() as spy:
+        loss, got = _loss_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    routes = ops.route_counts()
+    ops.reset_launches()
+    with _PlainOps():
+        want_loss, want = _loss_grads(cfg, params, batch)
+    assert not any(ops.launch_counts().values())
+    n = CAP_GRAD_LAYERS
+    assert counts == {"flash_attention": 2 * n, "flash_attention_bwd": n}, \
+        counts
+    assert routes["f32tc"] == 2 * n, routes
+    ok, worst = _grad_check([g for _, g in got], [w for _, w in want], 2e-3)
+    assert ok, f"capped gradients: a leaf off by {worst:.3e}"
+    assert abs(loss - want_loss) <= 2e-3 * abs(want_loss), (loss, want_loss)
+    print(f"capped train_loss gradients, gemma3-1b width x {n} layers, "
+          f"float32, S = {CAP_GRAD_SEQ}, softcap {TRAIN_CAP} (d_model "
+          f"fan-in law): loss {loss!r} (plain {want_loss!r}); {len(got)} "
+          f"leaves within {worst:.3e} of their max (limit 2e-3); kernel "
+          f"calls: {spy.line()}; launches {counts} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del params, got, want
+    _free_card()
+    return {"worst_leaf": worst, "launches": counts}
+
+
+def check_whisper_step():
+    """Phase 23e: whisper-base (float32, full depth, the d_model fan-in
+    law) prefilled with 48 tokens against 1,500 source frames, then one
+    ``decode_step`` of 3 tokens at offset 48: every decoder layer's self-
+    attention a causal flash call at q_offset 48 and its cross-attention
+    a non-causal flash call of the 3 queries against the 1,500 encoder
+    rows (12 flash launches, no decode launch), each call held against
+    float64 attention on its own inputs (``_KernelSpy``); the logits
+    within 2e-3 of their max of the same step with the plain versions."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import (build_cache_specs, build_param_specs,
+                                    decode_step, materialize, prefill)
+    cfg = dataclasses.replace(get_config(WHISPER), param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    params = materialize(build_param_specs(cfg),
+                         torch.Generator().manual_seed(0), DEV)
+    _fan_in_d_model(params, cfg)
+    g = torch.Generator().manual_seed(6)
+    off, s = WHISPER_STEP
+    tokens = torch.randint(0, cfg.vocab_size, (1, off + s), generator=g)
+    src = torch.randn((1, cfg.encoder.source_len, cfg.d_model), generator=g)
+    caches = materialize(build_cache_specs(cfg, 1, off + s + 8,
+                                           torch.float32),
+                         torch.Generator(), DEV)
+    _, caches = prefill(params, {"tokens": tokens[:, :off].to(DEV),
+                                 "source_embeds": src.to(DEV)}, caches, cfg)
+    step = tokens[:, off:].to(DEV)
+    ops.reset_launches()
+    with _KernelSpy() as spy:
+        got, _ = decode_step(params, step, caches, off, cfg)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    n_dec = sum(g_.repeats * len(g_.pattern) for g_ in cfg.groups
+                if g_.name != "enc")
+    assert counts == {"flash_attention": 2 * n_dec}, counts
+    with _Plain("flash_attention"), _Plain("decode_attention"):
+        want, _ = decode_step(params, step, caches, off, cfg)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= REL_LOGITS, rel
+    print(f"whisper-base float32 (fan-in law): a {s}-token decode_step at "
+          f"offset {off} against {cfg.encoder.source_len} frames: launches "
+          f"{counts} (self causal at q_offset {off}, cross non-causal), "
+          f"kernel calls against float64: {spy.line()}; logits within "
+          f"{rel:.3e} of the plain versions' (limit {REL_LOGITS})")
+    del params, caches
+    _free_card()
+    return {"launches": counts, "logits_rel": rel}
+
+
+def drive_cap_offset():
+    """Phase 23: the logit softcap and multi-token steps at a cache offset
+    on the card (23a the kernels, 23b-e the model's entry points);
+    returns the phase's figures for the kernels line."""
+    t0 = time.perf_counter()
+    res = {"kernels": check_cap_kernels(), "f32tc": check_cap_f32tc(),
+           "times": time_cap()}
+    print(f"phase 23a: {time.perf_counter() - t0:.3f} s")
+    res["qwen"] = check_chunked_qwen()
+    res["gemma3"] = check_chunked_gemma3()
+    res["grads"] = check_cap_grads()
+    res["whisper"] = check_whisper_step()
+    print(f"phase 23: {time.perf_counter() - t0:.3f} s")
+    return res
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5004,6 +5728,13 @@ def main():
         print(card)
         print(json.dumps({"training": training, "distributed": distributed,
                           "kernels": stats}))
+        return 0
+    if "--cap-offset" in sys.argv[1:]:      # phases 1 and 23 alone
+        cap_offset = drive_cap_offset()
+        print(f"chip_smoke: phases 1 and 23 in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"cap_offset": cap_offset}))
         return 0
     stats = check_kernels()
     main_counts, unfused_counts = drive_days()
@@ -5061,6 +5792,7 @@ def main():
     print(f"phase 17: {time.perf_counter() - t0:.3f} s")
     training = drive_training(stats)
     distributed = drive_distributed(stats)
+    cap_offset = drive_cap_offset()
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
               "segment_trapz": csrc + "segment_trapz.cu",
@@ -5209,8 +5941,33 @@ def main():
     for row in kernels:
         if row["name"] in dist_launches:
             row["distributed_launches"] = dist_launches[row["name"]]
+    # phase 23: the cap off and on, the capped checks' worst errors, and
+    # the launches of a chunk and of a one-token step of Qwen's chunked
+    # prefill (counters reset just before each call, read just after)
+    chunk = {"flash_attention": cap_offset["qwen"]["launches_per_chunk"],
+             "decode_attention": cap_offset["qwen"]["launches_per_step"]}
+    for row in kernels:
+        n = row["name"]
+        if n in cap_offset["times"]:
+            row["softcap_ms"] = cap_offset["times"][n]
+        if n in cap_offset["kernels"]:
+            row["softcap_max_abs_err"] = cap_offset["kernels"][n]
+        if n in chunk:
+            row["chunked_prefill_launches"] = chunk[n]
+        if n == "flash_attention":
+            row["simt_softcap_max_abs_err"] = cap_offset["kernels"][
+                "flash_attention_simt"]
+        if n in ("flash_attention_f32", "flash_attention_bwd"):
+            row["softcap_accuracy_vs_float64"] = cap_offset["f32tc"][
+                "accuracy_vs_float64"]
+            row["softcap_train_launches_per_step"] = cap_offset["grads"][
+                "launches"].get(n if n == "flash_attention_bwd"
+                                else "flash_attention", 0)
+    print(json.dumps({"cap_offset": {k: cap_offset[k] for k in (
+        "qwen", "gemma3", "grads", "whisper")}}))
     for row in kernels:
         _possible(row["ms"], row["bound_ms"], row["name"])
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"distributed": distributed}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -32,14 +32,14 @@ _LIB_FLAGS = ("-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 _SOURCES = {
     "segment_trapz": (_BASE_FLAGS + ("--fmad=false",) + _LIB_FLAGS, ()),
     "flash_attention": (_BASE_FLAGS + _LIB_FLAGS,
-                        ("attention_common.cuh",)),
-    "flash_attention_sm90": (_BASE_FLAGS + _LIB_FLAGS, ()),
+                        ("attention_common.cuh", "softcap.cuh")),
+    "flash_attention_sm90": (_BASE_FLAGS + _LIB_FLAGS, ("softcap.cuh",)),
     "flash_attention_f32": (_BASE_FLAGS + _LIB_FLAGS,
-                            ("attention_tf32.cuh",)),
+                            ("attention_tf32.cuh", "softcap.cuh")),
     "flash_attention_f32_bwd": (_BASE_FLAGS + _LIB_FLAGS,
-                                ("attention_tf32.cuh",)),
+                                ("attention_tf32.cuh", "softcap.cuh")),
     "decode_attention": (_BASE_FLAGS + _LIB_FLAGS,
-                         ("attention_common.cuh",)),
+                         ("attention_common.cuh", "softcap.cuh")),
     "rglru_scan": (_BASE_FLAGS + _LIB_FLAGS, ()),
 }
 SOURCES = tuple(_SOURCES)

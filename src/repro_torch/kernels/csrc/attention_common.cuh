@@ -11,6 +11,9 @@
 //   * scores: lane j owns key (key0 + j) of the chunk and reads ks[d][j]
 //     (free of bank conflicts); the query rows (pre-scaled, float32) are
 //     read as broadcast float4s;
+//   * softcap: with one, each score (of a pre-scaled query: the true
+//     scaled score) becomes c tanh(score / c) before the mask
+//     (softcap.cuh);
 //   * softmax: per row, a warp max and a warp sum over the 32 scores;
 //   * P.V: lane i owns head dims d = i, i + 32, ... (DPL of them) and reads
 //     vs[j][d] and the row's probabilities from shared memory.
@@ -23,6 +26,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "softcap.cuh"
 
 namespace attn {
 
@@ -126,11 +131,13 @@ __device__ void stage_chunk(const T* __restrict__ kb, long long sk,
 }
 
 // Fold the staged keys [key0, key0 + nk) into the state of one warp's rows.
-// ok(r, key) says whether row r sees key.
+// ok(r, key) says whether row r sees key; cap (natural units, the scale
+// already in the pre-scaled queries) is applied to every score first.
 template <typename T, int DPL, typename Mask>
 __device__ void fold_chunk(RowState<DPL>& st, const T* ks, const T* vs,
                            int key0, int nk, int D, const float* qs,
-                           float* ps, const Mask& ok, int lane) {
+                           float* ps, const Mask& ok, SoftCap cap,
+                           int lane) {
   float s[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
@@ -150,6 +157,10 @@ __device__ void fold_chunk(RowState<DPL>& st, const T* ks, const T* vs,
     }
   }
 
+  if (cap.on) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) s[r] = cap(s[r]);
+  }
   const int key = key0 + lane;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {

@@ -5,7 +5,10 @@
 // (decode_attention, kernel body _decode_kernel): the G query heads of one
 // kv head attend over cache rows [0, length[b]) with an online softmax in
 // float32; rows at or past length[b] are masked, and a row with no valid
-// key ends at exactly 0 (acc / max(l, 1e-20)).  K and V are taken by
+// key ends at exactly 0 (acc / max(l, 1e-20)).  With a softcap c > 0 each
+// scaled score becomes c tanh(score / c) before the mask (softcap.cuh;
+// on the mma route from the raw product, on the fma route from the
+// pre-scaled query's, both the true scaled score).  K and V are taken by
 // strides, so the model's [B, T, Hkv, D] cache (and a window's rows of
 // it) is read through a permuted view with no copy.
 //
@@ -62,6 +65,7 @@ struct Params {
   float* part_ml;     // [B, H, splits, 2]: m in log2 units, l
   int H, Hkv, T, D, splits, chunk;
   float scale;
+  float softcap;      // <= 0: none (each route makes its SoftCap)
   long long sq[3], sk[4], sv[4], so[3];   // [B, H, D]; [B, Hkv, T, D]
 };
 
@@ -180,7 +184,9 @@ __device__ __forceinline__ void load_tile(bf16* ks, bf16* vs, const bf16* kb,
   }
 }
 
-template <int D>
+// CAP: p.softcap > 0 (a template argument, so the uncapped kernel is the
+// code it was before the cap)
+template <int D, bool CAP>
 __global__ void __launch_bounds__(MTHREADS)
     decode_mma_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -234,6 +240,7 @@ __global__ void __launch_bounds__(MTHREADS)
   }
 
   const float sl2 = p.scale * LOG2E;   // scores in log2 units
+  const SoftCap cap = SoftCap::make(p.softcap, p.scale, LOG2E);
   float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
   float l[2] = {0.f, 0.f};              // this thread's share of the sums
   float acc[D / 8][4];
@@ -284,7 +291,8 @@ __global__ void __launch_bounds__(MTHREADS)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[n][c] += s2[n][c];
 
-    // online softmax in log2 units; masked keys at probability 0
+    // online softmax in log2 units (capped first where there is a cap);
+    // masked keys at probability 0
     const int kw = kbeg + i * TILE + warp * 16;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -292,7 +300,10 @@ __global__ void __launch_bounds__(MTHREADS)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = kw + n * 8 + 2 * t + (c & 1);
-        s[n][c] = key < kend ? s[n][c] * sl2 : -INFINITY;
+        float sc;
+        if constexpr (CAP) sc = cap(s[n][c]);
+        else sc = s[n][c] * sl2;
+        s[n][c] = key < kend ? sc : -INFINITY;
         mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
       }
     float mu[2], alpha[2];
@@ -455,6 +466,7 @@ __global__ void decode_fma_kernel(const Params p) {
   const T* kb = static_cast<const T*>(p.k) + b * p.sk[0] + kvh * p.sk[1];
   const T* vb = static_cast<const T*>(p.v) + b * p.sv[0] + kvh * p.sv[1];
   const SplitMask ok{rows, kend};
+  const SoftCap cap = SoftCap::make(p.softcap, 1.f, 1.f);   // q pre-scaled
   RowState<DPL> st;
   st.init();
   for (int key0 = kbeg + warp * CHUNK; key0 < kend;
@@ -462,7 +474,7 @@ __global__ void decode_fma_kernel(const Params p) {
     const int nk = min(CHUNK, kend - key0);
     stage_chunk<T>(kb, p.sk[2], vb, p.sv[2], key0, nk, D, ks, vs, lane, 32);
     __syncwarp();
-    fold_chunk<T, DPL>(st, ks, vs, key0, nk, D, qs, ps, ok, lane);
+    fold_chunk<T, DPL>(st, ks, vs, key0, nk, D, qs, ps, ok, cap, lane);
   }
 
   // merge the warps' states: cm/cl [warps][ROWS], cacc [warps][ROWS][D]
@@ -555,14 +567,14 @@ __global__ void __launch_bounds__(128) combine_kernel(const Params p) {
 
 // --------------------------------------------------------------- launch --
 
-template <int D>
+template <int D, bool CAP>
 cudaError_t launch_mma(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<D>();
-  cudaError_t err = allow_smem(decode_mma_kernel<D>, smem);
+  cudaError_t err = allow_smem(decode_mma_kernel<D, CAP>, smem);
   if (err != cudaSuccess) return err;
   const int G = p.H / p.Hkv;
   const dim3 grid(p.splits, p.Hkv * ((G + MROWS - 1) / MROWS), B);
-  decode_mma_kernel<D><<<grid, MTHREADS, smem, stream>>>(p);
+  decode_mma_kernel<D, CAP><<<grid, MTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -612,9 +624,12 @@ cudaError_t launch_blocks(int dtype, int tc, const Params& p, int B,
   if (!tc) return dtype == 0 ? launch_fma_dispatch<float>(p, B, s)
                              : launch_fma_dispatch<bf16>(p, B, s);
   switch (p.D) {
-    case 64: return launch_mma<64>(p, B, s);
-    case 128: return launch_mma<128>(p, B, s);
-    case 256: return launch_mma<256>(p, B, s);
+    case 64: return p.softcap > 0.f ? launch_mma<64, true>(p, B, s)
+                                    : launch_mma<64, false>(p, B, s);
+    case 128: return p.softcap > 0.f ? launch_mma<128, true>(p, B, s)
+                                     : launch_mma<128, false>(p, B, s);
+    case 256: return p.softcap > 0.f ? launch_mma<256, true>(p, B, s)
+                                     : launch_mma<256, false>(p, B, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -628,15 +643,15 @@ cudaError_t launch_blocks(int dtype, int tc, const Params& p, int B,
 // with splits > 1, part_acc [B, H, splits, D] and part_ml [B, H, splits, 2]
 // float32 scratch (unused, may be null, with one split).  strides: 14
 // element strides, [B, H, D] of q, [B, Hkv, T, D] of k and of v, then
-// [B, H, D] of out; every last-dim stride is 1.  The caller checks shapes
-// (D % 4 == 0, D <= 256, H % Hkv == 0).  Returns the CUDA error of the
-// launches (0 on success).
+// [B, H, D] of out; every last-dim stride is 1.  softcap <= 0: none.  The
+// caller checks shapes (D % 4 == 0, D <= 256, H % Hkv == 0).  Returns the
+// CUDA error of the launches (0 on success).
 extern "C" int decode_attention_fwd(int dtype, int tc, const void* q,
                                     const void* k, const void* v,
                                     const int* length, void* out,
                                     float* part_acc, float* part_ml, int B,
                                     int H, int Hkv, int T, int D, int splits,
-                                    int chunk, float scale,
+                                    int chunk, float scale, float softcap,
                                     const long long* strides, void* stream) {
   if (tc && dtype != 1) return (int)cudaErrorInvalidValue;
   if (splits < 1 || chunk % TILE || (long long)splits * chunk < T ||
@@ -657,6 +672,7 @@ extern "C" int decode_attention_fwd(int dtype, int tc, const void* q,
   p.splits = splits;
   p.chunk = chunk;
   p.scale = scale;
+  p.softcap = softcap;
   for (int i = 0; i < 3; ++i) p.sq[i] = strides[i];
   for (int i = 0; i < 4; ++i) {
     p.sk[i] = strides[3 + i];

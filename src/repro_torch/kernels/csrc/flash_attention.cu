@@ -5,10 +5,13 @@
 // (flash_attention, kernel body _flash_kernel): the same online softmax
 // with float32 running max, denominator and accumulator; q head h reads kv
 // head h / (H / Hkv) with no repeat; K chunks that no row of a warp can see
-// (above the causal diagonal, or before the window) are skipped.  Unlike
-// the Pallas kernel it takes any S and T (ragged tails are masked) and
-// tensors by strides, so the model hands it permuted views of its
-// [B, S, H, D] activations and [B, T, Hkv, D] cache with no copy.
+// (above the causal diagonal, or before the window) are skipped.  Query
+// row i sits at position q_offset + i (the masks and the skipping work on
+// positions); with a softcap c > 0 each scaled score becomes
+// c tanh(score / c) before the mask (softcap.cuh).  Unlike the Pallas
+// kernel it takes any S and T (ragged tails are masked) and tensors by
+// strides, so the model hands it permuted views of its [B, S, H, D]
+// activations and [B, T, Hkv, D] cache with no copy.
 //
 // Grid (ceil(S / 32), H, B); 4 warps a block, each warp owns 8 consecutive
 // query positions of one head.  The block stages each chunk of 32 keys and
@@ -33,16 +36,18 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int H, Hkv, S, T, D, causal, window;
+  int H, Hkv, S, T, D, causal, window, q_offset;
   float scale;
+  SoftCap cap;                            // in natural units
   long long sq[4], sk[4], sv[4], so[4];   // strides of [B, H|Hkv, S|T, D]
 };
 
+// row r of a warp whose first row is q0; positions from q_offset
 struct FlashMask {
-  int q0, S, causal, window;
+  int q0, S, causal, window, q_offset;
   __device__ bool operator()(int r, int key) const {
-    const int pos = q0 + r;
-    return pos < S && (!causal || key <= pos) &&
+    const int pos = q_offset + q0 + r;
+    return q0 + r < S && (!causal || key <= pos) &&
            (window <= 0 || pos - key < window);
   }
 };
@@ -73,15 +78,18 @@ flash_kernel(const Params p) {
   __syncwarp();
 
   // keys the block's rows can see, and those this warp's rows can see
+  // (rows at positions q_offset + row)
   const int kvh = h / (p.H / p.Hkv);
   const T* kb = static_cast<const T*>(p.k) + b * p.sk[0] + kvh * p.sk[1];
   const T* vb = static_cast<const T*>(p.v) + b * p.sv[0] + kvh * p.sv[1];
-  const int bend = p.causal ? min(p.T, min(qb + WARPS * ROWS, p.S)) : p.T;
-  const int bbeg = p.window > 0 ? max(0, qb - p.window + 1) : 0;
+  const int off = p.q_offset;
+  const int bend =
+      p.causal ? min(p.T, off + min(qb + WARPS * ROWS, p.S)) : p.T;
+  const int bbeg = p.window > 0 ? max(0, off + qb - p.window + 1) : 0;
   const int wend = q0 >= p.S ? 0
-                   : p.causal ? min(p.T, min(q0 + ROWS, p.S)) : p.T;
-  const int wbeg = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const FlashMask ok{q0, p.S, p.causal, p.window};
+                   : p.causal ? min(p.T, off + min(q0 + ROWS, p.S)) : p.T;
+  const int wbeg = p.window > 0 ? max(0, off + q0 - p.window + 1) : 0;
+  const FlashMask ok{q0, p.S, p.causal, p.window, off};
   RowState<DPL> st;
   st.init();
   for (int key0 = bbeg / CHUNK * CHUNK; key0 < bend; key0 += CHUNK) {
@@ -91,7 +99,7 @@ flash_kernel(const Params p) {
     __syncthreads();
     if (key0 < wend && key0 + CHUNK > wbeg)
       fold_chunk<T, DPL>(st, ks, vs, key0, min(CHUNK, wend - key0), D, qs,
-                         ps, ok, lane);
+                         ps, ok, p.cap, lane);
   }
 
   T* o = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1];
@@ -131,14 +139,17 @@ cudaError_t dispatch(const Params& p, int B, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  strides:
 // 16 element strides, [B, H, S, D] of q, [B, Hkv, T, D] of k and v, then
-// [B, H, S, D] of out; every last-dim stride is 1.  window <= 0: none.
-// The caller checks shapes (D % 4 == 0, D <= 256, H % Hkv == 0).
-// Returns the CUDA error of the launch (0 on success).
+// [B, H, S, D] of out; every last-dim stride is 1.  window <= 0: none;
+// q_offset >= 0: the position of query row 0; softcap <= 0: none.  The
+// caller checks shapes (D % 4 == 0, D <= 256, H % Hkv == 0).  Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* out, int B, int H,
                                    int Hkv, int S, int T, int D, int causal,
-                                   int window, float scale,
-                                   const long long* strides, void* stream) {
+                                   int window, int q_offset, float scale,
+                                   float softcap, const long long* strides,
+                                   void* stream) {
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;
@@ -151,7 +162,9 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   p.D = D;
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   p.scale = scale;
+  p.cap = SoftCap::make(softcap, 1.f, 1.f);    // q arrives pre-scaled
   for (int i = 0; i < 4; ++i) {
     p.sq[i] = strides[i];
     p.sk[i] = strides[4 + i];

@@ -10,11 +10,13 @@
 // other head dims flash_attention.cu.  It computes what the Pallas kernel
 // computes: an online softmax with a float32 running max, denominator and
 // accumulator; q head h reads kv head h / (H / Hkv) with no repeat; query
-// row i sits at position i and key j at position j, causal masks j > i,
-// window masks i - j >= window; masked keys get probability exactly 0;
-// out = acc / max(l, 1e-20).  lse [B, H, S] is the natural log-sum-exp of
-// each row's scaled, masked scores (-inf, with an output of 0, for a row
-// that sees no key).  It takes any S and T, and q, k, v and out by
+// row i sits at position q_offset + i and key j at position j, causal
+// masks j > q_offset + i, window masks q_offset + i - j >= window; masked
+// keys get probability exactly 0; out = acc / max(l, 1e-20).  With a
+// softcap c > 0 each scaled score becomes c tanh(score / c) before the
+// mask (softcap.cuh).  lse [B, H, S] is the natural log-sum-exp of each
+// row's scaled, capped, masked scores (-inf, with an output of 0, for a
+// row that sees no key).  It takes any S and T, and q, k, v and out by
 // strides (the model's permuted views, no copy).
 //
 // What bounds it: operations.  A causal prefill does 4 D flops per
@@ -42,10 +44,11 @@
 //     the sum is kept per thread and reduced once at the end);
 //   * K tiles wholly above the causal diagonal or wholly before the
 //     window are never loaded; a warp skips the tiles none of its rows
-//     sees; only tiles that cross an edge are masked; the heaviest query
-//     tiles launch first.
+//     sees; only tiles that cross an edge are masked (all from the rows'
+//     positions, q_offset + row); the heaviest query tiles launch first.
 
 #include "attention_tf32.cuh"
+#include "softcap.cuh"
 
 namespace {
 
@@ -57,8 +60,9 @@ struct Params {
   const float* v;
   float* o;
   float* lse;
-  int H, Hkv, S, T, causal, window;
+  int H, Hkv, S, T, causal, window, q_offset;
   float scale_log2;                        // 1 / sqrt(D) * log2(e)
+  SoftCap cap;                             // in exp2 units
   long long sq[4], sk[4], sv[4], so[4];   // strides of [B, H|Hkv, S|T, D]
 };
 
@@ -94,10 +98,12 @@ fwd_kernel(const Params p) {
   const int h = blockIdx.x, b = blockIdx.z;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const int kvh = h / (p.H / p.Hkv);
-  // the key tiles some row of this CTA sees
+  // the key tiles some row of this CTA sees (rows at positions
+  // q_offset + row)
   const int q_last = min(q0 + BM, p.S) - 1;
-  const int kend = p.causal ? min(p.T, q_last + 1) : p.T;
-  const int kbeg = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int kend = p.causal ? min(p.T, p.q_offset + q_last + 1) : p.T;
+  const int kbeg =
+      p.window > 0 ? max(0, p.q_offset + q0 - p.window + 1) : 0;
   const int t_begin = kbeg / BN;
   const int ntiles = max(0, (kend + BN - 1) / BN - t_begin);
 
@@ -113,11 +119,16 @@ fwd_kernel(const Params p) {
   }
   cp_async_commit();
 
-  // this warp's rows: w_first .. w_last; the thread's rows row0, row0 + 8
+  // this warp's rows: w_first .. w_last; the thread's rows row0, row0 + 8;
+  // their positions from pw_first
   const int w_first = q0 + warp * 16;
   const int w_last = min(w_first + 15, p.S - 1);
   const int row0 = w_first + g;
+  const int pw_first = p.q_offset + w_first, pw_last = p.q_offset + w_last;
   const float* qw = qs + warp * 16 * P;
+  // scores to exp2 units: scale_log2 uncapped; capped, the cap's output
+  // is already there
+  const float mul = p.cap.on ? 1.f : p.scale_log2;
 
   float o[D / 8][4];
   zero(o);
@@ -137,24 +148,32 @@ fwd_kernel(const Params p) {
     cp_async_commit();
 
     // does some row of this warp see some key of the tile?
-    if (w_first >= p.S || (p.causal && n0 > w_last) ||
-        (p.window > 0 && w_first - (n0 + BN - 1) >= p.window))
+    if (w_first >= p.S || (p.causal && n0 > pw_last) ||
+        (p.window > 0 && pw_first - (n0 + BN - 1) >= p.window))
       continue;
 
     float s[BN / 8][4];
     zero(s);
     gemm_abt<D, BN, true>(s, qw, khi, klo, lane);
 
+    // the cap first: a masked key must stay at -inf
+    if (p.cap.on) {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = p.cap(s[n][e]);
+    }
     // mask the tiles that cross the diagonal, the window or the end of T
-    const bool edge = n0 + BN > p.T || (p.causal && n0 + BN - 1 > w_first) ||
-                      (p.window > 0 && w_last - n0 >= p.window);
+    const bool edge = n0 + BN > p.T ||
+                      (p.causal && n0 + BN - 1 > pw_first) ||
+                      (p.window > 0 && pw_last - n0 >= p.window);
     if (edge) {
 #pragma unroll
       for (int n = 0; n < BN / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = n0 + 8 * n + 2 * t + (e & 1);
-          const int pos = row0 + 8 * (e >> 1);
+          const int pos = p.q_offset + row0 + 8 * (e >> 1);
           const bool ok = key < p.T && (!p.causal || key <= pos) &&
                           (p.window <= 0 || pos - key < p.window);
           if (!ok) s[n][e] = -INFINITY;
@@ -171,7 +190,7 @@ fwd_kernel(const Params p) {
         mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx * p.scale_log2);
+      const float m_new = fmaxf(m[r], mx * mul);
       // a row that has seen no key yet keeps m = -inf: subtract 0 so that
       // its masked entries give exp2(-inf) = 0, not NaN
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
@@ -182,7 +201,7 @@ fwd_kernel(const Params p) {
       for (int n = 0; n < BN / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float pe = exp2f(fmaf(s[n][2 * r + e], p.scale_log2, -m_use));
+          const float pe = exp2f(fmaf(s[n][2 * r + e], mul, -m_use));
           s[n][2 * r + e] = pe;
           sum += pe;
         }
@@ -234,16 +253,19 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // q, k, v, out: float32, 16 element strides ([B, H, S, D] of q,
 // [B, Hkv, T, D] of k and v, [B, H, S, D] of out; every last-dim stride
 // 1, every row 16-byte aligned); lse: contiguous [B, H, S].  window <= 0:
-// none.  The caller checks shapes (H % Hkv == 0, S, T >= 1).  Returns the
-// CUDA error of the launch (0 on success), or ERR_ARGS for a head dim
-// other than 32, 64, 128 or 256.
+// none; q_offset >= 0: the position of query row 0; softcap <= 0: none.
+// The caller checks shapes (H % Hkv == 0, S, T >= 1).  Returns the CUDA
+// error of the launch (0 on success), or ERR_ARGS for a head dim other
+// than 32, 64, 128 or 256 or a negative q_offset.
 extern "C" int flash_attention_f32_fwd(const float* q, const float* k,
                                        const float* v, float* out,
                                        float* lse, int B, int H, int Hkv,
                                        int S, int T, int D, int causal,
-                                       int window, float scale,
+                                       int window, int q_offset,
+                                       float scale, float softcap,
                                        const long long* strides,
                                        void* stream) {
+  if (q_offset < 0) return ERR_ARGS;
   Params p;
   p.q = q;
   p.k = k;
@@ -256,7 +278,9 @@ extern "C" int flash_attention_f32_fwd(const float* q, const float* k,
   p.T = T;
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   p.scale_log2 = scale * LOG2E;
+  p.cap = SoftCap::make(softcap, scale, LOG2E);
   for (int i = 0; i < 4; ++i) {
     p.sq[i] = strides[i];
     p.sk[i] = strides[4 + i];

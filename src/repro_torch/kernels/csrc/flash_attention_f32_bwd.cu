@@ -6,9 +6,12 @@
 // The Pallas kernel src/repro/kernels/flash_attention.py:78 has no
 // backward (the reference trains through plain jnp attention); this is
 // FlashAttention-2's backward for the same function: the masks, GQA and
-// strides of the forward, head dim 32, 64, 128 or 256.  With
-// P = exp(scale Q K^T - lse) (0 where masked), dP = dO V^T,
-// Delta = rowsum(dO * O) and dS = P * (dP - Delta):
+// strides of the forward, head dim 32, 64, 128 or 256, query rows at
+// positions 0.. (no query offset: no path trains at one).  With the
+// scores Sc = scale Q K^T, or c tanh(scale Q K^T / c) under a softcap c
+// (softcap.cuh), P = exp(Sc - lse) (0 where masked), dP = dO V^T,
+// Delta = rowsum(dO * O) and dS = P * (dP - Delta), times 1 - (Sc / c)^2
+// (the derivative of the cap) under a softcap:
 //   dV = P^T dO, dK = scale dS^T Q (both summed over the H / Hkv query
 //   heads of a kv head), dQ = scale dS K.
 // Three launches, none with a float atomic, so two calls on the same
@@ -45,6 +48,7 @@
 // recomputes the full-width S and dP.
 
 #include "attention_tf32.cuh"
+#include "softcap.cuh"
 
 namespace {
 
@@ -63,6 +67,7 @@ struct Params {
   float* dv;
   int H, Hkv, S, T, causal, window;
   float scale, scale_log2;
+  SoftCap cap;                     // in exp2 units
   // element strides of [B, H|Hkv, S|T, D]: q, k, v, out, dout, dq
   long long sq[4], sk[4], sv[4], so[4], sdo[4], sdq[4];
 };
@@ -109,8 +114,10 @@ struct KvCfg {
 };
 
 // Grid (Hkv * D / DO, ceil(T / BN), B): blockIdx.y counts key tiles from
-// the first (the heaviest under causality) up.
-template <int D>
+// the first (the heaviest under causality) up.  CAP: p.cap is on (a
+// template argument, so the uncapped kernel is the code it was before the
+// cap, at its register count).
+template <int D, bool CAP>
 __global__ void __launch_bounds__(KvCfg<D>::NT, 1)
 dkdv_kernel(const Params p) {
   using C = KvCfg<D>;
@@ -214,10 +221,18 @@ dkdv_kernel(const Params p) {
                         (key < p.T && pos < p.S &&
                          (!p.causal || key <= pos) &&
                          (p.window <= 0 || pos - key < p.window));
-        const float pe =
-            ok ? exp2f(fmaf(st[n][e], p.scale_log2, -lse2[col])) : 0.f;
-        st[n][e] = pe;
-        dpt[n][e] = pe * (dpt[n][e] - dlt[col]);
+        if constexpr (CAP) {
+          float th = 0.f;
+          const float pe =
+              ok ? exp2f(p.cap(st[n][e], th) - lse2[col]) : 0.f;
+          st[n][e] = pe;
+          dpt[n][e] = pe * (dpt[n][e] - dlt[col]) * (1.f - th * th);
+        } else {
+          const float pe =
+              ok ? exp2f(fmaf(st[n][e], p.scale_log2, -lse2[col])) : 0.f;
+          st[n][e] = pe;
+          dpt[n][e] = pe * (dpt[n][e] - dlt[col]);
+        }
       }
     }
     // dV += P^T dO, dK += dS^T Q (the query rows are the k index; each
@@ -260,8 +275,8 @@ struct QCfg {
 };
 
 // Grid (H * D / DO, ceil(S / BM), B); blockIdx.y counts query tiles from
-// the last (the heaviest under causality) down.
-template <int D>
+// the last (the heaviest under causality) down.  CAP as dkdv_kernel's.
+template <int D, bool CAP>
 __global__ void __launch_bounds__(QCfg<D>::NT, 1)
 dq_kernel(const Params p) {
   using C = QCfg<D>;
@@ -354,9 +369,15 @@ dq_kernel(const Params p) {
         const int r = e >> 1, pos = row0 + 8 * r;
         const bool ok = !edge || (key < p.T && (!p.causal || key <= pos) &&
                                   (p.window <= 0 || pos - key < p.window));
-        const float pe =
-            ok ? exp2f(fmaf(s[n][e], p.scale_log2, -lse2[r])) : 0.f;
-        s[n][e] = pe * (dp[n][e] - dlt[r]);
+        if constexpr (CAP) {
+          float th = 0.f;
+          const float pe = ok ? exp2f(p.cap(s[n][e], th) - lse2[r]) : 0.f;
+          s[n][e] = pe * (dp[n][e] - dlt[r]) * (1.f - th * th);
+        } else {
+          const float pe =
+              ok ? exp2f(fmaf(s[n][e], p.scale_log2, -lse2[r])) : 0.f;
+          s[n][e] = pe * (dp[n][e] - dlt[r]);
+        }
       }
     }
     // dQ += dS K (the keys are the k index; each tile's product is
@@ -378,23 +399,23 @@ dq_kernel(const Params p) {
   }
 }
 
-template <int D>
+template <int D, bool CAP>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   using K = KvCfg<D>;
   using Q = QCfg<D>;
-  cudaError_t err = allow_smem(dkdv_kernel<D>, K::SMEM);
-  if (err == cudaSuccess) err = allow_smem(dq_kernel<D>, Q::SMEM);
+  cudaError_t err = allow_smem(dkdv_kernel<D, CAP>, K::SMEM);
+  if (err == cudaSuccess) err = allow_smem(dq_kernel<D, CAP>, Q::SMEM);
   if (err != cudaSuccess) return err;
   const int rows = B * p.H * p.S;
   delta_kernel<D><<<(rows + 7) / 8, 256, 0, stream>>>(p, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 kv_grid(p.Hkv * (D / K::DO), (p.T + K::BN - 1) / K::BN, B);
-  dkdv_kernel<D><<<kv_grid, K::NT, K::SMEM, stream>>>(p);
+  dkdv_kernel<D, CAP><<<kv_grid, K::NT, K::SMEM, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 q_grid(p.H * (D / Q::DO), (p.S + Q::BM - 1) / Q::BM, B);
-  dq_kernel<D><<<q_grid, Q::NT, Q::SMEM, stream>>>(p);
+  dq_kernel<D, CAP><<<q_grid, Q::NT, Q::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -404,15 +425,16 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // [B, Hkv, T, D] of k and v, [B, H, S, D] of out and of dout), then dq's
 // 4 ([B, H, S, D]); every last-dim stride 1, every row 16-byte aligned.
 // lse and delta (scratch, written here): contiguous [B, H, S]; dk, dv:
-// contiguous [B, Hkv, T, D].  window <= 0: none.  The caller checks
-// shapes (H % Hkv == 0, S, T >= 1).  Returns the CUDA error of the
-// launches (0 on success), or ERR_ARGS for a head dim other than 32, 64,
-// 128 or 256.
+// contiguous [B, Hkv, T, D].  window <= 0: none; softcap <= 0: none.  The
+// caller checks shapes (H % Hkv == 0, S, T >= 1).  Returns the CUDA error
+// of the launches (0 on success), or ERR_ARGS for a head dim other than
+// 32, 64, 128 or 256.
 extern "C" int flash_attention_f32_bwd(
     const float* q, const float* k, const float* v, const float* out,
     const float* lse, const float* dout, float* delta, float* dq, float* dk,
     float* dv, int B, int H, int Hkv, int S, int T, int D, int causal,
-    int window, float scale, const long long* strides, void* stream) {
+    int window, float scale, float softcap, const long long* strides,
+    void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -432,6 +454,7 @@ extern "C" int flash_attention_f32_bwd(
   p.window = window;
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
+  p.cap = SoftCap::make(softcap, scale, LOG2E);
   for (int i = 0; i < 4; ++i) {
     p.sq[i] = strides[i];
     p.sk[i] = strides[4 + i];
@@ -441,11 +464,16 @@ extern "C" int flash_attention_f32_bwd(
     p.sdq[i] = strides[20 + i];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool cap = p.cap.on;
   switch (D) {
-    case 32: return (int)launch<32>(p, B, s);
-    case 64: return (int)launch<64>(p, B, s);
-    case 128: return (int)launch<128>(p, B, s);
-    case 256: return (int)launch<256>(p, B, s);
+    case 32: return (int)(cap ? launch<32, true>(p, B, s)
+                              : launch<32, false>(p, B, s));
+    case 64: return (int)(cap ? launch<64, true>(p, B, s)
+                              : launch<64, false>(p, B, s));
+    case 128: return (int)(cap ? launch<128, true>(p, B, s)
+                               : launch<128, false>(p, B, s));
+    case 256: return (int)(cap ? launch<256, true>(p, B, s)
+                               : launch<256, false>(p, B, s));
     default: return ERR_ARGS;
   }
 }

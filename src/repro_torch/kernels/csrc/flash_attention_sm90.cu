@@ -8,11 +8,15 @@
 // flash_attention.cu.  It computes what the Pallas kernel computes: an
 // online softmax with a float32 running max, denominator and
 // accumulator; q head h reads kv head h / (H / Hkv) with no repeat; query
-// row i sits at position i and key j at position j, causal masks j > i,
-// window masks i - j >= window; masked keys get probability exactly 0;
-// out = acc / max(l, 1e-20) in bfloat16.  Unlike the Pallas kernel it
-// takes any S and T, and tensors by strides (the model's permuted views
-// of its [B, S, H, D] activations and [B, T, Hkv, D] cache, no copy).
+// row i sits at position q_offset + i and key j at position j, causal
+// masks j > q_offset + i, window masks q_offset + i - j >= window; masked
+// keys get probability exactly 0; out = acc / max(l, 1e-20) in bfloat16.
+// With a softcap c > 0 each scaled score becomes c tanh(score / c) before
+// the mask (softcap.cuh), as the reference's gqa_attention computes.
+// Unlike the Pallas kernel it takes any S and T, a query offset (a chunk
+// of a prompt against the cache rows before it), and tensors by strides
+// (the model's permuted views of its [B, S, H, D] activations and
+// [B, T, Hkv, D] cache, no copy).
 //
 // What bounds it: at the serving shapes, operations on the bf16 tensor
 // cores (4 D flops per visible (query, key) pair against ~2 (S H + T Hkv)
@@ -38,9 +42,14 @@
 //     operand, so V needs no transpose pass;
 //   * K tiles wholly above the causal diagonal or wholly before the
 //     window are never loaded; only tiles that cross an edge (the
-//     diagonal, the window, the end of T) are masked; the heaviest query
-//     tiles launch first;
+//     diagonal, the window, the end of T) are masked; all three are
+//     worked out from the rows' positions (q_offset + row); the heaviest
+//     query tiles launch first (the last rows: the most keys under
+//     causality at any offset);
 //   * setmaxnreg gives the producer 24 registers and each consumer 240.
+// A softcap costs an accurate tanhf a score on the FP32 pipe, in the
+// consumers between their wgmmas: it is on the critical path (PERF.md
+// has its time against the uncapped kernel's).
 // Head dims below 64 are loaded as one 64-column slab whose columns past D
 // TMA fills with zeros; those output columns are never stored.
 
@@ -49,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "softcap.cuh"
 
 namespace {
 
@@ -74,8 +85,9 @@ struct Tile {
 
 struct Params {
   void* o;
-  int H, Hkv, S, T, D, causal, window;
+  int H, Hkv, S, T, D, causal, window, q_offset;
   float scale_log2;    // 1 / sqrt(D) * log2(e): scores in exp2 units
+  SoftCap cap;         // in exp2 units
   long long so[4];     // element strides of out [B, H, S, D]
 };
 
@@ -379,10 +391,12 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.x, b = blockIdx.z;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const int kvh = h / (p.H / p.Hkv);
-  // the key tiles some row of this CTA sees
+  // the key tiles some row of this CTA sees (rows at positions
+  // q_offset + row)
   const int q_last = min(q0 + BM, p.S) - 1;
-  const int kend = p.causal ? min(p.T, q_last + 1) : p.T;
-  const int kbeg = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int pos0 = p.q_offset + q0, pos_last = p.q_offset + q_last;
+  const int kend = p.causal ? min(p.T, pos_last + 1) : p.T;
+  const int kbeg = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
   const int n_begin = kbeg / BN;
   const int ntiles = max(0, (kend + BN - 1) / BN - n_begin);
 
@@ -427,6 +441,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
   const int col = 2 * (lane % 4);       // + 8 i: this thread's columns
+  // scores to exp2 units: scale_log2 uncapped; capped, the cap's output
+  // is already there
+  const float mul = p.cap.on ? 1.f : p.scale_log2;
 
   float o[DP / 2];
 #pragma unroll
@@ -458,16 +475,21 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait_all();
     fence_regs(s);
 
+    // the cap first: a masked key must stay at -inf
+    if (p.cap.on) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = p.cap(s[i]);
+    }
     // mask the tiles that cross the diagonal, the window or the end of T
-    const bool edge = n0 + BN > p.T || (p.causal && n0 + BN - 1 > q0) ||
-                      (p.window > 0 && q_last - n0 >= p.window);
+    const bool edge = n0 + BN > p.T || (p.causal && n0 + BN - 1 > pos0) ||
+                      (p.window > 0 && pos_last - n0 >= p.window);
     if (edge) {
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = n0 + 8 * i + col + (e & 1);
-          const int pos = row0 + 8 * (e >> 1);
+          const int pos = p.q_offset + row0 + 8 * (e >> 1);
           const bool ok = key < p.T && (!p.causal || key <= pos) &&
                           (p.window <= 0 || pos - key < p.window);
           if (!ok) s[4 * i + e] = -INFINITY;
@@ -485,7 +507,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         mx = fmaxf(mx, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx * p.scale_log2);
+      const float m_new = fmaxf(m[r], mx * mul);
       // a row that has seen no key yet keeps m = -inf: subtract 0 so that
       // its masked entries give exp2(-inf) = 0, not NaN
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
@@ -496,8 +518,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < BN / 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float pe = ex2(fmaf(s[4 * i + 2 * r + e], p.scale_log2,
-                                    -m_use));
+          const float pe = ex2(fmaf(s[4 * i + 2 * r + e], mul, -m_use));
           s[4 * i + 2 * r + e] = pe;
           sum += pe;
         }
@@ -642,17 +663,19 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
 // strides, [B, H, S, D] of q, [B, Hkv, T, D] of k and v, then [B, H, S, D]
 // of out; every last-dim stride is 1, the bases of q, k and v are 16-byte
 // aligned and their other strides multiples of 8 elements where the
-// dimension is longer than 1 (the wrapper checks).  window <= 0: none.
+// dimension is longer than 1 (the wrapper checks).  window <= 0: none;
+// q_offset >= 0: the position of query row 0; softcap <= 0: none.
 // Returns 0, a CUDA error of the launch, ERR_TENSOR_MAP + the CUresult of
 // a refused tensor map, or ERR_NO_ENCODER / ERR_ARGS.
 extern "C" int flash_attention_sm90_fwd(int dtype, const void* q,
                                         const void* k, const void* v,
                                         void* out, int B, int H, int Hkv,
                                         int S, int T, int D, int causal,
-                                        int window, float scale,
+                                        int window, int q_offset,
+                                        float scale, float softcap,
                                         const long long* strides,
                                         void* stream) {
-  if (dtype != 1) return ERR_ARGS;
+  if (dtype != 1 || q_offset < 0) return ERR_ARGS;
   Params p;
   p.o = out;
   p.H = H;
@@ -662,7 +685,9 @@ extern "C" int flash_attention_sm90_fwd(int dtype, const void* q,
   p.D = D;
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   p.scale_log2 = scale * LOG2E;
+  p.cap = SoftCap::make(softcap, scale, LOG2E);
   for (int i = 0; i < 4; ++i) p.so[i] = strides[12 + i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

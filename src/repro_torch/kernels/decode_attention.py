@@ -45,8 +45,10 @@ SMEM_PER_SM = 228 * 1024   # Hopper's shared memory an SM
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# (dtype, tc, q, k, v, length, out, part_acc, part_ml, B, H, Hkv, T, D,
+# splits, chunk, scale, softcap, strides, stream)
 _SIG = [_I, _I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + \
-    [ctypes.c_float, _P, _P]
+    [ctypes.c_float, ctypes.c_float, _P, _P]
 
 
 class Plan(NamedTuple):
@@ -92,13 +94,17 @@ def vec16_check(ts: Sequence[torch.Tensor], names: Sequence[str]) -> None:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length) -> torch.Tensor:
+                     length, *, softcap=None) -> torch.Tensor:
     """q: [B,H,D]; k, v: [B,Hkv,T,D] (any strides with a unit-stride D),
     float32 or bfloat16 alike; ``length``: an int or a [B] integer
     tensor, the valid cache rows of each batch row (rows >= length are
     masked and never read; a row with none attends to nothing and gives
-    0).  Returns [B,H,D] in q's dtype."""
+    0); ``softcap`` c caps each scaled score s at c tanh(s / c) before
+    the mask.  Returns [B,H,D] in q's dtype."""
     code = check("decode_attention", (q, k, v), ("q", "k", "v"), (3, 4, 4))
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"decode_attention: softcap must be positive or "
+                         f"None, got {softcap}")
     b, h, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     if k.shape != (b, hkv, t, d) or v.shape != k.shape:
@@ -133,7 +139,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            v.data_ptr(), length.data_ptr(), out.data_ptr(),
            acc.data_ptr() if acc is not None else None,
            ml.data_ptr() if ml is not None else None, b, h, hkv, t, d,
-           pl.splits, pl.chunk, 1.0 / math.sqrt(d))
+           pl.splits, pl.chunk, 1.0 / math.sqrt(d), float(softcap or 0.0))
     LAUNCHES["decode_attention"] += 1
     ROUTES["split" if pl.splits > 1 else "single"] += 1
     return out

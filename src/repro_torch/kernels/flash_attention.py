@@ -18,6 +18,11 @@ fixed by dtype and head dim (``route``), never by a failure:
 * ``"simt"``: every other head dim, in either dtype,
   ``csrc/flash_attention.cu`` -- float32 FMAs.
 
+Every route takes a logit ``softcap`` (the reference's ``c tanh(s / c)``
+on the scaled scores, before the mask) and a ``q_offset`` (query row i
+at position ``q_offset + i``: a chunk of a prompt against the cache rows
+before it); the f32tc backward takes the softcap and no offset.
+
 The wrapper takes CUDA tensors only (``kernels/ops.py`` routes CPU
 tensors to ``ref.flash_attention_ref``), checks device, dtype, shape and
 the unit stride of the head dim, hands the kernel every other stride (so
@@ -39,8 +44,10 @@ the saved q, k, v and differentiates it: that holds the [B,H,S,T]
 float32 scores and softmax weights and their gradients for the duration
 of the backward (1.9 GB each at B = 1, H = 28, S = T = 4,096) and
 launches no kernel.  The Pallas kernel has no backward (the reference
-trains through plain jnp attention), so neither backward is a port.
-There is no fallback: a failure raises.
+trains through plain jnp attention), so neither backward is a port.  A
+gradient at ``q_offset > 0`` raises on every route (no entry point of
+the reference trains at an offset).  There is no fallback: a failure
+raises.
 """
 from __future__ import annotations
 
@@ -62,16 +69,20 @@ MAX_HEAD_DIM = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = [_I, _P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float, _P, _P]
+_F = ctypes.c_float
+# (dtype, q, k, v, out, B, H, Hkv, S, T, D, causal, window, q_offset,
+# scale, softcap, strides, stream)
+_SIG = [_I, _P, _P, _P, _P] + [_I] * 9 + [_F, _F, _P, _P]
 # route -> (library, C entry point); both take _SIG
 ENTRY = {"sm90": ("flash_attention_sm90", "flash_attention_sm90_fwd"),
          "simt": ("flash_attention", "flash_attention_fwd")}
 # the f32tc kernels: forward (q, k, v, out, lse, 6 ints, causal, window,
-# scale) and backward (q, k, v, out, lse, dout, delta, dq, dk, dv, ...)
+# q_offset, scale, softcap) and backward (q, k, v, out, lse, dout, delta,
+# dq, dk, dv, 6 ints, causal, window, scale, softcap)
 F32_FWD = ("flash_attention_f32", "flash_attention_f32_fwd")
 F32_BWD = ("flash_attention_f32_bwd", "flash_attention_f32_bwd")
-_F32_FWD_SIG = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P, _P]
-_F32_BWD_SIG = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P, _P]
+_F32_FWD_SIG = [_P] * 5 + [_I] * 9 + [_F, _F, _P, _P]
+_F32_BWD_SIG = [_P] * 10 + [_I] * 8 + [_F, _F, _P, _P]
 TC_HEAD_DIMS = (32, 64, 128, 256)     # the sm90 and f32tc routes
 
 
@@ -160,7 +171,7 @@ def launch(op: str, fn, device: torch.device, strides: Sequence[int],
                            f"for the others)")
 
 
-def _check_shapes(q, k, v, window) -> int:
+def _check_shapes(q, k, v, window, softcap=None, q_offset=0) -> int:
     """The checks common to the forwards and the backward; returns the
     dtype code."""
     code = check("flash_attention", (q, k, v), ("q", "k", "v"), (4, 4, 4))
@@ -176,6 +187,12 @@ def _check_shapes(q, k, v, window) -> int:
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got "
                          f"{window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention: softcap must be positive or "
+                         f"None, got {softcap}")
+    if int(q_offset) != q_offset or q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be an int >= 0, "
+                         f"got {q_offset}")
     return code
 
 
@@ -189,16 +206,20 @@ def _like(q: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: [B,H,S,D]; k, v: [B,Hkv,T,D], float32 or bfloat16 alike, any
-    strides with a unit-stride D.  Query row i sits at position i and key
-    row j at position j; ``causal`` masks j > i, ``window`` masks
-    i - j >= window.  Returns [B,H,S,D] in q's dtype and layout."""
+    strides with a unit-stride D.  Query row i sits at position
+    ``q_offset + i`` and key row j at position j; ``causal`` masks
+    j > q_offset + i, ``window`` masks q_offset + i - j >= window;
+    ``softcap`` c caps each scaled score s at c tanh(s / c) before the
+    mask.  Returns [B,H,S,D] in q's dtype and layout."""
     way = route(q.dtype, q.shape[-1])
     if way == "f32tc":
-        return flash_attention_lse(q, k, v, causal=causal, window=window)[0]
-    code = _check_shapes(q, k, v, window)
+        return flash_attention_lse(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)[0]
+    code = _check_shapes(q, k, v, window, softcap, q_offset)
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     out = _like(q)
@@ -211,8 +232,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride()]
     launch("flash_attention", c_fn(*ENTRY[way], _SIG), q.device, strides,
            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           b, h, hkv, s, t, d, int(causal), int(window or 0),
-           1.0 / math.sqrt(d))
+           b, h, hkv, s, t, d, int(causal), int(window or 0), int(q_offset),
+           1.0 / math.sqrt(d), float(softcap or 0.0))
     LAUNCHES["flash_attention"] += 1
     ROUTES[way] += 1
     return out
@@ -220,12 +241,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        q_offset: int = 0):
     """The f32tc route's forward (float32, D in TC_HEAD_DIMS): (out, lse)
     with out as ``flash_attention`` and lse [B,H,S] float32 the natural
-    log-sum-exp of each row's scaled, masked scores (-inf, and an output
-    of 0, for a row that sees no key)."""
-    _check_shapes(q, k, v, window)
+    log-sum-exp of each row's scaled, capped, masked scores (-inf, and an
+    output of 0, for a row that sees no key)."""
+    _check_shapes(q, k, v, window, softcap, q_offset)
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     if route(q.dtype, d) != "f32tc":
@@ -243,7 +266,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch("flash_attention", c_fn(*F32_FWD, _F32_FWD_SIG), q.device,
            strides, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), lse.data_ptr(), b, h, hkv, s, t, d, int(causal),
-           int(window or 0), 1.0 / math.sqrt(d))
+           int(window or 0), int(q_offset), 1.0 / math.sqrt(d),
+           float(softcap or 0.0))
     LAUNCHES["flash_attention"] += 1
     ROUTES["f32tc"] += 1
     return out, lse
@@ -263,12 +287,14 @@ def _rows16(t: torch.Tensor) -> torch.Tensor:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
     """The f32tc route's backward: (dq, dk, dv) of ``flash_attention_lse``
-    given its (out, lse) and the gradient ``dout`` of out; dq in q's
-    layout, dk and dv contiguous [B,Hkv,T,D] (summed over each kv head's
-    query heads).  Deterministic: no float atomics."""
-    _check_shapes(q, k, v, window)
+    (at ``q_offset`` 0, with the same ``softcap``) given its (out, lse)
+    and the gradient ``dout`` of out; dq in q's layout, dk and dv
+    contiguous [B,Hkv,T,D] (summed over each kv head's query heads).
+    Deterministic: no float atomics."""
+    _check_shapes(q, k, v, window, softcap)
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     if route(q.dtype, d) != "f32tc":
@@ -298,42 +324,50 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
            b, h, hkv, s, t, d, int(causal), int(window or 0),
-           1.0 / math.sqrt(d))
+           1.0 / math.sqrt(d), float(softcap or 0.0))
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """``apply(q, k, v, causal, window)``: on the f32tc route the
-    kernel's forward (saving out and lse) and the backward kernel; on the
-    others the kernel's forward and the plain version's gradient
-    (recomputed from the saved q, k, v)."""
+    """``apply(q, k, v, causal, window, softcap=None, q_offset=0)``: on
+    the f32tc route the kernel's forward (saving out and lse) and the
+    backward kernel; on the others the kernel's forward and the plain
+    version's gradient (recomputed from the saved q, k, v).  A gradient
+    at ``q_offset > 0`` raises on every route."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, softcap=None, q_offset=0):
         ctx.causal, ctx.window = causal, window
+        ctx.softcap, ctx.q_offset = softcap, q_offset
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  q_offset=q_offset)
         if route(q.dtype, q.shape[-1]) == "f32tc":
-            out, lse = flash_attention_lse(q, k, v, causal=causal,
-                                           window=window)
+            out, lse = flash_attention_lse(q, k, v, **kw)
             ctx.save_for_backward(q, k, v, out, lse)
             return out
         ctx.save_for_backward(q, k, v)
-        return flash_attention(q, k, v, causal=causal, window=window)
+        return flash_attention(q, k, v, **kw)
 
     @staticmethod
     def backward(ctx, grad):
+        if ctx.q_offset:
+            raise NotImplementedError(
+                f"flash_attention: no gradient at q_offset {ctx.q_offset} "
+                f"(the backward takes query rows at positions 0..S-1; no "
+                f"entry point trains at an offset)")
         need = ctx.needs_input_grad[:3]
         saved = ctx.saved_tensors     # unpacked once (remat allows one)
+        kw = dict(causal=ctx.causal, window=ctx.window, softcap=ctx.softcap)
         if len(saved) == 5:
-            grads = flash_attention_bwd(*saved, grad, causal=ctx.causal,
-                                        window=ctx.window)
-            return (*(g if n else None for g, n in zip(grads, need)), None,
-                    None)
+            grads = flash_attention_bwd(*saved, grad, **kw)
+            return (*(g if n else None for g, n in zip(grads, need)),
+                    None, None, None, None)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
                    for t, n in zip(saved, need)]
-            out = ref.flash_attention_ref(*ins, causal=ctx.causal,
-                                          window=ctx.window)
+            out = ref.flash_attention_ref(*ins, **kw)
             grads = iter(torch.autograd.grad(
                 out, [t for t, n in zip(ins, need) if n], grad))
-        return (*(next(grads) if n else None for n in need), None, None)
+        return (*(next(grads) if n else None for n in need), None, None,
+                None, None)

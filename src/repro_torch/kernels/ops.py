@@ -103,23 +103,31 @@ def ordered_segment_sum(vals, keys, num: int) -> torch.Tensor:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Prefill attention, q [B,H,S,D] against k, v [B,Hkv,T,D] (see
-    ``ref.flash_attention_ref``)."""
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Prefill attention, q [B,H,S,D] (row i at position ``q_offset + i``)
+    against k, v [B,Hkv,T,D], scores capped by ``softcap`` (see
+    ``ref.flash_attention_ref``).  Differentiable at ``q_offset`` 0 only
+    (on the card a gradient at an offset raises)."""
     if _on_cuda("flash_attention", q):
-        return _flash.FlashAttention.apply(q, k, v, causal, window)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return _flash.FlashAttention.apply(q, k, v, causal, window, softcap,
+                                           q_offset)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)
 
 
-def decode_attention(q, k, v, length) -> torch.Tensor:
+def decode_attention(q, k, v, length, *,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """One-token attention, q [B,H,D] against the first ``length`` rows
-    of k, v [B,Hkv,T,D] (see ``ref.decode_attention_ref``).  A row of
+    of k, v [B,Hkv,T,D], scores capped by ``softcap`` (see
+    ``ref.decode_attention_ref``).  A row of
     length 0 gives exactly 0 on either device, as the kernel and the
     reference's Pallas kernel (``acc / max(l, 1e-20)``) give; the plain
     version alone would give NaN there (a softmax over no key)."""
     if _on_cuda("decode_attention", q):
-        return _decode.decode_attention(q, k, v, length)
-    out = ref.decode_attention_ref(q, k, v, length)
+        return _decode.decode_attention(q, k, v, length, softcap=softcap)
+    out = ref.decode_attention_ref(q, k, v, length, softcap=softcap)
     empty = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1) <= 0
     return out.masked_fill(empty, 0)
 

@@ -15,34 +15,100 @@ from typing import Optional
 import torch
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """q: [B,H,S,D]; k,v: [B,Hkv,T,D] with H a multiple of Hkv.
-    Positions are 0..S-1 / 0..T-1 (prefill semantics).  A row with no
-    valid key is NaN (a softmax over -inf only)."""
-    b, h, s, d = q.shape
-    t = k.shape[2]
-    g = h // k.shape[1]
-    kk = k.repeat_interleave(g, dim=1).float()
-    vv = v.repeat_interleave(g, dim=1).float()
-    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), kk) / math.sqrt(d)
-    qi = torch.arange(s, device=q.device)[:, None]
-    ki = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+def _check_cap(softcap: Optional[float], q_offset: int) -> None:
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive or None, got {softcap}")
+    if int(q_offset) != q_offset or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset}")
+
+
+def cap_scores(scores: torch.Tensor,
+               softcap: Optional[float]) -> torch.Tensor:
+    """The reference's logit softcap (``repro/models/attention.py``
+    ``_sdpa``): ``c * tanh(scores / c)`` on the scaled scores, before the
+    mask; None leaves them as they are."""
+    if softcap is None:
+        return scores
+    return softcap * torch.tanh(scores / softcap)
+
+
+def _cap_and_mask(scores, mask, softcap, after_mask=False):
+    """Scores capped, then masked with -inf (the kernels' order: a masked
+    key keeps probability 0); ``after_mask`` is the planted fault of
+    ``flash_attention_faults`` / ``decode_attention_faults``: capped after
+    the mask, so a masked key sits at -c and leaks weight."""
+    if after_mask:
+        return cap_scores(scores.masked_fill(~mask, -math.inf), softcap)
+    return cap_scores(scores, softcap).masked_fill(~mask, -math.inf)
+
+
+def _position_mask(s: int, t: int, causal: bool, window: Optional[int],
+                   q_offset: int, device) -> torch.Tensor:
+    """[S, T] validity of key j for query row i at position
+    ``q_offset + i``: causal masks j > q_offset + i, window masks
+    q_offset + i - j >= window."""
+    qi = q_offset + torch.arange(s, device=device)[:, None]
+    ki = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
     if causal:
         mask &= ki <= qi
     if window is not None:
         mask &= qi - ki < window
-    scores = scores.masked_fill(~mask, -math.inf)
-    w = torch.softmax(scores, dim=-1)
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q: [B,H,S,D]; k,v: [B,Hkv,T,D] with H a multiple of Hkv.  Query
+    row i sits at position ``q_offset + i`` and key j at position j (0 is
+    prefill; above 0 a chunk of a prompt against the cache rows before
+    it).  ``softcap`` caps the scaled scores before the mask
+    (``cap_scores``).  A row with no valid key is NaN (a softmax over
+    -inf only)."""
+    return _flash_plain(q, k, v, causal, window, softcap, q_offset)
+
+
+def _flash_plain(q, k, v, causal, window, softcap, q_offset,
+                 after_mask=False):
+    _check_cap(softcap, q_offset)
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1).float()
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), kk) / math.sqrt(d)
+    mask = _position_mask(s, k.shape[2], causal, window, q_offset, q.device)
+    w = torch.softmax(_cap_and_mask(scores, mask, softcap, after_mask), -1)
     return torch.einsum("bhst,bhtd->bhsd", w, vv).to(q.dtype)
 
 
-def _flash_scores(q, k, v, causal, window):
-    """(scores [B,H,S,T] scaled and masked with -inf, the mask, k and v
-    repeated over each kv head's query heads), in float64 for float64
-    inputs and float32 otherwise."""
+def flash_attention_faults(q, k, v, *, causal=True, window=None,
+                           softcap=None, q_offset=0):
+    """Wrong versions of ``flash_attention_ref`` (planted faults that the
+    checks of the softcap and the query offset must reject): the cap
+    dropped, the cap applied after the mask (masked keys at -c instead of
+    -inf, so they leak weight), and the offset ignored (query rows at
+    positions 0..S-1).  Only the faults that differ from the right
+    version for these arguments.  Returns {name: [B,H,S,D]}."""
+    out = {}
+    if softcap is not None:
+        out["cap dropped"] = _flash_plain(q, k, v, causal, window, None,
+                                          q_offset)
+        out["cap after the mask"] = _flash_plain(
+            q, k, v, causal, window, softcap, q_offset, after_mask=True)
+    if q_offset:
+        out["offset ignored"] = _flash_plain(q, k, v, causal, window,
+                                             softcap, 0)
+    return out
+
+
+def _flash_scores(q, k, v, causal, window, softcap=None, q_offset=0):
+    """(scores [B,H,S,T] scaled, capped and masked with -inf, the mask, k
+    and v repeated over each kv head's query heads), in float64 for
+    float64 inputs and float32 otherwise."""
+    _check_cap(softcap, q_offset)
     dt = torch.float64 if q.dtype == torch.float64 else torch.float32
     s, d = q.shape[2], q.shape[3]
     t = k.shape[2]
@@ -50,25 +116,23 @@ def _flash_scores(q, k, v, causal, window):
     kk = k.repeat_interleave(g, dim=1).to(dt)
     vv = v.repeat_interleave(g, dim=1).to(dt)
     scores = torch.einsum("bhsd,bhtd->bhst", q.to(dt), kk) / math.sqrt(d)
-    qi = torch.arange(s, device=q.device)[:, None]
-    ki = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= ki <= qi
-    if window is not None:
-        mask &= qi - ki < window
-    return scores.masked_fill(~mask, -math.inf), mask, kk, vv
+    mask = _position_mask(s, t, causal, window, q_offset, q.device)
+    return _cap_and_mask(scores, mask, softcap), mask, kk, vv
 
 
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
-                            window: Optional[int] = None):
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None,
+                            q_offset: int = 0):
     """The f32tc kernel's forward: (out, lse).  out is
     ``flash_attention_ref``'s, with 0 (as the Pallas kernel's
     ``acc / max(l, 1e-20)`` gives) for a row that sees no key; lse
-    [B,H,S] is the natural log-sum-exp of each row's scaled, masked
-    scores (-inf for such a row).  float64 inputs compute in float64."""
-    scores, _, _, vv = _flash_scores(q, k, v, causal, window)
+    [B,H,S] is the natural log-sum-exp of each row's scaled, capped,
+    masked scores (-inf for such a row).  float64 inputs compute in
+    float64."""
+    scores, _, _, vv = _flash_scores(q, k, v, causal, window, softcap,
+                                     q_offset)
     lse = torch.logsumexp(scores, dim=-1)
     out = torch.einsum("bhst,bhtd->bhsd", torch.softmax(scores, dim=-1), vv)
     out = out.masked_fill(torch.isinf(lse)[..., None], 0)
@@ -76,8 +140,8 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 def _flash_bwd(q, k, v, out, lse, dout, causal, window, delta=True,
-               group_sum=True):
-    scores, mask, kk, vv = _flash_scores(q, k, v, causal, window)
+               group_sum=True, softcap=None, cap_grad=True):
+    scores, mask, kk, vv = _flash_scores(q, k, v, causal, window, softcap)
     dt = scores.dtype
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
@@ -89,6 +153,9 @@ def _flash_bwd(q, k, v, out, lse, dout, causal, window, delta=True,
     dp = torch.einsum("bhsd,bhtd->bhst", do, vv)
     rows = (do * out.to(dt)).sum(-1, keepdim=True) if delta else 0
     ds = p * (dp - rows)
+    if softcap is not None and cap_grad:
+        # d(c tanh(x / c)) / dx = 1 - (Sc / c)^2 at the capped score Sc
+        ds = ds * torch.where(mask, 1 - (scores / softcap) ** 2, 0)
     dq = torch.einsum("bhst,bhtd->bhsd", ds, kk) / math.sqrt(d)
     dk = torch.einsum("bhst,bhsd->bhtd", ds, q.to(dt)) / math.sqrt(d)
     dv = torch.einsum("bhst,bhsd->bhtd", p, do)
@@ -103,34 +170,52 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
                             lse: torch.Tensor, dout: torch.Tensor, *,
                             causal: bool = True,
-                            window: Optional[int] = None):
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None):
     """The f32tc backward kernel's equations (FlashAttention-2's, not
-    autograd): with P = exp(scale Q K^T - lse) (0 where masked),
-    dP = dO V^T, Delta = rowsum(dO * O) and dS = P * (dP - Delta),
-    dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO, dK and dV summed
-    over each kv head's query heads.  Returns (dq, dk, dv) in q's, k's
-    and v's dtypes; float64 inputs compute in float64, others in
-    float32."""
-    return _flash_bwd(q, k, v, out, lse, dout, causal, window)
+    autograd): with the scores Sc = scale Q K^T (``cap_scores`` of it
+    under a softcap), P = exp(Sc - lse) (0 where masked), dP = dO V^T,
+    Delta = rowsum(dO * O) and dS = P * (dP - Delta), times
+    1 - (Sc / c)^2 under a softcap c, dQ = scale dS K, dK = scale dS^T Q
+    and dV = P^T dO, dK and dV summed over each kv head's query heads.
+    Query rows sit at positions 0.. (no query offset).  Returns (dq, dk,
+    dv) in q's, k's and v's dtypes; float64 inputs compute in float64,
+    others in float32."""
+    return _flash_bwd(q, k, v, out, lse, dout, causal, window,
+                      softcap=softcap)
 
 
 def flash_attention_bwd_faults(q, k, v, out, lse, dout, *, causal=True,
-                               window=None):
-    """Two wrong backwards the gradient checks must reject: Delta dropped
-    (dS = P * dP), and dK / dV taken from the first query head of each
-    group instead of the group's sum."""
-    return {
+                               window=None, softcap=None):
+    """Wrong backwards the gradient checks must reject: Delta dropped
+    (dS = P * dP), dK / dV taken from the first query head of each group
+    instead of the group's sum, and under a softcap dS without the cap's
+    derivative 1 - (Sc / c)^2."""
+    out_ = {
         "delta dropped": _flash_bwd(q, k, v, out, lse, dout, causal, window,
-                                    delta=False),
+                                    delta=False, softcap=softcap),
         "one head of the group": _flash_bwd(q, k, v, out, lse, dout, causal,
-                                            window, group_sum=False)}
+                                            window, group_sum=False,
+                                            softcap=softcap)}
+    if softcap is not None:
+        out_["no cap derivative"] = _flash_bwd(
+            q, k, v, out, lse, dout, causal, window, softcap=softcap,
+            cap_grad=False)
+    return out_
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         length) -> torch.Tensor:
+                         length, *,
+                         softcap: Optional[float] = None) -> torch.Tensor:
     """Single-token GQA decode.  q: [B,H,D]; k,v: [B,Hkv,T,D]; ``length``
     (an int or a [B] tensor) = number of valid cache entries per row
-    (attend to positions < length)."""
+    (attend to positions < length); ``softcap`` caps the scaled scores
+    before the mask (``cap_scores``)."""
+    return _decode_plain(q, k, v, length, softcap)
+
+
+def _decode_plain(q, k, v, length, softcap, after_mask=False):
+    _check_cap(softcap, 0)
     b, h, d = q.shape
     t = k.shape[2]
     g = h // k.shape[1]
@@ -139,9 +224,17 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bhd,bhtd->bht", q.float(), kk) / math.sqrt(d)
     length = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1)
     valid = torch.arange(t, device=q.device)[None, None, :] < length
-    scores = scores.masked_fill(~valid, -math.inf)
-    w = torch.softmax(scores, dim=-1)
+    w = torch.softmax(_cap_and_mask(scores, valid, softcap, after_mask), -1)
     return torch.einsum("bht,bhtd->bhd", w, vv).to(q.dtype)
+
+
+def decode_attention_faults(q, k, v, length, *, softcap):
+    """Wrong versions of ``decode_attention_ref`` with a cap, which the
+    checks of the cap must reject: the cap dropped, and the cap applied
+    after the mask.  Returns {name: [B,H,D]}."""
+    return {"cap dropped": _decode_plain(q, k, v, length, None),
+            "cap after the mask": _decode_plain(q, k, v, length, softcap,
+                                                after_mask=True)}
 
 
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
@@ -193,15 +286,16 @@ def rglru_scan_backward_unshifted(a, h, h0, grad, scan=rglru_scan_ref):
 
 def decode_split_partials(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, length, chunk: int, *,
-                          tile: int = 64):
+                          tile: int = 64, softcap: Optional[float] = None):
     """The split-KV decode kernel's partials in plain torch (a model for
     tests and ``chip_smoke.py``, not a path of ``ops``): the cache axis
     cut into splits of ``chunk`` keys (``decode_attention.plan``'s cut:
     whole tiles); each split folds its keys below ``length`` in tiles of
     ``tile`` into an online softmax in float32 (P rounded to q's dtype
-    before P V, as the bf16 kernel feeds the tensor cores).  Returns the
-    running max m and sum l [B,H,splits] and the unnormalised acc
-    [B,H,splits,D]; a split with no valid key has m = -inf, l = 0."""
+    before P V, as the bf16 kernel feeds the tensor cores), the scores
+    capped first under ``softcap``.  Returns the running max m and sum l
+    [B,H,splits] and the unnormalised acc [B,H,splits,D]; a split with
+    no valid key has m = -inf, l = 0."""
     b, h, d = q.shape
     t = k.shape[2]
     g = h // k.shape[1]
@@ -217,7 +311,8 @@ def decode_split_partials(q: torch.Tensor, k: torch.Tensor,
         acc = torch.zeros((b, h, d), device=q.device)
         for k0 in range(lo, min(lo + chunk, t), tile):
             k1 = min(k0 + tile, lo + chunk, t)
-            s = torch.einsum("bhd,bhtd->bht", qf, kk[:, :, k0:k1])
+            s = cap_scores(torch.einsum("bhd,bhtd->bht", qf,
+                                        kk[:, :, k0:k1]), softcap)
             valid = torch.arange(k0, k1, device=q.device)[None, None] < \
                 length[:, None, None]
             s = s.masked_fill(~valid, -math.inf)
@@ -272,11 +367,14 @@ def decode_split_faults(m: torch.Tensor, l: torch.Tensor,
 
 def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, length, chunk: int, *,
-                               tile: int = 64) -> torch.Tensor:
+                               tile: int = 64,
+                               softcap: Optional[float] = None
+                               ) -> torch.Tensor:
     """The split-KV decode kernel's algorithm in plain torch: the
     partials of splits of ``chunk`` keys, combined in split order."""
     return decode_split_combine(
-        *decode_split_partials(q, k, v, length, chunk, tile=tile), q.dtype)
+        *decode_split_partials(q, k, v, length, chunk, tile=tile,
+                               softcap=softcap), q.dtype)
 
 
 def rglru_scan_chunked_ref(a: torch.Tensor, b: torch.Tensor,

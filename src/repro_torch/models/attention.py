@@ -4,21 +4,30 @@ with their caches, in prefill and in decode.
 
 GQA and cross-attention go through the port's kernels (``kernels/ops``):
 ``flash_attention`` for a prefill at cache offset 0 (with or without a
-cache), ``decode_attention`` for a one-token step against the cache.
-On the card they are the hand-written CUDA kernels; on the CPU their
-plain PyTorch versions.  This is the reference's function
-(``repro/models/attention.py`` ``gqa_attention``, which computes it with
-jnp) within the kernels' tolerances: the kernels keep the softmax
-weights in float32 where the reference rounds them to the value dtype.
+cache) and for a multi-token step at an offset (chunked prefill, or
+several tokens verified at once), ``decode_attention`` for a one-token
+step against the cache.  On the card they are the hand-written CUDA
+kernels; on the CPU their plain PyTorch versions.  This is the
+reference's function (``repro/models/attention.py`` ``gqa_attention``,
+which computes it with jnp) within the kernels' tolerances: the kernels
+keep the softmax weights in float32 where the reference rounds them to
+the value dtype.  ``cfg.attn_logit_softcap`` goes into both kernels,
+which cap the scaled scores (``c tanh(s / c)``) before the mask, as the
+reference does.
 
-A decode step hands ``decode_attention`` a view of the cache rows it
-may see: rows [off + 1 - window, off] with a window, [0, off] without.
-Cross-attention (``kv_override``: the encoder's K/V, all of them valid)
-ropes no query and masks nothing: a prefill is a non-causal
-``flash_attention`` of S queries against the T encoder rows, a decode
-step a ``decode_attention`` over all T rows.  Cases the kernels cannot
-express raise ``NotImplementedError`` instead of being computed another
-way: a logit softcap and a multi-token GQA step at a nonzero offset.
+A step at cache offset ``off > 0`` of ``s`` tokens reads back the cache
+rows it may see, [lo, off + s) with lo = off + 1 - window under a window
+(0 without), through ``_kv_read`` (an int8 cache dequantized): one token
+hands them to ``decode_attention``; several to ``flash_attention`` with
+``q_offset = off - lo`` (query row i at position off + i, cache row j at
+lo + j), causal and windowed.  For several tokens lo is rounded down to a
+multiple of 128 rows (the kernel masks the window itself): the chunk then
+visits the same key tiles, in the same order, as a one-shot prefill of
+the same rows does, so its sums round alike.  Cross-attention (``kv_override``: the
+encoder's K/V, all of them valid) ropes no query and masks nothing: a
+prefill, or a step of several tokens, is a non-causal
+``flash_attention`` of the S queries against the T encoder rows, a
+one-token step a ``decode_attention`` over all T rows.
 
 MLA is the reference's plain computation (it reaches no Pallas kernel):
 the naive path (per-head K/V materialized from the latent) for prefill,
@@ -47,6 +56,10 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import spec
 
 Tree = Any
+
+# rows a multi-token step's cache view starts on a multiple of: the key
+# tile of every flash kernel (128, 64, 32 or 16 keys) divides it
+KEY_ALIGN = 128
 
 
 # ---------------------------------------------------------------------------
@@ -116,21 +129,16 @@ def gqa_attention(
     cache_offset=None,                    # int write index (0 if None)
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Full/windowed GQA.  With a cache: writes K/V at ``cache_offset``
-    and attends over the cache up to the write frontier.  With
-    ``kv_override`` (cross-attention: the encoder's K/V [B, T, Hkv, D]):
-    q is not roped, every key is visible, and ``cache`` is passed
-    through; ``cache_offset`` only says prefill (0) or decode step."""
+    """Full/windowed GQA, scores capped by ``cfg.attn_logit_softcap``.
+    With a cache: writes K/V at ``cache_offset`` and attends over the
+    cache up to the write frontier (a step of any length at any offset).
+    With ``kv_override`` (cross-attention: the encoder's K/V
+    [B, T, Hkv, D]): q is not roped, every key is visible, and ``cache``
+    is passed through; ``cache_offset`` only says prefill (0) or decode
+    step."""
     b, s, _ = x.shape
     off = 0 if cache_offset is None else int(cache_offset)
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError(
-            "attention logit softcap: the attention kernels have no "
-            "softcap; it comes with the gemma-family slice")
-    if off > 0 and s > 1:
-        raise NotImplementedError(
-            f"a {s}-token step at cache offset {off} (chunked prefill) has "
-            f"no kernel; it comes with a later serving slice")
+    softcap = cfg.attn_logit_softcap
     if off > 0 and cache is None and kv_override is None:
         raise ValueError("a decode step at a nonzero offset needs a cache")
 
@@ -138,53 +146,67 @@ def gqa_attention(
     if kv_override is not None:
         k, v = kv_override
         return _attend(p, q, k.to(q.dtype), v.to(q.dtype), off,
-                       causal=False, window=None), cache
+                       causal=False, window=None, softcap=softcap), cache
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
 
     new_cache = None
+    q_offset = 0
     if cache is not None:
         t = cache["k"].shape[1]
         new_cache = dict(cache)
         new_cache.update(_kv_write(cache, "k", k, off))
         new_cache.update(_kv_write(cache, "v", v, off))
         if off > 0:
-            # decode: only the rows the query may see, [lo, off] (the
-            # window is exact here: every row of the call is at ``off``)
+            # a step: only the rows its queries may see, [lo, off + s)
+            # (the first query, at ``off``, sees none before lo); query
+            # row i sits at position off + i, cache row j of the view at
+            # lo + j
             lo = 0 if window is None else max(0, off + 1 - window)
-            rows = {n: c[:, lo:off + 1] for n, c in new_cache.items()}
+            if s > 1:
+                lo -= lo % KEY_ALIGN
+            rows = {n: c[:, lo:off + s] for n, c in new_cache.items()}
             k = _kv_read(rows, "k", q.dtype)
             v = _kv_read(rows, "v", q.dtype)
+            q_offset = off - lo
         elif s != t:
             # prefill into a longer cache: read it back; rows past the
             # frontier are masked by causality
             k = _kv_read(new_cache, "k", q.dtype)
             v = _kv_read(new_cache, "v", q.dtype)
     return _attend(p, q, k.to(q.dtype), v.to(q.dtype), off,
-                   causal=causal, window=window), new_cache
+                   causal=causal, window=window, softcap=softcap,
+                   q_offset=q_offset), new_cache
 
 
 def _attend(p: Tree, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            off: int, *, causal: bool,
-            window: Optional[int]) -> torch.Tensor:
+            off: int, *, causal: bool, window: Optional[int],
+            softcap: Optional[float] = None,
+            q_offset: int = 0) -> torch.Tensor:
     """q [B,S,H,D] against k, v [B,T,Hkv,D] through the kernels, then the
-    output projection: a prefill (``off`` 0) by ``flash_attention``, a
-    one-token step by ``decode_attention`` over all T rows (the cache
-    rows the step may see, or the encoder's).  The kernels take
-    [B, heads, seq, D] views of the [B, seq, heads, D] activations and
-    cache, by strides, with no copy."""
-    b = q.shape[0]
-    if off == 0:
+    output projection: a prefill (``off`` 0), or a step of several
+    tokens (query row i at position ``q_offset + i`` of the T rows), by
+    ``flash_attention``; a one-token step by ``decode_attention`` over
+    all T rows (the cache rows the step may see, or the encoder's).  The
+    kernels take [B, heads, seq, D] views of the [B, seq, heads, D]
+    activations and cache, by strides, with no copy.  ``softcap`` and a
+    nonzero ``q_offset`` are passed only when set."""
+    b, s = q.shape[:2]
+    kw = {} if softcap is None else {"softcap": softcap}
+    if off == 0 or s > 1:
+        if q_offset:
+            kw["q_offset"] = q_offset
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
-                                  window=window).transpose(1, 2)
+                                  window=window, **kw).transpose(1, 2)
     else:
         length = torch.full((b,), k.shape[1], dtype=torch.int32,
                             device=q.device)
         out = ops.decode_attention(q[:, 0], k.transpose(1, 2),
-                                   v.transpose(1, 2), length)[:, None]
+                                   v.transpose(1, 2), length,
+                                   **kw)[:, None]
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

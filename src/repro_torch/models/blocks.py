@@ -4,8 +4,9 @@ attention) + pre-norm FFN residual.
 One ``BlockSpec`` (config.py) describes a layer; ``block_param_specs``
 builds its ParamSpec tree and ``apply_block`` runs it on a full sequence
 without a cache (the training forward, and the encoder tower), on a full
-sequence that also writes the cache at offset 0 (prefill), or on one
-token against the cache (decode) -- the cache and its offset say which.
+sequence that also writes the cache at offset 0 (prefill), or on a step
+of one or more tokens against the cache at an offset above 0 (decode,
+chunked prefill) -- the cache and its offset say which.
 
 Every mixer of the reference is here: GQA attention (dense, windowed,
 the encoder's bidirectional pass), MLA (naive in prefill, absorbed in

@@ -328,8 +328,13 @@ def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
 def decode_step(params: Tree, tokens: torch.Tensor, caches: Tree,
                 pos: int, cfg: ArchConfig, flags: RunFlags = RunFlags()
                 ) -> Tuple[torch.Tensor, Tree]:
-    """One decode step.  tokens [B,1]; pos: the write offset (an int).
-    Returns (logits [B,V], updated caches)."""
+    """One decode step of C tokens.  tokens [B,C] at positions
+    pos .. pos + C - 1; pos: the write offset (an int).  C = 1 is a
+    decode step; C > 1 continues a prompt in chunks (chunked prefill) or
+    verifies several tokens at once, each token seeing the cache before
+    it and the step's earlier tokens (xLSTM takes C = 1 only, as the
+    reference).  Returns (logits of the last token [B,V], updated
+    caches)."""
     pos = int(pos)
     x = embed(params["embed"], tokens, cfg).to(cfg.compute_dtype)
     b, s, _ = x.shape

@@ -236,18 +236,33 @@ def test_materialize_init_laws_and_independent_streams():
 
 
 def test_cases_without_a_kernel_raise(weights):
-    """Softcap and chunked prefill are not computed another way.
-    Windowed decode has its kernel path now (a view of the window's cache
-    rows): it matches the reference's masked decode.  The blocks that
-    once raised at build time (mLSTM, MLA, no FFN) build now, with the
-    reference's parameter trees."""
+    """The cases that once raised for want of a kernel path are computed
+    through the kernels now and match the reference: a logit softcap
+    (prefill and a decode step) and a multi-token step at a nonzero
+    cache offset (chunked prefill, ``decode_step`` of 3 tokens at 3).
+    Windowed decode has its kernel path too (a view of the window's
+    cache rows): it matches the reference's masked decode.  The blocks
+    that once raised at build time (mLSTM, MLA, no FFN) build now, with
+    the reference's parameter trees."""
     jcfg, jp, cfg, params = weights
     toks = torch.tensor([[1, 2, 3]])
+    jtoks = jnp.asarray(toks.numpy(), jnp.int32)
     caches = materialize(build_cache_specs(cfg, 1, 8, torch.float32),
                          torch.Generator(), "cpu")
     capped = dataclasses.replace(cfg, attn_logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        prefill(params, {"tokens": toks}, caches, capped, FLAGS)
+    jcapped = dataclasses.replace(jcfg, attn_logit_softcap=30.0)
+    jcc = jmaterialize(jbuild_cache_specs(jcapped, 1, 8, jnp.float32),
+                       jax.random.PRNGKey(0))
+    tl, cc = prefill(params, {"tokens": toks}, caches, capped, FLAGS)
+    jl, jcc = jprefill(jp, {"tokens": jtoks}, jcc, jcapped, JFLAGS)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    tl, _ = decode_step(params, torch.full((1, 1), 7), cc, 3, capped,
+                        FLAGS)
+    jl, _ = jdecode_step(jp, jnp.full((1, 1), 7, jnp.int32), jcc,
+                         jnp.int32(3), jcapped, JFLAGS)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
     blk = BlockSpec(Mixer.ATTN, FFN.DENSE, window=4)
     windowed = dataclasses.replace(cfg, groups=(ScanGroup("main", 2,
                                                           (blk,)),))
@@ -266,8 +281,14 @@ def test_cases_without_a_kernel_raise(weights):
                              windowed, FLAGS)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                    atol=1e-4)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        decode_step(params, toks, c2, 3, cfg, FLAGS)
+    jc = jmaterialize(jbuild_cache_specs(jcfg, 1, 8, jnp.float32),
+                      jax.random.PRNGKey(0))
+    _, jc = jprefill(jp, {"tokens": jtoks}, jc, jcfg, JFLAGS)
+    _, c3 = prefill(params, {"tokens": toks}, caches, cfg, FLAGS)
+    tl, _ = decode_step(params, toks, c3, 3, cfg, FLAGS)
+    jl, _ = jdecode_step(jp, jtoks, jc, jnp.int32(3), jcfg, JFLAGS)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
     mla = MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
                     qk_rope_head_dim=8, v_head_dim=16)
     for mixer, ffn in ((Mixer.MLSTM, FFN.DENSE), (Mixer.MLA, FFN.DENSE),

@@ -18,9 +18,11 @@ model's ``prefill`` / ``decode_step``, then trains: the kernels'
 gradients, ``train_loss``'s at full width, Qwen2.5-7B's widths through
 ``training.trainer.train`` and the training launcher with resume, runs
 the sharded cells (``launch.steps.jit_cell``), the GPipe pipeline and
-``remat="dots"``, and last drives the attention logit softcap and
+``remat="dots"``, drives the attention logit softcap and
 multi-token steps at a cache offset (chunked prefill through
-``decode_step``) through every attention kernel.
+``decode_step``) through every attention kernel, and last holds the
+dry run's trace (``launch.dryrun``) against the sharded cells it
+predicts.
 Phases, in order:
 
   1. the card (``nvidia-smi`` name and power limit) and the build time
@@ -197,7 +199,8 @@ Phases, in order:
       ``--hours 2`` (26, 52 and 40 launches of each kernel a call; every
       prefill sm90,
       every decode single; energy lines equal to the ``--reduced`` CPU
-      runs; ``max_memory_allocated`` printed), each profiled as phase 8;
+      runs; ``max_memory_allocated`` printed), granite profiled as phase
+      8 (the other two's profiles are PERF.md's serving table's);
       internvl2-26b at full depth at the model level (B = 4, 256 prefix
       embeddings + 16 tokens, 8 decode steps, 48 launches a call);
       Mixtral-8x22B at 12 of its 56 layers through ``ServingEngine``
@@ -221,11 +224,12 @@ Phases, in order:
       minicpm3-4b at depth 2, deepseek-v2 at depth 1 (its drops
       printed) where the host has the memory, else the reason is
       printed; its wall;
-  17. the new archs at full width in bf16, counted as phase 7 and each
-      profiled as phase 8: the minicpm3-4b (62 layers) and xlstm-125m
-      (12) launchers at ``--hours 2`` (5 requests; energy lines equal to
-      the ``--reduced`` CPU runs; no kernel launch at all: MLA and
-      xLSTM are plain PyTorch); whisper-base through ``ServingEngine``
+  17. the new archs at full width in bf16, counted as phase 7, whisper
+      and deepseek-v2 profiled as phase 8: the minicpm3-4b (62 layers)
+      and xlstm-125m (12) launchers at ``--hours 2`` (5 requests;
+      energy lines equal to the ``--reduced`` CPU runs; no kernel
+      launch at all: MLA and xLSTM are plain PyTorch); whisper-base
+      through ``ServingEngine``
       with the launcher's settings on 24 of its requests, 1500 frames
       from a seed as each ``admit``'s extras (the launcher itself raises
       ``KeyError('source_embeds')``, as the reference's): exactly 18
@@ -367,7 +371,27 @@ Phases, in order:
       backward launch a layer); (e) whisper-base's 3-token step at
       offset 48 (causal flash at q_offset 48, non-causal cross flash
       over 1,500 rows) against the plain versions; its wall;
-  24. one JSON line describing every kernel (the metering rows: the
+  24. the dry run (``launch/dryrun``; ``--train`` runs it after phase 22):
+      phase 22's three cells (Qwen2.5-7B at full width, 2 layers: the
+      train cell in float32, 2 x 4,096 tokens; prefill 2 x 2,048 and
+      decode at 2,048 of 4,096 cache rows in bf16) traced on a fake
+      process group at world size 1, on fake tensors through the
+      kernels' fake branch, then each run for real on a (1, 1) NCCL mesh
+      under ``FlopCounterMode`` after ``reset_peak_memory_stats()``: the
+      aten FLOPs equal, the predicted kernel launches and routes equal to
+      the counters' (4 f32tc forwards and 2 backward kernels a train
+      step, 2 sm90 prefills, 2 decodes on the plan's route), the
+      predicted peak within 5 % of ``max_memory_allocated`` above what
+      the card held before the inputs; a trace through the plain
+      attention (the CPU's program, [B, H, S, T] scores) must miss that
+      gate on the prefill cell (its gap on the other two printed: the
+      train step's peak is its logits'); then granite-20b x
+      decode_32k traced on the fake (16, 16) mesh at world size 256
+      (its report printed, one split decode a layer); then the decode
+      wrapper (with the fake branch's tests) beside its raw kernel on
+      the same rotated inputs at Qwen's B = 4, T = 4,096, and its host
+      time a call; one JSON line for the phase;
+  25. one JSON line describing every kernel (the metering rows: the
       input sets, FP64 instructions an entry or the longest run and the
       dependent-add latency; the flash row: the sm90
       kernel's time, the simt kernel's beside it, every timed prefill
@@ -387,8 +411,9 @@ Phases, in order:
       attention and scan rows their launches in phase 22,
       ``distributed_launches``; the attention rows phase 23's times with
       the cap off and on, ``softcap_ms``, its worst errors and the
-      launches of a chunk and a step of Qwen's chunked prefill);
-  25. as the last line, ``{"ok": true, "device": {...}}``.
+      launches of a chunk and a step of Qwen's chunked prefill; the
+      attention rows phase 24's launches a cell, ``dryrun_launches``);
+  26. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line.  Phases 1-17 took 669-931 s on the hosts seen (an H100
@@ -396,12 +421,15 @@ the last line.  Phases 1-17 took 669-931 s on the hosts seen (an H100
 about 25 s (the whole script took 738.6 s with all 22, and 861.9 s with
 the float32 backward kernel's checks and phase 20's two batches), sized
 to keep the whole under 1000 s of the 1200 s limit; phase 23 adds about
-90 s (its wall is printed).  It also exits non-zero without a CUDA
+20 s and phase 24 about 60 s (their walls are printed; the whole took
+857.6-910.9 s with 23 phases, so phases 14 and 17 profile four of their
+eight runs, not all).  It also exits non-zero without a CUDA
 device.  ``python3 chip_smoke.py --metering``
 stops after phase 4d and prints the metering kernels' figures and the
 stack's walls and launches as two JSON lines instead of the last two;
-``python3 chip_smoke.py --train`` runs phase 1 and phases 18-22 alone
-and prints their results as one JSON line instead of the last three;
+``python3 chip_smoke.py --train`` runs phase 1 and phases 18-22 and 24
+alone and prints their results as one JSON line instead of the last
+three;
 ``python3 chip_smoke.py --cap-offset`` runs phases 1 and 23 alone, the
 same way.
 """
@@ -2842,8 +2870,9 @@ def serve_new_archs():
             arch, argv=("--arch", arch, "--hours", str(NEW_HOURS)))
         combines += c
         _free_card()
-        profile_serving(arch)
-        _free_card()
+        if arch == GRANITE:     # the others' profiles: PERF.md section 5
+            profile_serving(arch)
+            _free_card()
     counts[INTERNVL2], c = serve_internvl2()
     combines += c
     # Mixtral at MIXTRAL_LAYERS of 56 on the launcher's requests over
@@ -2963,10 +2992,11 @@ def check_slice9_depths():
 
 
 def serve_slice9():
-    """Phase 17: the new archs at full width in bf16, counted as phase 7
-    and each profiled as phase 8: the minicpm3-4b (62 layers) and
-    xlstm-125m (12) launchers at ``--hours`` SLICE9_HOURS (no kernel
-    launch at all: MLA and xLSTM are plain PyTorch), whisper-base through
+    """Phase 17: the new archs at full width in bf16, counted as phase 7,
+    whisper and deepseek-v2 profiled as phase 8: the minicpm3-4b (62
+    layers) and xlstm-125m (12) launchers at ``--hours`` SLICE9_HOURS
+    (no kernel launch at all: MLA and xLSTM are plain PyTorch),
+    whisper-base through
     ``ServingEngine`` with frames from a seed as extras (18
     ``flash_attention`` launches a prefill, all sm90; 12
     ``decode_attention`` a step, 6 split and 6 single), deepseek-v2 at
@@ -2983,11 +3013,7 @@ def serve_slice9():
             arch, argv=("--arch", arch, "--hours", str(SLICE9_HOURS)))
         assert sum(counts[arch].values()) == 0, counts[arch]
         combines += c
-        _free_card()
-        # one request: tracing minicpm3's 62 layers of eager MLA over
-        # three took a minute of the script's limit
-        profile_serving(arch, requests=1 if arch == MINICPM3 else 3)
-        _free_card()
+        _free_card()            # (their profiles: PERF.md section 5)
     cfg = get_config(WHISPER)
     # frame embeddings from a seed (the audio frontend is a stub in both
     # packages)
@@ -5707,6 +5733,229 @@ def drive_cap_offset():
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the dry run (``launch/dryrun``) against phase 22's cells
+# ---------------------------------------------------------------------------
+
+DRY_PEAK_TOL = 0.05        # the traced peak vs max_memory_allocated
+# one production cell traced at world size 256 (the (16, 16) mesh)
+DRY_CELL = ("granite-20b", "decode_32k", "single")
+
+
+def _dry_cells():
+    """(kind, config, shape, decode position) of phase 22's three cells
+    at world size 1: Qwen2.5-7B at full width, DIST_LAYERS layers, the
+    train cell in float32, the prefill and decode cells in bf16."""
+    import torch
+    train, pre, dec = _dist_shapes()
+    f32 = cut_depth(ARCH, DIST_LAYERS, torch.float32)
+    bf16 = cut_depth(ARCH, DIST_LAYERS, torch.bfloat16)
+    return (("train", f32, train, None), ("prefill", bf16, pre, None),
+            ("decode", bf16, dec, DECODE_POS))
+
+
+def _dry_inputs(kind, cfg, shape, pos):
+    """The cell's inputs on the card, made as phase 22 makes them."""
+    import torch
+
+    from repro_torch.launch.steps import input_specs
+    from repro_torch.models import materialize
+    specs = input_specs(cfg, shape)
+    b, s = shape.global_batch, shape.seq_len
+    if kind == "train":
+        return [materialize(specs["state"], torch.Generator().manual_seed(0),
+                            DEV),
+                {"tokens": _tokens(cfg, b, s, 30),
+                 "labels": _tokens(cfg, b, s, 40)}]
+    params = materialize(specs["params"], torch.Generator().manual_seed(0),
+                         DEV)
+    caches = materialize(specs["caches"], torch.Generator().manual_seed(1),
+                         DEV)
+    if kind == "prefill":
+        return [params, {"tokens": _tokens(cfg, b, s, 60)}, caches]
+    return [params, _tokens(cfg, b, 1, 61), caches, pos]
+
+
+def _real_cell(mesh, kind, cfg, shape, pos):
+    """One step of ``jit_cell``'s cell on the card under
+    ``FlopCounterMode``: its aten FLOPs, kernel launches and routes
+    (counters reset just before the step, read just after), and the
+    peak of ``max_memory_allocated`` above what the card held before
+    the cell's inputs were made."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import jit_cell
+    _free_card()
+    base = torch.cuda.memory_allocated()
+    args = _dry_inputs(kind, cfg, shape, pos)
+    step, _ = jit_cell(cfg, shape, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    res = {"aten_flops": fc.get_total_flops(),
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "launches": {k: n for k, n in ops.launch_counts().items() if n},
+           "routes": {op: {k: n for k, n in ops.route_counts(op).items()
+                           if n} for op in ("flash_attention",
+                                            "decode_attention",
+                                            "rglru_scan")},
+           "ms": ms}
+    del out, args
+    _free_card()
+    return res
+
+
+def _gap(got, want):
+    return abs(got - want) / want
+
+
+def time_decode_wrapper(stats):
+    """The decode wrapper (``kernels/decode_attention.py``, with the fake
+    branch's tests) against a raw launch of its kernel on the same
+    rotated inputs at the kernel table's shape (Qwen B = 4, T = 4,096),
+    CUDA events behind a spin kernel as phase 5; and the wrapper's host
+    time a call (the launch's, queued behind a spin kernel)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dmod
+    b, h, hkv, t, d = DECODE_TIMED
+    dt = torch.bfloat16
+    sets = [(_randn((b, h, d), 400 + 2 * j, dt, torch),
+             _randn((b, hkv, t, d), 401 + 2 * j, dt, torch),
+             _randn((b, hkv, t, d), 402 + 2 * j, dt, torch))
+            for j in range(_sets(2 * b * hkv * t * d * 2))]
+    length = torch.full((b,), t, dtype=torch.int32, device=DEV)
+    pl = dmod.plan(b, h, hkv, t, d, dmod._sms(torch.device(DEV)))
+    outs = [torch.empty((b, h, d), dtype=dt, device=DEV) for _ in sets]
+    raw = _time_rot([_raw_decode(q, k, v, length, o, pl)
+                     for (q, k, v), o in zip(sets, outs)], torch)
+    wrap = _time_rot([lambda q=q, k=k, v=v: dmod.decode_attention(
+        q, k, v, length) for q, k, v in sets], torch)
+    _busy_card(torch)
+    n = 200
+    t0 = time.perf_counter()
+    for i in range(n):
+        dmod.decode_attention(*sets[i % len(sets)], length)
+    host_us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    table = stats["decode_attention"]["ms"] if "decode_attention" in \
+        stats else None
+    del sets, outs
+    _free_card()
+    return {"wrapper_ms": wrap, "raw_ms": raw, "phase5_ms": table,
+            "host_us_a_call": host_us, "splits": pl.splits}
+
+
+def drive_dryrun(stats):
+    """Phase 24: the dry run traces phase 22's three world-1 cells on a
+    fake process group, on fake tensors through the kernels' fake
+    branch, and each trace is held against a real step of the same cell
+    on the card (NCCL at world size 1): the aten FLOPs equal, the
+    predicted kernel launches and routes equal to the counters', the
+    predicted peak within DRY_PEAK_TOL of ``max_memory_allocated``; a
+    trace through the plain attention (the CPU's program) must miss the
+    prefill cell's peak (its gap on the others printed).  Then DRY_CELL
+    at world size 256, and the decode wrapper timed beside its raw
+    kernel."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    cells = _dry_cells()
+    traced, plain = {}, {}
+    for device, into in (("cuda", traced), ("cpu", plain)):
+        with dryrun.fake_group(1):
+            mesh = make_host_mesh(device_type=dryrun.tensor_device(device))
+            for kind, cfg, shape, pos in cells:
+                into[kind] = dryrun.trace_cell(cfg, shape, mesh,
+                                               device=device, pos=pos)
+    _process_group(ROOT / "build" / "dist_store")
+    try:
+        mesh = make_host_mesh(device_type=torch.device(DEV).type)
+        real = {kind: _real_cell(mesh, kind, cfg, shape, pos)
+                for kind, cfg, shape, pos in cells}
+    finally:
+        dist.destroy_process_group()
+    want = {"train": {"flash_attention": 2 * DIST_LAYERS,
+                      "flash_attention_bwd": DIST_LAYERS},
+            "prefill": {"flash_attention": DIST_LAYERS},
+            "decode": {"decode_attention": DIST_LAYERS}}
+    res = {}
+    for kind, cfg, shape, pos in cells:
+        tr, pl, rl = traced[kind], plain[kind], real[kind]
+        assert tr["aten_flops"] == rl["aten_flops"], (kind, tr["aten_flops"],
+                                                      rl["aten_flops"])
+        assert tr["kernel_launches"] == rl["launches"] == want[kind], (
+            kind, tr["kernel_launches"], rl["launches"])
+        assert tr["kernel_routes"] == rl["routes"], (
+            kind, tr["kernel_routes"], rl["routes"])
+        gap = _gap(tr["peak_device_bytes"], rl["peak_bytes"])
+        miss = _gap(pl["peak_device_bytes"], rl["peak_bytes"])
+        assert gap <= DRY_PEAK_TOL, (kind, tr["peak_device_bytes"],
+                                     rl["peak_bytes"])
+        if kind == "prefill":
+            # its peak is the attention's; the train step's is set by
+            # the [2, 4096, 152064] float32 logits and their gradient,
+            # which the plain attention's scores do not pass
+            assert miss > DRY_PEAK_TOL, (
+                f"the plain-attention trace passes the peak gate of the "
+                f"{kind} cell", pl["peak_device_bytes"], rl["peak_bytes"])
+        res[kind] = {
+            "aten_flops": rl["aten_flops"],
+            "flops_per_device": tr["flops_per_device"],
+            "launches": rl["launches"], "routes": rl["routes"],
+            "predicted_peak": tr["peak_device_bytes"],
+            "real_peak": rl["peak_bytes"], "peak_gap": gap,
+            "plain_peak": pl["peak_device_bytes"], "plain_gap": miss,
+            "collectives": tr["collective_counts"],
+            "trace_s": tr["trace_s"], "real_ms": rl["ms"]}
+        print(f"dry run {kind} cell {cfg.name} x {DIST_LAYERS} layers "
+              f"({shape.global_batch} x {shape.seq_len}): aten FLOPs "
+              f"{rl['aten_flops']:,} traced and real; launches "
+              f"{rl['launches']} routes {rl['routes']} traced and real; "
+              f"peak {tr['peak_device_bytes']:,} B traced vs "
+              f"{rl['peak_bytes']:,} B max_memory_allocated (gap "
+              f"{100 * gap:.3f} %, gate {100 * DRY_PEAK_TOL:.0f} %); the "
+              f"plain-attention trace {pl['peak_device_bytes']:,} B (gap "
+              f"{100 * miss:.1f} %); trace {tr['trace_s']:.3f} s, the "
+              f"real step {rl['ms']:.3f} ms")
+    arch, shape_name, mesh_name = DRY_CELL
+    cell = dryrun.run_cell(arch, shape_name, mesh_name)
+    assert cell["status"] == "ok", cell
+    from repro_torch.configs import get_config
+    assert cell["kernel_launches"] == {
+        "decode_attention": get_config(arch).n_layers}, cell[
+        "kernel_launches"]
+    timing = time_decode_wrapper(stats)
+    _possible(timing["wrapper_ms"], stats["decode_attention"]["bound_ms"]
+              if "decode_attention" in stats else 0.0, "decode wrapper")
+    print(f"decode wrapper at B,H,Hkv,T,D={DECODE_TIMED} bf16 "
+          f"({timing['splits']} splits): {timing['wrapper_ms']:.6f} ms, "
+          f"its raw kernel {timing['raw_ms']:.6f} ms on the same inputs "
+          f"(phase 5: {timing['phase5_ms']}); {timing['host_us_a_call']:.1f}"
+          f" us of host a call")
+    wall = time.perf_counter() - t0
+    print(f"phase 24: {wall:.3f} s")
+    keys = ("peak_device_bytes", "argument_bytes", "temp_bytes",
+            "flops_per_device", "aten_flops", "bytes_per_device",
+            "collective_counts", "collective_detail", "compute_s",
+            "memory_s", "collective_s", "memory_floor_s", "dominant_floor",
+            "useful_flops_ratio", "kernel_launches", "kernel_routes",
+            "fits", "trace_s")
+    return {"cells": res, "production": {
+        "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
+        "decode_wrapper": timing, "wall_s": wall}
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -5725,9 +5974,10 @@ def main():
         stats = {}
         training = drive_training(stats)
         distributed = drive_distributed(stats)
+        dry = drive_dryrun(stats)
         print(card)
         print(json.dumps({"training": training, "distributed": distributed,
-                          "kernels": stats}))
+                          "dryrun": dry, "kernels": stats}))
         return 0
     if "--cap-offset" in sys.argv[1:]:      # phases 1 and 23 alone
         cap_offset = drive_cap_offset()
@@ -5793,6 +6043,7 @@ def main():
     training = drive_training(stats)
     distributed = drive_distributed(stats)
     cap_offset = drive_cap_offset()
+    dry = drive_dryrun(stats)
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
               "segment_trapz": csrc + "segment_trapz.cu",
@@ -5963,8 +6214,19 @@ def main():
             row["softcap_train_launches_per_step"] = cap_offset["grads"][
                 "launches"].get(n if n == "flash_attention_bwd"
                                 else "flash_attention", 0)
+    # phase 24: the launches of each cell's real step (the trace's equal)
+    dry_ops = {"flash_attention": ("prefill", "flash_attention"),
+               "flash_attention_f32": ("train", "flash_attention"),
+               "flash_attention_bwd": ("train", "flash_attention_bwd"),
+               "decode_attention": ("decode", "decode_attention")}
+    for row in kernels:
+        if row["name"] in dry_ops:
+            kind, op = dry_ops[row["name"]]
+            row["dryrun_launches"] = {
+                f"{kind}_cell": dry["cells"][kind]["launches"][op]}
     print(json.dumps({"cap_offset": {k: cap_offset[k] for k in (
         "qwen", "gemma3", "grads", "whisper")}}))
+    print(json.dumps({"dryrun": dry}))
     for row in kernels:
         _possible(row["ms"], row["bound_ms"], row["name"])
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")

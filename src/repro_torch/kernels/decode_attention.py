@@ -18,24 +18,29 @@ Same contract as ``kernels/flash_attention.py``: CUDA tensors only
 checked, passed by strides, launched on the current stream without
 synchronising, raising on a CUDA error, and counted: one in
 ``LAUNCHES["decode_attention"]`` per call, whether it launches one CUDA
-kernel or two, and one in ``ROUTES[route]``.
+kernel or two, and one in ``ROUTES[route]``.  A fake tensor takes the
+fake branch of ``kernels/flash_attention.py`` (``FAKE``), planned for
+an H100 SXM's ``FAKE_SMS``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Sequence
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import (c_fn, check, check_16b,
+from repro_torch.kernels.flash_attention import (FakeTally, c_fn, check,
+                                                 check_16b, is_fake,
                                                  launch)
 
 # kernel launches since the last reset (ops.reset_launches), and which
 # route each took
 LAUNCHES: Dict[str, int] = {"decode_attention": 0}
 ROUTES: Dict[str, int] = {"split": 0, "single": 0}
+FAKE = FakeTally(LAUNCHES, ROUTES)
+FAKE_SMS = 132             # an H100 SXM's SMs: the plan of a fake launch
 
 TILE = 64                  # keys a tile; a split is whole tiles
 ROWS = 16                  # query heads a block on the tensor-core route
@@ -86,6 +91,14 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def work(b: int, h: int, hkv: int, n: int, d: int,
+         itemsize: int = 2) -> Tuple[int, int]:
+    """(operations, bytes) of a decode over ``n`` valid cache rows, the
+    yardstick of the kernel table's bound: 4 D operations a (head, row),
+    q and out once each and the n rows of k and v."""
+    return 4 * b * h * n * d, (2 * b * h * d + 2 * b * hkv * n * d) * itemsize
+
+
 def vec16_check(ts: Sequence[torch.Tensor], names: Sequence[str]) -> None:
     """Raise unless every tensor can be read by the tensor-core route's
     16-byte ``cp.async`` loads as it lies (``check_16b``)."""
@@ -114,6 +127,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hkv == 0 or h % hkv:
         raise ValueError(f"decode_attention: {h} query heads do not group "
                          f"over {hkv} kv heads")
+    # the rows a fake launch reads: an int length's, else the whole cache
+    # (a fake length has no value)
+    rows = min(int(length), t) if isinstance(length, int) else t
     length = torch.as_tensor(length, device=q.device)
     if length.is_floating_point() or length.is_complex():
         raise TypeError(f"decode_attention: length must be integer, got "
@@ -125,13 +141,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    pl = plan(b, h, hkv, t, d, _sms(q.device))
+    pl = plan(b, h, hkv, t, d, FAKE_SMS if is_fake(q) else _sms(q.device))
     acc = ml = None
     if pl.splits > 1:
         acc = torch.empty((b, h, pl.splits, d), dtype=torch.float32,
                           device=q.device)
         ml = torch.empty((b, h, pl.splits, 2), dtype=torch.float32,
                          device=q.device)
+    if is_fake(q):
+        FAKE.add("decode_attention", "split" if pl.splits > 1 else "single",
+                 work(b, h, hkv, rows, d, q.element_size()))
+        return out
     strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride()]
     launch("decode_attention", c_fn("decode_attention",
                                     "decode_attention_fwd", _SIG),

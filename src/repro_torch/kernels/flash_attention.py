@@ -32,6 +32,15 @@ stream without synchronising, raises if the launch returns an error, and
 adds one to ``LAUNCHES["flash_attention"]`` and one to ``ROUTES[route]``
 per launch.
 
+A fake tensor (``torch._subclasses.fake_tensor``: shape, dtype and
+strides, no data) takes the route a real one of its shape would, passes
+every check but the base-address terms, which it has no address for,
+gets every output and workspace the launch would allocate, and launches
+nothing: ``FAKE`` records the launch instead (its route and the
+kernel table's operations and bytes, ``work`` / ``bwd_work``), never
+``LAUNCHES``.  That is the dry run's trace of the card's program
+(``launch/dryrun``).
+
 ``FlashAttention`` is the kernel with a gradient (``ops.flash_attention``
 on the card).  On the f32tc route its forward is ``flash_attention_lse``
 and its backward ``flash_attention_bwd``: the hand-written deterministic
@@ -53,9 +62,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import _build, ref
 
@@ -63,6 +74,83 @@ from repro_torch.kernels import _build, ref
 # route each took
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 ROUTES: Dict[str, int] = {"sm90": 0, "f32tc": 0, "simt": 0}
+
+
+class FakeTally:
+    """The launches a trace on fake tensors makes, in place of the
+    counters: launches per op, per route, and each op's operations and
+    bytes (``work``), since the last ``reset`` (``ops.reset_launches``).
+    ``scratch`` holds a workspace the wrapper keeps between launches
+    (the scan's), as the real wrapper keeps its own."""
+
+    def __init__(self, ops: Iterable[str], routes: Iterable[str]):
+        self.launches = dict.fromkeys(ops, 0)
+        self.routes = dict.fromkeys(routes, 0)
+        self.operations = dict.fromkeys(self.launches, 0)
+        self.bytes = dict.fromkeys(self.launches, 0)
+        self.scratch: Optional[torch.Tensor] = None
+
+    def add(self, op: str, route: Optional[str],
+            work: Tuple[int, int]) -> None:
+        """One launch of ``op`` on ``route`` (None: a launch the real
+        counters give no route, as the f32tc backward's)."""
+        self.launches[op] += 1
+        if route is not None:
+            self.routes[route] += 1
+        self.operations[op] += work[0]
+        self.bytes[op] += work[1]
+
+    def reset(self) -> None:
+        for counts in (self.launches, self.routes, self.operations,
+                       self.bytes):
+            for k in counts:
+                counts[k] = 0
+        self.scratch = None
+
+
+FAKE = FakeTally(LAUNCHES, ROUTES)
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (a plain one: the wrappers take no
+    other subclass)."""
+    return isinstance(t, FakeTensor)
+
+
+def base(t: torch.Tensor) -> int:
+    """``t``'s address (0 for a fake tensor, which has none)."""
+    return 0 if is_fake(t) else t.data_ptr()
+
+
+def work(b: int, h: int, hkv: int, s: int, t: int, d: int, *,
+         causal: bool = True, window: Optional[int] = None,
+         q_offset: int = 0, itemsize: int = 2) -> Tuple[int, int]:
+    """(operations, bytes) a prefill needs, the yardstick of the kernel
+    table's bound: 4 D operations per (query, key) pair a query sees
+    (every pair without the causal mask); q and out once each and the kv
+    rows some query sees (``window`` not subtracted), at ``itemsize``
+    bytes an element."""
+    if causal:
+        x = np.arange(q_offset + 1, q_offset + s + 1)   # keys below x
+        lo = np.maximum(x - window, 0) if window else 0
+        pairs = int(np.clip(np.minimum(x, t) - lo, 0, None).sum())
+        rows = min(q_offset + s, t)
+    else:
+        pairs, rows = s * t, t
+    return 4 * b * h * pairs * d, \
+        (2 * b * h * s * d + 2 * b * hkv * rows * d) * itemsize
+
+
+def bwd_work(b: int, h: int, hkv: int, s: int, t: int, d: int, *,
+             causal: bool = True, window: Optional[int] = None,
+             itemsize: int = 4) -> Tuple[int, int]:
+    """(operations, bytes) of the backward: q, k, v, out, dout and lse
+    read and dq, dk, dv written once each; FlashAttention-2's 5 products
+    of 2 D operations per visible pair."""
+    ops, nbytes = work(b, h, hkv, s, t, d, causal=causal, window=window,
+                       itemsize=itemsize)
+    return 5 * ops // 2, 2 * nbytes + 4 * b * h * s
+
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -106,11 +194,11 @@ def check_16b(ts: Sequence[torch.Tensor], names: Sequence[str],
         per = 16 // t.element_size()
         bad = [st for st, n in zip(t.stride()[:-1], t.shape[:-1])
                if n > 1 and st % per]
-        if t.data_ptr() % 16 or bad:
+        if base(t) % 16 or bad:
             raise ValueError(
                 f"{reader} {nm}, which needs a 16-byte aligned base and "
                 f"strides that are multiples of {per} elements; got base "
-                f"offset {t.data_ptr() % 16} B, strides {t.stride()}")
+                f"offset {base(t) % 16} B, strides {t.stride()}")
 
 
 def tma_check(ts: Sequence[torch.Tensor], names: Sequence[str]) -> None:
@@ -130,7 +218,7 @@ def check(op: str, ts: Sequence[torch.Tensor], names: Sequence[str],
           ndims: Sequence[int]) -> int:
     """Common checks of the attention wrappers; returns the dtype code."""
     dev = ts[0].device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not is_fake(ts[0]):
         raise ValueError(f"{op}: expected a tensor on a CUDA device, got "
                          f"{dev}")
     if ts[0].dtype not in _DTYPES:
@@ -146,7 +234,7 @@ def check(op: str, ts: Sequence[torch.Tensor], names: Sequence[str],
         if t.stride(-1) != 1:
             raise ValueError(f"{op}: {nm} must have a unit-stride head dim")
         # k and v rows are read as 4-element vectors
-        if nm in ("k", "v") and (t.data_ptr() % (4 * t.element_size()) or
+        if nm in ("k", "v") and (base(t) % (4 * t.element_size()) or
                                  any(x % 4 for x in t.stride()[:-1])):
             raise ValueError(f"{op}: {nm} rows must start 4-element "
                              f"aligned (strides {t.stride()})")
@@ -229,6 +317,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.zero_()
     if way == "sm90":
         tma_check((q, k, v), ("q", "k", "v"))
+    if is_fake(q):
+        FAKE.add("flash_attention", way, work(
+            b, h, hkv, s, t, d, causal=causal, window=window,
+            q_offset=q_offset, itemsize=q.element_size()))
+        return out
     strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride()]
     launch("flash_attention", c_fn(*ENTRY[way], _SIG), q.device, strides,
            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -262,6 +355,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     if t == 0:
         return out.zero_(), lse.fill_(-math.inf)
+    if is_fake(q):
+        FAKE.add("flash_attention", "f32tc", work(
+            b, h, hkv, s, t, d, causal=causal, window=window,
+            q_offset=q_offset, itemsize=4))
+        return out, lse
     strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride()]
     launch("flash_attention", c_fn(*F32_FWD, _F32_FWD_SIG), q.device,
            strides, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -277,7 +375,7 @@ def _rows16(t: torch.Tensor) -> torch.Tensor:
     """t itself if its rows can be copied in 16-byte pieces, else a
     contiguous copy (an incoming gradient may be expanded or strided)."""
     per = 16 // t.element_size()
-    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and not any(
+    if t.stride(-1) == 1 and base(t) % 16 == 0 and not any(
             st % per for st, n in zip(t.stride()[:-1], t.shape[:-1])
             if n > 1):
         return t
@@ -317,6 +415,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0 or t == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if is_fake(q):
+        FAKE.add("flash_attention_bwd", None, bwd_work(
+            b, h, hkv, s, t, d, causal=causal, window=window))
+        return dq, dk, dv
     strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride(),
                *dout.stride(), *dq.stride()]
     launch("flash_attention_bwd", c_fn(*F32_BWD, _F32_BWD_SIG), q.device,

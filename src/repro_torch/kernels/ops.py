@@ -22,9 +22,21 @@ run really went through the kernels; ``route_counts()`` splits the
 ``route_counts("decode_attention")`` its calls by ``"split"`` /
 ``"single"``, ``route_counts("rglru_scan")`` by ``"chunked"`` /
 ``"serial"``.
+
+A fake tensor (no data: a dry run's trace, ``launch/dryrun``) on the
+card reaches the wrappers as a real one would and takes their fake
+branch, which launches nothing; ``fake_launch_counts()``,
+``fake_route_counts()`` and ``fake_work()`` read what it would have
+launched (reset by ``reset_launches()`` too).  Inside ``card_trace()`` a
+fake tensor on the CPU stands for one on the card: a CPU-only build of
+PyTorch cannot run autograd or Python indexing on fake ``cuda`` tensors
+(both open a CUDA device guard it does not have), so a dry run there
+traces the card's program on fake CPU tensors.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, Optional
 
 import torch
@@ -43,12 +55,18 @@ _COUNTERS = (_cuda.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES,
 _ROUTES = {"flash_attention": _flash.ROUTES,
            "decode_attention": _decode.ROUTES,
            "rglru_scan": _rglru.ROUTES}
+_FAKE = {"flash_attention": _flash.FAKE, "decode_attention": _decode.FAKE,
+         "rglru_scan": _rglru.FAKE}
+_CARD_TRACE: contextvars.ContextVar = contextvars.ContextVar(
+    "card_trace", default=False)
 
 
 def reset_launches() -> None:
     for counts in _COUNTERS + tuple(_ROUTES.values()):
         for k in counts:
             counts[k] = 0
+    for tally in _FAKE.values():
+        tally.reset()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -64,6 +82,36 @@ def route_counts(op: str = "flash_attention") -> Dict[str, int]:
     return dict(_ROUTES[op])
 
 
+def fake_launch_counts() -> Dict[str, int]:
+    """The launches per op a trace on fake tensors made since the last
+    ``reset_launches()`` (``launch_counts()``'s keys but the metering
+    kernels', which no traced path reaches)."""
+    return {k: n for t in _FAKE.values() for k, n in t.launches.items()}
+
+
+def fake_route_counts(op: str = "flash_attention") -> Dict[str, int]:
+    """``route_counts(op)`` of the fake launches."""
+    return dict(_FAKE[op].routes)
+
+
+def fake_work() -> Dict[str, Dict[str, int]]:
+    """Per op, the operations and bytes of its fake launches (the kernel
+    table's yardstick: ``work`` of each kernel module)."""
+    return {k: {"operations": t.operations[k], "bytes": t.bytes[k]}
+            for t in _FAKE.values() for k in t.launches}
+
+
+@contextlib.contextmanager
+def card_trace():
+    """Inside, a fake tensor on the CPU takes the card's path (the
+    kernel wrappers' fake branch) in place of the plain version."""
+    tok = _CARD_TRACE.set(True)
+    try:
+        yield
+    finally:
+        _CARD_TRACE.reset(tok)
+
+
 def _on_cuda(op: str, t: torch.Tensor) -> bool:
     if isinstance(t, DTensor):
         # the kernels read raw data_ptr()s: a sharded step body hands
@@ -72,7 +120,7 @@ def _on_cuda(op: str, t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
-        return False
+        return _CARD_TRACE.get() and _flash.is_fake(t)
     raise ValueError(f"{op}: tensors on {t.device} are not supported "
                      f"(expected cuda or cpu)")
 

@@ -30,12 +30,14 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import c_fn, launch
+from repro_torch.kernels.flash_attention import (FakeTally, c_fn, is_fake,
+                                                 launch)
 
 # kernel launches since the last reset (ops.reset_launches), and which
 # route each took
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0}
 ROUTES: Dict[str, int] = {"chunked": 0, "serial": 0}
+FAKE = FakeTally(LAUNCHES, ROUTES)
 
 CHUNK = 32                 # time steps a chunk of the chunked kernel
 THREADS = 128              # channels a block
@@ -70,6 +72,21 @@ def scratch_words(b: int, s: int, w: int) -> int:
         _align(bc * w)
 
 
+def work(b: int, s: int, w: int, itemsize: int = 4) -> Tuple[int, int]:
+    """(operations, bytes) of a scan, the yardstick of the kernel table's
+    bound: a multiply and an add a step, a and b read and h written
+    once, h0 read in float32."""
+    return 2 * b * s * w, 3 * b * s * w * itemsize + 4 * b * w
+
+
+def _fake_scratch(like: torch.Tensor, words: int) -> torch.Tensor:
+    """``scratch`` for a fake launch: kept in ``FAKE`` for the trace."""
+    if FAKE.scratch is None or FAKE.scratch.numel() < words:
+        FAKE.scratch = torch.zeros(words, dtype=torch.int32,
+                                   device=like.device)
+    return FAKE.scratch
+
+
 def scratch(device: torch.device, words: int) -> torch.Tensor:
     """This stream's scratch of at least ``words`` words (zeroed when
     allocated; replaced by a larger one when too small)."""
@@ -86,7 +103,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """a, b: [B,S,W], float32 or bfloat16 alike, any strides with a
     unit-stride W; h0: [B,W] in any float dtype (the state is float32).
     Returns h: [B,S,W] in a's dtype, ``h_t = a_t * h_{t-1} + b_t``."""
-    if a.device.type != "cuda":
+    if a.device.type != "cuda" and not is_fake(a):
         raise ValueError(f"rglru_scan: expected a tensor on a CUDA device, "
                          f"got {a.device}")
     if a.dtype not in _DTYPES:
@@ -112,6 +129,11 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
         return out
     h0 = h0.to(torch.float32).contiguous()
     words = scratch_words(bsz, s, w) if way == "chunked" else 0
+    if is_fake(a):
+        if words:
+            _fake_scratch(a, words)
+        FAKE.add("rglru_scan", way, work(bsz, s, w, a.element_size()))
+        return out
     buf = scratch(a.device, words) if words else None
     strides = [*a.stride()[:2], *b.stride()[:2], *out.stride()[:2]]
     launch("rglru_scan", c_fn("rglru_scan", "rglru_scan_fwd", _SIG),

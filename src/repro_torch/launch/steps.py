@@ -320,7 +320,11 @@ def _donate(dst: DTensor, new: torch.Tensor, s: ParamSpec,
     """Write this rank's block of ``new`` into ``dst``'s local tensor."""
     src = _laid_out(new, sh, _batch_dim(s), shards).to_local()
     out = dst.to_local()
-    if out.data_ptr() != src.data_ptr():
+    # the same memory unless the storages or offsets differ (compared
+    # without data_ptr(), which a dry run's fake tensors do not have)
+    same = out.untyped_storage()._cdata == src.untyped_storage()._cdata \
+        and out.storage_offset() == src.storage_offset()
+    if not same:
         with torch.no_grad():
             out.copy_(src)
     return dst
@@ -331,7 +335,8 @@ def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
              opt: AdamWConfig = AdamWConfig()):
     """One (arch x shape) cell on ``mesh``.  Returns ``(step,
     abstract_args)``: ``step`` takes the cell's inputs (plain tensors,
-    the same global value on every rank, or DTensors), lays them out as
+    the same global value on every rank, or DTensors; the decode
+    position may be an int), lays them out as
     ``input_shardings`` and runs the body on local tensors (module
     docstring); ``abstract_args`` are the inputs' meta-tensor trees."""
     specs = input_specs(cfg, shape, flags)
@@ -357,7 +362,10 @@ def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     replicated = NamedSharding(mesh, PartitionSpec())
 
     def step(*args):
-        ins = {n: tree_map(sharding.distribute, a, shard[n])
+        # a Python number (the decode position) stays on the host: it is
+        # the same on every rank, and the body reads it as an int
+        ins = {n: a if isinstance(a, (int, float)) else
+               tree_map(sharding.distribute, a, shard[n])
                for n, a in zip(names, args)}
         local = [tree_map(lambda x, s: _local(x, s, shards, groups),
                           ins[n], specs[n]) for n in names]

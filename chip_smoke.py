@@ -387,7 +387,16 @@ Phases, in order:
       gate on the prefill cell (its gap on the other two printed: the
       train step's peak is its logits'); then granite-20b x
       decode_32k traced on the fake (16, 16) mesh at world size 256
-      (its report printed, one split decode a layer); then the decode
+      (its report printed, one split decode a layer); then granite-20b
+      x train_4k on the (16, 16) mesh in the sharded layout, full width
+      and depth, bf16: traced, and its step run for real on the card as
+      rank 0 of a fake group of 256 (rank 0's blocks of the state drawn
+      at their local shapes, 16 rows x 256 tokens; the collectives
+      return nothing, so no value is checked): the traced peak within 5
+      % of ``max_memory_allocated``, launches (2 sm90 a layer) and
+      routes equal, the step's wall printed; a trace that keeps every
+      layer's gathered weights to the end of the step must miss the
+      peak gate; then the decode
       wrapper (with the fake branch's tests) beside its raw kernel on
       the same rotated inputs at Qwen's B = 4, T = 4,096, and its host
       time a call; one JSON line for the phase;
@@ -412,7 +421,8 @@ Phases, in order:
       ``distributed_launches``; the attention rows phase 23's times with
       the cap off and on, ``softcap_ms``, its worst errors and the
       launches of a chunk and a step of Qwen's chunked prefill; the
-      attention rows phase 24's launches a cell, ``dryrun_launches``);
+      attention rows phase 24's launches a cell, ``dryrun_launches``,
+      the flash row also the sharded train cell's rank-0 step's);
   26. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -423,7 +433,9 @@ the float32 backward kernel's checks and phase 20's two batches), sized
 to keep the whole under 1000 s of the 1200 s limit; phase 23 adds about
 20 s and phase 24 about 60 s (their walls are printed; the whole took
 857.6-910.9 s with 23 phases, so phases 14 and 17 profile four of their
-eight runs, not all).  It also exits non-zero without a CUDA
+eight runs, not all); phase 24's sharded granite-20b train cell (two
+traces of its 52 layers on the host, about 40 s each, and the real
+step) adds about 100 s.  It also exits non-zero without a CUDA
 device.  ``python3 chip_smoke.py --metering``
 stops after phase 4d and prints the metering kernels' figures and the
 stack's walls and launches as two JSON lines instead of the last two;
@@ -433,6 +445,7 @@ three;
 ``python3 chip_smoke.py --cap-offset`` runs phases 1 and 23 alone, the
 same way.
 """
+import contextlib
 import json
 import math
 import pathlib
@@ -4528,7 +4541,7 @@ def check_train_cell(mesh):
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.launch.steps import (input_specs, jit_cell,
+    from repro_torch.launch.steps import (input_specs, jit_cell, layout,
                                           make_train_step)
     from repro_torch.models import RunFlags, materialize
     from repro_torch.models.params import tree_leaves
@@ -4577,6 +4590,10 @@ def check_train_cell(mesh):
     ok, worst, equal = _cell_check(scalars + got, [
         m[k] for m in want_m for k in ("loss", "grad_norm")] + want)
     assert ok, f"train cell: off by {worst:.3e} of the max"
+    # the sharded body at world size 1: every collective an identity, the
+    # arithmetic the unsharded step's, op for op
+    assert layout(cfg, shape, mesh) == "sharded"
+    assert equal, f"train cell: not bit-equal to make_train_step ({worst})"
     del st, got, want
     _free_card()
     # planted fault: the ranks' gradients summed, not averaged (modelled
@@ -4608,7 +4625,8 @@ def check_train_cell(mesh):
           f"{bad_chk[1]:.3e}, the right two-rank stand-in sits at "
           f"{fine_chk[1]:.3e}")
     return {"losses": [float(m["loss"]) for m in got_m], "worst": worst,
-            "bit_equal": equal, "ms": ms, "ref_ms": ref_ms,
+            "bit_equal": equal, "layout": "sharded", "ms": ms,
+            "ref_ms": ref_ms,
             "peak_bytes": peak, "flash_per_step": 2 * DIST_LAYERS,
             "flash_bwd_per_step": DIST_LAYERS,
             "fault_miss": bad_chk[1], "stand_in": fine_chk[1]}
@@ -5740,6 +5758,8 @@ def drive_cap_offset():
 DRY_PEAK_TOL = 0.05        # the traced peak vs max_memory_allocated
 # one production cell traced at world size 256 (the (16, 16) mesh)
 DRY_CELL = ("granite-20b", "decode_32k", "single")
+# one production train cell in the sharded layout, run as rank 0
+DRY_SHARDED = ("granite-20b", "train_4k", "single")
 
 
 def _dry_cells():
@@ -5816,6 +5836,161 @@ def _gap(got, want):
     return abs(got - want) / want
 
 
+def _rank0_inputs(cfg, shape, mesh):
+    """Rank 0's blocks of a train cell's inputs on the card, drawn at
+    their local shapes from seed 0 (the state) and 70 (the tokens), laid
+    out as ``input_shardings`` over ``mesh`` (a fake group's)."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import entry_axes
+    from repro_torch.launch.steps import input_shardings, input_specs
+    from repro_torch.models import materialize
+    from repro_torch.models.params import tree_map
+    specs = input_specs(cfg, shape)
+    shards = input_shardings(cfg, shape, mesh)
+
+    def local(s, sh):
+        dims = list(s.shape)
+        for dim, entry in enumerate(sh.spec):
+            for a in entry_axes(entry):
+                dims[dim] //= mesh.shape[a]
+        return dataclasses.replace(s, shape=tuple(dims))
+
+    def laid_out(t, s, sh):
+        return DTensor.from_local(
+            t, mesh.device_mesh, sh.placements, run_check=False,
+            shape=torch.Size(s.shape),
+            stride=torch.empty(s.shape, device="meta").stride())
+
+    state = materialize(tree_map(local, specs["state"], shards["state"]),
+                        torch.Generator().manual_seed(0), DEV)
+    batch = {k: _tokens(cfg, *local(s, shards["batch"][k]).shape, 70 + i)
+             for i, (k, s) in enumerate(specs["batch"].items())}
+    return [tree_map(laid_out, state, specs["state"], shards["state"]),
+            tree_map(laid_out, batch, specs["batch"], shards["batch"])]
+
+
+def _rank0_step(cfg, shape, mesh):
+    """One step of ``jit_cell``'s train cell on the card as rank 0 of
+    ``mesh``: the kernel launches and routes (counters reset just before
+    the step, read just after), the step's wall (host clock ending in a
+    synchronize) and the peak of ``max_memory_allocated`` above what the
+    card held before the inputs were made.  No FLOP counter runs (it
+    would run ``silu_backward`` through its decomposition, whose
+    temporaries the step does not make)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import jit_cell
+    _free_card()
+    base = torch.cuda.memory_allocated()
+    args = _rank0_inputs(cfg, shape, mesh)
+    step, _ = jit_cell(cfg, shape, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    res = {"ms": 1e3 * (time.perf_counter() - t0),
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "launches": {k: n for k, n in ops.launch_counts().items() if n},
+           "routes": {op: {k: n for k, n in ops.route_counts(op).items()
+                           if n} for op in ("flash_attention",
+                                            "decode_attention",
+                                            "rglru_scan")}}
+    del out, args
+    _free_card()
+    return res
+
+
+@contextlib.contextmanager
+def _kept_gathers():
+    """A planted layout fault, modelled in the trace: every layer's
+    FSDP-gathered weights kept alive to the end of the step (a gather
+    cache never freed), as a body that gathers each weight once and
+    holds it would."""
+    from repro_torch.distributed.sharding import ModelShards
+    real = ModelShards.layer
+    kept = []
+
+    def layer(self, tree, *path):
+        out = real(self, tree, *path)
+        kept.append(out)
+        return out
+
+    ModelShards.layer = layer
+    try:
+        yield
+    finally:
+        ModelShards.layer = real
+        kept.clear()
+
+
+def check_sharded_rank0(card):
+    """Phase 24.3: DRY_SHARDED (granite-20b x train_4k on the (16, 16)
+    mesh, full width and depth, bf16) traced as the dry run traces it,
+    then its step run for real as rank 0 of a ``fake`` group of 256 on
+    the card (the weights drawn at their local shapes; the collectives
+    complete at once and return nothing, so the values are not checked):
+    the traced peak within DRY_PEAK_TOL of ``max_memory_allocated``, the
+    launches and routes equal; the trace with the planted fault
+    (``_kept_gathers``) must miss the peak gate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import SHAPES
+    arch, shape_name, mesh_name = DRY_SHARDED
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    traced = dryrun.run_cell(arch, shape_name, mesh_name, verbose=False)
+    assert traced["layout"] == "sharded", traced["layout"]
+    with _kept_gathers():
+        kept = dryrun.run_cell(arch, shape_name, mesh_name, verbose=False)
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cuda")
+        real = _rank0_step(cfg, shape, mesh)
+    want = {"flash_attention": 2 * cfg.n_layers}
+    assert traced["kernel_launches"] == real["launches"] == want, (
+        traced["kernel_launches"], real["launches"])
+    assert traced["kernel_routes"] == real["routes"], (
+        traced["kernel_routes"], real["routes"])
+    assert real["routes"]["flash_attention"] == {"sm90": 2 * cfg.n_layers}
+    gap = _gap(traced["peak_device_bytes"], real["peak_bytes"])
+    miss = _gap(kept["peak_device_bytes"], real["peak_bytes"])
+    assert gap <= DRY_PEAK_TOL, (traced["peak_device_bytes"],
+                                 real["peak_bytes"])
+    assert miss > DRY_PEAK_TOL, (
+        "the trace that keeps every layer's gathered weights passes the "
+        "peak gate", kept["peak_device_bytes"], real["peak_bytes"])
+    print(f"sharded {arch} x {shape_name} rank 0 of {mesh_name} (16, 16), "
+          f"{cfg.n_layers} layers bf16, {shape.global_batch // 16} rows x "
+          f"{shape.seq_len // 16} tokens a rank: step {real['ms']:.3f} ms "
+          f"({card}); launches {real['launches']} routes "
+          f"{real['routes']} traced and real; peak "
+          f"{traced['peak_device_bytes']:,} B traced vs "
+          f"{real['peak_bytes']:,} B max_memory_allocated (gap "
+          f"{100 * gap:.3f} %, gate {100 * DRY_PEAK_TOL:.0f} %; {card}); "
+          f"the kept-gathers trace {kept['peak_device_bytes']:,} B (gap "
+          f"{100 * miss:.1f} %); useful-FLOP ratio "
+          f"{traced['useful_flops_ratio']:.3f}; traces "
+          f"{traced['trace_s']:.3f} / {kept['trace_s']:.3f} s")
+    return {"cell": "_".join(DRY_SHARDED), "layout": traced["layout"],
+            "step_ms": real["ms"], "launches": real["launches"],
+            "routes": real["routes"],
+            "predicted_peak": traced["peak_device_bytes"],
+            "real_peak": real["peak_bytes"], "peak_gap": gap,
+            "kept_gathers_peak": kept["peak_device_bytes"],
+            "kept_gathers_gap": miss,
+            "useful_flops_ratio": traced["useful_flops_ratio"],
+            "collective_counts": traced["collective_counts"],
+            "trace_s": traced["trace_s"], "card": card}
+
+
 def time_decode_wrapper(stats):
     """The decode wrapper (``kernels/decode_attention.py``, with the fake
     branch's tests) against a raw launch of its kernel on the same
@@ -5862,8 +6037,9 @@ def drive_dryrun(stats):
     predicted peak within DRY_PEAK_TOL of ``max_memory_allocated``; a
     trace through the plain attention (the CPU's program) must miss the
     prefill cell's peak (its gap on the others printed).  Then DRY_CELL
-    at world size 256, and the decode wrapper timed beside its raw
-    kernel."""
+    at world size 256, DRY_SHARDED traced and run as rank 0 of 256
+    (``check_sharded_rank0``), and the decode wrapper timed beside its
+    raw kernel."""
     import torch
     import torch.distributed as dist
 
@@ -5935,6 +6111,7 @@ def drive_dryrun(stats):
     assert cell["kernel_launches"] == {
         "decode_attention": get_config(arch).n_layers}, cell[
         "kernel_launches"]
+    sharded = check_sharded_rank0(_card_line())
     timing = time_decode_wrapper(stats)
     _possible(timing["wrapper_ms"], stats["decode_attention"]["bound_ms"]
               if "decode_attention" in stats else 0.0, "decode wrapper")
@@ -5953,7 +6130,7 @@ def drive_dryrun(stats):
             "fits", "trace_s")
     return {"cells": res, "production": {
         "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
-        "decode_wrapper": timing, "wall_s": wall}
+        "sharded_rank0": sharded, "decode_wrapper": timing, "wall_s": wall}
 
 
 def main():
@@ -6224,6 +6401,10 @@ def main():
             kind, op = dry_ops[row["name"]]
             row["dryrun_launches"] = {
                 f"{kind}_cell": dry["cells"][kind]["launches"][op]}
+        if row["name"] == "flash_attention":
+            # the sharded train cell's rank-0 step (bf16: sm90)
+            row["dryrun_launches"]["sharded_train_rank0"] = \
+                dry["sharded_rank0"]["launches"]["flash_attention"]
     print(json.dumps({"cap_offset": {k: cap_offset[k] for k in (
         "qwen", "gemma3", "grads", "whisper")}}))
     print(json.dumps({"dryrun": dry}))

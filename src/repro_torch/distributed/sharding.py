@@ -36,8 +36,25 @@ outside ``activation_sharding`` and on a plain tensor; inside it a
 DTensor is redistributed to the rule's placements.  ``BatchShards``
 (set by ``data_parallel``, read by ``batch_shards``) tells the loss and
 the MoE router, inside a sharded step body, that each rank holds a
-block of the batch's rows, so that they compute their share of the
+block of the batch's tokens, so that they compute their share of the
 global batch's statistics (``launch/steps.jit_cell``).
+
+``ModelShards`` (set by ``model_parallel``, read by ``model_shards``)
+is the "model" axis inside the sharded train body, where each rank
+computes on its blocks of the state as ``TRAIN_RULES`` lays them out.
+It gathers a layer's weights over their FSDP axes ("data") and, where
+a product needs a weight whole (the embedding, the head), over every
+axis; it gathers the residual's sequence before the column-parallel
+products and reduce-scatters it after the row-parallel ones (Megatron
+sequence parallelism).  The collectives carry their gradients (an
+all-gather's is a reduce-scatter, and back), so a gathered weight's
+gradient returns to its block by a reduce-scatter; ``reduce_grads``
+then sums each gradient over the axes its leaf is replicated over,
+where each rank computed a part of it.
+Inside that body the model's tensors are plain local tensors and
+``shard_hint`` leaves them as they are: the hint sites' layouts are the
+body's own (the residual split by rows and sequence, the logits of the
+local tokens).
 """
 from __future__ import annotations
 
@@ -254,8 +271,10 @@ def activation_sharding(mesh: Mesh, rules: RuleSet):
 
 def shard_hint(x: torch.Tensor, axes: Sequence[Optional[str]]
                ) -> torch.Tensor:
-    """Constrain ``x``'s sharding per the active rule set (no-op if none,
-    or if ``x`` is a plain tensor)."""
+    """Constrain ``x``'s sharding per the active rule set.  A no-op if
+    none is active, or if ``x`` is a plain tensor: inside a sharded step
+    body every tensor is a rank's local block, laid out by the body
+    itself (``ModelShards``), and is returned as it is."""
     ctx = _ACT_CTX.get()
     if ctx is None or not isinstance(x, DTensor):
         return x
@@ -270,7 +289,9 @@ def shard_hint(x: torch.Tensor, axes: Sequence[Optional[str]]
 
 class BatchShards:
     """The mesh axes a step's batch rows are split over (major to minor):
-    this rank holds block ``index`` of ``size`` equal blocks."""
+    this rank holds block ``index`` of ``size`` equal blocks.  In the
+    sharded train body the axes are the rows' and the sequence's
+    ("model" last): the loss's statistics are then over every token."""
 
     def __init__(self, mesh: Mesh, axes: Sequence[str]):
         self.mesh, self.axes = mesh, tuple(axes)
@@ -319,3 +340,195 @@ def data_parallel(shards: Optional[BatchShards]):
 def batch_shards() -> Optional[BatchShards]:
     """The active ``BatchShards`` (None outside a sharded step body)."""
     return _BATCH_CTX.get()
+
+
+# ---------------------------------------------------------------------------
+# The "model" axis and the FSDP gathers inside the sharded train body.
+# ---------------------------------------------------------------------------
+
+# The collectives of the sharded body are blocking c10d calls inside
+# autograd functions: the all-gather's gradient is a reduce-scatter and
+# the reduce-scatter's an all-gather.  (The asynchronous autograd
+# collectives of ``_functional_collectives`` on gloo corrupted the heap
+# in one of four runs of the CPU tests, and waiting on their results at
+# once gave a second microbatch a gradient read before its reduce-scatter
+# was done.)  A dim other than 0 travels as dim 0 of a contiguous copy.
+# (``all_gather_single`` / ``reduce_scatter_single`` are the newer names
+# of ``all_gather_into_tensor`` / ``reduce_scatter_tensor``.)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def _gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
+                      + tuple(x.shape[1:]))
+    _ALL_GATHER(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // dist.get_world_size(group),)
+                      + tuple(x.shape[1:]))
+    _REDUCE_SCATTER(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    """``apply(t, dim, group)``: ``t`` concatenated along ``dim`` over
+    ``group``'s ranks; the gradient goes back by a reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """``apply(t, dim, group)``: ``t`` summed over ``group``'s ranks,
+    each keeping its block along ``dim``; the gradient goes back by an
+    all-gather."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.group), None, None
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def reduce_over(t: torch.Tensor, groups: Sequence[Any], op: str = "sum"
+                ) -> torch.Tensor:
+    """``t`` reduced by ``op`` ("sum" or "max") over each process group
+    of ``groups`` in turn, in place (no gradient); ``t`` itself when
+    there are none."""
+    for g in groups:
+        dist.all_reduce(t, op=_OPS[op], group=g)
+    return t
+
+
+def _at(tree: Tree, path: Sequence[str]) -> Tree:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+class ModelShards:
+    """The sharded train body's view of its mesh (module docstring):
+    ``axis`` ("model") of ``size`` ranks, this rank ``index`` of them,
+    and ``specs``, the params' tree of ``PartitionSpec``s under
+    ``TRAIN_RULES``, by which each weight is gathered.  An axis of size
+    1 takes no collective, so at world size 1 the body's arithmetic is
+    the unsharded step's, op for op."""
+
+    def __init__(self, mesh: Mesh, specs: Tree, axis: str = "model"):
+        self.mesh, self.specs, self.axis = mesh, specs, axis
+        self.size = mesh.shape.get(axis, 1)
+        self.index = mesh.device_mesh.get_local_rank(axis) \
+            if self.size > 1 else 0
+
+    def _group(self, axis: str):
+        return self.mesh.device_mesh.get_group(axis)
+
+    def rows(self, n: int) -> Tuple[int, int]:
+        """[lo, hi): this rank's block of ``n`` sequence rows."""
+        b = n // self.size
+        return self.index * b, (self.index + 1) * b
+
+    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, S / size, ...] -> [B, S, ...]: the ranks' sequence blocks
+        in order (before a column-parallel product)."""
+        if self.size == 1:
+            return x
+        return _AllGather.apply(x, 1, self._group(self.axis))
+
+    def seq_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, S, ...] partial sums -> [B, S / size, ...]: summed over
+        the ranks, this rank's sequence block kept (after a row-parallel
+        product)."""
+        if self.size == 1:
+            return x
+        return _ReduceScatter.apply(x, 1, self._group(self.axis))
+
+    def gather(self, t: torch.Tensor, spec: Sequence, whole: bool = False
+               ) -> torch.Tensor:
+        """A weight's local block gathered over the axes of ``spec``
+        other than ``axis`` (FSDP), or over all of them (``whole``).  A
+        dimension split over several axes is gathered minor axis first,
+        so the blocks land in the spec's major-to-minor order."""
+        for dim, entry in enumerate(spec):
+            for a in reversed(entry_axes(entry)):
+                if (a != self.axis or whole) and self.mesh.shape[a] > 1:
+                    t = _AllGather.apply(t, dim, self._group(a))
+        return t
+
+    def whole(self, params: Tree, *path: str) -> torch.Tensor:
+        """The leaf at ``path`` of ``params`` gathered whole."""
+        return self.gather(_at(params, path), _at(self.specs, path),
+                           whole=True)
+
+    def fsdp(self, params: Tree, *path: str) -> Tree:
+        """The subtree at ``path`` of ``params``, each leaf gathered over
+        its FSDP axes."""
+        return tree_map(self.gather, _at(params, path),
+                        _at(self.specs, path))
+
+    def layer(self, tree: Tree, *path: str) -> Tree:
+        """One layer's slice of the stacked subtree at ``path`` (its
+        leaves' local blocks, the "layers" dim taken), gathered over its
+        FSDP axes: the per-layer gather, inside the layer's checkpoint,
+        so the recompute gathers it again and nothing holds it between
+        layers."""
+        return tree_map(lambda t, s: self.gather(t, s[1:]), tree,
+                        _at(self.specs, path))
+
+    def _axes(self, spec: Sequence, used: bool) -> List[Any]:
+        """The groups of the mesh axes (of more than one rank) that
+        ``spec`` uses, or that it does not."""
+        mine = {a for e in spec for a in entry_axes(e)}
+        return [self._group(a) for a in self.mesh.axis_names
+                if self.mesh.shape[a] > 1 and (a in mine) == used]
+
+    def shard_groups(self) -> Tree:
+        """A tree like the params: each leaf's groups of the axes it is
+        split over (a statistic of the whole leaf reduces over them)."""
+        return tree_map(lambda s: self._axes(s, True), self.specs)
+
+    def reduce_grads(self, grads: Tree) -> Tree:
+        """Each gradient summed over the axes its leaf is replicated
+        over: the body computes every replicated leaf's gradient in parts
+        (a data rank's rows, a model rank's sequence block or its query
+        heads' share of replicated K/V heads)."""
+        return tree_map(lambda g, s: reduce_over(g, self._axes(s, False)),
+                        grads, self.specs)
+
+
+_MODEL_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "model_shards", default=None)
+
+
+@contextlib.contextmanager
+def model_parallel(shards: Optional[ModelShards]):
+    tok = _MODEL_CTX.set(shards)
+    try:
+        yield
+    finally:
+        _MODEL_CTX.reset(tok)
+
+
+def model_shards() -> Optional[ModelShards]:
+    """The active ``ModelShards`` (None outside the sharded train
+    body)."""
+    return _MODEL_CTX.get()

@@ -16,9 +16,13 @@ card's (``kernels.ops.card_trace``), since autograd and Python indexing
 cannot run on fake ``cuda`` tensors there.  ``device="cpu"`` traces the
 plain versions instead (the CPU's program).
 
-``jit_cell`` gathers every weight whole on every rank, so the peak is
-the port's own, far above what the reference's sharded XLA program
-holds for the big archs; it is recorded beside the card's 80 GB.
+``jit_cell`` runs each cell in one of two layouts (``steps.layout``),
+recorded as ``layout``: ``sharded`` (the dense decoders' train cells:
+each rank holds its blocks of the state and computes its share, as the
+reference's sharded XLA program does) or ``gathered`` (every other
+cell: every weight gathered whole on every rank, so the peak is far
+above the reference's for the big archs).  The peak is recorded beside
+the card's 80 GB.
 
 Every layer and step is traced, except where the model steps a
 recurrence token by token in Python over a whole sequence (xLSTM's
@@ -221,7 +225,8 @@ def _trace_once(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
             model_flops_global=cfg.model_flops_per_token(train=train)
             * tokens, tag=tag, card=card)
     out = rep.to_dict()
-    out.update(detail, trace_s=time.time() - t0)
+    out.update(detail, trace_s=time.time() - t0,
+               layout=steps_lib.layout(cfg, shape, mesh, flags))
     return out
 
 
@@ -269,6 +274,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *,
     if verbose:
         gib = "not traced" if peak is None else f"{peak / 2**30:.2f}"
         print(f"[dryrun] {arch} x {shape_name} x {mesh_name} ({tag}): "
+              f"layout: {out['layout']} | "
               f"trace {out['trace_s']:.0f}s | {gib} GiB/dev (card "
               f"{HBM_BYTES / 2**30:.1f} GiB) | compute "
               f"{out['compute_s']*1e3:.2f} ms, memory(floor) "

@@ -18,14 +18,33 @@ one cell, run eagerly: it returns ``(step, abstract_args)``, and
 body and returns DTensors laid out as the reference's out-shardings,
 writing the new state (train) or caches (prefill, decode) into the
 inputs it was given (the reference donates them).  The body computes on
-plain local tensors, so no DTensor reaches the kernels: every weight is
-gathered whole (``full_tensor()``: the ZeRO resolution of TRAIN_RULES'
-``"embed" -> data``, and the tensor-parallel dims gathered too), each
-rank runs its block of the batch's rows (``sharding.BatchShards``: the
-mesh axes the "batch" dim is split over), the loss and the MoE router
-take their share of the global batch's statistics, the gradients are
-summed over the batch's ranks, and each rank keeps its block of the new
-state.  The math is the unsharded step's, not its speed.
+plain local tensors, so no DTensor reaches the kernels.  It takes one of
+two layouts (``layout``), chosen from the config and the mesh:
+
+* ``"sharded"``: the train cell of a decoder whose every block is
+  attention + dense FFN (qwen2-5-7b, gemma3-1b, granite-20b,
+  command-r-35b), laid out as GSPMD partitions the reference's step
+  under ``TRAIN_RULES``.  Each rank keeps only its block of every state
+  leaf (``to_local()``) and the optimizer runs on the blocks.  Each
+  layer gathers its weights over "data" (FSDP) inside its checkpoint,
+  and their gradients return to the blocks by reduce-scatters; heads and
+  ffn are split over "model", the residual between blocks is split by
+  rows over the batch's axes and by sequence over "model", gathered
+  before the column-parallel products and reduce-scattered after the
+  row-parallel ones (``sharding.ModelShards``, ``models/model.py``);
+  the loss, the global norm and the int8 scale are reduced over the
+  shards.
+* ``"gathered"``: every other cell.  Every weight is gathered whole
+  (``full_tensor()``: the ZeRO resolution of TRAIN_RULES' ``"embed" ->
+  data``, and the tensor-parallel dims gathered too), each rank runs its
+  block of the batch's rows (``sharding.BatchShards``: the mesh axes the
+  "batch" dim is split over) and repeats the model axis' work, the loss
+  and the MoE router take their share of the global batch's
+  statistics, the gradients are summed over the batch's ranks, and each
+  rank keeps its block of the new state.
+
+Both compute the unsharded step's math; only the sharded one divides
+its memory and work over the ranks.
 """
 from __future__ import annotations
 
@@ -41,12 +60,12 @@ from repro_torch.distributed.sharding import (LONG_SERVE_BIG_RULES,
                                               LONG_SERVE_RULES,
                                               SERVE_BIG_RULES, SERVE_RULES,
                                               TRAIN_RULES, BatchShards, Mesh,
-                                              NamedSharding, PartitionSpec,
-                                              RuleSet,
+                                              ModelShards, NamedSharding,
+                                              PartitionSpec, RuleSet,
                                               activation_sharding,
                                               partition_spec,
                                               shardings_for_specs)
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import FFN, ArchConfig, Mixer
 from repro_torch.models.model import (RunFlags, build_cache_specs,
                                       build_param_specs, decode_step,
                                       prefill, train_loss)
@@ -198,14 +217,21 @@ def value_and_grad(params: Tree, batch: Tree, cfg: ArchConfig,
 
 def _reduce_over_batch(loss: torch.Tensor, grads: Tree
                        ) -> Tuple[torch.Tensor, Tree]:
-    """Inside a sharded step body: the ranks' loss shares and gradients
-    summed over the batch's ranks (the global batch's loss and gradient);
-    elsewhere as they are."""
+    """Inside a sharded step body: the ranks' loss shares summed over the
+    tokens' ranks (the global batch's loss), and the gradients made the
+    global batch's: summed over the batch's ranks (gathered layout), or
+    each over the axes its block is replicated over (sharded layout: the
+    FSDP reduce-scatters ran in the backward).  Elsewhere as they
+    are."""
     shards = sharding.batch_shards()
+    tp = sharding.model_shards()
+    if tp is not None:
+        grads = tp.reduce_grads(grads)
+    elif shards is not None:
+        for g in tree_leaves(grads):
+            shards.sum(g)
     if shards is None:
         return loss, grads
-    for g in tree_leaves(grads):
-        shards.sum(g)
     return shards.sum(loss.clone()), grads
 
 
@@ -244,13 +270,15 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig = AdamWConfig(),
                 loss = loss / n
                 grads = tree_map(lambda g: g / n, grads)
             loss, grads = _reduce_over_batch(loss, grads)
+            tp = sharding.model_shards()
+            groups = None if tp is None else tp.shard_groups()
             new_ef = None
             if compression:
                 # int8 round trip + error feedback before the optimizer
-                grads, new_ef = compress_grads(grads, state["ef"])
+                grads, new_ef = compress_grads(grads, state["ef"], groups)
             new_p, new_mu, new_nu, gnorm = adamw_update(
                 state["params"], grads, state["mu"], state["nu"],
-                state["step"], opt)
+                state["step"], opt, groups)
             new_state = {"params": new_p, "mu": new_mu, "nu": new_nu,
                          "step": state["step"] + 1}
             if compression:
@@ -315,31 +343,87 @@ def _laid_out(local: torch.Tensor, sh: NamedSharding, dim: Optional[int],
         .redistribute(dm, sh.placements)
 
 
-def _donate(dst: DTensor, new: torch.Tensor, s: ParamSpec,
-            sh: NamedSharding, shards: Optional[BatchShards]) -> DTensor:
-    """Write this rank's block of ``new`` into ``dst``'s local tensor."""
-    src = _laid_out(new, sh, _batch_dim(s), shards).to_local()
+def _write_local(dst: DTensor, new: torch.Tensor) -> DTensor:
+    """Write this rank's new block into ``dst``'s local tensor (no copy
+    when it was updated in place)."""
     out = dst.to_local()
     # the same memory unless the storages or offsets differ (compared
     # without data_ptr(), which a dry run's fake tensors do not have)
-    same = out.untyped_storage()._cdata == src.untyped_storage()._cdata \
-        and out.storage_offset() == src.storage_offset()
+    same = out.untyped_storage()._cdata == new.untyped_storage()._cdata \
+        and out.storage_offset() == new.storage_offset()
     if not same:
         with torch.no_grad():
-            out.copy_(src)
+            out.copy_(new)
     return dst
+
+
+def _donate(dst: DTensor, new: torch.Tensor, s: ParamSpec,
+            sh: NamedSharding, shards: Optional[BatchShards]) -> DTensor:
+    """Write this rank's block of ``new`` into ``dst``'s local tensor."""
+    return _write_local(dst, _laid_out(new, sh, _batch_dim(s),
+                                       shards).to_local())
+
+
+def _dense_decoder(cfg: ArchConfig) -> bool:
+    """A decoder-only config whose every block is attention + dense
+    FFN (no encoder, cross-attention or prefix embeddings)."""
+    return cfg.encoder is None and cfg.n_prefix_embeddings == 0 and all(
+        b.mixer == Mixer.ATTN and b.ffn == FFN.DENSE
+        and not b.cross_attention for g in cfg.groups for b in g.pattern)
+
+
+def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
+           flags: RunFlags = RunFlags()) -> str:
+    """The body ``jit_cell`` runs for a cell (module docstring):
+    ``"sharded"`` for a dense decoder's train cell whose residual, at
+    the reference's block-boundary hint ("batch", "seq", None) under
+    TRAIN_RULES, splits its rows over every axis but "model" and its
+    sequence over "model" (each rank's tokens its own), else
+    ``"gathered"``.  ``mesh``: anything with ``axis_names`` and
+    ``shape``."""
+    if shape.kind != "train" or not _dense_decoder(cfg):
+        return "gathered"
+    rows = shape.global_batch // max(flags.grad_accum, 1)
+    hint = partition_spec(("batch", "seq", None),
+                          (rows, shape.seq_len, cfg.d_model),
+                          rules_for(shape, cfg), mesh)
+    split = sharding.entry_axes(hint[0]) + sharding.entry_axes(hint[1])
+    if any(n > 1 and a not in split for a, n in mesh.shape.items()):
+        return "gathered"
+    return "sharded"
+
+
+def _tp_batch(x: DTensor, groups: int, shards: Optional[BatchShards],
+              tp: ModelShards) -> torch.Tensor:
+    """A batch leaf [B, S] in the sharded body: this rank's rows (of each
+    microbatch) and its sequence block.  Without accumulation that is
+    the leaf's local block as laid out (rows over the batch's axes,
+    sequence over "model"); with it the microbatches' blocks are cut
+    from the gathered batch, as the gathered body cuts them."""
+    if groups == 1:
+        return x.to_local()
+    full = sharding.gather(x)
+    rows = full if shards is None else shards.rows(full, 0, groups)
+    lo, hi = tp.rows(rows.shape[1])
+    return rows[:, lo:hi]
 
 
 def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
              flags: RunFlags = RunFlags(),
-             opt: AdamWConfig = AdamWConfig()):
+             opt: AdamWConfig = AdamWConfig(), *,
+             compression: bool = False):
     """One (arch x shape) cell on ``mesh``.  Returns ``(step,
     abstract_args)``: ``step`` takes the cell's inputs (plain tensors,
     the same global value on every rank, or DTensors; the decode
     position may be an int), lays them out as
-    ``input_shardings`` and runs the body on local tensors (module
-    docstring); ``abstract_args`` are the inputs' meta-tensor trees."""
+    ``input_shardings`` and runs the body of the cell's ``layout`` on
+    local tensors (module docstring); ``abstract_args`` are the inputs'
+    meta-tensor trees.  ``compression``: a train cell's step compresses
+    its gradients as ``make_train_step``'s does, and its state carries
+    the error-feedback residuals ("ef", laid out as the params)."""
     specs = input_specs(cfg, shape, flags)
+    if compression and shape.kind == "train":
+        specs["state"] = train_state_specs(cfg, compression=True)
     rules = rules_for(shape, cfg)
     shard = {k: shardings_for_specs(v, rules, mesh)
              for k, v in specs.items()}
@@ -350,8 +434,17 @@ def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     shards = BatchShards(mesh, axes) if axes else None
     train = shape.kind == "train"
     groups = max(flags.grad_accum, 1) if train else 1
+    tp = None
+    if layout(cfg, shape, mesh, flags) == "sharded":
+        tp = ModelShards(mesh, tree_map(lambda sh: sh.spec,
+                                        shard["state"]["params"]))
+        # the loss's statistics are over the tokens' blocks: rows and
+        # sequence
+        tokens_axes = axes + ((tp.axis,) if tp.size > 1 else ())
+        stats = BatchShards(mesh, tokens_axes) if tokens_axes else None
     if train:
-        fn = make_train_step(cfg, opt, flags, mesh=mesh, rules=rules)
+        fn = make_train_step(cfg, opt, flags, mesh=mesh, rules=rules,
+                             compression=compression)
     elif shape.kind == "prefill":
         fn = make_prefill_step(cfg, flags, mesh=mesh, rules=rules)
     else:
@@ -367,6 +460,15 @@ def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
         ins = {n: a if isinstance(a, (int, float)) else
                tree_map(sharding.distribute, a, shard[n])
                for n, a in zip(names, args)}
+        if tp is not None:
+            state = tree_map(lambda x: x.to_local(), ins["state"])
+            batch = tree_map(lambda x: _tp_batch(x, groups, shards, tp),
+                             ins["batch"])
+            with sharding.data_parallel(stats), sharding.model_parallel(tp):
+                new_state, metrics = fn(state, batch)
+            return tree_map(_write_local, ins["state"], new_state), {
+                k: _laid_out(v, replicated, None, None)
+                for k, v in metrics.items()}
         local = [tree_map(lambda x, s: _local(x, s, shards, groups),
                           ins[n], specs[n]) for n in names]
         if train:

@@ -32,7 +32,10 @@ what that rank dispatches:
   donated (XLA's temp: what is neither), so ``peak_device_bytes`` is
   the trace's peak of live storage.  Storages are counted as the card's
   caching allocator counts them (512-byte blocks) when the trace is of
-  the card.
+  the card, and so are the temporaries the card's kernels allocate
+  while they run, where their fake (meta) kernels do not: the softmax
+  backward's, the size of its gradient (``_TEMPS``; seen on the H100 as
+  the peak of the plain-recompute attention backward).
 
 The reference extrapolates each count from two compiles (scan unrolled
 once and twice) because XLA's cost analysis visits a ``while`` body
@@ -105,6 +108,9 @@ _NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
 # (``clone_preserve_strides``), which their fake (meta) kernels do not
 _SCATTERS = ("slice_scatter", "select_scatter", "diagonal_scatter",
              "as_strided_scatter")
+# ops whose CUDA kernels allocate, while they run, a temporary the size of
+# their first argument (the card's only; their meta kernels do not)
+_TEMPS = ("_softmax_backward_data",)
 # dispatched ops that move no data
 _NO_DATA = ("empty", "empty_like", "empty_strided", "new_empty",
             "new_empty_strided", "detach", "alias", "lift_fresh",
@@ -237,6 +243,12 @@ class _Storages:
         self.live += n
         self.peak = max(self.peak, self.live)
 
+    def spike(self, nbytes: int) -> None:
+        """A temporary of ``nbytes`` allocated and freed within an op, on
+        top of what is live after it."""
+        n = -(-nbytes // self.block) * self.block
+        self.peak = max(self.peak, self.live + n)
+
     def held(self, t: torch.Tensor) -> int:
         """The bytes counted for ``t``'s storage (0 if not held)."""
         ref = self._refs.get(t.untyped_storage()._cdata)
@@ -251,8 +263,9 @@ class _Trace(TorchDispatchMode):
     """Counts what rank 0 dispatches: aten bytes, collectives, storages.
     DTensor ops are let through to their local ops, which it counts."""
 
-    def __init__(self, block: int):
+    def __init__(self, block: int, card: bool = False):
         super().__init__()
+        self.card = card
         self.bytes = 0
         self.collectives = CollectiveStats(dict.fromkeys(COLLECTIVE_OPS, 0),
                                            dict.fromkeys(COLLECTIVE_OPS, 0))
@@ -289,6 +302,8 @@ class _Trace(TorchDispatchMode):
                               + _tensors(out))
         for t in _tensors(out):
             self.storages.hold(t, whole)
+        if self.card and op in _TEMPS:
+            self.storages.spike(_nbytes(args[0]))
         return out
 
 
@@ -310,7 +325,7 @@ def analyze_trace(fn: Callable, args: Sequence[Any], *, arch: str,
     report and the detail: the aten FLOPs, the fake kernel launches per
     op and per route and their work, the peak of live storage."""
     ops.reset_launches()
-    trace = _Trace(ALLOC_BLOCK if card else 1)
+    trace = _Trace(ALLOC_BLOCK if card else 1, card)
     inputs = _tensors(args)
     for t in inputs:
         trace.storages.hold(t)

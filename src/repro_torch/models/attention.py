@@ -128,6 +128,7 @@ def gqa_attention(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_offset=None,                    # int write index (0 if None)
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full/windowed GQA, scores capped by ``cfg.attn_logit_softcap``.
     With a cache: writes K/V at ``cache_offset`` and attends over the
@@ -135,10 +136,18 @@ def gqa_attention(
     With ``kv_override`` (cross-attention: the encoder's K/V
     [B, T, Hkv, D]): q is not roped, every key is visible, and ``cache``
     is passed through; ``cache_offset`` only says prefill (0) or decode
-    step."""
+    step.  ``tp`` (a ``sharding.ModelShards``: the sharded train body,
+    no cache): ``x`` is this rank's sequence block (``_tp_attention``)."""
     b, s, _ = x.shape
     off = 0 if cache_offset is None else int(cache_offset)
     softcap = cfg.attn_logit_softcap
+    if tp is not None:
+        if cache is not None or kv_override is not None:
+            raise ValueError("the sharded train body runs no cache and no "
+                             "cross-attention")
+        return _tp_attention(p, x, positions, cfg=cfg, window=window,
+                             rope_theta=rope_theta, causal=causal,
+                             tp=tp), None
     if off > 0 and cache is None and kv_override is None:
         raise ValueError("a decode step at a nonzero offset needs a cache")
 
@@ -181,10 +190,58 @@ def gqa_attention(
                    q_offset=q_offset), new_cache
 
 
+def _tp_kv(p: Tree, cfg: ArchConfig, tp) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The K / V projections (FSDP-gathered) this rank's query heads use.
+    Every head here, or the K/V heads split with the query heads: its
+    own.  K/V heads replicated under split query heads: only the ones
+    its heads read, one each where a group of them shares one (else one
+    a query head, so the kernel's head grouping holds)."""
+    wk, wv = p["wk"], p["wv"]
+    hl = p["wq"].shape[1]
+    if hl == cfg.n_heads or wk.shape[1] < cfg.n_kv_heads:
+        return wk, wv
+    group = cfg.n_heads // cfg.n_kv_heads
+    used = [(tp.index * hl + i) // group for i in range(hl)]
+    first, n = used[0], used[-1] - used[0] + 1
+    if hl % n == 0 and used == [first + i // (hl // n) for i in range(hl)]:
+        return wk.narrow(1, first, n), wv.narrow(1, first, n)
+    idx = torch.tensor(used, device=wk.device)
+    return wk.index_select(1, idx), wv.index_select(1, idx)
+
+
+def _tp_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
+                  cfg: ArchConfig, window: Optional[int], rope_theta,
+                  causal: bool, tp) -> torch.Tensor:
+    """Attention in the sharded train body: ``x`` [B, S / size, D] is
+    this rank's sequence block, ``positions`` [B, S] the whole
+    sequence's (the window and the rope angle are of the global row).
+    The sequence is gathered before the projections.  Query heads split
+    over the model axis: this rank's heads over the whole sequence, the
+    row-parallel ``wo``'s partial sums reduce-scattered back to its
+    block.  Heads replicated (they do not divide the axis): every rank
+    runs all of them and keeps its own rows, GSPMD's redundancy for such
+    a dim.  ``flash_attention`` gets [B, local heads, S, D] views."""
+    h = tp.seq_gather(x)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    wk, wv = _tp_kv(p, cfg, tp)
+    k = torch.einsum("bsd,dhk->bshk", h, wk)
+    v = torch.einsum("bsd,dhk->bshk", h, wv)
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    softcap = cfg.attn_logit_softcap
+    if p["wq"].shape[1] == cfg.n_heads:
+        return _attend(p, q, k, v, 0, causal=causal, window=window,
+                       softcap=softcap, rows=tp.rows(h.shape[1]))
+    return tp.seq_scatter(_attend(p, q, k, v, 0, causal=causal,
+                                  window=window, softcap=softcap))
+
+
 def _attend(p: Tree, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             off: int, *, causal: bool, window: Optional[int],
             softcap: Optional[float] = None,
-            q_offset: int = 0) -> torch.Tensor:
+            q_offset: int = 0,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """q [B,S,H,D] against k, v [B,T,Hkv,D] through the kernels, then the
     output projection: a prefill (``off`` 0), or a step of several
     tokens (query row i at position ``q_offset + i`` of the T rows), by
@@ -192,7 +249,8 @@ def _attend(p: Tree, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     all T rows (the cache rows the step may see, or the encoder's).  The
     kernels take [B, heads, seq, D] views of the [B, seq, heads, D]
     activations and cache, by strides, with no copy.  ``softcap`` and a
-    nonzero ``q_offset`` are passed only when set."""
+    nonzero ``q_offset`` are passed only when set.  ``rows`` [lo, hi):
+    only those query rows go through the output projection."""
     b, s = q.shape[:2]
     kw = {} if softcap is None else {"softcap": softcap}
     if off == 0 or s > 1:
@@ -207,6 +265,8 @@ def _attend(p: Tree, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = ops.decode_attention(q[:, 0], k.transpose(1, 2),
                                    v.transpose(1, 2), length,
                                    **kw)[:, None]
+    if rows is not None:
+        out = out[:, rows[0]:rows[1]]
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

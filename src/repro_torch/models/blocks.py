@@ -115,6 +115,7 @@ def apply_block(
     causal: bool = True,
     moe_impl: Optional[str] = None,
     moe_group: Optional[int] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Tree], torch.Tensor]:
     """Returns (x, new_cache, aux): aux is the MoE router's auxiliary
     loss (a float32 scalar tensor; the float 0.0 for other FFNs, so a
@@ -123,7 +124,16 @@ def apply_block(
     decode step is a call with a cache at an offset above 0;
     ``enc_out`` feeds a cross-attention block's K/V in any other call.
     ``moe_impl`` / ``moe_group`` override the MoE config's dispatch and
-    group size (``RunFlags``)."""
+    group size (``RunFlags``).  ``tp`` (a ``sharding.ModelShards``: the
+    sharded train body, an attention + dense FFN block only): ``x`` is
+    this rank's block of rows and sequence; the norms run on it, the
+    attention and a split FFN gather the sequence and scatter it back
+    (Megatron sequence parallelism), an FFN whose dim does not split
+    runs on the block as it is."""
+    if tp is not None and (blk.mixer != Mixer.ATTN or blk.ffn != FFN.DENSE
+                           or blk.cross_attention or cache is not None):
+        raise ValueError("the sharded train body runs attention + dense "
+                         "FFN blocks without a cache only")
     # without per-layer overrides the BlockSpec's window / theta hold
     if cfg.layer_windows is None and cfg.layer_thetas is None:
         window = blk.window
@@ -142,7 +152,7 @@ def apply_block(
             p["attn"], h, positions, cfg=cfg, window=window,
             rope_theta=theta, causal=causal,
             cache=cache["attn"] if cache else None,
-            cache_offset=cache_offset)
+            cache_offset=cache_offset, tp=tp)
     elif blk.mixer == Mixer.MLA:
         if decode:
             y, nc = attn.mla_attention_absorbed(
@@ -192,6 +202,8 @@ def apply_block(
             y, aux = moe_lib.moe_ffn(p["ffn"], h, cfg, impl=moe_impl,
                                      group_size=moe_group)
         else:
-            y = mlp(p["ffn"], h)
+            split = tp is not None and \
+                p["ffn"]["wi_gate"].shape[-1] != cfg.d_ff
+            y = mlp(p["ffn"], h, tp if split else None)
         x = x + y
     return x, new_cache, aux

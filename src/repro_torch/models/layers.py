@@ -37,10 +37,17 @@ def mlp_spec(cfg: ArchConfig, d_ff: Optional[int] = None) -> Tree:
     }
 
 
-def mlp(p: Tree, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Tree, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU.  ``tp`` (a ``sharding.ModelShards``, given when the ffn
+    dim is split over its axis): ``x`` is this rank's sequence block,
+    gathered before the column-parallel ``wi_gate`` / ``wi_up`` and
+    reduce-scattered after the row-parallel ``wo``."""
+    if tp is not None:
+        x = tp.seq_gather(x)
     g = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
     u = torch.einsum("bsd,df->bsf", x, p["wi_up"])
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * u, p["wo"])
+    y = torch.einsum("bsf,fd->bsd", F.silu(g) * u, p["wo"])
+    return y if tp is None else tp.seq_scatter(y)
 
 
 # -- embeddings / head ------------------------------------------------------
@@ -84,7 +91,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     ``stop_gradient``.
 
     Inside a sharded step body (``sharding.batch_shards()`` set) the
-    rows are this rank's block of the global batch, and the result is
+    tokens are this rank's block of the global batch's (its rows, and in
+    the sharded train body its sequence block too), and the result is
     this rank's share of the global mean: the local mean over the number
     of blocks, or the masked sum over the mask's all-reduced count; the
     shares sum to the reference's loss over the whole batch."""

@@ -161,23 +161,29 @@ def _stack(trees: List[Tree]) -> Tree:
 def _apply_layer(h: torch.Tensor, r: int, g: ScanGroup, gp: Tree, gm: Tree,
                  gc: Optional[Tree], cfg: ArchConfig,
                  positions: torch.Tensor, cache_offset, enc_out, causal: bool,
-                 flags: RunFlags, shards=None):
+                 flags: RunFlags, shards=None, tp=None):
     """Layer ``r`` of group ``g`` (every block of its pattern): (h, the
-    blocks' aux summed, each block's new cache).  ``shards`` is the
-    caller's ``batch_shards()``, set again here because a recompute in
-    the backward may run on another thread (the card's autograd worker)
-    that does not see the caller's context."""
+    blocks' aux summed, each block's new cache).  ``shards`` and ``tp``
+    are the caller's ``batch_shards()`` and ``model_shards()``, passed
+    in because a recompute in the backward may run on another thread
+    (the card's autograd worker) that does not see the caller's
+    context.  With ``tp`` each block's weights are gathered over their
+    FSDP axes here, inside the layer's checkpoint."""
     aux = 0.0
     ncs = []
     with sharding.data_parallel(shards):
         for j, blk in enumerate(g.pattern):
             key = f"pos{j}"
             meta = {k: v[r] for k, v in gm[key].items()}
+            lp = _layer(gp[key], r)
+            if tp is not None:
+                lp = tp.layer(lp, "groups", g.name, key)
             h, nc, a = apply_block(
-                _layer(gp[key], r), blk, cfg, h, positions, meta,
+                lp, blk, cfg, h, positions, meta,
                 cache=_layer(gc[key], r) if gc is not None else None,
                 cache_offset=cache_offset, enc_out=enc_out, causal=causal,
-                moe_impl=flags.moe_impl, moe_group=flags.moe_group or None)
+                moe_impl=flags.moe_impl, moe_group=flags.moe_group or None,
+                tp=tp)
             aux = aux + a
             ncs.append(nc)
     return h, aux, ncs
@@ -226,6 +232,7 @@ def _run_groups(
         raise ValueError(f"remat={flags.remat!r}: expected one of "
                          f"{sorted(_REMAT)}")
     remat = _REMAT[flags.remat] if train else None
+    tp = sharding.model_shards() if train else None
     new_caches: Optional[Dict[str, Tree]] = {} if caches is not None \
         else None
     aux_total = 0.0
@@ -238,7 +245,7 @@ def _run_groups(
                 _apply_layer, r=r, g=g, gp=params["groups"][g.name],
                 gm=metas[g.name], gc=gc, cfg=cfg, positions=positions,
                 cache_offset=cache_offset, enc_out=enc_out, causal=causal,
-                flags=flags, shards=sharding.batch_shards())
+                flags=flags, shards=sharding.batch_shards(), tp=tp)
             if remat is not None:
                 x, aux, _ = checkpoint(run, x, use_reentrant=False,
                                        context_fn=remat)
@@ -272,18 +279,24 @@ def _encode(params: Tree, cfg: ArchConfig, source_embeds: torch.Tensor,
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
-def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any]
-                    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any],
+                    tp=None) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Embed tokens, prepend a VLM's prefix embeddings if any.
-    Returns (x, positions, n_prefix)."""
+    Returns (x, positions, n_prefix).  ``tp`` (the sharded train body):
+    the tokens are this rank's sequence block, embedded against the
+    table gathered whole; the positions are the whole sequence's."""
     tokens = batch["tokens"]
-    x = embed(params["embed"], tokens, cfg).to(cfg.compute_dtype)
+    emb = params["embed"] if tp is None else \
+        {"table": tp.whole(params, "embed", "table")}
+    x = embed(emb, tokens, cfg).to(cfg.compute_dtype)
     n_prefix = 0
     if cfg.n_prefix_embeddings > 0:
         pre = batch["prefix_embeds"].to(cfg.compute_dtype)
         n_prefix = pre.shape[1]
         x = torch.cat([pre, x], dim=1)
     b, s, _ = x.shape
+    if tp is not None:
+        s *= tp.size
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     return x, positions, n_prefix
 
@@ -291,8 +304,18 @@ def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any]
 def train_loss(params: Tree, batch: Dict[str, Any], cfg: ArchConfig,
                flags: RunFlags = RunFlags()) -> torch.Tensor:
     """Mean next-token loss (+ MoE aux).  batch: tokens, labels,
-    [source_embeds], [prefix_embeds], [loss_mask]."""
-    x, positions, n_prefix = _prepare_inputs(params, cfg, batch)
+    [source_embeds], [prefix_embeds], [loss_mask].
+
+    Inside the sharded train body (``sharding.model_shards()`` set; an
+    attention + dense FFN decoder) ``params`` are this rank's blocks and
+    the batch its rows' sequence block: the residual stays split by rows
+    and sequence between the layers (the reference's hint at its block
+    boundary), each layer gathers its weights (``_apply_layer``), and
+    the local tokens' logits come from the head gathered whole, the
+    reference's ("batch", "seq", "vocab") layout with the vocab whole
+    ("seq" takes "model" first)."""
+    tp = sharding.model_shards()
+    x, positions, n_prefix = _prepare_inputs(params, cfg, batch, tp)
     enc_out = None
     if cfg.encoder is not None:
         enc_out = _encode(params, cfg, batch["source_embeds"], flags,
@@ -300,10 +323,16 @@ def train_loss(params: Tree, batch: Dict[str, Any], cfg: ArchConfig,
     x, _, aux = _run_groups(params, cfg.groups, cfg, x, positions,
                             build_meta(cfg), train=True, enc_out=enc_out,
                             flags=flags)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    final, head = params["final_norm"], params["embed"]
+    if tp is not None:
+        final = tp.fsdp(params, "final_norm")
+    x = rmsnorm(final, x, cfg.norm_eps)
     if n_prefix > 0:
         x = x[:, n_prefix:, :]
-    logits = unembed(params["embed"], x, cfg)
+    if tp is not None:
+        name = "table" if cfg.tie_embeddings else "head"
+        head = {name: tp.whole(params, "embed", name)}
+    logits = unembed(head, x, cfg)
     return softmax_xent(logits, batch["labels"], batch.get("loss_mask")) \
         + aux
 

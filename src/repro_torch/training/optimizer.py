@@ -11,16 +11,20 @@ reference's order.  ``adamw_update`` writes the new parameters and
 moments into the trees it is given (the reference's jitted step donates
 them): one leaf's temporaries at a time instead of a second copy of the
 state, which is what lets Qwen2.5-7B's 4-layer cut train 4 rows on one
-card.
+card.  On a rank's blocks of the state (``launch/steps.jit_cell``'s
+sharded body) ``shards`` gives each leaf's process groups of the axes it
+is split over: the global norm sums each leaf's squares over its blocks
+there, and counts a replicated leaf once.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import reduce_over
 from repro_torch.models.params import ParamSpec, tree_leaves, tree_map_specs
 
 Tree = Any
@@ -63,19 +67,25 @@ def lr_at(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * warm * scale
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, shards: Optional[Tree] = None
+                ) -> torch.Tensor:
+    """The norm of every leaf together; ``shards`` (a tree like
+    ``tree``): each leaf's groups to sum its squares over (module
+    docstring)."""
     leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in leaves))
+    groups = [()] * len(leaves) if shards is None else tree_leaves(shards)
+    return torch.sqrt(sum(reduce_over(torch.sum(x.float() ** 2), g)
+                          for x, g in zip(leaves, groups)))
 
 
 @torch.no_grad()
 def adamw_update(
     params: Tree, grads: Tree, mu: Tree, nu: Tree, step: torch.Tensor,
-    cfg: AdamWConfig,
+    cfg: AdamWConfig, shards: Optional[Tree] = None,
 ) -> Tuple[Tree, Tree, Tree, torch.Tensor]:
     """One AdamW step, in place.  Returns (params, mu, nu, grad_norm):
-    the trees given, updated."""
-    gnorm = global_norm(grads)
+    the trees given, updated.  ``shards``: as ``global_norm``'s."""
+    gnorm = global_norm(grads, shards)
     dev = gnorm.device
     clip = torch.clamp_max(_f32(cfg.grad_clip, dev) / (gnorm + 1e-9), 1.0) \
         if cfg.grad_clip > 0 else _f32(1.0, dev)

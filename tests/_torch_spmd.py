@@ -4,7 +4,9 @@ processes over a ``FileStore`` (no network), each runs ``JOBS[job]``,
 and a failure in any rank fails the caller.  This module imports no
 JAX, so each spawned process starts with torch alone.
 """
+import json
 import math
+import pathlib
 import time
 
 import numpy as np
@@ -13,7 +15,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch.configs import get_reduced
-from repro_torch.distributed.sharding import entry_axes
+from repro_torch.distributed.sharding import entry_axes, reduce_over
 from repro_torch.models import RunFlags, materialize
 from repro_torch.models.params import leaves_with_paths, tree_map
 from repro_torch.training.optimizer import AdamWConfig
@@ -64,17 +66,42 @@ def _check_blocks(tree, shardings, mesh, label):
                                                mesh)), (label, path)
 
 
+def fan_in_d_model(params, specs):
+    """Every [d_model, heads, head_dim] projection scaled, in place, from
+    the reference's init law (std 1/sqrt(heads)) to 1/sqrt(d_model).  At
+    the reference's law the float32 step is chaotic (ROADMAP.md,
+    "Reference failures"): the sharded layout's other summation order
+    alone moves reduced granite's gradients by ~1e-5 of their max, and
+    AdamW's second step turns a gradient that small into a whole
+    learning-rate step of either sign.  At this law they move ~5e-7."""
+    for key, sub in params.items():
+        if isinstance(sub, dict):
+            fan_in_d_model(sub, specs[key])
+        elif specs[key].axes[-3:-1] in (("embed", "heads"),
+                                        ("embed", "kv_heads")):
+            sub.mul_((sub.shape[-2] / sub.shape[-3]) ** 0.5)
+    return params
+
+
+def train_state(cfg, compression=False):
+    """The train cell's state from seed 0 at the d_model fan-in law."""
+    from repro_torch.launch.steps import train_state_specs
+    from repro_torch.models import build_param_specs
+    st = materialize(train_state_specs(cfg, compression=compression),
+                     torch.Generator().manual_seed(0), "cpu")
+    fan_in_d_model(st["params"], build_param_specs(cfg))
+    return st
+
+
 def _train_cell(arch, mesh):
     from repro_torch.launch.steps import (ShapeSpec, input_shardings,
-                                          input_specs, jit_cell,
-                                          make_train_step)
+                                          jit_cell, make_train_step)
     from repro_torch.models import moe
     cfg = get_reduced(arch)
     shape = ShapeSpec("tiny_train", "train", 32, 4)
 
     def state():
-        return materialize(input_specs(cfg, shape)["state"],
-                           torch.Generator().manual_seed(0), "cpu")
+        return train_state(cfg)
 
     step, _ = jit_cell(cfg, shape, mesh, FLAGS, OPT)
     ref = make_train_step(cfg, OPT, FLAGS)
@@ -200,11 +227,140 @@ def pipeline_two_stages(rank, world):
         _close(g, w, f"pipeline grad{path}")
 
 
+# the sharded train body: the dense decoders, the meshes (data, model) of
+# each world size, and the variants held against the unsharded step
+DENSE = ("qwen2-5-7b", "gemma3-1b", "granite-20b", "command-r-35b")
+MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4))}
+VARIANTS = ("plain", "accum2", "compression")
+SCALE_RTOL = 1e-6          # the int8 scales
+CODE_SHARE = 1e-3          # the int8 codes that may differ, by one step
+
+
+def _state_bytes(got, shardings, mesh, label):
+    """Each rank holds its block of every state leaf and no more."""
+    for (path, d), (_, sh) in zip(leaves_with_paths(got),
+                                  leaves_with_paths(shardings)):
+        local = d.to_local()
+        shape = list(d.shape)
+        for dim, entry in enumerate(sh.spec):
+            for a in entry_axes(entry):
+                shape[dim] //= mesh.shape[a]
+        assert list(local.shape) == shape and \
+            local.untyped_storage().nbytes() == \
+            math.prod(shape) * local.element_size(), (label, path)
+
+
+def _quantized(real, into):
+    """``real`` (``compression._quantize``) recording each call's (q,
+    scale)."""
+    def spy(x, groups=()):
+        q, scale = real(x, groups)
+        into.append((q.clone(), float(scale)))
+        return q, scale
+    return spy
+
+
+def _sharded_case(arch, mesh, variant):
+    """One train cell of the sharded body against ``make_train_step``,
+    two steps: the losses, and each rank's state its blocks; without
+    compression the grad norms and every param and moment within rtol
+    1e-5; with it each int8 scale within SCALE_RTOL and at most
+    CODE_SHARE of the codes off, each by one step (the summation order
+    may move a gradient across a rounding edge, and a code one step off
+    moves that element's update by a 127th of the leaf's max), while a
+    rank's own max |g| (the scale not reduced over the shards) misses
+    the scale bound."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import (ShapeSpec, input_shardings,
+                                          jit_cell, make_train_step)
+    from repro_torch.training import compression as comp
+    cfg = get_reduced(arch)
+    shape = ShapeSpec("tiny_train", "train", 32, 4)
+    flags = RunFlags(remat="full", grad_accum=2 if variant == "accum2"
+                     else 1)
+    packed = variant == "compression"
+    assert steps.layout(cfg, shape, mesh, flags) == "sharded"
+    step, _ = jit_cell(cfg, shape, mesh, flags, OPT, compression=packed)
+    ref = make_train_step(cfg, OPT, flags, compression=packed)
+    got, want = train_state(cfg, packed), train_state(cfg, packed)
+    mine, theirs = [], []
+    real = comp._quantize
+    for i in range(2):
+        batch = _batch(cfg, 4, 32, 10 + i)
+        comp._quantize = _quantized(real, mine)
+        try:
+            got, gm = step(got, batch)
+            comp._quantize = _quantized(real, theirs)
+            want, wm = ref(want, batch)
+        finally:
+            comp._quantize = real
+        for k in ("loss",) if packed else ("loss", "grad_norm"):
+            _close(gm[k].full_tensor(), wm[k], f"{arch} step {i} {k}")
+    for key in () if packed else got:
+        for (path, g), (_, w) in zip(leaves_with_paths(got[key]),
+                                     leaves_with_paths(want[key])):
+            _close(g.full_tensor(), w, f"{arch} {key}{path}")
+    shardings = input_shardings(cfg, shape, mesh)["state"]
+    if packed:
+        shardings = dict(shardings, ef=shardings["params"])
+    _check_blocks(got, shardings, mesh, arch)
+    _state_bytes(got, shardings, mesh, arch)
+    if not packed:
+        return
+    # the int8 codes and scales, leaf by leaf (the params' order, twice)
+    specs = [sh.spec for _, sh in leaves_with_paths(shardings["params"])]
+    specs = specs * 2
+    assert len(mine) == len(theirs) == len(specs)
+    off = total = 0
+    for (q, sc), (wq, wsc), spec in zip(mine, theirs, specs):
+        assert abs(sc - wsc) <= SCALE_RTOL * abs(wsc), (arch, sc, wsc)
+        d = (q.int() - block(wq, spec, mesh).int()).abs()
+        assert int(d.max()) <= 1, (arch, int(d.max()))
+        off += int((d > 0).sum())
+        total += d.numel()
+    assert off <= CODE_SHARE * total, (arch, off, total)
+    # planted fault: each rank's own max |g| as the scale
+    own = []
+    comp.reduce_over = lambda t, groups, op="sum": t
+    comp._quantize = _quantized(real, own)
+    try:
+        jit_cell(cfg, shape, mesh, flags, OPT, compression=True)[0](
+            train_state(cfg, True), _batch(cfg, 4, 32, 10))
+    finally:
+        comp.reduce_over, comp._quantize = reduce_over, real
+    missed = any(abs(sc - wsc) > SCALE_RTOL * abs(wsc)
+                 for (_, sc), (_, wsc) in zip(own, theirs))
+    assert missed, f"{arch}: a rank's own max |g| passes the scale bound"
+
+
+def sharded_train(rank, world):
+    """Every (mesh, arch, variant) case of MESHES[world] x DENSE x
+    VARIANTS; each rank writes its outcome a case to
+    ``OUT / sharded_train.<rank>.json`` (the test reads them)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    res = {}
+    for data, model in MESHES[world]:
+        mesh = make_host_mesh(data=data, model=model, device_type="cpu")
+        for arch in DENSE:
+            for variant in VARIANTS:
+                name = f"{data}x{model}-{arch}-{variant}"
+                try:
+                    _sharded_case(arch, mesh, variant)
+                    res[name] = "ok"
+                except Exception as e:              # noqa: BLE001
+                    res[name] = f"{type(e).__name__}: {e}"
+    (OUT / f"sharded_train.{rank}.json").write_text(json.dumps(res))
+
+
 JOBS = {"sharded_steps": sharded_steps,
-        "pipeline_two_stages": pipeline_two_stages}
+        "pipeline_two_stages": pipeline_two_stages,
+        "sharded_train": sharded_train}
+OUT = pathlib.Path(".")
 
 
 def _run(rank, world, store, job):
+    global OUT
+    OUT = pathlib.Path(store).parent
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)

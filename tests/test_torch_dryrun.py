@@ -41,12 +41,26 @@ from repro_torch.models import ScanGroup, materialize
 from repro_torch.models.params import tree_leaves, tree_map
 
 # the cells held against a real run: reduced granite-20b on {data: 2,
-# model: 2}, batch over data
+# model: 2}, batch over data (its train cell sharded: FSDP, its 4 heads
+# over "model", the residual split by sequence), and two more train
+# cells of the sharded layout on {data: 1, model: 4}: gemma3-1b (2
+# heads, replicated; tied embeddings; windows) and command-r-35b (2 K/V
+# heads replicated under 4 split query heads)
 CELLS = {"train": ShapeSpec("tiny_train", "train", 32, 4),
          "prefill": ShapeSpec("tiny_prefill", "prefill", 16, 4),
-         "decode": ShapeSpec("tiny_decode", "decode", 32, 4)}
+         "decode": ShapeSpec("tiny_decode", "decode", 32, 4),
+         "train_gemma3_1x4": ShapeSpec("tiny_train", "train", 32, 4),
+         "train_command_r_1x4": ShapeSpec("tiny_train", "train", 32, 4)}
+CELL_ARCH = {"train_gemma3_1x4": ("gemma3-1b", 1),
+             "train_command_r_1x4": ("command-r-35b", 1)}
 DECODE_POS = 20
 WORLD = 4
+
+
+def _cell(kind):
+    """(reduced config, data axis size) of a cell of CELLS."""
+    arch, data = CELL_ARCH.get(kind, ("granite-20b", 2))
+    return get_reduced(arch), data
 
 
 def _laid_out(x, sh):
@@ -63,10 +77,11 @@ def _real_cells(rank, world, out):
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.utils.flop_counter import FlopCounterMode
-    cfg = get_reduced("granite-20b")
-    mesh = make_host_mesh(data=2, model=world // 2, device_type="cpu")
     res = {}
     for kind, shape in CELLS.items():
+        cfg, data = _cell(kind)
+        mesh = make_host_mesh(data=data, model=world // data,
+                              device_type="cpu")
         specs = input_specs(cfg, shape)
         shards = input_shardings(cfg, shape, mesh)
         names = list(specs)
@@ -82,7 +97,11 @@ def _real_cells(rank, world, out):
         mt = MemTracker()
         mt.track_external(*[t for a in args if not isinstance(a, int)
                             for t in tree_leaves(a)])
-        with mt, FlopCounterMode(display=False) as fc, \
+        # the FLOP counter outermost: it runs an op that has a composite
+        # kernel (silu_backward) through its decomposition, whose
+        # temporaries a tracker below it would count and the step
+        # without the counter does not make
+        with FlopCounterMode(display=False) as fc, mt, \
                 CommDebugMode() as cm, trace:
             step(*args)
         res[kind] = {"flops": fc.get_total_flops(),
@@ -130,12 +149,15 @@ def real_cells(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def traced_cells():
-    cfg = get_reduced("granite-20b")
+    out = {}
     with dryrun.fake_group(WORLD):
-        mesh = make_host_mesh(data=2, model=WORLD // 2, device_type="cpu")
-        return {kind: dryrun.trace_cell(cfg, shape, mesh, device="cpu",
-                                        pos=DECODE_POS)
-                for kind, shape in CELLS.items()}
+        for kind, shape in CELLS.items():
+            cfg, data = _cell(kind)
+            mesh = make_host_mesh(data=data, model=WORLD // data,
+                                  device_type="cpu")
+            out[kind] = dryrun.trace_cell(cfg, shape, mesh, device="cpu",
+                                          pos=DECODE_POS)
+    return out
 
 
 @pytest.mark.parametrize("kind", list(CELLS))
@@ -151,8 +173,13 @@ def test_trace_matches_a_real_gloo_run(kind, real_cells, traced_cells):
         real["bytes"]
     assert got["peak_device_bytes"] == got["peak_bytes"] == real["peak"]
     assert got["kernel_launches"] == {}          # the plain versions
+    assert got["layout"] == ("sharded" if kind.startswith("train")
+                             else "gathered")
     if kind != "decode":
         assert counts["all-gather"] > 0
+    if got["layout"] == "sharded":
+        # the FSDP gathers' gradients return by reduce-scatters
+        assert counts["reduce-scatter"] > 0
 
 
 # -- the card's program: launches and routes ---------------------------------
@@ -322,6 +349,7 @@ def test_run_cell_at_full_size_and_save_result(monkeypatch, tmp_path):
                           verbose=False)
     cfg = get_config("granite-20b")
     assert res["status"] == "ok" and res["n_devices"] == 256
+    assert res["layout"] == "gathered"
     assert res["kernel_launches"] == {"decode_attention": cfg.n_layers}
     assert res["kernel_routes"]["decode_attention"] == {
         "split": cfg.n_layers}
@@ -336,6 +364,22 @@ def test_run_cell_at_full_size_and_save_result(monkeypatch, tmp_path):
         "granite-20b_decode_32k_single_t.json"
     assert json.loads(path.read_text())["peak_device_bytes"] == \
         res["peak_device_bytes"]
+
+
+@pytest.mark.parametrize("shape_name,want", [("train_4k", "sharded"),
+                                             ("decode_32k", "gathered")])
+def test_matrix_row_prints_the_layout(shape_name, want, monkeypatch,
+                                      capsys):
+    """A row of the matrix (``run_cell``, verbose) names the body its
+    cell ran: reduced granite-20b at the production shapes on the fake
+    (16, 16) mesh, the train cell sharded (16 rows x 256 tokens a rank,
+    its FSDP gathers' gradients reduce-scattered), decode gathered."""
+    monkeypatch.setattr(dryrun, "get_config", get_reduced)
+    res = dryrun.run_cell("granite-20b", shape_name, "single")
+    assert res["status"] == "ok" and res["layout"] == want
+    assert f"layout: {want} |" in capsys.readouterr().out
+    if want == "sharded":
+        assert res["collective_counts"]["reduce-scatter"] > 0
 
 
 def test_skipped_cell_and_list(capsys):

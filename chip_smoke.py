@@ -199,14 +199,14 @@ Phases, in order:
       ``--hours 2`` (26, 52 and 40 launches of each kernel a call; every
       prefill sm90,
       every decode single; energy lines equal to the ``--reduced`` CPU
-      runs; ``max_memory_allocated`` printed), granite profiled as phase
-      8 (the other two's profiles are PERF.md's serving table's);
+      runs; ``max_memory_allocated`` printed; the profiles of phase 14's
+      and 17's archs are PERF.md's serving table's);
       internvl2-26b at full depth at the model level (B = 4, 256 prefix
       embeddings + 16 tokens, 8 decode steps, 48 launches a call);
       Mixtral-8x22B at 12 of its 56 layers through ``ServingEngine``
       with the launcher's settings on the launcher's 5 requests (12
-      launches a call, drops of one request printed), then profiled;
-      the card's cache emptied between runs; its wall;
+      launches a call, drops of one request printed); the card's cache
+      emptied between runs; its wall;
   15. both attention kernels at whisper-base's shapes (one query head a
       kv head, D = 64), bf16 and float32, as phase 12, routes asserted:
       the encoder's non-causal prefill at S = T = 1500, the cross
@@ -224,8 +224,8 @@ Phases, in order:
       minicpm3-4b at depth 2, deepseek-v2 at depth 1 (its drops
       printed) where the host has the memory, else the reason is
       printed; its wall;
-  17. the new archs at full width in bf16, counted as phase 7, whisper
-      and deepseek-v2 profiled as phase 8: the minicpm3-4b (62 layers)
+  17. the new archs at full width in bf16, counted as phase 7: the
+      minicpm3-4b (62 layers)
       and xlstm-125m (12) launchers at ``--hours 2`` (5 requests;
       energy lines equal to the ``--reduced`` CPU runs; no kernel
       launch at all: MLA and xLSTM are plain PyTorch); whisper-base
@@ -387,7 +387,8 @@ Phases, in order:
       gate on the prefill cell (its gap on the other two printed: the
       train step's peak is its logits'); then granite-20b x
       decode_32k traced on the fake (16, 16) mesh at world size 256
-      (its report printed, one split decode a layer); then granite-20b
+      (its report printed; the sharded serving layout, one split decode
+      a layer over rank 0's 2,048-row cache block); then granite-20b
       x train_4k on the (16, 16) mesh in the sharded layout, full width
       and depth, bf16: traced, and its step run for real on the card as
       rank 0 of a fake group of 256 (rank 0's blocks of the state drawn
@@ -396,11 +397,26 @@ Phases, in order:
       % of ``max_memory_allocated``, launches (2 sm90 a layer) and
       routes equal, the step's wall printed; a trace that keeps every
       layer's gathered weights to the end of the step must miss the
-      peak gate; then the decode
+      peak gate; then granite-20b x decode_32k (at its last row: rank
+      0 reads its whole block) and x prefill_32k in the sharded serving
+      layout the same way (rank 0's weights and cache blocks; one split
+      decode / one sm90 flash a layer), the faults that must miss being
+      a decode writing its cache out of place and restacking it, and a
+      prefill keeping the whole length as cache rows; then the decode
       wrapper (with the fake branch's tests) beside its raw kernel on
       the same rotated inputs at Qwen's B = 4, T = 4,096, and its host
       time a call; one JSON line for the phase;
-  25. one JSON line describing every kernel (the metering rows: the
+  25. ``decode_attention``'s log-sum-exp output (``lse=True``): against
+      ``ref.decode_attention_lse_ref`` at granite-20b's and gemma3-1b's
+      rank-0 cache blocks (split) and a launcher's 48 rows (single), in
+      bf16 and float32, cap off and on (outputs within 2e-3 / 2e-2,
+      log-sum-exps within 1e-4 relative, the output bit-equal to the
+      call without it); its merge over 2 and 4 length blocks of
+      granite's block (a block of length 0, a window across two
+      blocks) against one call over the visible rows, the planted wrong
+      merges of ``ref.decode_merge_faults`` missing; the kernel timed
+      with and without it at Qwen's B = 4, T = 4,096;
+  26. one JSON line describing every kernel (the metering rows: the
       input sets, FP64 instructions an entry or the longest run and the
       dependent-add latency; the flash row: the sm90
       kernel's time, the simt kernel's beside it, every timed prefill
@@ -422,8 +438,10 @@ Phases, in order:
       the cap off and on, ``softcap_ms``, its worst errors and the
       launches of a chunk and a step of Qwen's chunked prefill; the
       attention rows phase 24's launches a cell, ``dryrun_launches``,
-      the flash row also the sharded train cell's rank-0 step's);
-  26. as the last line, ``{"ok": true, "device": {...}}``.
+      the flash row also the sharded train and prefill cells' rank-0
+      steps', the decode row the sharded decode cell's and phase 25's
+      figures, ``lse``);
+  27. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
 the last line.  Phases 1-17 took 669-931 s on the hosts seen (an H100
@@ -432,13 +450,16 @@ about 25 s (the whole script took 738.6 s with all 22, and 861.9 s with
 the float32 backward kernel's checks and phase 20's two batches), sized
 to keep the whole under 1000 s of the 1200 s limit; phase 23 adds about
 20 s and phase 24 about 60 s (their walls are printed; the whole took
-857.6-910.9 s with 23 phases, so phases 14 and 17 profile four of their
-eight runs, not all); phase 24's sharded granite-20b train cell (two
-traces of its 52 layers on the host, about 40 s each, and the real
-step) adds about 100 s.  It also exits non-zero without a CUDA
-device.  ``python3 chip_smoke.py --metering``
-stops after phase 4d and prints the metering kernels' figures and the
-stack's walls and launches as two JSON lines instead of the last two;
+857.6-910.9 s with 23 phases); phase 24's sharded granite-20b train
+cell (two traces of its 52 layers on the host, about 40 s each, and the
+real step) adds about 100 s; the sharded serving cells (three more
+traces, about 10 s each, and two real steps) about 25 s and phase 25
+about 5 s.  The whole took 889.9-1041.0 s with 25 phases, so phases 14
+and 17 profile none of their eight runs (the four profiles they kept
+took 89 s on the slower host).  It also exits non-zero without a CUDA
+device.  ``python3 chip_smoke.py --metering`` stops after phase 4d and
+prints the metering kernels' figures and the stack's walls and launches
+as two JSON lines instead of the last two;
 ``python3 chip_smoke.py --train`` runs phase 1 and phases 18-22 and 24
 alone and prints their results as one JSON line instead of the last
 three;
@@ -1276,9 +1297,10 @@ def _possible(ms, bound, label):
                          f"impossible")
 
 
-def _raw_decode(q, k, v, length, out, pl, softcap=None):
+def _raw_decode(q, k, v, length, out, pl, softcap=None, lse=None):
     """One raw call of the decode kernel with plan ``pl`` (no checks, no
-    count; its partials' scratch allocated here and kept by the call)."""
+    count; its partials' scratch allocated here and kept by the call);
+    ``lse``: a [B, H] float32 output for the log-sum-exps, or None."""
     import math
 
     import torch
@@ -1299,7 +1321,8 @@ def _raw_decode(q, k, v, length, out, pl, softcap=None):
         int(dmod.tensor_cores(q.dtype, d)), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), length.data_ptr(), out.data_ptr(),
         acc.data_ptr() if acc is not None else None,
-        ml.data_ptr() if ml is not None else None, b, h, hkv, t, d,
+        ml.data_ptr() if ml is not None else None,
+        lse.data_ptr() if lse is not None else None, b, h, hkv, t, d,
         pl.splits, pl.chunk, 1.0 / math.sqrt(d), float(softcap or 0.0))
     run.scratch = (acc, ml)
     return run
@@ -2882,10 +2905,7 @@ def serve_new_archs():
         counts[arch], c = serve_launcher(
             arch, argv=("--arch", arch, "--hours", str(NEW_HOURS)))
         combines += c
-        _free_card()
-        if arch == GRANITE:     # the others' profiles: PERF.md section 5
-            profile_serving(arch)
-            _free_card()
+        _free_card()            # (their profiles: PERF.md section 5)
     counts[INTERNVL2], c = serve_internvl2()
     combines += c
     # Mixtral at MIXTRAL_LAYERS of 56 on the launcher's requests over
@@ -2896,7 +2916,6 @@ def serve_new_archs():
         cfg, label, requests=_launcher_requests(NEW_HOURS))
     assert decodes == {"split": 0,
                        "single": counts[MIXTRAL]["decode_attention"]}, decodes
-    profile_serving(label, cfg=cfg)
     _free_card()
     return counts, combines
 
@@ -3005,8 +3024,8 @@ def check_slice9_depths():
 
 
 def serve_slice9():
-    """Phase 17: the new archs at full width in bf16, counted as phase 7,
-    whisper and deepseek-v2 profiled as phase 8: the minicpm3-4b (62
+    """Phase 17: the new archs at full width in bf16, counted as phase 7
+    (their profiles: PERF.md section 5): the minicpm3-4b (62
     layers) and xlstm-125m (12) launchers at ``--hours`` SLICE9_HOURS
     (no kernel launch at all: MLA and xLSTM are plain PyTorch),
     whisper-base through
@@ -3045,13 +3064,11 @@ def serve_slice9():
     want["split" if cross.splits > 1 else "single"] += n_cross * steps
     assert decodes == want, (decodes, want)
     combines += decodes["split"]
-    profile_serving(WHISPER, extras=extras)
     _free_card()
     cfg = cut_depth(DEEPSEEK, DEEPSEEK_LAYERS, torch.bfloat16)
     label = f"{DEEPSEEK} ({DEEPSEEK_LAYERS} of 60 layers)"
     counts[DEEPSEEK], _ = serve_engine(cfg, label)
     assert sum(counts[DEEPSEEK].values()) == 0, counts[DEEPSEEK]
-    profile_serving(label, cfg=cfg)
     _free_card()
     return counts, combines
 
@@ -4633,9 +4650,10 @@ def check_train_cell(mesh):
 
 
 def check_serve_cells(mesh):
-    """Phase 22.2: ``jit_cell``'s prefill and decode cells (SERVE rules)
-    on Qwen2.5-7B at full width, DIST_LAYERS layers, bf16, against
-    ``make_prefill_step`` / ``make_decode_step`` on the same inputs."""
+    """Phase 22.2: ``jit_cell``'s prefill and decode cells (SERVE rules,
+    the sharded serving layout at world size 1) on Qwen2.5-7B at full
+    width, DIST_LAYERS layers, bf16, bit-equal to ``make_prefill_step`` /
+    ``make_decode_step`` on the same inputs (logits and caches)."""
     import torch
 
     from repro_torch.kernels import decode_attention as dmod
@@ -4664,6 +4682,9 @@ def check_serve_cells(mesh):
         zip(tree_leaves(got_c), tree_leaves(want_c)))
     ok, pre_worst, _ = _cell_check([got.full_tensor()], [want])
     assert ok, f"prefill cell: logits off by {pre_worst:.3e}"
+    # world size 1: the sharded serving body is the unsharded step, op
+    # for op
+    assert pre_equal, "prefill cell: not bit-equal to make_prefill_step"
     # decode at DECODE_POS over caches whose first DECODE_POS rows hold
     # seeded values
     caches = materialize(input_specs(cfg, dec)["caches"],
@@ -4673,9 +4694,9 @@ def check_serve_cells(mesh):
             (leaf.shape[0], leaf.shape[1], DECODE_POS) + leaf.shape[3:],
             70 + i, leaf.dtype, torch)
     tok = _tokens(cfg, 2, 1, 61)
-    want, _ = make_decode_step(cfg)(params, tok, tree_map(torch.clone,
-                                                          caches),
-                                    DECODE_POS)
+    want, want_c = make_decode_step(cfg)(params, tok, tree_map(torch.clone,
+                                                               caches),
+                                         DECODE_POS)
     step, _ = jit_cell(cfg, dec, mesh)
     b, h, hkv, d = 2, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     way = "split" if dmod.plan(b, h, hkv, DECODE_POS + 1, d, dmod._sms(
@@ -4685,9 +4706,12 @@ def check_serve_cells(mesh):
     assert launches == [{"decode_attention": DIST_LAYERS}], launches
     assert ops.route_counts("decode_attention")[way] == DIST_LAYERS
     got = out[0].full_tensor()
-    dec_equal = torch.equal(got, want)
+    dec_equal = torch.equal(got, want) and all(
+        torch.equal(g.full_tensor(), w) for g, w in
+        zip(tree_leaves(out[1]), tree_leaves(want_c)))
     ok, dec_worst, _ = _cell_check([got], [want])
     assert ok, f"decode cell: logits off by {dec_worst:.3e}"
+    assert dec_equal, "decode cell: not bit-equal to make_decode_step"
     del params, caches, out
     _free_card()
     print(f"serve cells {cfg.name} x {DIST_LAYERS} layers bf16: prefill "
@@ -5760,6 +5784,9 @@ DRY_PEAK_TOL = 0.05        # the traced peak vs max_memory_allocated
 DRY_CELL = ("granite-20b", "decode_32k", "single")
 # one production train cell in the sharded layout, run as rank 0
 DRY_SHARDED = ("granite-20b", "train_4k", "single")
+# the production serving cells in the sharded layout, run as rank 0
+DRY_SERVING = (("granite-20b", "decode_32k", "single"),
+               ("granite-20b", "prefill_32k", "single"))
 
 
 def _dry_cells():
@@ -5837,9 +5864,10 @@ def _gap(got, want):
 
 
 def _rank0_inputs(cfg, shape, mesh):
-    """Rank 0's blocks of a train cell's inputs on the card, drawn at
-    their local shapes from seed 0 (the state) and 70 (the tokens), laid
-    out as ``input_shardings`` over ``mesh`` (a fake group's)."""
+    """Rank 0's blocks of a cell's inputs on the card, drawn at their
+    local shapes from seed 0 (the state, or the weights), 1 (a cache:
+    zeros) and 70 (the tokens), laid out as ``input_shardings`` over
+    ``mesh`` (a fake group's); a decode cell at its cache's last row."""
     import dataclasses
 
     import torch
@@ -5865,16 +5893,30 @@ def _rank0_inputs(cfg, shape, mesh):
             shape=torch.Size(s.shape),
             stride=torch.empty(s.shape, device="meta").stride())
 
-    state = materialize(tree_map(local, specs["state"], shards["state"]),
-                        torch.Generator().manual_seed(0), DEV)
-    batch = {k: _tokens(cfg, *local(s, shards["batch"][k]).shape, 70 + i)
-             for i, (k, s) in enumerate(specs["batch"].items())}
-    return [tree_map(laid_out, state, specs["state"], shards["state"]),
-            tree_map(laid_out, batch, specs["batch"], shards["batch"])]
+    def drawn(name, seed):
+        t = materialize(tree_map(local, specs[name], shards[name]),
+                        torch.Generator().manual_seed(seed), DEV)
+        return tree_map(laid_out, t, specs[name], shards[name])
+
+    def tokens(name):
+        toks = tree_map(lambda s, sh: s, specs[name], shards[name])
+        leaves = toks.items() if isinstance(toks, dict) else [(None, toks)]
+        out = {k: _tokens(cfg, *local(s, shards[name][k] if k else
+                                      shards[name]).shape, 70 + i)
+               for i, (k, s) in enumerate(leaves)}
+        out = out if isinstance(toks, dict) else out[None]
+        return tree_map(laid_out, out, specs[name], shards[name])
+
+    if shape.kind == "train":
+        return [drawn("state", 0), tokens("batch")]
+    if shape.kind == "prefill":
+        return [drawn("params", 0), tokens("batch"), drawn("caches", 1)]
+    return [drawn("params", 0), tokens("tokens"), drawn("caches", 1),
+            shape.seq_len - 1]
 
 
 def _rank0_step(cfg, shape, mesh):
-    """One step of ``jit_cell``'s train cell on the card as rank 0 of
+    """One step of ``jit_cell``'s cell on the card as rank 0 of
     ``mesh``: the kernel launches and routes (counters reset just before
     the step, read just after), the step's wall (host clock ending in a
     synchronize) and the peak of ``max_memory_allocated`` above what the
@@ -5989,6 +6031,142 @@ def check_sharded_rank0(card):
             "useful_flops_ratio": traced["useful_flops_ratio"],
             "collective_counts": traced["collective_counts"],
             "trace_s": traced["trace_s"], "card": card}
+
+
+@contextlib.contextmanager
+def _out_of_place_writes():
+    """A planted layout fault of the sharded serving body, modelled in
+    the trace: each layer's cache block written out of place
+    (``torch.slice_scatter``, the gathered body's writer, whose kernel
+    clones the whole stacked storage its view lies in), so that
+    ``_run_groups`` restacks the new blocks."""
+    import torch
+
+    from repro_torch.models import attention
+    real = attention._kv_put
+
+    def put(cache, kv, lo, off):
+        t, s = cache["k"].shape[1], kv["k"].shape[1]
+        a = min(max(lo, off), lo + t)
+        e = max(min(lo + t, off + s), a)
+        return {n: torch.slice_scatter(
+            cache[n], kv[n][:, a - off:e - off].to(cache[n].dtype), 1,
+            a - lo, e - lo) for n in cache}
+
+    attention._kv_put = put
+    try:
+        yield
+    finally:
+        attention._kv_put = real
+
+
+@contextlib.contextmanager
+def _whole_length_writes():
+    """A planted layout fault of the sharded serving prefill, modelled
+    in the trace: every layer's K/V of the whole sequence kept as cache
+    rows to the end of the step (a cache not split by length over
+    "model"), beside the rank's block written as before."""
+    from repro_torch.models import attention
+    real = attention._kv_put
+    kept = []
+
+    def put(cache, kv, lo, off):
+        kept.append({n: v.to(cache[n].dtype) for n, v in kv.items()})
+        return real(cache, kv, lo, off)
+
+    attention._kv_put = put
+    try:
+        yield
+    finally:
+        attention._kv_put = real
+        kept.clear()
+
+
+def check_serving_rank0(card, decode=None):
+    """Phase 24.3, serving: DRY_SERVING's cells (granite-20b x
+    decode_32k at its last row, so rank 0 reads all 2,048 rows of its
+    cache block, and x prefill_32k; the (16, 16) mesh, full width and
+    depth, bf16, in the sharded serving layout) traced as the dry run
+    traces them (``decode``: the decode cell's trace, if made already),
+    then run for real as rank 0 of a ``fake`` group of 256 on the card
+    (the weights drawn at their local shapes; the collectives complete
+    at once and return nothing, so the values are not checked): the
+    launches (one decode a layer on the plan's route; one sm90 flash a
+    layer) and routes traced = real, the traced peak within DRY_PEAK_TOL
+    of ``max_memory_allocated``; the traces with the planted faults
+    (decode: the blocks written out of place and restacked,
+    ``_out_of_place_writes``; prefill: the whole length kept as cache
+    rows, ``_whole_length_writes``) must miss the peak gate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import SHAPES
+    res = {}
+    for arch, shape_name, mesh_name in DRY_SERVING:
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        t0 = time.perf_counter()
+        traced = decode if decode is not None and \
+            shape.kind == "decode" else \
+            dryrun.run_cell(arch, shape_name, mesh_name, verbose=False)
+        assert traced["layout"] == "sharded", traced["layout"]
+        fault = _out_of_place_writes if shape.kind == "decode" else \
+            _whole_length_writes
+        with fault():
+            bad = dryrun.run_cell(arch, shape_name, mesh_name,
+                                  verbose=False)
+        with dryrun.fake_group(256):
+            mesh = make_production_mesh(device_type="cuda")
+            real = _rank0_step(cfg, shape, mesh)
+        n = cfg.n_layers
+        if shape.kind == "decode":
+            rows, block = shape.global_batch // 16, shape.seq_len // 16
+            way = "split" if dmod.plan(rows, cfg.n_heads, cfg.n_kv_heads,
+                                       block, cfg.head_dim_,
+                                       dmod.FAKE_SMS).splits > 1 \
+                else "single"
+            want, routes = {"decode_attention": n}, {
+                "decode_attention": {way: n}}
+        else:
+            want, routes = {"flash_attention": n}, {
+                "flash_attention": {"sm90": n}}
+        assert traced["kernel_launches"] == real["launches"] == want, (
+            shape_name, traced["kernel_launches"], real["launches"])
+        assert traced["kernel_routes"] == real["routes"], (
+            shape_name, traced["kernel_routes"], real["routes"])
+        for op, r in routes.items():
+            assert real["routes"][op] == r, (shape_name, real["routes"])
+        gap = _gap(traced["peak_device_bytes"], real["peak_bytes"])
+        miss = _gap(bad["peak_device_bytes"], real["peak_bytes"])
+        assert gap <= DRY_PEAK_TOL, (shape_name, traced["peak_device_bytes"],
+                                     real["peak_bytes"])
+        assert miss > DRY_PEAK_TOL, (
+            f"the {fault.__name__} trace passes the peak gate of "
+            f"{shape_name}", bad["peak_device_bytes"], real["peak_bytes"])
+        print(f"sharded {arch} x {shape_name} rank 0 of {mesh_name} "
+              f"(16, 16), {n} layers bf16: step {real['ms']:.3f} ms "
+              f"({card}); launches {real['launches']} routes "
+              f"{real['routes']} traced and real; peak "
+              f"{traced['peak_device_bytes']:,} B traced vs "
+              f"{real['peak_bytes']:,} B max_memory_allocated (gap "
+              f"{100 * gap:.3f} %, gate {100 * DRY_PEAK_TOL:.0f} %; {card});"
+              f" the {fault.__name__} trace {bad['peak_device_bytes']:,} B "
+              f"(gap {100 * miss:.1f} %); useful-FLOP ratio "
+              f"{traced['useful_flops_ratio']:.3f}; "
+              f"{time.perf_counter() - t0:.3f} s")
+        res[shape_name] = {
+            "layout": traced["layout"], "step_ms": real["ms"],
+            "launches": real["launches"], "routes": real["routes"],
+            "predicted_peak": traced["peak_device_bytes"],
+            "real_peak": real["peak_bytes"], "peak_gap": gap,
+            "fault": fault.__name__, "fault_peak": bad["peak_device_bytes"],
+            "fault_gap": miss,
+            "useful_flops_ratio": traced["useful_flops_ratio"],
+            "collective_counts": traced["collective_counts"],
+            "trace_s": traced["trace_s"], "card": card}
+    return res
 
 
 def time_decode_wrapper(stats):
@@ -6108,10 +6286,19 @@ def drive_dryrun(stats):
     cell = dryrun.run_cell(arch, shape_name, mesh_name)
     assert cell["status"] == "ok", cell
     from repro_torch.configs import get_config
-    assert cell["kernel_launches"] == {
-        "decode_attention": get_config(arch).n_layers}, cell[
-        "kernel_launches"]
+    from repro_torch.kernels import decode_attention as dmod
+    # the sharded serving layout: rank 0's 8 rows x its 2,048-row block
+    cfg = get_config(arch)
+    way = "split" if dmod.plan(8, cfg.n_heads, cfg.n_kv_heads, 2048,
+                               cfg.head_dim_, dmod.FAKE_SMS).splits > 1 \
+        else "single"
+    assert cell["layout"] == "sharded", cell["layout"]
+    assert cell["kernel_launches"] == {"decode_attention": cfg.n_layers}, \
+        cell["kernel_launches"]
+    assert cell["kernel_routes"]["decode_attention"] == {
+        way: cfg.n_layers}, cell["kernel_routes"]
     sharded = check_sharded_rank0(_card_line())
+    serving = check_serving_rank0(_card_line(), cell)
     timing = time_decode_wrapper(stats)
     _possible(timing["wrapper_ms"], stats["decode_attention"]["bound_ms"]
               if "decode_attention" in stats else 0.0, "decode wrapper")
@@ -6130,7 +6317,170 @@ def drive_dryrun(stats):
             "fits", "trace_s")
     return {"cells": res, "production": {
         "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
-        "sharded_rank0": sharded, "decode_wrapper": timing, "wall_s": wall}
+        "sharded_rank0": sharded, "serving_rank0": serving,
+        "decode_wrapper": timing, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: decode_attention's log-sum-exp output, and its merge over the
+# length blocks of a cache (the sharded serving body's decode)
+# ---------------------------------------------------------------------------
+
+LSE_REL = 1e-4             # the log-sum-exps vs the plain version's
+# (label, B, H, Hkv, T, D): granite-20b's and gemma3-1b's rank-0 cache
+# blocks at decode_32k on (16, 16) (the split route), and a launcher's
+# 48-row decode (the single route)
+LSE_CASES = (("granite rank block", 8, 48, 1, 2048, 128),
+             ("gemma3 rank block", 8, 4, 1, 2048, 256),
+             ("launcher rows", 1, 28, 4, 48, 128))
+# the merge: granite's rank block of 2,048 rows cut into 2 and 4 length
+# blocks, the token at row 1,500 (at 4 the last block lies past it),
+# with no window and with one of 700 (rows 801-1,500: it crosses two
+# blocks, and at 4 the first lies wholly before it)
+MERGE_POS = 1500
+MERGE_WINDOWS = (None, 700)
+
+
+def _lengths_for(b, t):
+    """Ragged rows: the whole cache, one key, none, then mid-way."""
+    pick = [t, 1, 0] + [t // 3 + 5 + 17 * i for i in range(b)]
+    return pick[:b] if b > 2 else [t // 2 + 3] * b
+
+
+def check_decode_lse(stats):
+    """Phase 25: ``decode_attention(..., lse=True)`` on the card against
+    ``ref.decode_attention_lse_ref`` at LSE_CASES, in bf16 and float32,
+    with the softcap off and on, on the plan's route (asserted): outputs
+    within ATTN_TOL, log-sum-exps within LSE_REL of the plain version's
+    (-inf on a row of length 0), the output bit-equal to the call
+    without the log-sum-exp.  Then the merge: granite's rank block cut
+    into 2 and 4 length blocks, each block's visible rows run alone
+    with the log-sum-exp (a block the token cannot see: length 0) and
+    merged by ``ref.decode_merge``, held within ATTN_TOL of one call over
+    the visible rows, queries x4 (a peaked softmax); the planted wrong
+    merges of ``ref.decode_merge_faults`` must miss.  Then the kernel
+    with and without the log-sum-exp timed at DECODE_TIMED (bf16, raw
+    launches over rotated inputs, as phase 5)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
+    row = stats.setdefault("decode_attention", {"max_abs_err": 0.0})
+    worst = {"out": 0.0, "lse_rel": 0.0, "merge": 0.0}
+    miss = {}
+    for label, b, h, hkv, t, d in LSE_CASES:
+        way = "split" if dmod.plan(b, h, hkv, t, d, dmod._sms(
+            torch.device(DEV))).splits > 1 else "single"
+        length = torch.tensor(_lengths_for(b, t), dtype=torch.int32,
+                              device=DEV)
+        for dt in (torch.bfloat16, torch.float32):
+            tol = ATTN_TOL[str(dt).split(".")[-1]]
+            q = _randn((b, h, d), 500, dt, torch)
+            k = _randn((b, hkv, t, d), 501, dt, torch)
+            v = _randn((b, hkv, t, d), 502, dt, torch)
+            for cap in (None, 5.0):
+                kw = {} if cap is None else {"softcap": cap}
+                out, lse = _routed("decode_attention", way,
+                                   lambda: ops.decode_attention(
+                                       q, k, v, length, lse=True, **kw))
+                plain = ops.decode_attention(q, k, v, length, **kw)
+                want, want_lse = ref.decode_attention_lse_ref(
+                    q, k, v, length, softcap=cap)
+                torch.cuda.synchronize()
+                err = _attn_close(out, want, tol, f"lse decode {label} "
+                                  f"{dt} cap {cap}")
+                assert torch.equal(out, plain), \
+                    f"{label} {dt}: the output moved with the lse output"
+                empty = length == 0
+                assert bool(torch.isneginf(lse[empty]).all()) and \
+                    bool(torch.isfinite(lse[~empty]).all()), lse
+                rel = float(((lse[~empty] - want_lse[~empty]).abs() /
+                             want_lse[~empty].abs().clamp_min(1.0)).max())
+                assert rel <= LSE_REL, (label, str(dt), cap, rel)
+                worst["out"] = max(worst["out"], err)
+                worst["lse_rel"] = max(worst["lse_rel"], rel)
+                print(f"decode_attention lse {label} B,H,Hkv,T,D="
+                      f"{(b, h, hkv, t, d)} {str(dt):14s} cap {cap} "
+                      f"({way}): out max abs err {err:.3e} (tol {tol}), "
+                      f"lse max rel err {rel:.3e} (gate {LSE_REL}); the "
+                      f"output bit-equal to the call without it")
+    _, b, h, hkv, t, d = LSE_CASES[0]
+    for dt in (torch.bfloat16, torch.float32):
+        tol = ATTN_TOL[str(dt).split(".")[-1]]
+        q = _randn((b, h, d), 510, dt, torch) * 4
+        k = _randn((b, hkv, t, d), 511, dt, torch)
+        v = _randn((b, hkv, t, d), 512, dt, torch)
+        for window in MERGE_WINDOWS:
+            first = 0 if window is None else MERGE_POS + 1 - window
+            whole = ops.decode_attention(
+                q, k[:, :, first:MERGE_POS + 1], v[:, :, first:MERGE_POS + 1],
+                MERGE_POS + 1 - first)
+            for blocks in (2, 4):
+                outs, lses, ks, ns = [], [], [], []
+                for i in range(blocks):
+                    lo, hi = i * t // blocks, (i + 1) * t // blocks
+                    a = max(lo, first)
+                    n = max(min(hi, MERGE_POS + 1) - a, 0)
+                    start = min(a, hi - 1)
+                    kb = k[:, :, start:start + max(n, 1)]
+                    vb = v[:, :, start:start + max(n, 1)]
+                    out, lse = ops.decode_attention(q, kb, vb, n, lse=True)
+                    outs.append(out), lses.append(lse), ks.append(kb)
+                    ns.append(n)
+                assert blocks == 2 or 0 in ns, ns
+                outs, lses = torch.stack(outs), torch.stack(lses)
+                got = ref.decode_merge(outs, lses, dt)
+                torch.cuda.synchronize()
+                err = _attn_close(got, whole, tol, f"merge {blocks} blocks "
+                                  f"{dt} window {window}")
+                worst["merge"] = max(worst["merge"], err)
+                for name, bad in ref.decode_merge_faults(
+                        q, ks, outs, lses, ns).items():
+                    ok, e = _close(bad, whole, tol)
+                    assert not ok, (f"the merge check passes {name} ({dt}, "
+                                    f"{blocks} blocks, window {window}): "
+                                    f"max abs err {e:.3e}")
+                    miss[name] = min(miss.get(name, math.inf), e)
+                print(f"decode merge of {blocks} length blocks {ns} of "
+                      f"{t} rows, token at {MERGE_POS}, window {window}, "
+                      f"{str(dt):14s}: max abs err {err:.3e} against one "
+                      f"call (tol {tol}); planted wrong merges miss")
+    # the kernel with and without the log-sum-exp at the table's shape
+    b, h, hkv, t, d = DECODE_TIMED
+    dt = torch.bfloat16
+    sets = [(_randn((b, h, d), 520 + 3 * j, dt, torch),
+             _randn((b, hkv, t, d), 521 + 3 * j, dt, torch),
+             _randn((b, hkv, t, d), 522 + 3 * j, dt, torch))
+            for j in range(_sets(2 * b * hkv * t * d * 2))]
+    length = torch.full((b,), t, dtype=torch.int32, device=DEV)
+    pl = dmod.plan(b, h, hkv, t, d, dmod._sms(torch.device(DEV)))
+    outs = [torch.empty((b, h, d), dtype=dt, device=DEV) for _ in sets]
+    lses = [torch.empty((b, h), dtype=torch.float32, device=DEV)
+            for _ in sets]
+    plain_ms, lse_ms = [], []
+    for into, with_lse in ((plain_ms, False), (lse_ms, True),
+                           (lse_ms, True), (plain_ms, False)):
+        into.append(_time_rot([_raw_decode(q, k_, v_, length, o, pl,
+                                           lse=m if with_lse else None)
+                               for (q, k_, v_), o, m in zip(sets, outs,
+                                                            lses)], torch))
+    del sets, outs, lses
+    _free_card()
+    ms = {"without": statistics.median(plain_ms),
+          "with": statistics.median(lse_ms)}
+    wall = time.perf_counter() - t0
+    print(f"decode_attention at B,H,Hkv,T,D={DECODE_TIMED} bf16 "
+          f"({pl.splits} splits): {ms['without']:.6f} ms without the "
+          f"log-sum-exp, {ms['with']:.6f} ms with it (runs {plain_ms} / "
+          f"{lse_ms}); phase 25: {wall:.3f} s")
+    row["max_abs_err"] = max(row["max_abs_err"], worst["out"])
+    row["lse"] = {"out_max_abs_err": worst["out"],
+                  "lse_max_rel_err": worst["lse_rel"],
+                  "merge_max_abs_err": worst["merge"],
+                  "merge_fault_min_miss": miss, "ms": ms,
+                  "splits": pl.splits, "wall_s": wall}
+    return row["lse"]
 
 
 def main():
@@ -6221,6 +6571,7 @@ def main():
     distributed = drive_distributed(stats)
     cap_offset = drive_cap_offset()
     dry = drive_dryrun(stats)
+    lse = check_decode_lse(stats)
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
               "segment_trapz": csrc + "segment_trapz.cu",
@@ -6402,9 +6753,20 @@ def main():
             row["dryrun_launches"] = {
                 f"{kind}_cell": dry["cells"][kind]["launches"][op]}
         if row["name"] == "flash_attention":
-            # the sharded train cell's rank-0 step (bf16: sm90)
+            # the sharded train and prefill cells' rank-0 steps (bf16:
+            # sm90)
             row["dryrun_launches"]["sharded_train_rank0"] = \
                 dry["sharded_rank0"]["launches"]["flash_attention"]
+            row["dryrun_launches"]["sharded_prefill_rank0"] = \
+                dry["serving_rank0"]["prefill_32k"]["launches"][
+                    "flash_attention"]
+        if row["name"] == "decode_attention":
+            # the sharded decode cell's rank-0 step (with the log-sum-exp
+            # output), and phase 25's checks and times of that output
+            row["dryrun_launches"]["sharded_decode_rank0"] = \
+                dry["serving_rank0"]["decode_32k"]["launches"][
+                    "decode_attention"]
+            row["lse"] = lse
     print(json.dumps({"cap_offset": {k: cap_offset[k] for k in (
         "qwen", "gemma3", "grads", "whisper")}}))
     print(json.dumps({"dryrun": dry}))

@@ -55,6 +55,20 @@ Inside that body the model's tensors are plain local tensors and
 ``shard_hint`` leaves them as they are: the hint sites' layouts are the
 body's own (the residual split by rows and sequence, the logits of the
 local tokens).
+
+``ServeShards``, a ``ModelShards`` over the params' ``SERVE_RULES``
+specs, is the "model" axis inside the sharded serving body (a dense
+decoder's prefill and decode cells).  The residual is replicated over
+"model" there (``"seq": []``), so its sequence "gather" is the residual
+itself and its "reduce-scatter" an all-reduce: each row-parallel
+product's partial sums summed over the axis.  A layer's weights split by
+head dim (``"hdim"``: the heads do not divide the axis) or by K/V head
+are gathered whole, since rope pairs dims i and i + D/2 and every rank
+writes every K/V head of its cache rows; every rank then runs those
+heads, GSPMD's redundancy for such a dim.  Each rank holds the block
+``rows(T)`` of the KV cache's length and writes it in place; ``merge``
+combines the ranks' partial decode attention over their blocks by their
+log-sum-exps (``ref.decode_merge``).
 """
 from __future__ import annotations
 
@@ -68,6 +82,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.kernels import ref
 from repro_torch.models.params import ParamSpec, tree_map
 
 Tree = Any
@@ -232,9 +247,14 @@ def shardings_for_tree(axes_tree: Tree, abstract_tree: Tree, rules: RuleSet,
 def distribute(x: Any, sharding: NamedSharding) -> DTensor:
     """``x`` laid out as ``sharding`` says.  A plain tensor (or number) is
     taken as the global value, the same on every rank, and each rank
-    keeps its block (no communication); a DTensor is redistributed."""
+    keeps its block (no communication); a DTensor is redistributed, or
+    returned as it is where it is laid out so already (a donated input
+    is then written in place)."""
     dm = sharding.mesh.device_mesh
     if isinstance(x, DTensor):
+        if x.device_mesh == dm and \
+                tuple(x.placements) == tuple(sharding.placements):
+            return x
         return x.redistribute(dm, sharding.placements)
     x = torch.as_tensor(x, device=dm.device_type)
     full = DTensor.from_local(x, dm, [Replicate()] * dm.ndim,
@@ -515,6 +535,64 @@ class ModelShards:
                         grads, self.specs)
 
 
+class ServeShards(ModelShards):
+    """The sharded serving body's view of its mesh (module docstring):
+    ``specs`` the params' ``PartitionSpec``s under ``SERVE_RULES``,
+    ``axes`` their logical axes (the params' ``ParamSpec``s).  An axis
+    of size 1 takes no collective, so at world size 1 the body is the
+    unsharded step, op for op."""
+
+    def __init__(self, mesh: Mesh, specs: Tree, params: Tree,
+                 axis: str = "model"):
+        super().__init__(mesh, specs, axis)
+        self.axes = tree_map(lambda s: s.axes, params)
+
+    def _groups(self) -> List[Any]:
+        return [self._group(self.axis)] if self.size > 1 else []
+
+    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual as it is: replicated over the axis."""
+        return x
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s partial sums summed over the axis, in place."""
+        return reduce_over(x, self._groups())
+
+    def seq_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums summed over the axis
+        (the residual is replicated, so nothing is scattered)."""
+        return self.sum(x)
+
+    def concat(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks ``x`` concatenated along ``dim``, in rank
+        order."""
+        if self.size == 1:
+            return x
+        return _gather(x, dim, self._group(self.axis))
+
+    def _whole(self, spec: Sequence, axes: Sequence) -> bool:
+        return any(self.axis in entry_axes(e) and a in ("hdim", "kv_heads")
+                   for e, a in zip(spec, axes))
+
+    def layer(self, tree: Tree, *path: str) -> Tree:
+        """One layer's slice of the stacked subtree at ``path``: its
+        leaves' blocks, each split by head dim or K/V head gathered
+        whole over the axis (module docstring)."""
+        return tree_map(
+            lambda t, s, a: self.gather(t, s[1:], whole=True)
+            if self._whole(s[1:], a[1:]) else t,
+            tree, _at(self.specs, path), _at(self.axes, path))
+
+    def merge(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """One-token attention over the whole cache from this rank's
+        partial over its length block: out [B,H,D] and lse [B,H] of every
+        rank gathered (one all-gather of both, in float32) and merged in
+        rank order by ``ref.decode_merge``."""
+        both = torch.cat([out.float(), lse[..., None]], -1)
+        parts = self.concat(both[None], 0)
+        return ref.decode_merge(parts[..., :-1], parts[..., -1], out.dtype)
+
+
 _MODEL_CTX: contextvars.ContextVar = contextvars.ContextVar(
     "model_shards", default=None)
 
@@ -529,6 +607,6 @@ def model_parallel(shards: Optional[ModelShards]):
 
 
 def model_shards() -> Optional[ModelShards]:
-    """The active ``ModelShards`` (None outside the sharded train
-    body)."""
+    """The active ``ModelShards`` (None outside a sharded step body; a
+    ``ServeShards`` in the serving one)."""
     return _MODEL_CTX.get()

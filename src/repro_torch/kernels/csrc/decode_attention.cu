@@ -38,7 +38,13 @@
 //   * with one split the block writes the output itself; with more, each
 //     block writes its partial (m, l, acc) to float32 scratch and a second
 //     launch (combine_kernel) sums the splits in split-index order, so two
-//     calls on the same inputs are bit-equal.  No atomics.
+//     calls on the same inputs are bit-equal.  No atomics;
+//   * on request (lse non-null) the pass that writes the output also
+//     writes each (row, head)'s log-sum-exp, m + log l of the capped,
+//     scaled scores in natural units (-inf where no key is valid): the
+//     partial result of a block of the cache's length, which the sharded
+//     serving body merges across the "model" ranks' blocks.  It costs one
+//     float a (row, head) and leaves the output's arithmetic as it was.
 
 #include "attention_common.cuh"
 
@@ -53,6 +59,7 @@ constexpr int MWARPS = 4;       // each folds 16 keys of every tile
 constexpr int MTHREADS = MWARPS * 32;
 constexpr int STAGES = 3;       // tiles of K and V in flight
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -63,20 +70,29 @@ struct Params {
                       // by the combine (several)
   float* part_acc;    // [B, H, splits, D]  (several splits only)
   float* part_ml;     // [B, H, splits, 2]: m in log2 units, l
+  float* lse;         // [B, H] log-sum-exp (natural units), or null
   int H, Hkv, T, D, splits, chunk;
   float scale;
   float softcap;      // <= 0: none (each route makes its SoftCap)
   long long sq[3], sk[4], sv[4], so[3];   // [B, H, D]; [B, Hkv, T, D]
 };
 
-// The block's result for query head h, dim d: the output itself when
-// there is one split, else the split's partial state (m2 in log2 units).
+// m2 (log2 units) and l of a row as its natural log-sum-exp; -inf where
+// no key was valid (l = 0)
+__device__ __forceinline__ float log_sum_exp(float m2, float l) {
+  return l > 0.f ? m2 * LN2 + logf(l) : -INFINITY;
+}
+
+// The block's result for query head h, dim d: the output itself (and, on
+// request, the row's log-sum-exp) when there is one split, else the
+// split's partial state (m2 in log2 units).
 template <typename T>
 __device__ __forceinline__ void put(const Params& p, int b, int h, int split,
                                     int d, float acc, float m2, float l) {
   if (p.splits == 1) {
     static_cast<T*>(p.o)[b * p.so[0] + h * p.so[1] + d] =
         from_f32<T>(acc / fmaxf(l, 1e-20f));
+    if (p.lse && d == 0) p.lse[(long long)b * p.H + h] = log_sum_exp(m2, l);
     return;
   }
   const long long row = ((long long)b * p.H + h) * p.splits + split;
@@ -549,6 +565,7 @@ __global__ void __launch_bounds__(128) combine_kernel(const Params p) {
   __syncthreads();
   float ll = 0.f;
   for (int s = 0; s < p.splits; ++s) ll = fmaf(cl[s], cw[s], ll);
+  if (p.lse && tid == 0) p.lse[bh] = log_sum_exp(mm, ll);
   for (int d = tid; d < p.D; d += blockDim.x) {
     float a = 0.f;
     for (int s0 = 0; s0 < p.splits; s0 += KSPLIT) {
@@ -641,7 +658,8 @@ cudaError_t launch_blocks(int dtype, int tc, const Params& p, int B,
 // aligned), 0 for the FP32-FMA route.  length: [B] int32 on the device.
 // splits, chunk: the plan (splits * chunk >= T, chunk a multiple of 64);
 // with splits > 1, part_acc [B, H, splits, D] and part_ml [B, H, splits, 2]
-// float32 scratch (unused, may be null, with one split).  strides: 14
+// float32 scratch (unused, may be null, with one split).  lse: null, or a
+// contiguous [B, H] float32 output for each row's log-sum-exp.  strides: 14
 // element strides, [B, H, D] of q, [B, Hkv, T, D] of k and of v, then
 // [B, H, D] of out; every last-dim stride is 1.  softcap <= 0: none.  The
 // caller checks shapes (D % 4 == 0, D <= 256, H % Hkv == 0).  Returns the
@@ -649,7 +667,8 @@ cudaError_t launch_blocks(int dtype, int tc, const Params& p, int B,
 extern "C" int decode_attention_fwd(int dtype, int tc, const void* q,
                                     const void* k, const void* v,
                                     const int* length, void* out,
-                                    float* part_acc, float* part_ml, int B,
+                                    float* part_acc, float* part_ml,
+                                    float* lse, int B,
                                     int H, int Hkv, int T, int D, int splits,
                                     int chunk, float scale, float softcap,
                                     const long long* strides, void* stream) {
@@ -665,6 +684,7 @@ extern "C" int decode_attention_fwd(int dtype, int tc, const void* q,
   p.o = out;
   p.part_acc = part_acc;
   p.part_ml = part_ml;
+  p.lse = lse;
   p.H = H;
   p.Hkv = Hkv;
   p.T = T;

@@ -13,6 +13,12 @@ calls are bit-equal.  The arithmetic is fixed by dtype and head dim
 fed by 16-byte ``cp.async`` loads (a view those cannot take is refused,
 ``vec16_check``), float32 and other D run FP32 FMAs.
 
+``decode_attention(..., lse=True)`` also returns each (row, head)'s
+log-sum-exp of the capped, scaled scores in float32 (-inf where no key
+is valid), written by the pass that writes the output: the partial
+result of a block of a longer cache, which the sharded serving body
+merges across the ranks' blocks (``ref.decode_merge``).
+
 Same contract as ``kernels/flash_attention.py``: CUDA tensors only
 (``kernels/ops.py`` routes CPU tensors to ``ref.decode_attention_ref``),
 checked, passed by strides, launched on the current stream without
@@ -50,9 +56,9 @@ SMEM_PER_SM = 228 * 1024   # Hopper's shared memory an SM
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (dtype, tc, q, k, v, length, out, part_acc, part_ml, B, H, Hkv, T, D,
-# splits, chunk, scale, softcap, strides, stream)
-_SIG = [_I, _I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + \
+# (dtype, tc, q, k, v, length, out, part_acc, part_ml, lse, B, H, Hkv, T,
+# D, splits, chunk, scale, softcap, strides, stream)
+_SIG = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + \
     [ctypes.c_float, ctypes.c_float, _P, _P]
 
 
@@ -92,11 +98,13 @@ def _sms(device: torch.device) -> int:
 
 
 def work(b: int, h: int, hkv: int, n: int, d: int,
-         itemsize: int = 2) -> Tuple[int, int]:
+         itemsize: int = 2, lse: bool = False) -> Tuple[int, int]:
     """(operations, bytes) of a decode over ``n`` valid cache rows, the
     yardstick of the kernel table's bound: 4 D operations a (head, row),
-    q and out once each and the n rows of k and v."""
-    return 4 * b * h * n * d, (2 * b * h * d + 2 * b * hkv * n * d) * itemsize
+    q and out once each and the n rows of k and v; with ``lse`` the
+    float32 log-sum-exp a (row, head) written too."""
+    return 4 * b * h * n * d, (2 * b * h * d + 2 * b * hkv * n * d) \
+        * itemsize + (4 * b * h if lse else 0)
 
 
 def vec16_check(ts: Sequence[torch.Tensor], names: Sequence[str]) -> None:
@@ -107,13 +115,14 @@ def vec16_check(ts: Sequence[torch.Tensor], names: Sequence[str]) -> None:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length, *, softcap=None) -> torch.Tensor:
+                     length, *, softcap=None, lse: bool = False):
     """q: [B,H,D]; k, v: [B,Hkv,T,D] (any strides with a unit-stride D),
     float32 or bfloat16 alike; ``length``: an int or a [B] integer
     tensor, the valid cache rows of each batch row (rows >= length are
     masked and never read; a row with none attends to nothing and gives
     0); ``softcap`` c caps each scaled score s at c tanh(s / c) before
-    the mask.  Returns [B,H,D] in q's dtype."""
+    the mask.  Returns [B,H,D] in q's dtype; with ``lse`` the pair (it,
+    the [B,H] float32 log-sum-exp, -inf on a row with no valid key)."""
     code = check("decode_attention", (q, k, v), ("q", "k", "v"), (3, 4, 4))
     if softcap is not None and not softcap > 0:
         raise ValueError(f"decode_attention: softcap must be positive or "
@@ -139,8 +148,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tc:
         vec16_check((k, v), ("k", "v"))
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    m = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if lse else None
     if out.numel() == 0:
-        return out
+        return (out, m) if lse else out
     pl = plan(b, h, hkv, t, d, FAKE_SMS if is_fake(q) else _sms(q.device))
     acc = ml = None
     if pl.splits > 1:
@@ -150,16 +161,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          device=q.device)
     if is_fake(q):
         FAKE.add("decode_attention", "split" if pl.splits > 1 else "single",
-                 work(b, h, hkv, rows, d, q.element_size()))
-        return out
+                 work(b, h, hkv, rows, d, q.element_size(), lse))
+        return (out, m) if lse else out
     strides = [*q.stride(), *k.stride(), *v.stride(), *out.stride()]
     launch("decode_attention", c_fn("decode_attention",
                                     "decode_attention_fwd", _SIG),
            q.device, strides, code, int(tc), q.data_ptr(), k.data_ptr(),
            v.data_ptr(), length.data_ptr(), out.data_ptr(),
            acc.data_ptr() if acc is not None else None,
-           ml.data_ptr() if ml is not None else None, b, h, hkv, t, d,
+           ml.data_ptr() if ml is not None else None,
+           m.data_ptr() if lse else None, b, h, hkv, t, d,
            pl.splits, pl.chunk, 1.0 / math.sqrt(d), float(softcap or 0.0))
     LAUNCHES["decode_attention"] += 1
     ROUTES["split" if pl.splits > 1 else "single"] += 1
-    return out
+    return (out, m) if lse else out

@@ -166,15 +166,21 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def decode_attention(q, k, v, length, *,
-                     softcap: Optional[float] = None) -> torch.Tensor:
+                     softcap: Optional[float] = None, lse: bool = False):
     """One-token attention, q [B,H,D] against the first ``length`` rows
     of k, v [B,Hkv,T,D], scores capped by ``softcap`` (see
     ``ref.decode_attention_ref``).  A row of
     length 0 gives exactly 0 on either device, as the kernel and the
     reference's Pallas kernel (``acc / max(l, 1e-20)``) give; the plain
-    version alone would give NaN there (a softmax over no key)."""
+    version alone would give NaN there (a softmax over no key).  With
+    ``lse`` returns (out, the [B,H] float32 log-sum-exps; -inf on a row
+    of length 0), see ``ref.decode_attention_lse_ref``."""
     if _on_cuda("decode_attention", q):
-        return _decode.decode_attention(q, k, v, length, softcap=softcap)
+        return _decode.decode_attention(q, k, v, length, softcap=softcap,
+                                        lse=lse)
+    if lse:
+        return ref.decode_attention_lse_ref(q, k, v, length,
+                                            softcap=softcap)
     out = ref.decode_attention_ref(q, k, v, length, softcap=softcap)
     empty = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1) <= 0
     return out.masked_fill(empty, 0)

@@ -228,6 +228,66 @@ def _decode_plain(q, k, v, length, softcap, after_mask=False):
     return torch.einsum("bht,bhtd->bhd", w, vv).to(q.dtype)
 
 
+def _decode_scores(q, k, length, softcap):
+    """[B,H,T] float32 scaled scores of q against k, capped, -inf at and
+    past each row's length."""
+    b, h, d = q.shape
+    t = k.shape[2]
+    kk = k.repeat_interleave(h // k.shape[1], dim=1).float()
+    scores = torch.einsum("bhd,bhtd->bht", q.float(), kk) / math.sqrt(d)
+    length = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1)
+    valid = torch.arange(t, device=q.device)[None, None, :] < length
+    return _cap_and_mask(scores, valid, softcap)
+
+
+def decode_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, length, *,
+                             softcap: Optional[float] = None):
+    """``decode_attention_ref`` with each (row, head)'s log-sum-exp of
+    the capped, scaled scores: (out [B,H,D] in q's dtype, lse [B,H]
+    float32).  A row with no valid key gives out 0 and lse -inf (the
+    kernel's values).  The partial result of a block of a longer cache,
+    merged across blocks by ``decode_merge``."""
+    out = _decode_plain(q, k, v, length, softcap)
+    empty = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1) <= 0
+    lse = torch.logsumexp(_decode_scores(q, k, length, softcap), -1)
+    return out.masked_fill(empty, 0), lse
+
+
+def decode_merge(outs: torch.Tensor, lses: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The decode over a cache cut by length into R blocks, from each
+    block's partial result: outs [R,B,H,D] (each block's normalised
+    output) and lses [R,B,H] (its log-sum-exp), in float32:
+    ``sum_r e^(lse_r - M) out_r / sum_r e^(lse_r - M)`` with M the
+    largest lse, so a block with no valid key (lse -inf) weighs 0.
+    Returns [B,H,D] in ``dtype``."""
+    m = lses.amax(0)
+    w = torch.exp(lses - torch.where(m == -math.inf, 0.0, m))
+    num = (w[..., None] * outs.float()).sum(0)
+    return (num / w.sum(0).clamp_min(1e-20)[..., None]).to(dtype)
+
+
+def decode_merge_faults(q: torch.Tensor, ks, outs: torch.Tensor,
+                        lses: torch.Tensor, lengths, *,
+                        softcap: Optional[float] = None):
+    """Two wrong merges of ``decode_merge``, which a check of the merge
+    must reject wherever the blocks' weights differ: ``"log l without
+    m"``, each block's log-sum-exp without its running max (a kernel
+    that wrote log l alone), and ``"blocks averaged"``, the mean of the
+    non-empty blocks' outputs.  ks: each block's keys [B,Hkv,T_r,D] and
+    lengths its valid rows, the inputs of outs / lses.  Returns {name:
+    [B,H,D] in q's dtype}."""
+    m = torch.stack([_decode_scores(q, k, n, softcap).amax(-1)
+                     for k, n in zip(ks, lengths)])
+    live = (lses > -math.inf).float()
+    no_m = torch.where(live > 0, lses - m, -math.inf)
+    mean = (outs.float() * live[..., None]).sum(0) / \
+        live.sum(0).clamp_min(1)[..., None]
+    return {"log l without m": decode_merge(outs, no_m, q.dtype),
+            "blocks averaged": mean.to(q.dtype)}
+
+
 def decode_attention_faults(q, k, v, length, *, softcap):
     """Wrong versions of ``decode_attention_ref`` with a cap, which the
     checks of the cap must reject: the cap dropped, and the cap applied

@@ -17,12 +17,15 @@ cannot run on fake ``cuda`` tensors there.  ``device="cpu"`` traces the
 plain versions instead (the CPU's program).
 
 ``jit_cell`` runs each cell in one of two layouts (``steps.layout``),
-recorded as ``layout``: ``sharded`` (the dense decoders' train cells:
-each rank holds its blocks of the state and computes its share, as the
-reference's sharded XLA program does) or ``gathered`` (every other
-cell: every weight gathered whole on every rank, so the peak is far
-above the reference's for the big archs).  The peak is recorded beside
-the card's 80 GB.
+recorded as ``layout``: ``sharded`` (the dense decoders' train,
+``prefill_32k`` and ``decode_32k`` cells: each rank holds its blocks of
+the state, or of the weights and the KV cache, and computes its share,
+as the reference's sharded XLA program does; a serving cell writes its
+cache block in place, so its trace holds no ``*_scatter`` clone, and
+its decode's log-sum-exp output is one of the kernel's fake
+allocations) or ``gathered`` (every other cell: every weight gathered
+whole on every rank, so the peak is far above the reference's for the
+big archs).  The peak is recorded beside the card's 80 GB.
 
 Every layer and step is traced, except where the model steps a
 recurrence token by token in Python over a whole sequence (xLSTM's

@@ -34,7 +34,21 @@ two layouts (``layout``), chosen from the config and the mesh:
   row-parallel ones (``sharding.ModelShards``, ``models/model.py``);
   the loss, the global norm and the int8 scale are reduced over the
   shards.
-* ``"gathered"``: every other cell.  Every weight is gathered whole
+* ``"sharded"`` also runs the ``prefill_32k`` / ``decode_32k`` cells
+  of the same four decoders with a bf16 or float32 cache, laid out as
+  the reference's step under ``SERVE_RULES``: each rank keeps its block
+  of every weight (heads, ffn and vocab over "model", weights replicated
+  over "data"), its rows over the batch's axes and its block of the KV
+  cache's length over "model", which it writes in place (the reference
+  donates the caches).  Weights split by head dim or K/V head are
+  gathered whole a layer, each row-parallel product's partial sums
+  all-reduced over "model", a decode step's attention merged over the
+  ranks' length blocks by their log-sum-exps
+  (``sharding.ServeShards``, ``models/attention._serve_attention``); the
+  step returns the rank's block of the logits, ("batch", "vocab"), and
+  the caches it was given.
+* ``"gathered"``: every other cell (``long_500k``, an int8 cache, the
+  other seven archs).  Every weight is gathered whole
   (``full_tensor()``: the ZeRO resolution of TRAIN_RULES' ``"embed" ->
   data``, and the tensor-parallel dims gathered too), each rank runs its
   block of the batch's rows (``sharding.BatchShards``: the mesh axes the
@@ -62,6 +76,7 @@ from repro_torch.distributed.sharding import (LONG_SERVE_BIG_RULES,
                                               TRAIN_RULES, BatchShards, Mesh,
                                               ModelShards, NamedSharding,
                                               PartitionSpec, RuleSet,
+                                              ServeShards,
                                               activation_sharding,
                                               partition_spec,
                                               shardings_for_specs)
@@ -378,11 +393,22 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     ``"sharded"`` for a dense decoder's train cell whose residual, at
     the reference's block-boundary hint ("batch", "seq", None) under
     TRAIN_RULES, splits its rows over every axis but "model" and its
-    sequence over "model" (each rank's tokens its own), else
+    sequence over "model" (each rank's tokens its own), and for its
+    prefill and decode cells under SERVE_RULES with a float cache whose
+    length splits over "model" (or no "model" axis to split), else
     ``"gathered"``.  ``mesh``: anything with ``axis_names`` and
     ``shape``."""
-    if shape.kind != "train" or not _dense_decoder(cfg):
+    if not _dense_decoder(cfg):
         return "gathered"
+    if shape.kind != "train":
+        if rules_for(shape, cfg) is not SERVE_RULES or \
+                flags.cache_dtype == "int8":
+            return "gathered"
+        cache = partition_spec(("batch", "kv_len"), (
+            shape.global_batch, shape.seq_len + cfg.n_prefix_embeddings),
+            SERVE_RULES, mesh)
+        split = mesh.shape.get("model", 1) == 1 or cache[1] == "model"
+        return "sharded" if split else "gathered"
     rows = shape.global_batch // max(flags.grad_accum, 1)
     hint = partition_spec(("batch", "seq", None),
                           (rows, shape.seq_len, cfg.d_model),
@@ -435,7 +461,11 @@ def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     train = shape.kind == "train"
     groups = max(flags.grad_accum, 1) if train else 1
     tp = None
-    if layout(cfg, shape, mesh, flags) == "sharded":
+    sharded = layout(cfg, shape, mesh, flags) == "sharded"
+    if sharded and not train:
+        tp = ServeShards(mesh, tree_map(lambda sh: sh.spec,
+                                        shard["params"]), specs["params"])
+    elif sharded:
         tp = ModelShards(mesh, tree_map(lambda sh: sh.spec,
                                         shard["state"]["params"]))
         # the loss's statistics are over the tokens' blocks: rows and
@@ -460,6 +490,18 @@ def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
         ins = {n: a if isinstance(a, (int, float)) else
                tree_map(sharding.distribute, a, shard[n])
                for n, a in zip(names, args)}
+        if isinstance(tp, ServeShards):
+            local = [a if isinstance(a, (int, float)) else
+                     tree_map(lambda x: x.to_local(), a)
+                     for a in (ins[n] for n in names)]
+            with sharding.model_parallel(tp):
+                logits, caches = fn(*local)
+            return DTensor.from_local(
+                logits, mesh.device_mesh, logits_sh.placements,
+                run_check=False, shape=torch.Size(
+                    (shape.global_batch, cfg.vocab_size)),
+                stride=(cfg.vocab_size, 1)), \
+                tree_map(_write_local, ins["caches"], caches)
         if tp is not None:
             state = tree_map(lambda x: x.to_local(), ins["state"])
             batch = tree_map(lambda x: _tp_batch(x, groups, shards, tp),

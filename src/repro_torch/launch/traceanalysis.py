@@ -17,7 +17,8 @@ what that rank dispatches:
 * ``bytes_per_device``: the operands and results of every aten op that
   is not a view (what XLA's "bytes accessed" counts an HLO op), plus
   every kernel launch's table bytes (inputs read once, outputs written
-  once);
+  once); an in-place ``copy_`` into a view (the sharded serving body's
+  cache write) counts the view's bytes and makes no storage;
 * ``collective_*``: the operand bytes and count of every c10d and
   ``c10d_functional`` op, under the reference's names (``all-gather``,
   ``all-reduce``, ``reduce-scatter``, ``all-to-all``,

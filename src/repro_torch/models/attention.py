@@ -42,6 +42,15 @@ int8 with per-(token, head) scales), the MLA cache ``c_kv [B, T, kvr]``
 and ``k_rope [B, T, qr]``.  Writes are out of place
 (``torch.slice_scatter``), as the reference's ``dynamic_update_slice``:
 the serving engine merges only the rows it stepped.
+
+In the sharded serving body (``tp``, a ``sharding.ServeShards``, with a
+cache: ``_serve_attention``) each rank holds the block [lo, hi) of the
+cache's length and writes its rows of K/V into it in place
+(``_kv_put``; the reference donates the cache).  A prefill runs the
+rank's query heads (all of them where the heads replicate) over the
+whole sequence of its rows; a decode step runs every head over the rows
+of its block the token may see, with their log-sum-exp, and merges the
+ranks' partials (``ServeShards.merge``) before its share of ``wo``.
 """
 from __future__ import annotations
 
@@ -136,15 +145,20 @@ def gqa_attention(
     With ``kv_override`` (cross-attention: the encoder's K/V
     [B, T, Hkv, D]): q is not roped, every key is visible, and ``cache``
     is passed through; ``cache_offset`` only says prefill (0) or decode
-    step.  ``tp`` (a ``sharding.ModelShards``: the sharded train body,
-    no cache): ``x`` is this rank's sequence block (``_tp_attention``)."""
+    step.  ``tp`` (a ``sharding.ModelShards``): without a cache the
+    sharded train body, ``x`` this rank's sequence block
+    (``_tp_attention``); with one the sharded serving body
+    (``_serve_attention``)."""
     b, s, _ = x.shape
     off = 0 if cache_offset is None else int(cache_offset)
     softcap = cfg.attn_logit_softcap
     if tp is not None:
-        if cache is not None or kv_override is not None:
-            raise ValueError("the sharded train body runs no cache and no "
-                             "cross-attention")
+        if kv_override is not None:
+            raise ValueError("the sharded bodies run no cross-attention")
+        if cache is not None:
+            return _serve_attention(p, x, positions, cfg=cfg, window=window,
+                                    rope_theta=rope_theta, causal=causal,
+                                    cache=cache, off=off, tp=tp)
         return _tp_attention(p, x, positions, cfg=cfg, window=window,
                              rope_theta=rope_theta, causal=causal,
                              tp=tp), None
@@ -190,24 +204,31 @@ def gqa_attention(
                    q_offset=q_offset), new_cache
 
 
-def _tp_kv(p: Tree, cfg: ArchConfig, tp) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
-    """The K / V projections (FSDP-gathered) this rank's query heads use.
-    Every head here, or the K/V heads split with the query heads: its
-    own.  K/V heads replicated under split query heads: only the ones
-    its heads read, one each where a group of them shares one (else one
-    a query head, so the kernel's head grouping holds)."""
-    wk, wv = p["wk"], p["wv"]
-    hl = p["wq"].shape[1]
-    if hl == cfg.n_heads or wk.shape[1] < cfg.n_kv_heads:
-        return wk, wv
+def _kv_for_heads(kv: Tuple[torch.Tensor, torch.Tensor], hl: int,
+                  cfg: ArchConfig, tp, dim: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K / V heads (along ``dim`` of each of ``kv``) that this rank's
+    ``hl`` query heads read.  Every head here, or the K/V heads split
+    with the query heads: its own.  K/V heads replicated under split
+    query heads: only the ones its heads read, one each where a group of
+    them shares one (else one a query head, so the kernel's head
+    grouping holds)."""
+    if hl == cfg.n_heads or kv[0].shape[dim] < cfg.n_kv_heads:
+        return kv
     group = cfg.n_heads // cfg.n_kv_heads
     used = [(tp.index * hl + i) // group for i in range(hl)]
     first, n = used[0], used[-1] - used[0] + 1
     if hl % n == 0 and used == [first + i // (hl // n) for i in range(hl)]:
-        return wk.narrow(1, first, n), wv.narrow(1, first, n)
-    idx = torch.tensor(used, device=wk.device)
-    return wk.index_select(1, idx), wv.index_select(1, idx)
+        return tuple(t.narrow(dim, first, n) for t in kv)
+    idx = torch.tensor(used, device=kv[0].device)
+    return tuple(t.index_select(dim, idx) for t in kv)
+
+
+def _tp_kv(p: Tree, cfg: ArchConfig, tp) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The K / V projections (FSDP-gathered) this rank's query heads use
+    (``_kv_for_heads`` of ``wk`` / ``wv``)."""
+    return _kv_for_heads((p["wk"], p["wv"]), p["wq"].shape[1], cfg, tp, 1)
 
 
 def _tp_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
@@ -235,6 +256,81 @@ def _tp_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
                        softcap=softcap, rows=tp.rows(h.shape[1]))
     return tp.seq_scatter(_attend(p, q, k, v, 0, causal=causal,
                                   window=window, softcap=softcap))
+
+
+def _serve_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
+                     cfg: ArchConfig, window: Optional[int], rope_theta,
+                     causal: bool, cache: Dict[str, torch.Tensor], off: int,
+                     tp) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Attention in the sharded serving body (module docstring): ``x``
+    [B, S, D] this rank's rows, replicated over the model axis; ``cache``
+    its block [lo, hi) of the length, written in place (``_kv_put``).
+    ``p``'s K/V projections are whole (``ServeShards.layer``), its query
+    and output projections the rank's heads, or whole where the heads
+    replicate.  A prefill (``off`` 0) runs the rank's heads over the
+    sequence through ``flash_attention``; a one-token step every head
+    over the block's visible rows, [lo, hi) within [pos + 1 - window,
+    pos], through ``decode_attention`` with the log-sum-exp (a block the
+    token cannot see: a one-row view at length 0, weighing 0), merged
+    over the axis.  Split heads end in an all-reduce of ``wo``'s partial
+    sums.  At an axis of size 1 the step is ``_attend``'s, op for op."""
+    s = x.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    length = cache["k"].shape[1] * tp.size
+    if off + s > length:
+        raise ValueError(f"cache write of {s} rows at {off} overruns "
+                         f"{length} rows")
+    lo, hi = tp.rows(length)
+    cache = _kv_put(cache, {"k": k, "v": v}, lo, off)
+    hl = q.shape[2]
+    split = hl != cfg.n_heads
+    softcap = cfg.attn_logit_softcap
+    if off == 0:
+        k, v = _kv_for_heads((k, v), hl, cfg, tp, 2)
+        y = _attend(p, q, k, v, 0, causal=causal, window=window,
+                    softcap=softcap)
+        return (tp.seq_scatter(y) if split else y), cache
+    if s != 1:
+        raise ValueError("the sharded serving body steps one token at a "
+                         "time")
+    first = 0 if window is None else max(0, off + 1 - window)
+    a, n = max(lo, first), min(hi, off + 1) - max(lo, first)
+    start = min(a, hi - 1) - lo
+    rows = {nm: c[:, start:start + max(n, 1)] for nm, c in cache.items()}
+    k, v = _kv_read(rows, "k", q.dtype), _kv_read(rows, "v", q.dtype)
+    if tp.size == 1:
+        return _attend(p, q, k, v, off, causal=causal, window=window,
+                       softcap=softcap), cache
+    kw = {} if softcap is None else {"softcap": softcap}
+    q = tp.concat(q[:, 0], 1) if split else q[:, 0]
+    out, lse = ops.decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                                    max(n, 0), lse=True, **kw)
+    out = tp.merge(out, lse)
+    if split:
+        out = out.narrow(1, tp.index * hl, hl)
+    y = torch.einsum("bshk,hkd->bsd", out[:, None], p["wo"])
+    return (tp.seq_scatter(y) if split else y), cache
+
+
+def _kv_put(cache: Dict[str, torch.Tensor], kv: Dict[str, torch.Tensor],
+            lo: int, off: int) -> Dict[str, torch.Tensor]:
+    """Write K and V ([B, S, Hkv, D], at positions off .. off + S - 1)
+    into a cache block holding positions [lo, lo + T) of the length, in
+    place: the rows that fall inside it, cast to its float dtype (the
+    sharded serving body; the reference donates the cache).  Returns
+    ``cache`` itself."""
+    t, s = cache["k"].shape[1], kv["k"].shape[1]
+    if cache["k"].dtype == torch.int8:
+        raise ValueError("the sharded serving body writes float caches")
+    a, e = max(lo, off), min(lo + t, off + s)
+    for name, val in kv.items():
+        if e > a:
+            cache[name][:, a - lo:e - lo].copy_(val[:, a - off:e - off])
+    return cache
 
 
 def _attend(p: Tree, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

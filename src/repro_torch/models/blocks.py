@@ -124,16 +124,20 @@ def apply_block(
     decode step is a call with a cache at an offset above 0;
     ``enc_out`` feeds a cross-attention block's K/V in any other call.
     ``moe_impl`` / ``moe_group`` override the MoE config's dispatch and
-    group size (``RunFlags``).  ``tp`` (a ``sharding.ModelShards``: the
-    sharded train body, an attention + dense FFN block only): ``x`` is
-    this rank's block of rows and sequence; the norms run on it, the
-    attention and a split FFN gather the sequence and scatter it back
-    (Megatron sequence parallelism), an FFN whose dim does not split
-    runs on the block as it is."""
+    group size (``RunFlags``).  ``tp`` (a ``sharding.ModelShards``: a
+    sharded step body, an attention + dense FFN block only): without a
+    cache the train body, ``x`` this rank's block of rows and sequence;
+    the norms run on it, the attention and a split FFN gather the
+    sequence and scatter it back (Megatron sequence parallelism), an FFN
+    whose dim does not split runs on the block as it is.  With a cache
+    the serving body (a ``sharding.ServeShards``): ``x`` is this rank's
+    rows, replicated over the model axis; the attention writes the
+    rank's block of the cache in place, and a split FFN's row-parallel
+    ``wo`` ends in an all-reduce."""
     if tp is not None and (blk.mixer != Mixer.ATTN or blk.ffn != FFN.DENSE
-                           or blk.cross_attention or cache is not None):
-        raise ValueError("the sharded train body runs attention + dense "
-                         "FFN blocks without a cache only")
+                           or blk.cross_attention):
+        raise ValueError("the sharded bodies run attention + dense FFN "
+                         "blocks only")
     # without per-layer overrides the BlockSpec's window / theta hold
     if cfg.layer_windows is None and cfg.layer_thetas is None:
         window = blk.window

@@ -41,7 +41,9 @@ def mlp(p: Tree, x: torch.Tensor, tp=None) -> torch.Tensor:
     """SwiGLU.  ``tp`` (a ``sharding.ModelShards``, given when the ffn
     dim is split over its axis): ``x`` is this rank's sequence block,
     gathered before the column-parallel ``wi_gate`` / ``wi_up`` and
-    reduce-scattered after the row-parallel ``wo``."""
+    reduce-scattered after the row-parallel ``wo`` (in the serving body,
+    a ``ServeShards``: ``x`` whole, and ``wo``'s partial sums
+    all-reduced)."""
     if tp is not None:
         x = tp.seq_gather(x)
     g = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
@@ -61,8 +63,21 @@ def embed_specs(cfg: ArchConfig) -> Tree:
     return p
 
 
-def embed(p: Tree, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = p["table"][tokens]
+def embed(p: Tree, tokens: torch.Tensor, cfg: ArchConfig,
+          tp=None) -> torch.Tensor:
+    """The tokens' rows of the table, times sqrt(d_model).  ``tp`` (a
+    ``sharding.ServeShards``): where the table's vocab rows are split
+    over its axis, each rank looks the tokens up in its block, zero for
+    a token outside it, and the rows are summed over the axis (exact:
+    one nonzero term each), so the table is never gathered whole."""
+    table = p["table"]
+    if tp is None or table.shape[0] == cfg.vocab_size:
+        x = table[tokens]
+    else:
+        lo, hi = tp.rows(cfg.vocab_size)
+        inside = (tokens >= lo) & (tokens < hi)
+        x = table[(tokens - lo).clamp(0, hi - lo - 1)]
+        x = tp.sum(x.masked_fill(~inside[..., None], 0))
     # the scale is rounded to the activation dtype first, as the
     # reference does: sqrt(3584) in bf16 is not its float32 value
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
@@ -70,6 +85,8 @@ def embed(p: Tree, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def unembed(p: Tree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The logits of ``x`` against the head (or the tied table): over a
+    block of vocab rows, the block of the logits."""
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, p["table"])
     return torch.einsum("bsd,dv->bsv", x, p["head"])

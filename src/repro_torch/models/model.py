@@ -48,7 +48,8 @@ from repro_torch.models.config import (ArchConfig, BlockSpec, FFN, Mixer,
                                        ScanGroup)
 from repro_torch.models.layers import embed, embed_specs, rmsnorm, \
     rmsnorm_spec, softmax_xent, unembed
-from repro_torch.models.params import ParamSpec, tree_map_specs
+from repro_torch.models.params import ParamSpec, tree_leaves, \
+    tree_map_specs
 
 Tree = Any
 
@@ -168,7 +169,10 @@ def _apply_layer(h: torch.Tensor, r: int, g: ScanGroup, gp: Tree, gm: Tree,
     in because a recompute in the backward may run on another thread
     (the card's autograd worker) that does not see the caller's
     context.  With ``tp`` each block's weights are gathered over their
-    FSDP axes here, inside the layer's checkpoint."""
+    FSDP axes here, inside the layer's checkpoint (in the serving body:
+    the ones split by head dim or K/V head, over "model").  A block whose
+    cache was written in place (every leaf the one it was handed) gives
+    None for its new cache."""
     aux = 0.0
     ncs = []
     with sharding.data_parallel(shards):
@@ -178,14 +182,16 @@ def _apply_layer(h: torch.Tensor, r: int, g: ScanGroup, gp: Tree, gm: Tree,
             lp = _layer(gp[key], r)
             if tp is not None:
                 lp = tp.layer(lp, "groups", g.name, key)
+            lc = _layer(gc[key], r) if gc is not None else None
             h, nc, a = apply_block(
-                lp, blk, cfg, h, positions, meta,
-                cache=_layer(gc[key], r) if gc is not None else None,
+                lp, blk, cfg, h, positions, meta, cache=lc,
                 cache_offset=cache_offset, enc_out=enc_out, causal=causal,
                 moe_impl=flags.moe_impl, moe_group=flags.moe_group or None,
                 tp=tp)
             aux = aux + a
-            ncs.append(nc)
+            same = lc is not None and all(
+                x is y for x, y in zip(tree_leaves(nc), tree_leaves(lc)))
+            ncs.append(None if same else nc)
     return h, aux, ncs
 
 
@@ -227,12 +233,14 @@ def _run_groups(
     auxiliary loss summed over layers: 0.0 without an MoE FFN).
     ``train`` (no cache) wraps each layer in ``checkpoint`` unless
     ``flags.remat`` is ``"none"``; under ``"dots"`` the checkpoint saves
-    the matrix products' outputs (``_save_dots``)."""
+    the matrix products' outputs (``_save_dots``).  A group whose every
+    layer wrote its cache in place (the sharded serving body) returns
+    the caches it was given; else its layers' new caches are stacked."""
     if train and flags.remat not in _REMAT:
         raise ValueError(f"remat={flags.remat!r}: expected one of "
                          f"{sorted(_REMAT)}")
     remat = _REMAT[flags.remat] if train else None
-    tp = sharding.model_shards() if train else None
+    tp = sharding.model_shards() if train or caches is not None else None
     new_caches: Optional[Dict[str, Tree]] = {} if caches is not None \
         else None
     aux_total = 0.0
@@ -255,8 +263,15 @@ def _run_groups(
                     layer_caches[f"pos{j}"].append(nc)
             aux_total = aux_total + aux
         if new_caches is not None:
-            new_caches[g.name] = {k: _stack(v)
-                                  for k, v in layer_caches.items()}
+            done = [nc is None for v in layer_caches.values() for nc in v]
+            if all(done):
+                new_caches[g.name] = gc
+            elif any(done):
+                raise ValueError(f"group {g.name}: some layers wrote their "
+                                 f"caches in place and some did not")
+            else:
+                new_caches[g.name] = {k: _stack(v)
+                                      for k, v in layer_caches.items()}
     return x, new_caches, aux_total
 
 
@@ -284,18 +299,24 @@ def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any],
     """Embed tokens, prepend a VLM's prefix embeddings if any.
     Returns (x, positions, n_prefix).  ``tp`` (the sharded train body):
     the tokens are this rank's sequence block, embedded against the
-    table gathered whole; the positions are the whole sequence's."""
+    table gathered whole; the positions are the whole sequence's.  A
+    ``ServeShards`` (the serving body): the tokens whole, looked up in
+    the rank's block of the table (``embed``)."""
     tokens = batch["tokens"]
-    emb = params["embed"] if tp is None else \
-        {"table": tp.whole(params, "embed", "table")}
-    x = embed(emb, tokens, cfg).to(cfg.compute_dtype)
+    serve = isinstance(tp, sharding.ServeShards)
+    if tp is None or serve:
+        x = embed(params["embed"], tokens, cfg, tp)
+    else:
+        x = embed({"table": tp.whole(params, "embed", "table")}, tokens,
+                  cfg)
+    x = x.to(cfg.compute_dtype)
     n_prefix = 0
     if cfg.n_prefix_embeddings > 0:
         pre = batch["prefix_embeds"].to(cfg.compute_dtype)
         n_prefix = pre.shape[1]
         x = torch.cat([pre, x], dim=1)
     b, s, _ = x.shape
-    if tp is not None:
+    if tp is not None and not serve:
         s *= tp.size
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     return x, positions, n_prefix
@@ -341,8 +362,13 @@ def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
             cfg: ArchConfig, flags: RunFlags = RunFlags()
             ) -> Tuple[torch.Tensor, Tree]:
     """Process the full prompt, returning (last-token logits [B,V],
-    populated caches)."""
-    x, positions, _ = _prepare_inputs(params, cfg, batch)
+    populated caches).  Inside the sharded serving body
+    (``sharding.model_shards()`` a ``ServeShards``) ``params`` and
+    ``caches`` are this rank's blocks, the caches are written in place
+    and returned as given, and the logits are the rank's block of the
+    vocab."""
+    x, positions, _ = _prepare_inputs(params, cfg, batch,
+                                      sharding.model_shards())
     enc_out = None
     if cfg.encoder is not None:
         enc_out = _encode(params, cfg, batch["source_embeds"], flags)
@@ -363,9 +389,11 @@ def decode_step(params: Tree, tokens: torch.Tensor, caches: Tree,
     verifies several tokens at once, each token seeing the cache before
     it and the step's earlier tokens (xLSTM takes C = 1 only, as the
     reference).  Returns (logits of the last token [B,V], updated
-    caches)."""
+    caches).  Inside the sharded serving body as ``prefill`` (one token
+    a step)."""
     pos = int(pos)
-    x = embed(params["embed"], tokens, cfg).to(cfg.compute_dtype)
+    x = embed(params["embed"], tokens, cfg,
+              sharding.model_shards()).to(cfg.compute_dtype)
     b, s, _ = x.shape
     positions = (pos + torch.arange(s, device=x.device))[None].expand(b, s)
     x, new_caches, _ = _run_groups(

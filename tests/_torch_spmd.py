@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+import torch.utils._python_dispatch
 
 from repro_torch.configs import get_reduced
 from repro_torch.distributed.sharding import entry_axes, reduce_over
@@ -150,14 +151,19 @@ def _serve_cells(mesh):
                          torch.Generator().manual_seed(1), "cpu")
     want, want_c = make_prefill_step(cfg)(params, {"tokens": tokens},
                                           tree_map(torch.clone, caches))
+    wide = bf16_witness(make_prefill_step(cfg), params, {"tokens": tokens},
+                        caches, want_c)
     step, _ = jit_cell(cfg, pre, mesh)
     got, got_c = step(params, {"tokens": tokens}, caches)
     _close(got.full_tensor(), want, "prefill logits")
     _check_blocks(got_c, input_shardings(cfg, pre, mesh)["caches"], mesh,
                   "prefill caches")
-    for (path, g), (_, w) in zip(leaves_with_paths(got_c),
-                                 leaves_with_paths(want_c)):
-        _close(g.full_tensor(), w, f"prefill cache{path}")
+    for (path, g), (_, w), (_, x) in zip(leaves_with_paths(got_c),
+                                         leaves_with_paths(want_c),
+                                         leaves_with_paths(wide)):
+        # bf16 caches: the sharded body's K/V (its own summation order,
+        # within rtol 1e-5) may round to the other neighbour at an edge
+        bf16_close(g.full_tensor(), w, x, f"prefill cache{path}")
     caches = materialize(input_specs(cfg, dec)["caches"],
                          torch.Generator().manual_seed(2), "cpu")
     tok = _batch(cfg, 4, 1, 4)["tokens"]
@@ -352,9 +358,264 @@ def sharded_train(rank, world):
     (OUT / f"sharded_train.{rank}.json").write_text(json.dumps(res))
 
 
+# the sharded serving body: the cases of each (mesh, arch), the cells'
+# shapes (a cache of SERVE_LEN rows; a prompt of PROMPT_LEN tokens)
+SERVE_CASES = ("prefill", "prefill-bf16", "decode-first", "decode-hi-1",
+               "decode-hi", "decode-last", "decode-bf16", "memory")
+PROMPT_LEN = 16
+SERVE_LEN = 32
+SERVE_ROWS = 4
+# the elements of a bf16 cache leaf that may differ between two writers:
+# at most 2 seen in any leaf of these tests (of 1,024-4,096), and 2 more
+BF16_OFF = 4
+
+
+def serve_positions(model):
+    """The decode cases' positions on a mesh of ``model`` "model" ranks
+    (blocks of b = SERVE_LEN / model rows): in the first block, at the
+    last row of block 0 (hi - 1) and the first of block 1 (hi; with one
+    block, the row before the last), in the last block."""
+    b = SERVE_LEN // model
+    return {"decode-first": 3, "decode-hi-1": b - 1,
+            "decode-hi": b if b < SERVE_LEN else SERVE_LEN - 2,
+            "decode-last": SERVE_LEN - 3, "decode-bf16": SERVE_LEN - 3}
+
+
+def _filled(specs, seed, dtype):
+    """Caches of ``specs`` filled from seed ``seed`` (unit normals) in
+    ``dtype``: a decode reads rows written before it."""
+    rng = np.random.default_rng(seed)
+    return tree_map(lambda s: torch.from_numpy(rng.standard_normal(
+        s.shape).astype(np.float32)).to(dtype), specs)
+
+
+def bf16_close(got, want, wide, label):
+    """Two bf16 cache leaves, ``got`` and ``want``, written from float32
+    K/V that agree within rtol 1e-5 of the leaf's max, against ``wide``,
+    the float32 K/V ``want`` was written from (``bf16_witness``): each
+    element of both is the bf16 rounding of a value within 1e-5 of the
+    leaf's max of its float32 value, so an element that far from a
+    rounding midpoint equals bf16(wide) bit for bit and one nearer may
+    take either neighbour; and at most BF16_OFF elements of the leaf
+    differ."""
+    tol = RTOL * float(wide.abs().max())
+    lo, hi = (wide - tol).bfloat16(), (wide + tol).bfloat16()
+    for t in (got, want):
+        assert bool(((lo <= t) & (t <= hi)).all()), (label, int(
+            ((t < lo) | (t > hi)).sum()))
+    off = int((got != want).sum())
+    assert off <= BF16_OFF, (label, off, want.numel())
+
+
+def bf16_witness(step, params, first, caches, want, *rest):
+    """The float32 K/V an unsharded ``step`` wrote into bf16 caches: the
+    step again on ``caches`` widened to float32, every cache read
+    rounded to bf16 as the bf16 cache gives it, so each product is the
+    bf16 run's.  Checks that these caches round to ``want`` (the bf16
+    run's new caches) bit for bit, and returns them."""
+    from repro_torch.models import attention
+    real = attention._kv_read
+    attention._kv_read = lambda c, n, dt: real(c, n, torch.float32) \
+        .bfloat16().to(dt)
+    try:
+        _, wide = step(params, first, tree_map(lambda c: c.float(), caches),
+                       *rest)
+    finally:
+        attention._kv_read = real
+    for (path, x), (_, w) in zip(leaves_with_paths(wide),
+                                 leaves_with_paths(want)):
+        assert torch.equal(x.bfloat16(), w), ("witness", path)
+    return wide
+
+
+def _serve_params(cfg, specs):
+    """The weights from seed 0 at the d_model fan-in law
+    (``fan_in_d_model``).  At the reference's law reduced gemma3-1b's
+    float32 prefill grows its rounding about 8x a layer: its third
+    layer's K lies 1.8e-5 of the leaf's max from the float64 step in
+    the port and 7.4e-6 in the JAX package, so the two miss each other's
+    rtol 1e-5 unsharded already (``tools/serve_conditioning.py``)."""
+    return fan_in_d_model(materialize(specs, torch.Generator().manual_seed(0),
+                                      "cpu"), specs)
+
+
+class _Allocations(torch.utils._python_dispatch.TorchDispatchMode):
+    """The shapes of the tensors the ops make in new storage (no view,
+    no output that is an input's storage)."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.is_view:
+            return out
+        held = {a.untyped_storage()._cdata for a in
+                torch.utils._pytree.tree_leaves((args, kwargs))
+                if isinstance(a, torch.Tensor)}
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and \
+                    t.untyped_storage()._cdata not in held:
+                self.shapes.append(tuple(t.shape))
+        return out
+
+
+def _serve_memory(cfg, mesh, dec):
+    """A decode step: each rank holds its block of every weight and cache
+    leaf, writes its cache in place (the step's caches are the ones it
+    was handed, same storage, and it makes no tensor of a stacked cache
+    leaf's shape: no restack), and makes no tensor with the cache's
+    whole length or the whole table where "model" splits them; an
+    out-of-place writer (``slice_scatter`` and a restack, the gathered
+    body's) fails those checks."""
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch.steps import input_shardings, input_specs, \
+        jit_cell
+    from repro_torch.models import attention
+    specs = input_specs(cfg, dec)
+    sh = input_shardings(cfg, dec, mesh)
+    params = tree_map(distribute, _serve_params(cfg, specs["params"]),
+                      sh["params"])
+    tok = _batch(cfg, SERVE_ROWS, 1, 4)["tokens"]
+    model = mesh.shape["model"]
+    stacked = {tuple(block(torch.empty(c.shape, device="meta"), s.spec,
+                           mesh).shape)
+               for (_, c), (_, s) in zip(leaves_with_paths(specs["caches"]),
+                                         leaves_with_paths(sh["caches"]))}
+    whole = set() if model == 1 else {
+        (SERVE_LEN, cfg.n_kv_heads, cfg.head_dim_),
+        (cfg.vocab_size, cfg.d_model), (cfg.d_model, cfg.vocab_size)}
+
+    def run(pos):
+        caches = tree_map(distribute, _filled(specs["caches"], 5,
+                                              torch.float32), sh["caches"])
+        held = [c.to_local().untyped_storage()._cdata
+                for _, c in leaves_with_paths(caches)]
+        step, _ = jit_cell(cfg, dec, mesh)
+        with _Allocations() as seen:
+            _, got = step(params, tok, caches, pos)
+        same = [c.to_local().untyped_storage()._cdata
+                for _, c in leaves_with_paths(got)] == held
+        big = [s for s in seen.shapes
+               if s in stacked or s[-3:] in whole or s[-2:] in whole]
+        return same and not big, big, got
+
+    # every run's collectives before any check raises, so the ranks stay
+    # in step
+    runs = {pos: run(pos) for pos in serve_positions(model).values()}
+    real = attention._kv_put
+
+    def out_of_place(cache, kv, lo, off):
+        t, s = cache["k"].shape[1], kv["k"].shape[1]
+        a, e = max(lo, off), min(lo + t, off + s)
+        return {n: torch.slice_scatter(
+            cache[n], kv[n][:, a - off:max(e, a) - off].to(cache[n].dtype),
+            1, a - lo, max(e, a) - lo) for n in cache}
+
+    attention._kv_put = out_of_place
+    try:
+        fault, _, _ = run(serve_positions(model)["decode-last"])
+    finally:
+        attention._kv_put = real
+    for pos, (ok, big, got) in runs.items():
+        assert ok, (pos, big)
+        _state_bytes(got, sh["caches"], mesh, "caches")
+    _state_bytes(params, sh["params"], mesh, "params")
+    assert not fault, "an out-of-place cache write passes the in-place check"
+
+
+def serve_inputs(arch, prefill, dtype, pos=None):
+    """A serving case's inputs, the same in every process: (cfg, shape,
+    params, first, caches, rest), the step called as ``step(params,
+    first, caches, *rest)``: a prompt of PROMPT_LEN tokens into a cache
+    of PROMPT_LEN rows, or a token at ``pos`` of a cache of SERVE_LEN
+    rows, SERVE_ROWS rows of batch; caches in ``dtype`` from seed 2."""
+    from repro_torch.launch.steps import ShapeSpec, input_specs
+    cfg = get_reduced(arch)
+    shape = ShapeSpec("tiny_prefill", "prefill", PROMPT_LEN, SERVE_ROWS) \
+        if prefill else ShapeSpec("tiny_decode", "decode", SERVE_LEN,
+                                  SERVE_ROWS)
+    specs = input_specs(cfg, shape)
+    params = _serve_params(cfg, specs["params"])
+    caches = _filled(specs["caches"], 2, dtype)
+    if prefill:
+        first = {"tokens": _batch(cfg, SERVE_ROWS, PROMPT_LEN, 3)["tokens"]}
+        return cfg, shape, params, first, caches, ()
+    return (cfg, shape, params, _batch(cfg, SERVE_ROWS, 1, 4)["tokens"],
+            caches, (pos,))
+
+
+def _serve_case(arch, mesh, case, name):
+    """One case of the sharded serving body against ``make_prefill_step``
+    / ``make_decode_step`` on the same inputs: the logits and every
+    float32 cache leaf within rtol 1e-5 of each leaf's max, a bf16 one
+    by ``bf16_close``, each rank's caches its blocks (``SERVE_CASES``; a
+    "-bf16" case with a bf16 cache, the rest float32).  Rank 0 saves
+    the whole logits and caches (and the bf16 witness) to
+    ``OUT / serve.<name>.pt`` for the test's comparison with the JAX
+    package."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import (ShapeSpec, input_shardings,
+                                          jit_cell, make_decode_step,
+                                          make_prefill_step)
+    cfg = get_reduced(arch)
+    pre = ShapeSpec("tiny_prefill", "prefill", PROMPT_LEN, SERVE_ROWS)
+    dec = ShapeSpec("tiny_decode", "decode", SERVE_LEN, SERVE_ROWS)
+    for shape in (pre, dec):
+        assert steps.layout(cfg, shape, mesh) == "sharded"
+    if case == "memory":
+        return _serve_memory(cfg, mesh, dec)
+    dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    prefill = case.startswith("prefill")
+    pos = None if prefill else serve_positions(mesh.shape["model"])[case]
+    cfg, shape, params, first, caches, rest = serve_inputs(arch, prefill,
+                                                          dtype, pos)
+    ref = (make_prefill_step if prefill else make_decode_step)(cfg)
+    want, want_c = ref(params, first, tree_map(torch.clone, caches), *rest)
+    wide = None if dtype == torch.float32 else bf16_witness(
+        ref, params, first, caches, want_c, *rest)
+    got, got_c = jit_cell(cfg, shape, mesh)[0](params, first, caches, *rest)
+    logits = got.full_tensor()
+    whole = {path: g.full_tensor() for path, g in leaves_with_paths(got_c)}
+    _close(logits, want, f"{arch} {case} logits")
+    for path, w in leaves_with_paths(want_c):
+        if wide is None:
+            _close(whole[path], w, f"{arch} {case} cache{path}")
+        else:
+            bf16_close(whole[path], w, dict(leaves_with_paths(wide))[path],
+                       f"{arch} {case} cache{path}")
+    _check_blocks(got_c, input_shardings(cfg, shape, mesh)["caches"], mesh,
+                  f"{arch} {case}")
+    if dist.get_rank() == 0:
+        torch.save({"logits": logits, "caches": whole, "wide": None
+                    if wide is None else dict(leaves_with_paths(wide))},
+                   OUT / f"serve.{name}.pt")
+
+
+def sharded_serve(rank, world):
+    """Every (mesh, arch, case) of MESHES[world] x DENSE x SERVE_CASES;
+    each rank writes its outcome a case to
+    ``OUT / sharded_serve.<rank>.json`` (the test reads them)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    res = {}
+    for data, model in MESHES[world]:
+        mesh = make_host_mesh(data=data, model=model, device_type="cpu")
+        for arch in DENSE:
+            for case in SERVE_CASES:
+                name = f"{data}x{model}-{arch}-{case}"
+                try:
+                    _serve_case(arch, mesh, case, name)
+                    res[name] = "ok"
+                except Exception as e:              # noqa: BLE001
+                    res[name] = f"{type(e).__name__}: {e}"
+    (OUT / f"sharded_serve.{rank}.json").write_text(json.dumps(res))
+
+
 JOBS = {"sharded_steps": sharded_steps,
         "pipeline_two_stages": pipeline_two_stages,
-        "sharded_train": sharded_train}
+        "sharded_train": sharded_train,
+        "sharded_serve": sharded_serve}
 OUT = pathlib.Path(".")
 
 

@@ -42,7 +42,9 @@ from repro_torch.models.params import tree_leaves, tree_map
 
 # the cells held against a real run: reduced granite-20b on {data: 2,
 # model: 2}, batch over data (its train cell sharded: FSDP, its 4 heads
-# over "model", the residual split by sequence), and two more train
+# over "model", the residual split by sequence; its prefill and decode
+# cells sharded as SERVE_RULES lay them out: heads, ffn and vocab over
+# "model", the cache's length over "model", written in place), and two more train
 # cells of the sharded layout on {data: 1, model: 4}: gemma3-1b (2
 # heads, replicated; tied embeddings; windows) and command-r-35b (2 K/V
 # heads replicated under 4 split query heads)
@@ -173,13 +175,14 @@ def test_trace_matches_a_real_gloo_run(kind, real_cells, traced_cells):
         real["bytes"]
     assert got["peak_device_bytes"] == got["peak_bytes"] == real["peak"]
     assert got["kernel_launches"] == {}          # the plain versions
-    assert got["layout"] == ("sharded" if kind.startswith("train")
-                             else "gathered")
-    if kind != "decode":
-        assert counts["all-gather"] > 0
-    if got["layout"] == "sharded":
+    assert got["layout"] == "sharded"
+    assert counts["all-gather"] > 0
+    if kind.startswith("train"):
         # the FSDP gathers' gradients return by reduce-scatters
         assert counts["reduce-scatter"] > 0
+    else:
+        # the row-parallel products' partial sums
+        assert counts["all-reduce"] > 0 and "reduce-scatter" not in counts
 
 
 # -- the card's program: launches and routes ---------------------------------
@@ -342,14 +345,20 @@ def test_dryrun_pipeline_hands_off_between_stages():
 
 def test_run_cell_at_full_size_and_save_result(monkeypatch, tmp_path):
     """granite-20b x decode_32k on the fake (16, 16) mesh, traced through
-    the card's routes: one split decode launch a layer at the cache's
-    last row, its peak beside the card's 80 GB; results go under
+    the card's routes in the sharded layout: one split decode launch a
+    layer at the cache's last row (rank 0's block of 2,048 rows), its
+    peak beside the card's 80 GB, below its 74.5 GiB and at least the
+    rank's blocks of the weights and the cache
+    (``analytic_bytes_per_device``); results go under
     ``build/dryrun_results/``, never ``benchmarks/``."""
     res = dryrun.run_cell("granite-20b", "decode_32k", "single",
                           verbose=False)
     cfg = get_config("granite-20b")
     assert res["status"] == "ok" and res["n_devices"] == 256
-    assert res["layout"] == "gathered"
+    assert res["layout"] == "sharded"
+    resident = res["analytic_bytes"]["params"] + \
+        res["analytic_bytes"]["cache"]
+    assert resident <= res["peak_device_bytes"] < 74.5 * 2 ** 30
     assert res["kernel_launches"] == {"decode_attention": cfg.n_layers}
     assert res["kernel_routes"]["decode_attention"] == {
         "split": cfg.n_layers}
@@ -367,19 +376,21 @@ def test_run_cell_at_full_size_and_save_result(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("shape_name,want", [("train_4k", "sharded"),
-                                             ("decode_32k", "gathered")])
+                                             ("decode_32k", "sharded")])
 def test_matrix_row_prints_the_layout(shape_name, want, monkeypatch,
                                       capsys):
     """A row of the matrix (``run_cell``, verbose) names the body its
     cell ran: reduced granite-20b at the production shapes on the fake
     (16, 16) mesh, the train cell sharded (16 rows x 256 tokens a rank,
-    its FSDP gathers' gradients reduce-scattered), decode gathered."""
+    its FSDP gathers' gradients reduce-scattered), decode sharded (8
+    rows and 2,048 cache rows a rank, the ranks' partial attention
+    merged by an all-gather, no reduce-scatter)."""
     monkeypatch.setattr(dryrun, "get_config", get_reduced)
     res = dryrun.run_cell("granite-20b", shape_name, "single")
     assert res["status"] == "ok" and res["layout"] == want
     assert f"layout: {want} |" in capsys.readouterr().out
-    if want == "sharded":
-        assert res["collective_counts"]["reduce-scatter"] > 0
+    rs = res["collective_counts"]["reduce-scatter"]
+    assert rs > 0 if shape_name == "train_4k" else rs == 0
 
 
 def test_skipped_cell_and_list(capsys):

@@ -13,8 +13,9 @@ Contract: the plain versions (``ref.flash_attention_ref`` /
 ``flash_attention_lse_ref`` / ``decode_attention_ref`` /
 ``decode_attention_split_ref``) with the cap and the offset against the
 reference's ``_sdpa_chunked`` on the same numpy inputs, within 2e-5 in
-float32 and 1e-6 in float64 (the reference's scores are float32 even
-then: ``preferred_element_type``); the plain backward with the cap
+float32 and, in float64, 1e-6 relative and a bound derived per output
+element from the reference's float32 scores (``preferred_element_type``
+keeps them float32 even then: ``_f64_bound``); the plain backward with the cap
 (``ref.flash_attention_bwd_ref``) equal to ``torch.autograd`` through
 the plain forward within 1e-10 in float64; the planted faults of
 ``chip_smoke.py`` phase 23 (the cap dropped, the cap after the mask, the
@@ -27,6 +28,7 @@ card's autograd function, its raw wrappers replaced by the plain
 versions) refusing a gradient at ``q_offset > 0``.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -50,11 +52,18 @@ from repro_torch.models import attention as attn
 from repro_torch.models.params import leaves_with_paths
 
 try:
-    from hypothesis import given, settings, strategies as st
+    from hypothesis import example, given, settings, strategies as st
 except ImportError:                                      # pragma: no cover
     from _hypothesis_shim import given, settings, st
 
+    def example(*_args, **_kwargs):
+        return lambda fn: fn
+
 TOL = {"float32": 2e-5, "float64": 1e-6}
+EPS32 = float(np.finfo(np.float32).eps)
+# b, heads, s, off, d, window, softcap, float64, seed: a draw whose float64
+# error (2.9e-6) the reference's float32 scores put over TOL["float64"]
+PINNED = (1, (4, 4), 1, 6, 8, None, 50.0, True, 0)
 CAPS = (None, 5.0, 50.0)
 
 
@@ -98,27 +107,109 @@ def _port(q, k, v, off, window, causal, softcap, dtype):
     return out.transpose(1, 2).double().numpy()
 
 
+def _f64_bound(q, k, v, off, window):
+    """The float64 bound of one draw, an absolute bound for each output
+    element (the relative one stays TOL["float64"]).  The reference's
+    scores are float32 even under x64 (``preferred_element_type``), and
+    so is its softmax; only the product with v is float64.  Take each
+    float32 score of a query as off by at most delta = eps32 max|s|, the
+    largest of its visible scaled scores s = q.k / sqrt(d) (before the
+    cap, which moves a score by no more than the cap's input moves).
+    Moving every score by at most delta scales each softmax weight by a
+    factor within e^(+-2 delta), so the weights move by at most
+    e^(2 delta) - 1 ~ 2 delta in sum; as they still sum to 1, an output
+    column moves by at most 2 delta max_j |v_j - c| for any c, which at
+    c the midrange of its visible v_j is delta (max_j v_j - min_j v_j).
+    The float32 softmax's own rounding goes into 1e-6: bound = 1e-6 +
+    eps32 max|s| (max_j v_j - min_j v_j), each maximum over the keys the
+    query sees.  That is at most the 1e-6 + 2 eps32 max|s| max|v| of
+    the whole draw, since a column's range is at most 2 max|v|."""
+    b, s, h, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    kk = np.repeat(k, h // hkv, axis=2).astype(np.float64)
+    vv = np.repeat(v, h // hkv, axis=2).astype(np.float64)
+    scores = np.einsum("bshd,bthd->bsht", q.astype(np.float64), kk) / \
+        math.sqrt(d)
+    pos = off + np.arange(s)[:, None]
+    key = np.arange(t)[None]
+    seen = key <= pos                                          # [S, T]
+    if window is not None:
+        seen = seen & (key > pos - window)
+    smax = np.where(seen[None, :, None], np.abs(scores), 0.0).max(-1)
+    m = seen[None, :, :, None, None]                           # [1,S,T,1,1]
+    spread = np.where(m, vv[:, None], -np.inf).max(2) - \
+        np.where(m, vv[:, None], np.inf).min(2)               # [B,S,H,D]
+    return TOL["float64"] + EPS32 * smax[..., None] * spread
+
+
+def _f64_close(got, want, q, k, v, off, window):
+    """Whether every element of ``got`` lies within the float64 bounds of
+    ``want``: TOL["float64"] relative and ``_f64_bound`` absolute."""
+    return bool((np.abs(got - want) <= TOL["float64"] * np.abs(want) +
+                 _f64_bound(q, k, v, off, window)).all())
+
+
+def _draw(b, heads, s, off, d, seed):
+    """q, k, v of a draw: ``s`` queries at cache offset ``off`` against a
+    cache of ``off + s + 5`` rows."""
+    h, hkv = heads
+    rng = np.random.default_rng(seed)
+    t = off + s + 5
+    return (_normal(rng, (b, s, h, d), 2.0), _normal(rng, (b, t, hkv, d), 2.0),
+            _normal(rng, (b, t, hkv, d)))
+
+
 @settings(max_examples=25, deadline=None)
 @given(st.integers(1, 2), st.sampled_from([(4, 4), (4, 2), (6, 1)]),
        st.integers(1, 9), st.integers(0, 20), st.sampled_from([8, 16]),
        st.sampled_from([None, 3, 7]), st.sampled_from(CAPS),
        st.booleans(), st.integers(0, 2 ** 16))
+@example(*PINNED)
 def test_plain_flash_matches_reference_sdpa(b, heads, s, off, d, window,
                                             softcap, float64, seed):
     """A chunk of ``s`` queries at cache offset ``off`` against a cache
     of ``off + s + 5`` rows (five past the frontier), causal and windowed,
-    capped or not, in float32 and float64."""
-    h, hkv = heads
-    rng = np.random.default_rng(seed)
-    t = off + s + 5
-    q = _normal(rng, (b, s, h, d), 2.0)
-    k = _normal(rng, (b, t, hkv, d), 2.0)
-    v = _normal(rng, (b, t, hkv, d))
+    capped or not, in float32 (within TOL) and float64 (within
+    TOL["float64"] relative and the draw's ``_f64_bound`` absolute: the
+    reference's float32 scores, not the port, set the float64 gap)."""
+    q, k, v = _draw(b, heads, s, off, d, seed)
     dtype = "float64" if float64 else "float32"
     with jax.enable_x64(float64):
         want = _reference(q, k, v, off, window, True, softcap, dtype)
     got = _port(q, k, v, off, window, True, softcap, dtype)
-    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    if float64:
+        assert _f64_close(got, want, q, k, v, off, window), \
+            float(np.abs(got - want).max())
+    else:
+        np.testing.assert_allclose(got, want, rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("fault", ["cap dropped", "mask one row late",
+                                   "scores x (1 + 1e-5)"])
+def test_float64_bound_sees_the_planted_faults(fault):
+    """On the pinned draw (whose float64 gap, 2.9e-6, is 0.43 of its
+    bound where nearest) the port passes the derived float64 bound and a
+    wrong port misses it: its float64 plain version with the cap
+    dropped, with the causal mask one row late (the query also seeing
+    the row after it), or with every scaled score 1e-5 too large (q
+    scaled by 1 + 1e-5; it misses by about 3x; the shares:
+    ``tools/f64_bound_margin.py``)."""
+    b, heads, s, off, d, window, softcap, _, seed = PINNED
+    q, k, v = _draw(b, heads, s, off, d, seed)
+    with jax.enable_x64(True):
+        want = _reference(q, k, v, off, window, True, softcap, "float64")
+    got = _port(q, k, v, off, window, True, softcap, "float64")
+    assert _f64_close(got, want, q, k, v, off, window)
+    if fault == "cap dropped":
+        bad = _port(q, k, v, off, window, True, None, "float64")
+    elif fault == "mask one row late":
+        bad = _port(q, k, v, off + 1, window, True, softcap, "float64")
+    else:
+        bad = _port(q * (1 + 1e-5), k, v, off, window, True, softcap,
+                    "float64")
+    assert not _f64_close(bad, want, q, k, v, off, window), (
+        fault, float(np.abs(bad - want).max()))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

@@ -93,8 +93,10 @@ Phases, in order:
      bound; then
      the sm90 route at RecurrentGemma's heads (16 over 1, D = 256,
      S = T = 300, window None and 64), at both launchers' 3-token
-     prompts against 48 cache rows through views, and without the
-     causal mask; then the split-KV ``decode_attention`` (each call's
+     prompts against 48 cache rows through views, at a Mixtral
+     rank's 3 query heads over 1 kv head (D = 128) with its 4,096-token
+     window over S = T = 8,192, and without the causal mask; then the
+     split-KV ``decode_attention`` (each call's
      route asserted): the timed Qwen shape with ragged lengths [4096,
      1000, 17, 1] (splits wholly past a row's length), a row of length 0
      (exactly 0, where the plain version gives NaN), RecurrentGemma's
@@ -156,8 +158,9 @@ Phases, in order:
       on the card, counted as phase 7: exactly 26 ``rglru_scan`` and 12
       ``flash_attention`` launches per prefill, 26 ``rglru_scan`` and 12
       ``decode_attention`` per decode step, every scan on the serial
-      route and every decode on the single one; then its profile, as
-      phase 8;
+      route and every decode on the single one (its profile, as phase
+      8, is no longer taken: its time went to phase 24.3's Mixtral
+      cells; ``PERF.md`` keeps the last one);
   12. both attention kernels at the new archs' shapes, bf16 and
       float32 against their plain versions (tolerances of phase 5), each
       call's route asserted: prefill at granite's 48 query heads over 1
@@ -402,13 +405,22 @@ Phases, in order:
       layout the same way (rank 0's weights and cache blocks; one split
       decode / one sm90 flash a layer), the faults that must miss being
       a decode writing its cache out of place and restacking it, and a
-      prefill keeping the whole length as cache rows; then the decode
+      prefill keeping the whole length as cache rows; then
+      mixtral-8x22b x train_4k, prefill_32k and decode_32k (at row
+      4,095: rank 0 reads its whole block under the 4,096 window) at 4
+      of its 56 layers, full width, bf16, in the sharded layout the same
+      way (the serving cells under SERVE_BIG_RULES, as the full depth
+      takes them; the MoE FFN's ffn split over "model"; 2 / 1 sm90
+      flash and 1 split decode a layer), the fault that must miss
+      being the experts' weights gathered whole over "model"; then the
+      decode
       wrapper (with the fake branch's tests) beside its raw kernel on
       the same rotated inputs at Qwen's B = 4, T = 4,096, and its host
       time a call; one JSON line for the phase;
   25. ``decode_attention``'s log-sum-exp output (``lse=True``): against
-      ``ref.decode_attention_lse_ref`` at granite-20b's and gemma3-1b's
-      rank-0 cache blocks (split) and a launcher's 48 rows (single), in
+      ``ref.decode_attention_lse_ref`` at granite-20b's, gemma3-1b's
+      and mixtral-8x22b's rank-0 cache blocks (split) and a launcher's
+      48 rows (single), in
       bf16 and float32, cap off and on (outputs within 2e-3 / 2e-2,
       log-sum-exps within 1e-4 relative, the output bit-equal to the
       call without it); its merge over 2 and 4 length blocks of
@@ -439,8 +451,8 @@ Phases, in order:
       launches of a chunk and a step of Qwen's chunked prefill; the
       attention rows phase 24's launches a cell, ``dryrun_launches``,
       the flash row also the sharded train and prefill cells' rank-0
-      steps', the decode row the sharded decode cell's and phase 25's
-      figures, ``lse``);
+      steps' (granite-20b's and mixtral-8x22b's), the decode row the
+      sharded decode cells' and phase 25's figures, ``lse``);
   27. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -456,8 +468,10 @@ real step) adds about 100 s; the sharded serving cells (three more
 traces, about 10 s each, and two real steps) about 25 s and phase 25
 about 5 s.  The whole took 889.9-1041.0 s with 25 phases, so phases 14
 and 17 profile none of their eight runs (the four profiles they kept
-took 89 s on the slower host).  It also exits non-zero without a CUDA
-device.  ``python3 chip_smoke.py --metering`` stops after phase 4d and
+took 89 s on the slower host); Mixtral's sharded cells in phase 24.3
+(six traces of 4 layers and three real steps) take about 25 s, and
+phase 11 no longer profiles its launcher in their place.  It also
+exits non-zero without a CUDA device.  ``python3 chip_smoke.py --metering`` stops after phase 4d and
 prints the metering kernels' figures and the stack's walls and launches
 as two JSON lines instead of the last two;
 ``python3 chip_smoke.py --train`` runs phase 1 and phases 18-22 and 24
@@ -1111,7 +1125,10 @@ def _flash_routed(q, k, v, window, causal=True):
 # bf16 checks of the sm90 route beyond the reference's sweep:
 # (B, H, Hkv, S, T, D, window, views, causal) -- RecurrentGemma's heads
 # at a ragged S = T = 300; the launcher's 3-token prompt against 48 cache
-# rows, read through [B,S|T,heads,D] views, at both models' heads; and
+# rows, read through [B,S|T,heads,D] views, at both models' heads; a
+# mixtral-8x22b rank's prefill heads on (16, 16) (3 query heads over the
+# one kv head they read) with its 4,096-token window over 8,192 rows;
+# and
 # the non-causal mask the wrapper also takes, with T below and above S
 # (every row sees a key: where none is visible the plain version gives
 # NaN and the kernels 0)
@@ -1120,6 +1137,7 @@ SM90_CASES = (
     (1, 16, 1, 300, 300, 256, 64, False, True),
     (1, 28, 4, 3, 48, 128, None, True, True),
     (1, 16, 1, 3, 48, 256, 2048, True, True),
+    (1, 3, 1, 8192, 8192, 128, 4096, False, True),
     (2, 8, 2, 300, 200, 128, None, False, False),
     (2, 4, 4, 200, 300, 64, 64, False, False),
 )
@@ -2392,8 +2410,8 @@ class _Drops:
         from repro_torch.models import moe
         self.moe, self.real, self.calls = moe, moe._router, []
 
-        def spy(p, x, m):
-            gates, idx, aux = self.real(p, x, m)
+        def spy(p, x, m, tp=None):
+            gates, idx, aux = self.real(p, x, m, tp)
             if x.device.type == torch.device(DEV).type:
                 s = x.shape[1]
                 cap = max(int(math.ceil(s * m.top_k * m.capacity_factor /
@@ -5787,6 +5805,14 @@ DRY_SHARDED = ("granite-20b", "train_4k", "single")
 # the production serving cells in the sharded layout, run as rank 0
 DRY_SERVING = (("granite-20b", "decode_32k", "single"),
                ("granite-20b", "prefill_32k", "single"))
+# mixtral-8x22b's sharded cells, run as rank 0 of the (16, 16) mesh at
+# MOE_LAYERS of its 56 layers (full width, bf16); the decode at MOE_POS,
+# the last row of its 4,096 window's second 2,048-row block, so that
+# rank 0 reads all of its block
+DRY_MOE = ("train_4k", "prefill_32k", "decode_32k")
+MOE_ARCH = "mixtral-8x22b"
+MOE_LAYERS = 4
+MOE_POS = 4095
 
 
 def _dry_cells():
@@ -5863,11 +5889,12 @@ def _gap(got, want):
     return abs(got - want) / want
 
 
-def _rank0_inputs(cfg, shape, mesh):
+def _rank0_inputs(cfg, shape, mesh, pos=None):
     """Rank 0's blocks of a cell's inputs on the card, drawn at their
     local shapes from seed 0 (the state, or the weights), 1 (a cache:
     zeros) and 70 (the tokens), laid out as ``input_shardings`` over
-    ``mesh`` (a fake group's); a decode cell at its cache's last row."""
+    ``mesh`` (a fake group's); a decode cell at ``pos`` (default: its
+    cache's last row)."""
     import dataclasses
 
     import torch
@@ -5912,24 +5939,24 @@ def _rank0_inputs(cfg, shape, mesh):
     if shape.kind == "prefill":
         return [drawn("params", 0), tokens("batch"), drawn("caches", 1)]
     return [drawn("params", 0), tokens("tokens"), drawn("caches", 1),
-            shape.seq_len - 1]
+            shape.seq_len - 1 if pos is None else pos]
 
 
-def _rank0_step(cfg, shape, mesh):
+def _rank0_step(cfg, shape, mesh, pos=None):
     """One step of ``jit_cell``'s cell on the card as rank 0 of
     ``mesh``: the kernel launches and routes (counters reset just before
     the step, read just after), the step's wall (host clock ending in a
     synchronize) and the peak of ``max_memory_allocated`` above what the
     card held before the inputs were made.  No FLOP counter runs (it
     would run ``silu_backward`` through its decomposition, whose
-    temporaries the step does not make)."""
+    temporaries the step does not make); a decode cell at ``pos``."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import jit_cell
     _free_card()
     base = torch.cuda.memory_allocated()
-    args = _rank0_inputs(cfg, shape, mesh)
+    args = _rank0_inputs(cfg, shape, mesh, pos)
     step, _ = jit_cell(cfg, shape, mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -6169,6 +6196,145 @@ def check_serving_rank0(card, decode=None):
     return res
 
 
+@contextlib.contextmanager
+def _whole_experts():
+    """A planted layout fault of the sharded MoE bodies, modelled in the
+    trace: each layer's expert weights (``wi_gate``, ``wi_up``, ``wo``)
+    gathered whole over "model" too, as a body that split neither the
+    experts nor their ffn would hold them, and the rank's block cut from
+    them (a view, which keeps the whole alive through the layer)."""
+    from repro_torch.distributed import sharding
+    real = sharding.ModelShards.layer       # ServeShards' too
+
+    def layer(self, tree, *path):
+        out = real(self, tree, *path)
+        ffn = out.get("ffn", {})
+        if "router" not in ffn or self.size == 1:
+            return out
+        specs = sharding._at(self.specs, path)["ffn"]
+        for name in ("wi_gate", "wi_up", "wo"):
+            t = ffn[name]
+            for dim, entry in enumerate(specs[name][1:]):
+                if self.axis in sharding.entry_axes(entry):
+                    n = t.shape[dim]
+                    t = sharding._AllGather.apply(
+                        t, dim, self._group(self.axis)).narrow(
+                            dim, self.index * n, n)
+            ffn[name] = t
+        return out
+
+    sharding.ModelShards.layer = layer
+    try:
+        yield
+    finally:
+        sharding.ModelShards.layer = real
+
+
+@contextlib.contextmanager
+def _rules_of(full):
+    """``steps.rules_for`` choosing the rule set of the config ``full``
+    (a depth cut's rules are its full depth's: the cut's fewer weights
+    would replicate over "data" at serve time)."""
+    from repro_torch.launch import steps
+    real = steps.rules_for
+    steps.rules_for = lambda shape, cfg=None: real(shape, full)
+    try:
+        yield
+    finally:
+        steps.rules_for = real
+
+
+def check_moe_rank0(card):
+    """Phase 24.3, MoE: mixtral-8x22b's DRY_MOE cells on the (16, 16)
+    mesh in the sharded layout at MOE_LAYERS of its 56 layers (full
+    width, bf16), each traced as the dry run traces it and then run for
+    real as rank 0 of a ``fake`` group of 256 on the card (the weights
+    drawn at their local shapes; the collectives complete at once and
+    return nothing, so the values are not checked).  The cut takes the
+    full depth's rules (``_rules_of``: SERVE_BIG_RULES at serve time)
+    and the train cell one microbatch (the dry run's full-depth row
+    takes 4; on a fake group a gathered batch is uninitialised memory,
+    whose tokens would index the table out of range); the decode cell
+    sits at MOE_POS.  The launches (2 sm90 flash a layer in train, 1 in
+    prefill, 1 decode a layer on the plan's route for rank 0's 2,048-row
+    block) and routes traced = real, the traced peak within DRY_PEAK_TOL
+    of ``max_memory_allocated``; the trace with the experts' weights
+    gathered whole over "model" (``_whole_experts``) must miss the peak
+    gate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import SHAPES
+    cfg = cut_depth(MOE_ARCH, MOE_LAYERS, torch.bfloat16)
+    n = cfg.n_layers
+    res = {}
+    for shape_name in DRY_MOE:
+        shape = SHAPES[shape_name]
+        pos = MOE_POS if shape.kind == "decode" else None
+        t0 = time.perf_counter()
+        with _rules_of(get_config(MOE_ARCH)), dryrun.fake_group(256):
+            mesh = make_production_mesh(
+                device_type=dryrun.tensor_device("cuda"))
+            traced = dryrun.trace_cell(cfg, shape, mesh, pos=pos,
+                                       mesh_name="single")
+            assert traced["layout"] == "sharded", traced["layout"]
+            with _whole_experts():
+                bad = dryrun.trace_cell(cfg, shape, mesh, pos=pos,
+                                        mesh_name="single")
+            real = _rank0_step(cfg, shape, mesh, pos)
+        if shape.kind == "decode":
+            block = shape.seq_len // 16
+            way = "split" if dmod.plan(shape.global_batch // 16,
+                                       cfg.n_heads, cfg.n_kv_heads, block,
+                                       cfg.head_dim_,
+                                       dmod.FAKE_SMS).splits > 1 \
+                else "single"
+            op, want = "decode_attention", {way: n}
+        else:
+            op = "flash_attention"
+            want = {"sm90": 2 * n if shape.kind == "train" else n}
+        assert traced["kernel_launches"] == real["launches"] == {
+            op: sum(want.values())}, (shape_name, traced["kernel_launches"],
+                                      real["launches"])
+        assert traced["kernel_routes"] == real["routes"], (
+            shape_name, traced["kernel_routes"], real["routes"])
+        assert real["routes"][op] == want, (shape_name, real["routes"])
+        gap = _gap(traced["peak_device_bytes"], real["peak_bytes"])
+        miss = _gap(bad["peak_device_bytes"], real["peak_bytes"])
+        assert gap <= DRY_PEAK_TOL, (shape_name, traced["peak_device_bytes"],
+                                     real["peak_bytes"])
+        assert miss > DRY_PEAK_TOL, (
+            f"the _whole_experts trace passes the peak gate of "
+            f"{shape_name}", bad["peak_device_bytes"], real["peak_bytes"])
+        wall = time.perf_counter() - t0
+        print(f"sharded {MOE_ARCH} x {shape_name} rank 0 of single "
+              f"(16, 16), {n} of 56 layers bf16: step {real['ms']:.3f} ms "
+              f"({card}); launches {real['launches']} routes "
+              f"{real['routes']} traced and real; peak "
+              f"{traced['peak_device_bytes']:,} B traced vs "
+              f"{real['peak_bytes']:,} B max_memory_allocated (gap "
+              f"{100 * gap:.3f} %, gate {100 * DRY_PEAK_TOL:.0f} %; {card});"
+              f" the _whole_experts trace {bad['peak_device_bytes']:,} B "
+              f"(gap {100 * miss:.1f} %); useful-FLOP ratio "
+              f"{traced['useful_flops_ratio']:.3f}; traces "
+              f"{traced['trace_s']:.3f} / {bad['trace_s']:.3f} s; "
+              f"{wall:.3f} s")
+        res[shape_name] = {
+            "layers": n, "layout": traced["layout"], "step_ms": real["ms"],
+            "launches": real["launches"], "routes": real["routes"],
+            "predicted_peak": traced["peak_device_bytes"],
+            "real_peak": real["peak_bytes"], "peak_gap": gap,
+            "fault": "_whole_experts",
+            "fault_peak": bad["peak_device_bytes"], "fault_gap": miss,
+            "useful_flops_ratio": traced["useful_flops_ratio"],
+            "collective_counts": traced["collective_counts"],
+            "trace_s": traced["trace_s"], "wall_s": wall, "card": card}
+    return res
+
+
 def time_decode_wrapper(stats):
     """The decode wrapper (``kernels/decode_attention.py``, with the fake
     branch's tests) against a raw launch of its kernel on the same
@@ -6299,6 +6465,7 @@ def drive_dryrun(stats):
         way: cfg.n_layers}, cell["kernel_routes"]
     sharded = check_sharded_rank0(_card_line())
     serving = check_serving_rank0(_card_line(), cell)
+    moe = check_moe_rank0(_card_line())
     timing = time_decode_wrapper(stats)
     _possible(timing["wrapper_ms"], stats["decode_attention"]["bound_ms"]
               if "decode_attention" in stats else 0.0, "decode wrapper")
@@ -6318,7 +6485,7 @@ def drive_dryrun(stats):
     return {"cells": res, "production": {
         "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
         "sharded_rank0": sharded, "serving_rank0": serving,
-        "decode_wrapper": timing, "wall_s": wall}
+        "moe_rank0": moe, "decode_wrapper": timing, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -6327,11 +6494,12 @@ def drive_dryrun(stats):
 # ---------------------------------------------------------------------------
 
 LSE_REL = 1e-4             # the log-sum-exps vs the plain version's
-# (label, B, H, Hkv, T, D): granite-20b's and gemma3-1b's rank-0 cache
-# blocks at decode_32k on (16, 16) (the split route), and a launcher's
-# 48-row decode (the single route)
+# (label, B, H, Hkv, T, D): granite-20b's, gemma3-1b's and
+# mixtral-8x22b's rank-0 cache blocks at decode_32k on (16, 16) (the
+# split route), and a launcher's 48-row decode (the single route)
 LSE_CASES = (("granite rank block", 8, 48, 1, 2048, 128),
              ("gemma3 rank block", 8, 4, 1, 2048, 256),
+             ("mixtral rank block", 8, 48, 8, 2048, 128),
              ("launcher rows", 1, 28, 4, 48, 128))
 # the merge: granite's rank block of 2,048 rows cut into 2 and 4 length
 # blocks, the token at row 1,500 (at 4 the last block lies past it),
@@ -6547,7 +6715,6 @@ def main():
     serve_depth(recurrentgemma_depth3(), f64=False)
     check_bf16_model(recurrentgemma_depth3())
     rg_counts, rg_combines = serve_launcher(RG_ARCH)
-    profile_serving(RG_ARCH)
     _free_card()
     t0 = time.perf_counter()
     check_new_shapes(stats)
@@ -6760,11 +6927,18 @@ def main():
             row["dryrun_launches"]["sharded_prefill_rank0"] = \
                 dry["serving_rank0"]["prefill_32k"]["launches"][
                     "flash_attention"]
+            # mixtral-8x22b's sharded cells at MOE_LAYERS layers
+            for cell in ("train_4k", "prefill_32k"):
+                row["dryrun_launches"][f"moe_{cell}_rank0"] = \
+                    dry["moe_rank0"][cell]["launches"]["flash_attention"]
         if row["name"] == "decode_attention":
             # the sharded decode cell's rank-0 step (with the log-sum-exp
             # output), and phase 25's checks and times of that output
             row["dryrun_launches"]["sharded_decode_rank0"] = \
                 dry["serving_rank0"]["decode_32k"]["launches"][
+                    "decode_attention"]
+            row["dryrun_launches"]["moe_decode_32k_rank0"] = \
+                dry["moe_rank0"]["decode_32k"]["launches"][
                     "decode_attention"]
             row["lse"] = lse
     print(json.dumps({"cap_offset": {k: cap_offset[k] for k in (

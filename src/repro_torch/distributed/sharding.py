@@ -56,19 +56,24 @@ Inside that body the model's tensors are plain local tensors and
 body's own (the residual split by rows and sequence, the logits of the
 local tokens).
 
-``ServeShards``, a ``ModelShards`` over the params' ``SERVE_RULES``
-specs, is the "model" axis inside the sharded serving body (a dense
-decoder's prefill and decode cells).  The residual is replicated over
-"model" there (``"seq": []``), so its sequence "gather" is the residual
-itself and its "reduce-scatter" an all-reduce: each row-parallel
-product's partial sums summed over the axis.  A layer's weights split by
-head dim (``"hdim"``: the heads do not divide the axis) or by K/V head
-are gathered whole, since rope pairs dims i and i + D/2 and every rank
+``ServeShards``, a ``ModelShards`` over the params' ``SERVE_RULES`` or
+``SERVE_BIG_RULES`` specs, is the "model" axis inside the sharded
+serving body (the prefill and decode cells of a decoder of attention +
+dense or MoE FFN blocks).  The residual is replicated over "model"
+there (``"seq": []``), so its sequence "gather" is the residual itself
+and its "reduce-scatter" an all-reduce: each row-parallel product's
+partial sums summed over the axis.  A layer's weights split by head dim
+(``"hdim"``: the heads do not divide the axis) or by K/V head are
+gathered whole, since rope pairs dims i and i + D/2 and every rank
 writes every K/V head of its cache rows; every rank then runs those
-heads, GSPMD's redundancy for such a dim.  Each rank holds the block
-``rows(T)`` of the KV cache's length and writes it in place; ``merge``
-combines the ranks' partial decode attention over their blocks by their
-log-sum-exps (``ref.decode_merge``).
+heads, GSPMD's redundancy for such a dim.  Under ``SERVE_BIG_RULES``
+each weight is also gathered over its other axes ("embed" over "data")
+inside its layer, as the train body's FSDP gathers; under
+``SERVE_RULES`` no weight is split over them and nothing more is
+gathered.  Each rank holds the block ``rows(T)`` of the KV cache's
+length and writes it in place; ``merge`` combines the ranks' partial
+decode attention over their blocks by their log-sum-exps
+(``ref.decode_merge``).
 """
 from __future__ import annotations
 
@@ -322,6 +327,12 @@ class BatchShards:
             index = index * mesh.shape[a] + dm.get_local_rank(a)
         self.index = index
 
+    def without(self, axis: str) -> Optional["BatchShards"]:
+        """The split over the same axes but ``axis`` (None if no axis is
+        left): the tokens' blocks once they are gathered over ``axis``."""
+        axes = tuple(a for a in self.axes if a != axis)
+        return BatchShards(self.mesh, axes) if axes else None
+
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the batch's ranks, in place."""
         for a in self.axes:
@@ -458,6 +469,8 @@ class ModelShards:
         self.size = mesh.shape.get(axis, 1)
         self.index = mesh.device_mesh.get_local_rank(axis) \
             if self.size > 1 else 0
+        # the leaves ``layer`` gathers whole, over the axis too (none here)
+        self.wholes = tree_map(lambda s: False, specs)
 
     def _group(self, axis: str):
         return self.mesh.device_mesh.get_group(axis)
@@ -481,6 +494,21 @@ class ModelShards:
         if self.size == 1:
             return x
         return _ReduceScatter.apply(x, 1, self._group(self.axis))
+
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, S, ...] computed whole on every rank -> this rank's
+        sequence block of it."""
+        if self.size == 1:
+            return x
+        lo, hi = self.rows(x.shape[1])
+        return x[:, lo:hi]
+
+    def concat(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks ``x`` concatenated along ``dim``, in rank
+        order (the gradient goes back by a reduce-scatter)."""
+        if self.size == 1:
+            return x
+        return _AllGather.apply(x, dim, self._group(self.axis))
 
     def gather(self, t: torch.Tensor, spec: Sequence, whole: bool = False
                ) -> torch.Tensor:
@@ -510,9 +538,9 @@ class ModelShards:
         leaves' local blocks, the "layers" dim taken), gathered over its
         FSDP axes: the per-layer gather, inside the layer's checkpoint,
         so the recompute gathers it again and nothing holds it between
-        layers."""
-        return tree_map(lambda t, s: self.gather(t, s[1:]), tree,
-                        _at(self.specs, path))
+        layers.  A leaf of ``wholes`` is gathered whole."""
+        return tree_map(lambda t, s, w: self.gather(t, s[1:], whole=w),
+                        tree, _at(self.specs, path), _at(self.wholes, path))
 
     def _axes(self, spec: Sequence, used: bool) -> List[Any]:
         """The groups of the mesh axes (of more than one rank) that
@@ -537,15 +565,21 @@ class ModelShards:
 
 class ServeShards(ModelShards):
     """The sharded serving body's view of its mesh (module docstring):
-    ``specs`` the params' ``PartitionSpec``s under ``SERVE_RULES``,
-    ``axes`` their logical axes (the params' ``ParamSpec``s).  An axis
-    of size 1 takes no collective, so at world size 1 the body is the
-    unsharded step, op for op."""
+    ``specs`` the params' ``PartitionSpec``s under ``SERVE_RULES`` or
+    ``SERVE_BIG_RULES``, ``params`` their ``ParamSpec``s, whose logical
+    axes give ``wholes``: the leaves split by head dim or K/V head over
+    the axis.  ``layer`` gathers each leaf over its other axes too
+    (SERVE_BIG_RULES' "embed" over "data"; none under SERVE_RULES).  An
+    axis of size 1 takes no collective, so at world size 1 the body is
+    the unsharded step, op for op."""
 
     def __init__(self, mesh: Mesh, specs: Tree, params: Tree,
                  axis: str = "model"):
         super().__init__(mesh, specs, axis)
-        self.axes = tree_map(lambda s: s.axes, params)
+        self.wholes = tree_map(
+            lambda s, p: any(self.axis in entry_axes(e) and
+                             a in ("hdim", "kv_heads")
+                             for e, a in zip(s, p.axes)), specs, params)
 
     def _groups(self) -> List[Any]:
         return [self._group(self.axis)] if self.size > 1 else []
@@ -563,25 +597,10 @@ class ServeShards(ModelShards):
         (the residual is replicated, so nothing is scattered)."""
         return self.sum(x)
 
-    def concat(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The ranks' blocks ``x`` concatenated along ``dim``, in rank
-        order."""
-        if self.size == 1:
-            return x
-        return _gather(x, dim, self._group(self.axis))
-
-    def _whole(self, spec: Sequence, axes: Sequence) -> bool:
-        return any(self.axis in entry_axes(e) and a in ("hdim", "kv_heads")
-                   for e, a in zip(spec, axes))
-
-    def layer(self, tree: Tree, *path: str) -> Tree:
-        """One layer's slice of the stacked subtree at ``path``: its
-        leaves' blocks, each split by head dim or K/V head gathered
-        whole over the axis (module docstring)."""
-        return tree_map(
-            lambda t, s, a: self.gather(t, s[1:], whole=True)
-            if self._whole(s[1:], a[1:]) else t,
-            tree, _at(self.specs, path), _at(self.axes, path))
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """A result computed whole on every rank: the residual's
+        layout, as it is."""
+        return x
 
     def merge(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
         """One-token attention over the whole cache from this rank's

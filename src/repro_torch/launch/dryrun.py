@@ -17,8 +17,9 @@ cannot run on fake ``cuda`` tensors there.  ``device="cpu"`` traces the
 plain versions instead (the CPU's program).
 
 ``jit_cell`` runs each cell in one of two layouts (``steps.layout``),
-recorded as ``layout``: ``sharded`` (the dense decoders' train,
-``prefill_32k`` and ``decode_32k`` cells: each rank holds its blocks of
+recorded as ``layout``: ``sharded`` (the train, ``prefill_32k`` and
+``decode_32k`` cells of the dense decoders and mixtral-8x22b, whose
+serving cells take SERVE_BIG_RULES: each rank holds its blocks of
 the state, or of the weights and the KV cache, and computes its share,
 as the reference's sharded XLA program does; a serving cell writes its
 cache block in place, so its trace holds no ``*_scatter`` clone, and

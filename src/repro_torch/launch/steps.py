@@ -22,33 +22,40 @@ plain local tensors, so no DTensor reaches the kernels.  It takes one of
 two layouts (``layout``), chosen from the config and the mesh:
 
 * ``"sharded"``: the train cell of a decoder whose every block is
-  attention + dense FFN (qwen2-5-7b, gemma3-1b, granite-20b,
-  command-r-35b), laid out as GSPMD partitions the reference's step
-  under ``TRAIN_RULES``.  Each rank keeps only its block of every state
-  leaf (``to_local()``) and the optimizer runs on the blocks.  Each
-  layer gathers its weights over "data" (FSDP) inside its checkpoint,
-  and their gradients return to the blocks by reduce-scatters; heads and
-  ffn are split over "model", the residual between blocks is split by
-  rows over the batch's axes and by sequence over "model", gathered
-  before the column-parallel products and reduce-scattered after the
-  row-parallel ones (``sharding.ModelShards``, ``models/model.py``);
-  the loss, the global norm and the int8 scale are reduced over the
-  shards.
+  attention + a dense FFN (qwen2-5-7b, gemma3-1b, granite-20b,
+  command-r-35b) or a routed MoE FFN (mixtral-8x22b), laid out as GSPMD
+  partitions the reference's step under ``TRAIN_RULES``.  Each rank
+  keeps only its block of every state leaf (``to_local()``) and the
+  optimizer runs on the blocks.  Each layer gathers its weights over
+  "data" (FSDP) inside its checkpoint, and their gradients return to
+  the blocks by reduce-scatters; heads and ffn are split over "model",
+  the residual between blocks is split by rows over the batch's axes
+  and by sequence over "model", gathered before the column-parallel
+  products and reduce-scattered after the row-parallel ones
+  (``sharding.ModelShards``, ``models/model.py``);
+  the MoE FFN routes whole dispatch groups on the gathered sequence and
+  computes the rank's experts, or its ffn block of every expert where
+  the experts do not divide "model" (``models/moe.py``); the loss, the
+  router's statistics, the global norm and the int8 scale are reduced
+  over the shards.
 * ``"sharded"`` also runs the ``prefill_32k`` / ``decode_32k`` cells
-  of the same four decoders with a bf16 or float32 cache, laid out as
-  the reference's step under ``SERVE_RULES``: each rank keeps its block
-  of every weight (heads, ffn and vocab over "model", weights replicated
-  over "data"), its rows over the batch's axes and its block of the KV
-  cache's length over "model", which it writes in place (the reference
-  donates the caches).  Weights split by head dim or K/V head are
-  gathered whole a layer, each row-parallel product's partial sums
-  all-reduced over "model", a decode step's attention merged over the
-  ranks' length blocks by their log-sum-exps
+  of the same five decoders with a bf16 or float32 cache, laid out as
+  the reference's step under ``SERVE_RULES`` or, for an arch whose
+  weights cannot replicate over "data" (mixtral-8x22b),
+  ``SERVE_BIG_RULES``: each rank keeps its block of every weight
+  (heads, ffn, experts and vocab over "model"; "embed" over "data" under
+  SERVE_BIG_RULES, else weights replicated over "data"), its rows over
+  the batch's axes and its block of the KV cache's length over "model",
+  which it writes in place (the reference donates the caches).  Each
+  layer gathers its weights over "data" (SERVE_BIG_RULES), and those
+  split by head dim or K/V head whole, each row-parallel product's (and
+  the MoE's) partial sums are all-reduced over "model", a decode step's
+  attention merged over the ranks' length blocks by their log-sum-exps
   (``sharding.ServeShards``, ``models/attention._serve_attention``); the
   step returns the rank's block of the logits, ("batch", "vocab"), and
   the caches it was given.
 * ``"gathered"``: every other cell (``long_500k``, an int8 cache, the
-  other seven archs).  Every weight is gathered whole
+  other six archs).  Every weight is gathered whole
   (``full_tensor()``: the ZeRO resolution of TRAIN_RULES' ``"embed" ->
   data``, and the tensor-parallel dims gathered too), each rank runs its
   block of the batch's rows (``sharding.BatchShards``: the mesh axes the
@@ -379,34 +386,39 @@ def _donate(dst: DTensor, new: torch.Tensor, s: ParamSpec,
                                        shards).to_local())
 
 
-def _dense_decoder(cfg: ArchConfig) -> bool:
-    """A decoder-only config whose every block is attention + dense
-    FFN (no encoder, cross-attention or prefix embeddings)."""
+def _attention_decoder(cfg: ArchConfig) -> bool:
+    """A decoder-only config whose every block is attention + a dense
+    FFN or a routed MoE FFN without shared experts (no encoder,
+    cross-attention or prefix embeddings)."""
+    ffns = (FFN.DENSE,) if cfg.moe is not None and \
+        cfg.moe.n_shared_experts > 0 else (FFN.DENSE, FFN.MOE)
     return cfg.encoder is None and cfg.n_prefix_embeddings == 0 and all(
-        b.mixer == Mixer.ATTN and b.ffn == FFN.DENSE
+        b.mixer == Mixer.ATTN and b.ffn in ffns
         and not b.cross_attention for g in cfg.groups for b in g.pattern)
 
 
 def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
            flags: RunFlags = RunFlags()) -> str:
     """The body ``jit_cell`` runs for a cell (module docstring):
-    ``"sharded"`` for a dense decoder's train cell whose residual, at
-    the reference's block-boundary hint ("batch", "seq", None) under
-    TRAIN_RULES, splits its rows over every axis but "model" and its
-    sequence over "model" (each rank's tokens its own), and for its
-    prefill and decode cells under SERVE_RULES with a float cache whose
-    length splits over "model" (or no "model" axis to split), else
+    ``"sharded"`` for the train cell of a decoder of attention + dense
+    or MoE FFN blocks whose residual, at the reference's block-boundary
+    hint ("batch", "seq", None) under TRAIN_RULES, splits its rows over
+    every axis but "model" and its sequence over "model" (each rank's
+    tokens its own), and for its prefill and decode cells under
+    SERVE_RULES or SERVE_BIG_RULES with a float cache whose length
+    splits over "model" (or no "model" axis to split), else
     ``"gathered"``.  ``mesh``: anything with ``axis_names`` and
     ``shape``."""
-    if not _dense_decoder(cfg):
+    if not _attention_decoder(cfg):
         return "gathered"
     if shape.kind != "train":
-        if rules_for(shape, cfg) is not SERVE_RULES or \
+        rules = rules_for(shape, cfg)
+        if rules not in (SERVE_RULES, SERVE_BIG_RULES) or \
                 flags.cache_dtype == "int8":
             return "gathered"
         cache = partition_spec(("batch", "kv_len"), (
             shape.global_batch, shape.seq_len + cfg.n_prefix_embeddings),
-            SERVE_RULES, mesh)
+            rules, mesh)
         split = mesh.shape.get("model", 1) == 1 or cache[1] == "model"
         return "sharded" if split else "gathered"
     rows = shape.global_batch // max(flags.grad_accum, 1)

@@ -125,19 +125,21 @@ def apply_block(
     ``enc_out`` feeds a cross-attention block's K/V in any other call.
     ``moe_impl`` / ``moe_group`` override the MoE config's dispatch and
     group size (``RunFlags``).  ``tp`` (a ``sharding.ModelShards``: a
-    sharded step body, an attention + dense FFN block only): without a
-    cache the train body, ``x`` this rank's block of rows and sequence;
-    the norms run on it, the attention and a split FFN gather the
-    sequence and scatter it back (Megatron sequence parallelism), an FFN
-    whose dim does not split runs on the block as it is.  With a cache
-    the serving body (a ``sharding.ServeShards``): ``x`` is this rank's
-    rows, replicated over the model axis; the attention writes the
-    rank's block of the cache in place, and a split FFN's row-parallel
-    ``wo`` ends in an all-reduce."""
-    if tp is not None and (blk.mixer != Mixer.ATTN or blk.ffn != FFN.DENSE
+    sharded step body, an attention + dense or MoE FFN block only):
+    without a cache the train body, ``x`` this rank's block of rows and
+    sequence; the norms run on it, the attention, a split dense FFN and
+    the MoE FFN gather the sequence and scatter it back (Megatron
+    sequence parallelism; the MoE routes whole dispatch groups), a dense
+    FFN whose dim does not split runs on the block as it is.  With a
+    cache the serving body (a ``sharding.ServeShards``): ``x`` is this
+    rank's rows, replicated over the model axis; the attention writes
+    the rank's block of the cache in place, and a split FFN's
+    row-parallel ``wo`` (the MoE's partial sums) ends in an
+    all-reduce."""
+    if tp is not None and (blk.mixer != Mixer.ATTN or blk.ffn == FFN.NONE
                            or blk.cross_attention):
-        raise ValueError("the sharded bodies run attention + dense FFN "
-                         "blocks only")
+        raise ValueError("the sharded bodies run attention + dense or MoE "
+                         "FFN blocks only")
     # without per-layer overrides the BlockSpec's window / theta hold
     if cfg.layer_windows is None and cfg.layer_thetas is None:
         window = blk.window
@@ -204,7 +206,7 @@ def apply_block(
         h = rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
         if blk.ffn == FFN.MOE:
             y, aux = moe_lib.moe_ffn(p["ffn"], h, cfg, impl=moe_impl,
-                                     group_size=moe_group)
+                                     group_size=moe_group, tp=tp)
         else:
             split = tp is not None and \
                 p["ffn"]["wi_gate"].shape[-1] != cfg.d_ff

@@ -170,9 +170,10 @@ def _apply_layer(h: torch.Tensor, r: int, g: ScanGroup, gp: Tree, gm: Tree,
     (the card's autograd worker) that does not see the caller's
     context.  With ``tp`` each block's weights are gathered over their
     FSDP axes here, inside the layer's checkpoint (in the serving body:
-    the ones split by head dim or K/V head, over "model").  A block whose
-    cache was written in place (every leaf the one it was handed) gives
-    None for its new cache."""
+    over "data" under SERVE_BIG_RULES, and the ones split by head dim or
+    K/V head over "model" too).  A block whose cache was written in
+    place (every leaf the one it was handed) gives None for its new
+    cache."""
     aux = 0.0
     ncs = []
     with sharding.data_parallel(shards):
@@ -294,6 +295,18 @@ def _encode(params: Tree, cfg: ArchConfig, source_embeds: torch.Tensor,
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
+def _served(params: Tree, tp, *path: str) -> Tree:
+    """The subtree at ``path`` of ``params``; in the sharded serving body
+    (``tp`` a ``ServeShards``) each leaf gathered over its axes other
+    than "model" (SERVE_BIG_RULES' "embed" over "data"; nothing under
+    SERVE_RULES), at its use, as a layer's weights are."""
+    if tp is None:
+        for k in path:
+            params = params[k]
+        return params
+    return tp.fsdp(params, *path)
+
+
 def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any],
                     tp=None) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Embed tokens, prepend a VLM's prefix embeddings if any.
@@ -301,11 +314,12 @@ def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any],
     the tokens are this rank's sequence block, embedded against the
     table gathered whole; the positions are the whole sequence's.  A
     ``ServeShards`` (the serving body): the tokens whole, looked up in
-    the rank's block of the table (``embed``)."""
+    the rank's block of the table's vocab (``embed``)."""
     tokens = batch["tokens"]
     serve = isinstance(tp, sharding.ServeShards)
     if tp is None or serve:
-        x = embed(params["embed"], tokens, cfg, tp)
+        x = embed({"table": _served(params, tp, "embed", "table")}, tokens,
+                  cfg, tp)
     else:
         x = embed({"table": tp.whole(params, "embed", "table")}, tokens,
                   cfg)
@@ -327,14 +341,14 @@ def train_loss(params: Tree, batch: Dict[str, Any], cfg: ArchConfig,
     """Mean next-token loss (+ MoE aux).  batch: tokens, labels,
     [source_embeds], [prefix_embeds], [loss_mask].
 
-    Inside the sharded train body (``sharding.model_shards()`` set; an
-    attention + dense FFN decoder) ``params`` are this rank's blocks and
-    the batch its rows' sequence block: the residual stays split by rows
-    and sequence between the layers (the reference's hint at its block
-    boundary), each layer gathers its weights (``_apply_layer``), and
-    the local tokens' logits come from the head gathered whole, the
-    reference's ("batch", "seq", "vocab") layout with the vocab whole
-    ("seq" takes "model" first)."""
+    Inside the sharded train body (``sharding.model_shards()`` set; a
+    decoder of attention + dense or MoE FFN blocks) ``params`` are this
+    rank's blocks and the batch its rows' sequence block: the residual
+    stays split by rows and sequence between the layers (the
+    reference's hint at its block boundary), each layer gathers its
+    weights (``_apply_layer``), and the local tokens' logits come from
+    the head gathered whole, the reference's ("batch", "seq", "vocab")
+    layout with the vocab whole ("seq" takes "model" first)."""
     tp = sharding.model_shards()
     x, positions, n_prefix = _prepare_inputs(params, cfg, batch, tp)
     enc_out = None
@@ -367,16 +381,19 @@ def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
     ``caches`` are this rank's blocks, the caches are written in place
     and returned as given, and the logits are the rank's block of the
     vocab."""
-    x, positions, _ = _prepare_inputs(params, cfg, batch,
-                                      sharding.model_shards())
+    tp = sharding.model_shards()
+    x, positions, _ = _prepare_inputs(params, cfg, batch, tp)
     enc_out = None
     if cfg.encoder is not None:
         enc_out = _encode(params, cfg, batch["source_embeds"], flags)
     x, new_caches, _ = _run_groups(
         params, cfg.groups, cfg, x, positions, build_meta(cfg),
         caches=caches, cache_offset=0, enc_out=enc_out, flags=flags)
-    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg)[:, 0, :]
+    x = rmsnorm(_served(params, tp, "final_norm"), x[:, -1:, :],
+                cfg.norm_eps)
+    head = "table" if cfg.tie_embeddings else "head"
+    logits = unembed({head: _served(params, tp, "embed", head)}, x,
+                     cfg)[:, 0, :]
     return logits, new_caches
 
 
@@ -392,13 +409,16 @@ def decode_step(params: Tree, tokens: torch.Tensor, caches: Tree,
     caches).  Inside the sharded serving body as ``prefill`` (one token
     a step)."""
     pos = int(pos)
-    x = embed(params["embed"], tokens, cfg,
-              sharding.model_shards()).to(cfg.compute_dtype)
+    tp = sharding.model_shards()
+    x = embed({"table": _served(params, tp, "embed", "table")}, tokens,
+              cfg, tp).to(cfg.compute_dtype)
     b, s, _ = x.shape
     positions = (pos + torch.arange(s, device=x.device))[None].expand(b, s)
     x, new_caches, _ = _run_groups(
         params, cfg.groups, cfg, x, positions, build_meta(cfg),
         caches=caches, cache_offset=pos, flags=flags)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg)[:, -1, :]
+    x = rmsnorm(_served(params, tp, "final_norm"), x, cfg.norm_eps)
+    head = "table" if cfg.tie_embeddings else "head"
+    logits = unembed({head: _served(params, tp, "embed", head)}, x,
+                     cfg)[:, -1, :]
     return logits, new_caches

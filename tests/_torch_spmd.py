@@ -4,6 +4,8 @@ processes over a ``FileStore`` (no network), each runs ``JOBS[job]``,
 and a failure in any rank fails the caller.  This module imports no
 JAX, so each spawned process starts with torch alone.
 """
+import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -525,6 +527,16 @@ def _serve_memory(cfg, mesh, dec):
     assert not fault, "an out-of-place cache write passes the in-place check"
 
 
+def reduced(name):
+    """A reduced config by name: an arch's (``get_reduced``), or
+    ``THREE_EXPERTS``, reduced Mixtral with 3 experts."""
+    if name != THREE_EXPERTS:
+        return get_reduced(name)
+    cfg = get_reduced("mixtral-8x22b")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            n_experts=3))
+
+
 def serve_inputs(arch, prefill, dtype, pos=None):
     """A serving case's inputs, the same in every process: (cfg, shape,
     params, first, caches, rest), the step called as ``step(params,
@@ -532,7 +544,7 @@ def serve_inputs(arch, prefill, dtype, pos=None):
     of PROMPT_LEN rows, or a token at ``pos`` of a cache of SERVE_LEN
     rows, SERVE_ROWS rows of batch; caches in ``dtype`` from seed 2."""
     from repro_torch.launch.steps import ShapeSpec, input_specs
-    cfg = get_reduced(arch)
+    cfg = reduced(arch)
     shape = ShapeSpec("tiny_prefill", "prefill", PROMPT_LEN, SERVE_ROWS) \
         if prefill else ShapeSpec("tiny_decode", "decode", SERVE_LEN,
                                   SERVE_ROWS)
@@ -559,7 +571,7 @@ def _serve_case(arch, mesh, case, name):
     from repro_torch.launch.steps import (ShapeSpec, input_shardings,
                                           jit_cell, make_decode_step,
                                           make_prefill_step)
-    cfg = get_reduced(arch)
+    cfg = reduced(arch)
     pre = ShapeSpec("tiny_prefill", "prefill", PROMPT_LEN, SERVE_ROWS)
     dec = ShapeSpec("tiny_decode", "decode", SERVE_LEN, SERVE_ROWS)
     for shape in (pre, dec):
@@ -612,10 +624,214 @@ def sharded_serve(rank, world):
     (OUT / f"sharded_serve.{rank}.json").write_text(json.dumps(res))
 
 
+# the sharded MoE bodies: reduced Mixtral, whose 4 experts split over
+# "model" (expert parallelism), and THREE_EXPERTS, whose experts do not
+# divide "model" at 2 or 4 ranks, so each expert's ffn is split instead
+THREE_EXPERTS = "mixtral-3-experts"
+MOE = ("mixtral-8x22b", THREE_EXPERTS)
+# train variants: two microbatches; the exact dense dispatch
+# (``RunFlags.moe_impl``); dispatch groups of 16 tokens at S = 32 (a
+# group spans two ranks' sequence blocks at model 4); one group a row;
+# the last two at capacity factor DROP_CF, where the pigeonhole drops
+# tokens (64 assignments a row on 4 experts of capacity 8, or on 3 of
+# 11; 32 a group on 4 of capacity 4)
+MOE_TRAIN = ("plain", "accum2", "dense", "group16", "drop")
+DROP_CF = 0.5
+# serving cases (prefill, decode at a position of serve_positions) under
+# SERVE_RULES ("serve-") and SERVE_BIG_RULES ("big-"), which the job
+# substitutes for rules_for's choice (the reduced config's weights are
+# small enough to replicate over "data")
+MOE_SERVE = tuple(f"{r}-{c}" for r in ("serve", "big") for c in (
+    "prefill", "decode-first", "decode-hi-1", "decode-last")) + (
+    "big-prefill-bf16", "big-decode-bf16")
+# planted faults (meshes with a "model" axis of more than one rank): each
+# rank's sequence block routed on its own; the aux loss counted once a
+# model rank; the experts' partial sums left unreduced (train, and a
+# decode step)
+MOE_FAULTS = ("blockwise", "aux-per-rank", "unreduced", "unreduced-decode")
+
+
+def moe_train_cfg(arch, variant):
+    """The config of a MOE_TRAIN variant (capacity DROP_CF where it
+    drops tokens) and its flags."""
+    cfg = reduced(arch)
+    if variant in ("group16", "drop"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=DROP_CF))
+    return cfg, RunFlags(remat="full",
+                         grad_accum=2 if variant == "accum2" else 1,
+                         moe_impl="dense" if variant == "dense" else None,
+                         moe_group=16 if variant == "group16" else 0)
+
+
+@contextlib.contextmanager
+def serve_big_rules():
+    """``steps.rules_for`` choosing SERVE_BIG_RULES for every serving
+    cell (TRAIN_RULES for a train cell)."""
+    from repro_torch.distributed.sharding import SERVE_BIG_RULES, TRAIN_RULES
+    from repro_torch.launch import steps
+    real = steps.rules_for
+    steps.rules_for = lambda shape, cfg=None: \
+        TRAIN_RULES if shape.kind == "train" else SERVE_BIG_RULES
+    try:
+        yield
+    finally:
+        steps.rules_for = real
+
+
+def _moe_train_case(arch, mesh, variant, name):
+    """One MOE_TRAIN case of the sharded train body against
+    ``make_train_step``, two steps from ``train_state`` on
+    ``_batch(cfg, 4, 32, 10 + i)``: the losses and grad norms, every
+    param and moment within rtol 1e-5, each rank's state its blocks.
+    Rank 0 saves the losses, grad norms and whole params and moments to
+    ``OUT / train.<name>.pt`` for the test's comparison with the JAX
+    package."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import (ShapeSpec, input_shardings,
+                                          jit_cell, make_train_step)
+    cfg, flags = moe_train_cfg(arch, variant)
+    shape = ShapeSpec("tiny_train", "train", 32, 4)
+    assert steps.layout(cfg, shape, mesh, flags) == "sharded"
+    step, _ = jit_cell(cfg, shape, mesh, flags, OPT)
+    ref = make_train_step(cfg, OPT, flags)
+    got, want = train_state(cfg), train_state(cfg)
+    saved = {"loss": [], "grad_norm": []}
+    for i in range(2):
+        batch = _batch(cfg, 4, 32, 10 + i)
+        got, gm = step(got, batch)
+        want, wm = ref(want, batch)
+        for k in ("loss", "grad_norm"):
+            saved[k].append(float(gm[k].full_tensor()))
+            _close(gm[k].full_tensor(), wm[k], f"{arch} step {i} {k}")
+    for key in ("params", "mu", "nu"):
+        saved[key] = {}
+        for (path, g), (_, w) in zip(leaves_with_paths(got[key]),
+                                     leaves_with_paths(want[key])):
+            saved[key][path] = g.full_tensor()
+            _close(saved[key][path], w, f"{arch} {key}{path}")
+    shardings = input_shardings(cfg, shape, mesh)["state"]
+    _check_blocks(got, shardings, mesh, arch)
+    _state_bytes(got, shardings, mesh, arch)
+    if dist.get_rank() == 0:
+        torch.save(saved, OUT / f"train.{name}.pt")
+
+
+class _Unreduced:
+    """A planted fault's ``ModelShards``: the experts' partial sums not
+    reduced over the model axis (the rank's block of its own)."""
+
+    def __init__(self, tp):
+        self._tp = tp
+
+    def __getattr__(self, name):
+        return getattr(self._tp, name)
+
+    def seq_scatter(self, y):
+        return self._tp.own(y)
+
+
+@contextlib.contextmanager
+def moe_fault(name):
+    """A planted fault of the sharded MoE (MOE_FAULTS), patched into
+    ``models/moe``: "blockwise" routes each rank's sequence block as a
+    dispatch group of its own; "aux-per-rank" counts the router's aux
+    loss once a model rank; "unreduced" (and "unreduced-decode") leave
+    the experts' partial sums unreduced."""
+    from repro_torch.models import moe
+    real_ffn, real_router = moe.moe_ffn, moe._router
+
+    def blockwise(p, x, cfg, *, impl=None, group_size=None, tp=None):
+        return real_ffn(p, x, cfg, impl=impl, tp=tp, group_size=(
+            group_size if tp is None else x.shape[1]))
+
+    def per_rank(p, x, m, tp=None):
+        gates, idx, aux = real_router(p, x, m, tp)
+        return gates, idx, aux * (1 if tp is None else tp.size)
+
+    def unreduced(p, x, cfg, *, tp=None, **kw):
+        return real_ffn(p, x, cfg, tp=None if tp is None else
+                        _Unreduced(tp), **kw)
+
+    if name == "blockwise":
+        moe.moe_ffn = blockwise
+    elif name == "aux-per-rank":
+        moe._router = per_rank
+    else:
+        moe.moe_ffn = unreduced
+    try:
+        yield
+    finally:
+        moe.moe_ffn, moe._router = real_ffn, real_router
+
+
+def _moe_fault_case(arch, mesh, fault):
+    """A planted fault must miss: one train step of the "drop" variant
+    (its loss or grad norm), or a decode step at the last row (its
+    logits), farther than 10 x rtol from the unsharded step's."""
+    from repro_torch.launch.steps import (ShapeSpec, jit_cell,
+                                          make_decode_step, make_train_step)
+    if fault == "unreduced-decode":
+        cfg, shape, params, tok, caches, rest = serve_inputs(
+            arch, False, torch.float32, SERVE_LEN - 3)
+        want, _ = make_decode_step(cfg)(params, tok, tree_map(torch.clone,
+                                                              caches), *rest)
+        with moe_fault(fault):
+            got, _ = jit_cell(cfg, shape, mesh)[0](params, tok, caches, *rest)
+        got = got.full_tensor()
+        miss = float((got - want).abs().max()) / float(want.abs().max())
+    else:
+        cfg, flags = moe_train_cfg(arch, "drop")
+        shape = ShapeSpec("tiny_train", "train", 32, 4)
+        batch = _batch(cfg, 4, 32, 10)
+        _, wm = make_train_step(cfg, OPT, flags)(train_state(cfg), batch)
+        with moe_fault(fault):
+            _, gm = jit_cell(cfg, shape, mesh, flags, OPT)[0](
+                train_state(cfg), batch)
+        miss = max(abs(float(gm[k].full_tensor()) - float(wm[k]))
+                   / abs(float(wm[k])) for k in ("loss", "grad_norm"))
+    assert miss > 10 * RTOL, f"{fault} passes: {miss}"
+
+
+def sharded_moe(rank, world):
+    """Every (mesh, arch, case) of MESHES[world] x MOE x (MOE_TRAIN,
+    MOE_SERVE, and MOE_FAULTS where "model" has more than one rank);
+    each rank writes its outcome a case to ``OUT /
+    sharded_moe.<rank>.json``, rank 0 a train case's losses, grad norms
+    and whole state to ``OUT / train.<name>.pt`` and a serving case's
+    whole logits and caches to ``OUT / serve.<name>.pt`` (the test reads
+    them)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    res = {}
+    for data, model in MESHES[world]:
+        mesh = make_host_mesh(data=data, model=model, device_type="cpu")
+        for arch in MOE:
+            cases = MOE_TRAIN + MOE_SERVE + (MOE_FAULTS if model > 1
+                                             else ())
+            for case in cases:
+                name = f"{data}x{model}-{arch}-{case}"
+                big = case.startswith("big-")
+                try:
+                    if case in MOE_TRAIN:
+                        _moe_train_case(arch, mesh, case, name)
+                    elif case in MOE_FAULTS:
+                        _moe_fault_case(arch, mesh, case)
+                    else:
+                        with serve_big_rules() if big else \
+                                contextlib.nullcontext():
+                            _serve_case(arch, mesh, case.split("-", 1)[1],
+                                        name)
+                    res[name] = "ok"
+                except Exception as e:              # noqa: BLE001
+                    res[name] = f"{type(e).__name__}: {e}"
+    (OUT / f"sharded_moe.{rank}.json").write_text(json.dumps(res))
+
+
 JOBS = {"sharded_steps": sharded_steps,
         "pipeline_two_stages": pipeline_two_stages,
         "sharded_train": sharded_train,
-        "sharded_serve": sharded_serve}
+        "sharded_serve": sharded_serve,
+        "sharded_moe": sharded_moe}
 OUT = pathlib.Path(".")
 
 

@@ -181,10 +181,11 @@ def test_sharded_serving_matches_the_jax_reference(runs, world, data, model,
 
 def test_layout_of_the_serving_cells():
     """The dense decoders' prefill_32k and decode_32k cells are sharded
-    on both production meshes and on the test meshes; long_500k (its
-    length over ("data", "model")), an int8 cache and every other arch's
-    serving cells are gathered; so is a cell whose cache length does not
-    split over "model"."""
+    on both production meshes and on the test meshes, and so are
+    mixtral-8x22b's (``tests/test_torch_sharded_moe.py``); long_500k
+    (its length over ("data", "model")), an int8 cache and every other
+    arch's serving cells are gathered; so is a cell whose cache length
+    does not split over "model"."""
     int8 = RunFlags(cache_dtype="int8")
     for arch in ARCHS:
         cfg = get_config(arch)
@@ -192,8 +193,8 @@ def test_layout_of_the_serving_cells():
             for sname, shape in SHAPES.items():
                 if shape.kind == "train":
                     continue
-                want = "sharded" if arch in DENSE and sname in SERVING \
-                    else "gathered"
+                want = "sharded" if arch in DENSE + ("mixtral-8x22b",) \
+                    and sname in SERVING else "gathered"
                 assert steps.layout(cfg, shape, mesh) == want, (arch, sname)
                 assert steps.layout(cfg, shape, mesh, int8) == "gathered"
     for arch in DENSE:

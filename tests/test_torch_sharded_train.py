@@ -80,18 +80,20 @@ def test_sharded_train_matches_the_unsharded_step(runs, world, data, model,
 
 
 def test_layout_is_chosen_from_the_config():
-    """The dense decoders' train, prefill_32k and decode_32k cells are
-    sharded on both production meshes (the serving ones:
-    ``tests/test_torch_sharded_serve.py``); every other arch's cells and
-    the dense decoders' long_500k are gathered, and so is a train cell
-    whose sequence does not split over "model"."""
+    """The dense decoders' and mixtral-8x22b's train, prefill_32k and
+    decode_32k cells are sharded on both production meshes (the serving
+    ones: ``tests/test_torch_sharded_serve.py``, Mixtral's:
+    ``tests/test_torch_sharded_moe.py``); every other arch's cells and
+    their long_500k are gathered, and so is a train cell whose sequence
+    does not split over "model"."""
     for arch in ARCHS:
         cfg = get_config(arch)
         for mesh in (FakeMesh({"data": 16, "model": 16}),
                      FakeMesh({"pod": 2, "data": 16, "model": 16})):
             for sname, shape in SHAPES.items():
-                want = "sharded" if (arch in DENSE and sname !=
-                                     "long_500k") else "gathered"
+                want = "sharded" if (arch in DENSE + ("mixtral-8x22b",)
+                                     and sname != "long_500k") \
+                    else "gathered"
                 assert steps.layout(cfg, shape, mesh) == want, (arch, sname)
     cfg = get_reduced("granite-20b")
     odd = ShapeSpec("t", "train", 30, 4)

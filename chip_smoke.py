@@ -413,14 +413,23 @@ Phases, in order:
       takes them; the MoE FFN's ffn split over "model"; 2 / 1 sm90
       flash and 1 split decode a layer), the fault that must miss
       being the experts' weights gathered whole over "model"; then the
-      decode
+      long_500k cells in the sharded layout the same way (one row, the
+      cache's 524,288 rows over all 256 ranks, 2,048 a rank; the token
+      at row 2,047, so rank 0 writes it into its own block and reads all
+      of its visible rows): gemma3-1b at full width and depth under
+      LONG_SERVE_RULES and mixtral-8x22b at 4 of 56 layers under the
+      full depth's LONG_SERVE_BIG_RULES, one decode a layer on the route
+      the plan gives its visible rows, the fault that must miss being
+      the cache's length split over "model" alone (16 times the block);
+      then the decode
       wrapper (with the fake branch's tests) beside its raw kernel on
       the same rotated inputs at Qwen's B = 4, T = 4,096, and its host
       time a call; one JSON line for the phase;
   25. ``decode_attention``'s log-sum-exp output (``lse=True``): against
       ``ref.decode_attention_lse_ref`` at granite-20b's, gemma3-1b's
-      and mixtral-8x22b's rank-0 cache blocks (split) and a launcher's
-      48 rows (single), in
+      and mixtral-8x22b's rank-0 cache blocks (split; gemma3-1b's and
+      mixtral-8x22b's at B = 1 too, their long_500k blocks) and a
+      launcher's 48 rows (single), in
       bf16 and float32, cap off and on (outputs within 2e-3 / 2e-2,
       log-sum-exps within 1e-4 relative, the output bit-equal to the
       call without it); its merge over 2 and 4 length blocks of
@@ -452,7 +461,8 @@ Phases, in order:
       attention rows phase 24's launches a cell, ``dryrun_launches``,
       the flash row also the sharded train and prefill cells' rank-0
       steps' (granite-20b's and mixtral-8x22b's), the decode row the
-      sharded decode cells' and phase 25's figures, ``lse``);
+      sharded decode and long_500k cells' and phase 25's figures,
+      ``lse``);
   27. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -470,7 +480,8 @@ about 5 s.  The whole took 889.9-1041.0 s with 25 phases, so phases 14
 and 17 profile none of their eight runs (the four profiles they kept
 took 89 s on the slower host); Mixtral's sharded cells in phase 24.3
 (six traces of 4 layers and three real steps) take about 25 s, and
-phase 11 no longer profiles its launcher in their place.  It also
+phase 11 no longer profiles its launcher in their place; the long_500k
+cells (four traces and two real steps) about 10 s.  It also
 exits non-zero without a CUDA device.  ``python3 chip_smoke.py --metering`` stops after phase 4d and
 prints the metering kernels' figures and the stack's walls and launches
 as two JSON lines instead of the last two;
@@ -6335,6 +6346,137 @@ def check_moe_rank0(card):
     return res
 
 
+# the long_500k cells in the sharded layout (LONG_SERVE_RULES /
+# LONG_SERVE_BIG_RULES: the cache's length over all 256 ranks, 2,048 rows
+# a rank), run as rank 0 of the (16, 16) mesh: gemma3-1b at full depth,
+# mixtral-8x22b at MOE_LAYERS of its 56 layers (the full depth's rules);
+# the token at LONG_POS, the last row of rank 0's block, so rank 0 writes
+# it into its own block and reads all of its visible rows
+DRY_LONG = ("gemma3-1b", MOE_ARCH)
+LONG_POS = 2047
+
+
+@contextlib.contextmanager
+def _kv_over_model():
+    """A planted layout fault of the long cells, modelled in the trace:
+    the cache's length split over "model" alone (as SERVE_RULES split
+    it), so each rank holds 16 times its block (the "data" ranks
+    repeating each other's), the body otherwise as it is."""
+    from repro_torch.launch import steps
+    rules_for, layout = steps.rules_for, steps.layout
+    steps.rules_for = lambda shape, cfg=None: dict(
+        rules_for(shape, cfg), kv_len=[("model",)])
+    steps.layout = lambda *args, **kw: "sharded"
+    try:
+        yield
+    finally:
+        steps.rules_for, steps.layout = rules_for, layout
+
+
+def _long_routes(cfg, rows, pos):
+    """The decode route of each layer of a one-row step at ``pos`` over
+    rank 0's block of ``rows`` rows (its visible rows under the layer's
+    window; a block wholly before the window: a one-row view), by the
+    fake launch's plan, counted."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.models.blocks import WINDOW_INF
+    from repro_torch.models.model import build_meta
+    routes = {}
+    for group in build_meta(cfg).values():
+        for meta in group.values():
+            for w in meta["window"]:
+                first = 0 if w >= WINDOW_INF else max(0, pos + 1 - w)
+                n = max(min(rows, pos + 1) - first, 1)
+                way = "split" if dmod.plan(1, cfg.n_heads, cfg.n_kv_heads,
+                                           n, cfg.head_dim_,
+                                           dmod.FAKE_SMS).splits > 1 \
+                    else "single"
+                routes[way] = routes.get(way, 0) + 1
+    return routes
+
+
+def check_long_rank0(card):
+    """Phase 24.3, long context: DRY_LONG's long_500k cells on the
+    (16, 16) mesh in the sharded layout (gemma3-1b at full width and
+    depth under LONG_SERVE_RULES; mixtral-8x22b at full width and
+    MOE_LAYERS layers under the full depth's LONG_SERVE_BIG_RULES,
+    ``_rules_of``), bf16, the token at LONG_POS, each traced as the dry
+    run traces it and then run for real as rank 0 of a ``fake`` group of
+    256 on the card (the weights and rank 0's 2,048-row cache block drawn
+    at their local shapes; the collectives complete at once and return
+    nothing, so the values are not checked).  The launches (one
+    ``decode_attention`` a layer, each on the route the plan gives its
+    visible rows) and routes traced = real, the traced peak within
+    DRY_PEAK_TOL of ``max_memory_allocated``; the trace with the cache's
+    length split over "model" alone (``_kv_over_model``: 16 times the
+    block) must miss the peak gate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import SHAPES
+    shape = SHAPES["long_500k"]
+    rows = shape.seq_len // 256
+    res = {}
+    for arch in DRY_LONG:
+        full = get_config(arch)
+        cfg = full if arch != MOE_ARCH else \
+            cut_depth(MOE_ARCH, MOE_LAYERS, torch.bfloat16)
+        n = cfg.n_layers
+        t0 = time.perf_counter()
+        with _rules_of(full), dryrun.fake_group(256):
+            mesh = make_production_mesh(
+                device_type=dryrun.tensor_device("cuda"))
+            traced = dryrun.trace_cell(cfg, shape, mesh, pos=LONG_POS,
+                                       mesh_name="single")
+            assert traced["layout"] == "sharded", traced["layout"]
+            with _kv_over_model():
+                bad = dryrun.trace_cell(cfg, shape, mesh, pos=LONG_POS,
+                                        mesh_name="single")
+            real = _rank0_step(cfg, shape, mesh, LONG_POS)
+        want = _long_routes(cfg, rows, LONG_POS)
+        assert traced["kernel_launches"] == real["launches"] == {
+            "decode_attention": n}, (arch, traced["kernel_launches"],
+                                     real["launches"])
+        assert traced["kernel_routes"] == real["routes"], (
+            arch, traced["kernel_routes"], real["routes"])
+        assert real["routes"]["decode_attention"] == want, (
+            arch, real["routes"], want)
+        gap = _gap(traced["peak_device_bytes"], real["peak_bytes"])
+        miss = _gap(bad["peak_device_bytes"], real["peak_bytes"])
+        assert gap <= DRY_PEAK_TOL, (arch, traced["peak_device_bytes"],
+                                     real["peak_bytes"])
+        assert miss > DRY_PEAK_TOL, (
+            f"the _kv_over_model trace passes the peak gate of {arch} x "
+            f"long_500k", bad["peak_device_bytes"], real["peak_bytes"])
+        wall = time.perf_counter() - t0
+        print(f"sharded {arch} x long_500k rank 0 of single (16, 16), "
+              f"{n} of {full.n_layers} layers bf16, {rows} cache rows a "
+              f"rank, token at {LONG_POS}: step {real['ms']:.3f} ms "
+              f"({card}); launches {real['launches']} routes "
+              f"{real['routes']} traced and real; peak "
+              f"{traced['peak_device_bytes']:,} B traced vs "
+              f"{real['peak_bytes']:,} B max_memory_allocated (gap "
+              f"{100 * gap:.3f} %, gate {100 * DRY_PEAK_TOL:.0f} %; {card});"
+              f" the _kv_over_model trace {bad['peak_device_bytes']:,} B "
+              f"(gap {100 * miss:.1f} %); useful-FLOP ratio "
+              f"{traced['useful_flops_ratio']:.3f}; traces "
+              f"{traced['trace_s']:.3f} / {bad['trace_s']:.3f} s; "
+              f"{wall:.3f} s")
+        res[arch] = {
+            "layers": n, "layout": traced["layout"], "step_ms": real["ms"],
+            "launches": real["launches"], "routes": real["routes"],
+            "predicted_peak": traced["peak_device_bytes"],
+            "real_peak": real["peak_bytes"], "peak_gap": gap,
+            "fault": "_kv_over_model",
+            "fault_peak": bad["peak_device_bytes"], "fault_gap": miss,
+            "useful_flops_ratio": traced["useful_flops_ratio"],
+            "collective_counts": traced["collective_counts"],
+            "trace_s": traced["trace_s"], "wall_s": wall, "card": card}
+    return res
+
+
 def time_decode_wrapper(stats):
     """The decode wrapper (``kernels/decode_attention.py``, with the fake
     branch's tests) against a raw launch of its kernel on the same
@@ -6466,6 +6608,7 @@ def drive_dryrun(stats):
     sharded = check_sharded_rank0(_card_line())
     serving = check_serving_rank0(_card_line(), cell)
     moe = check_moe_rank0(_card_line())
+    long = check_long_rank0(_card_line())
     timing = time_decode_wrapper(stats)
     _possible(timing["wrapper_ms"], stats["decode_attention"]["bound_ms"]
               if "decode_attention" in stats else 0.0, "decode wrapper")
@@ -6485,7 +6628,8 @@ def drive_dryrun(stats):
     return {"cells": res, "production": {
         "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
         "sharded_rank0": sharded, "serving_rank0": serving,
-        "moe_rank0": moe, "decode_wrapper": timing, "wall_s": wall}
+        "moe_rank0": moe, "long_rank0": long, "decode_wrapper": timing,
+        "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -6496,10 +6640,13 @@ def drive_dryrun(stats):
 LSE_REL = 1e-4             # the log-sum-exps vs the plain version's
 # (label, B, H, Hkv, T, D): granite-20b's, gemma3-1b's and
 # mixtral-8x22b's rank-0 cache blocks at decode_32k on (16, 16) (the
-# split route), and a launcher's 48-row decode (the single route)
+# split route), gemma3-1b's and mixtral-8x22b's at long_500k (one row),
+# and a launcher's 48-row decode (the single route)
 LSE_CASES = (("granite rank block", 8, 48, 1, 2048, 128),
              ("gemma3 rank block", 8, 4, 1, 2048, 256),
              ("mixtral rank block", 8, 48, 8, 2048, 128),
+             ("gemma3 long rank block", 1, 4, 1, 2048, 256),
+             ("mixtral long rank block", 1, 48, 8, 2048, 128),
              ("launcher rows", 1, 28, 4, 48, 128))
 # the merge: granite's rank block of 2,048 rows cut into 2 and 4 length
 # blocks, the token at row 1,500 (at 4 the last block lies past it),
@@ -6940,6 +7087,10 @@ def main():
             row["dryrun_launches"]["moe_decode_32k_rank0"] = \
                 dry["moe_rank0"]["decode_32k"]["launches"][
                     "decode_attention"]
+            # the long_500k cells' rank-0 steps (gemma3-1b, Mixtral)
+            for arch, cell in dry["long_rank0"].items():
+                row["dryrun_launches"][f"{arch}_long_500k_rank0"] = \
+                    cell["launches"]["decode_attention"]
             row["lse"] = lse
     print(json.dumps({"cap_offset": {k: cap_offset[k] for k in (
         "qwen", "gemma3", "grads", "whisper")}}))

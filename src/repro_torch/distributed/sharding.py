@@ -56,13 +56,14 @@ Inside that body the model's tensors are plain local tensors and
 body's own (the residual split by rows and sequence, the logits of the
 local tokens).
 
-``ServeShards``, a ``ModelShards`` over the params' ``SERVE_RULES`` or
-``SERVE_BIG_RULES`` specs, is the "model" axis inside the sharded
-serving body (the prefill and decode cells of a decoder of attention +
-dense or MoE FFN blocks).  The residual is replicated over "model"
-there (``"seq": []``), so its sequence "gather" is the residual itself
-and its "reduce-scatter" an all-reduce: each row-parallel product's
-partial sums summed over the axis.  A layer's weights split by head dim
+``ServeShards``, a ``ModelShards`` over the params' specs under a
+serving rule set, is the "model" axis inside the sharded serving body
+(the prefill and decode cells of a decoder of attention + dense or MoE
+FFN blocks, and its one-row decode under the long rules).  The
+residual is replicated over "model" there (``"seq": []``), so its
+sequence "gather" is the residual itself and its "reduce-scatter" an
+all-reduce: each row-parallel product's partial sums summed over the
+axis.  A layer's weights split by head dim
 (``"hdim"``: the heads do not divide the axis) or by K/V head are
 gathered whole, since rope pairs dims i and i + D/2 and every rank
 writes every K/V head of its cache rows; every rank then runs those
@@ -70,10 +71,14 @@ heads, GSPMD's redundancy for such a dim.  Under ``SERVE_BIG_RULES``
 each weight is also gathered over its other axes ("embed" over "data")
 inside its layer, as the train body's FSDP gathers; under
 ``SERVE_RULES`` no weight is split over them and nothing more is
-gathered.  Each rank holds the block ``rows(T)`` of the KV cache's
-length and writes it in place; ``merge`` combines the ranks' partial
-decode attention over their blocks by their log-sum-exps
-(``ref.decode_merge``).
+gathered.  The KV cache's length is split over its own axes
+(``kv_axes``, as the cache's spec names them): "model" under
+SERVE_RULES, every mesh axis under the long rules (one row, which
+splits over none).  Each rank holds the block ``kv_rows(T)`` of the
+length, numbered major to minor over those axes as DTensor lays a
+dimension split over several mesh dims out, and writes it in place;
+``merge`` combines the partial decode attention of every length block by
+their log-sum-exps (``ref.decode_merge``), in block order.
 """
 from __future__ import annotations
 
@@ -565,21 +570,29 @@ class ModelShards:
 
 class ServeShards(ModelShards):
     """The sharded serving body's view of its mesh (module docstring):
-    ``specs`` the params' ``PartitionSpec``s under ``SERVE_RULES`` or
-    ``SERVE_BIG_RULES``, ``params`` their ``ParamSpec``s, whose logical
-    axes give ``wholes``: the leaves split by head dim or K/V head over
-    the axis.  ``layer`` gathers each leaf over its other axes too
-    (SERVE_BIG_RULES' "embed" over "data"; none under SERVE_RULES).  An
-    axis of size 1 takes no collective, so at world size 1 the body is
-    the unsharded step, op for op."""
+    ``specs`` the params' ``PartitionSpec``s under a serving rule set,
+    ``params`` their ``ParamSpec``s, whose logical axes give ``wholes``:
+    the leaves split by head dim or K/V head over the heads' ``axis``
+    ("model").  ``layer`` gathers each leaf over its other axes too
+    (SERVE_BIG_RULES' "embed" over "data"; none under SERVE_RULES).
+    ``kv_axes``: the mesh axes the KV cache's length is split over, major
+    to minor, as its spec's ``kv_len`` entry names them (("model",)
+    under SERVE_RULES, ("data", "model") or ("pod", "data", "model")
+    under the long rules; () where it is not split); this rank holds
+    length block ``kv_index`` of ``kv_size``.  An axis of size 1 takes no
+    collective, so at world size 1 the body is the unsharded step, op
+    for op."""
 
     def __init__(self, mesh: Mesh, specs: Tree, params: Tree,
-                 axis: str = "model"):
+                 kv_axes: Sequence[str], axis: str = "model"):
         super().__init__(mesh, specs, axis)
         self.wholes = tree_map(
             lambda s, p: any(self.axis in entry_axes(e) and
                              a in ("hdim", "kv_heads")
                              for e, a in zip(s, p.axes)), specs, params)
+        blocks = BatchShards(mesh, kv_axes)
+        self.kv_axes, self.kv_size, self.kv_index = \
+            blocks.axes, blocks.size, blocks.index
 
     def _groups(self) -> List[Any]:
         return [self._group(self.axis)] if self.size > 1 else []
@@ -602,13 +615,21 @@ class ServeShards(ModelShards):
         layout, as it is."""
         return x
 
+    def kv_rows(self, n: int) -> Tuple[int, int]:
+        """[lo, hi): this rank's block of a cache of ``n`` rows."""
+        b = n // self.kv_size
+        return self.kv_index * b, (self.kv_index + 1) * b
+
     def merge(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
         """One-token attention over the whole cache from this rank's
         partial over its length block: out [B,H,D] and lse [B,H] of every
-        rank gathered (one all-gather of both, in float32) and merged in
-        rank order by ``ref.decode_merge``."""
-        both = torch.cat([out.float(), lse[..., None]], -1)
-        parts = self.concat(both[None], 0)
+        rank gathered (one all-gather of both, in float32, a length axis;
+        the minor axis first, so the partials land in block order) and
+        merged in block order by ``ref.decode_merge``."""
+        parts = torch.cat([out.float(), lse[..., None]], -1)[None]
+        for a in reversed(self.kv_axes):
+            if self.mesh.shape[a] > 1:
+                parts = _AllGather.apply(parts, 0, self._group(a))
         return ref.decode_merge(parts[..., :-1], parts[..., -1], out.dtype)
 
 

@@ -54,8 +54,18 @@ two layouts (``layout``), chosen from the config and the mesh:
   (``sharding.ServeShards``, ``models/attention._serve_attention``); the
   step returns the rank's block of the logits, ("batch", "vocab"), and
   the caches it was given.
-* ``"gathered"``: every other cell (``long_500k``, an int8 cache, the
-  other six archs).  Every weight is gathered whole
+* ``"sharded"`` also runs their one-row ``long_500k`` decode cell with a
+  float cache, laid out as the reference's step under
+  ``LONG_SERVE_RULES`` or ``LONG_SERVE_BIG_RULES`` (mixtral-8x22b): the
+  batch of one splits over no axis, the KV cache's length over every one
+  (("data", "model"), or ("pod", "data", "model") on the multi-pod
+  mesh), the heads, ffn, experts and vocab over "model" as above.  Each
+  rank writes the token's row into its length block where it falls
+  there, attends over its block's visible rows, and the partials of
+  every length block are merged in block order (``ServeShards.kv_axes``);
+  the logits come back ("batch", "vocab"), the row replicated.
+* ``"gathered"``: every other cell (an int8 cache, the other six
+  archs).  Every weight is gathered whole
   (``full_tensor()``: the ZeRO resolution of TRAIN_RULES' ``"embed" ->
   data``, and the tensor-parallel dims gathered too), each rank runs its
   block of the batch's rows (``sharding.BatchShards``: the mesh axes the
@@ -397,6 +407,14 @@ def _attention_decoder(cfg: ArchConfig) -> bool:
         and not b.cross_attention for g in cfg.groups for b in g.pattern)
 
 
+def _kv_axes(specs: Tree, shardings: Tree) -> Tuple[str, ...]:
+    """The mesh axes an attention decoder's KV cache length is split
+    over (major to minor), as the ``kv_len`` entry of its caches'
+    ``PartitionSpec`` names them (every layer's K and V alike)."""
+    s, sh = tree_leaves(specs)[0], tree_leaves(shardings)[0]
+    return sharding.entry_axes(sh.spec[s.axes.index("kv_len")])
+
+
 def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
            flags: RunFlags = RunFlags()) -> str:
     """The body ``jit_cell`` runs for a cell (module docstring):
@@ -404,22 +422,26 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     or MoE FFN blocks whose residual, at the reference's block-boundary
     hint ("batch", "seq", None) under TRAIN_RULES, splits its rows over
     every axis but "model" and its sequence over "model" (each rank's
-    tokens its own), and for its prefill and decode cells under
-    SERVE_RULES or SERVE_BIG_RULES with a float cache whose length
-    splits over "model" (or no "model" axis to split), else
-    ``"gathered"``.  ``mesh``: anything with ``axis_names`` and
-    ``shape``."""
+    tokens its own); for its prefill and decode cells under SERVE_RULES
+    or SERVE_BIG_RULES with a float cache whose length splits over
+    "model" (or no "model" axis to split); and for its decode cells
+    under LONG_SERVE_RULES or LONG_SERVE_BIG_RULES (a batch of one row)
+    with a float cache whose length splits over every mesh axis of more
+    than one rank.  Else ``"gathered"``.  ``mesh``: anything with
+    ``axis_names`` and ``shape``."""
     if not _attention_decoder(cfg):
         return "gathered"
     if shape.kind != "train":
-        rules = rules_for(shape, cfg)
-        if rules not in (SERVE_RULES, SERVE_BIG_RULES) or \
-                flags.cache_dtype == "int8":
+        if flags.cache_dtype == "int8":
             return "gathered"
-        cache = partition_spec(("batch", "kv_len"), (
-            shape.global_batch, shape.seq_len + cfg.n_prefix_embeddings),
-            rules, mesh)
-        split = mesh.shape.get("model", 1) == 1 or cache[1] == "model"
+        rules = rules_for(shape, cfg)
+        caches = input_specs(cfg, shape, flags)["caches"]
+        kv = _kv_axes(caches, shardings_for_specs(caches, rules, mesh))
+        if rules in (SERVE_RULES, SERVE_BIG_RULES):
+            split = mesh.shape.get("model", 1) == 1 or kv == ("model",)
+        else:               # the long rules: one row, which splits over none
+            split = shape.kind == "decode" and all(
+                n == 1 or a in kv for a, n in mesh.shape.items())
         return "sharded" if split else "gathered"
     rows = shape.global_batch // max(flags.grad_accum, 1)
     hint = partition_spec(("batch", "seq", None),
@@ -476,7 +498,8 @@ def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     sharded = layout(cfg, shape, mesh, flags) == "sharded"
     if sharded and not train:
         tp = ServeShards(mesh, tree_map(lambda sh: sh.spec,
-                                        shard["params"]), specs["params"])
+                                        shard["params"]), specs["params"],
+                         _kv_axes(specs["caches"], shard["caches"]))
     elif sharded:
         tp = ModelShards(mesh, tree_map(lambda sh: sh.spec,
                                         shard["state"]["params"]))

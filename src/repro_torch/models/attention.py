@@ -264,27 +264,29 @@ def _serve_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
                      tp) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Attention in the sharded serving body (module docstring): ``x``
     [B, S, D] this rank's rows, replicated over the model axis; ``cache``
-    its block [lo, hi) of the length, written in place (``_kv_put``).
-    ``p``'s K/V projections are whole (``ServeShards.layer``), its query
-    and output projections the rank's heads, or whole where the heads
-    replicate.  A prefill (``off`` 0) runs the rank's heads over the
-    sequence through ``flash_attention``; a one-token step every head
-    over the block's visible rows, [lo, hi) within [pos + 1 - window,
-    pos], through ``decode_attention`` with the log-sum-exp (a block the
-    token cannot see: a one-row view at length 0, weighing 0), merged
-    over the axis.  Split heads end in an all-reduce of ``wo``'s partial
-    sums.  At an axis of size 1 the step is ``_attend``'s, op for op."""
+    its block [lo, hi) of the length (``tp.kv_rows``: the length is split
+    over ``tp.kv_axes``, which may be more axes than the heads' one),
+    written in place (``_kv_put``).  ``p``'s K/V projections are whole
+    (``ServeShards.layer``), its query and output projections the rank's
+    heads, or whole where the heads replicate.  A prefill (``off`` 0)
+    runs the rank's heads over the sequence through ``flash_attention``;
+    a one-token step every head over the block's visible rows, [lo, hi)
+    within [pos + 1 - window, pos], through ``decode_attention`` with the
+    log-sum-exp (a block the token cannot see: a one-row view at length
+    0, weighing 0), merged over the length axes.  Split heads end in an
+    all-reduce of ``wo``'s partial sums over the heads' axis.  With the
+    length in one block the step is ``_attend``'s, op for op."""
     s = x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
-    length = cache["k"].shape[1] * tp.size
+    length = cache["k"].shape[1] * tp.kv_size
     if off + s > length:
         raise ValueError(f"cache write of {s} rows at {off} overruns "
                          f"{length} rows")
-    lo, hi = tp.rows(length)
+    lo, hi = tp.kv_rows(length)
     cache = _kv_put(cache, {"k": k, "v": v}, lo, off)
     hl = q.shape[2]
     split = hl != cfg.n_heads
@@ -302,7 +304,7 @@ def _serve_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
     start = min(a, hi - 1) - lo
     rows = {nm: c[:, start:start + max(n, 1)] for nm, c in cache.items()}
     k, v = _kv_read(rows, "k", q.dtype), _kv_read(rows, "v", q.dtype)
-    if tp.size == 1:
+    if tp.kv_size == 1:
         return _attend(p, q, k, v, off, causal=causal, window=window,
                        softcap=softcap), cache
     kw = {} if softcap is None else {"softcap": softcap}

@@ -20,7 +20,8 @@ import torch.utils._python_dispatch
 from repro_torch.configs import get_reduced
 from repro_torch.distributed.sharding import entry_axes, reduce_over
 from repro_torch.models import RunFlags, materialize
-from repro_torch.models.params import leaves_with_paths, tree_map
+from repro_torch.models.params import leaves_with_paths, tree_leaves, \
+    tree_map
 from repro_torch.training.optimizer import AdamWConfig
 
 OPT = AdamWConfig(warmup_steps=0, total_steps=10)
@@ -463,14 +464,16 @@ class _Allocations(torch.utils._python_dispatch.TorchDispatchMode):
         return out
 
 
-def _serve_memory(cfg, mesh, dec):
-    """A decode step: each rank holds its block of every weight and cache
-    leaf, writes its cache in place (the step's caches are the ones it
-    was handed, same storage, and it makes no tensor of a stacked cache
-    leaf's shape: no restack), and makes no tensor with the cache's
-    whole length or the whole table where "model" splits them; an
-    out-of-place writer (``slice_scatter`` and a restack, the gathered
-    body's) fails those checks."""
+def _serve_memory(cfg, mesh, dec, rows=SERVE_ROWS, positions=None):
+    """A decode step of ``rows`` rows at each of ``positions`` (default:
+    ``serve_positions``'s): each rank holds its block of every weight and
+    cache leaf, writes its cache in place (the step's caches are the
+    ones it was handed, same storage, and it makes no tensor of a
+    stacked cache leaf's shape: no restack), and makes no tensor with
+    the cache's whole length where its length is split, nor the whole
+    table where "model" splits it; an out-of-place writer
+    (``slice_scatter`` and a restack, the gathered body's) at
+    "decode-last" fails those checks."""
     from repro_torch.distributed.sharding import distribute
     from repro_torch.launch.steps import input_shardings, input_specs, \
         jit_cell
@@ -479,15 +482,19 @@ def _serve_memory(cfg, mesh, dec):
     sh = input_shardings(cfg, dec, mesh)
     params = tree_map(distribute, _serve_params(cfg, specs["params"]),
                       sh["params"])
-    tok = _batch(cfg, SERVE_ROWS, 1, 4)["tokens"]
+    tok = _batch(cfg, rows, 1, 4)["tokens"]
     model = mesh.shape["model"]
+    positions = positions or serve_positions(model)
     stacked = {tuple(block(torch.empty(c.shape, device="meta"), s.spec,
                            mesh).shape)
                for (_, c), (_, s) in zip(leaves_with_paths(specs["caches"]),
                                          leaves_with_paths(sh["caches"]))}
-    whole = set() if model == 1 else {
-        (SERVE_LEN, cfg.n_kv_heads, cfg.head_dim_),
-        (cfg.vocab_size, cfg.d_model), (cfg.d_model, cfg.vocab_size)}
+    kv = next(iter(tree_leaves(sh["caches"]))).spec[2]
+    whole = set() if math.prod(mesh.shape[a] for a in entry_axes(kv)) == 1 \
+        else {(dec.seq_len, cfg.n_kv_heads, cfg.head_dim_)}
+    if model > 1:
+        whole |= {(cfg.vocab_size, cfg.d_model), (cfg.d_model,
+                                                  cfg.vocab_size)}
 
     def run(pos):
         caches = tree_map(distribute, _filled(specs["caches"], 5,
@@ -505,7 +512,7 @@ def _serve_memory(cfg, mesh, dec):
 
     # every run's collectives before any check raises, so the ranks stay
     # in step
-    runs = {pos: run(pos) for pos in serve_positions(model).values()}
+    runs = {pos: run(pos) for pos in positions.values()}
     real = attention._kv_put
 
     def out_of_place(cache, kv, lo, off):
@@ -517,7 +524,7 @@ def _serve_memory(cfg, mesh, dec):
 
     attention._kv_put = out_of_place
     try:
-        fault, _, _ = run(serve_positions(model)["decode-last"])
+        fault, _, _ = run(positions["decode-last"])
     finally:
         attention._kv_put = real
     for pos, (ok, big, got) in runs.items():
@@ -665,14 +672,15 @@ def moe_train_cfg(arch, variant):
 
 
 @contextlib.contextmanager
-def serve_big_rules():
-    """``steps.rules_for`` choosing SERVE_BIG_RULES for every serving
-    cell (TRAIN_RULES for a train cell)."""
+def serve_big_rules(big=None):
+    """``steps.rules_for`` choosing ``big`` (default SERVE_BIG_RULES) for
+    every serving cell (TRAIN_RULES for a train cell)."""
     from repro_torch.distributed.sharding import SERVE_BIG_RULES, TRAIN_RULES
     from repro_torch.launch import steps
+    big = SERVE_BIG_RULES if big is None else big
     real = steps.rules_for
     steps.rules_for = lambda shape, cfg=None: \
-        TRAIN_RULES if shape.kind == "train" else SERVE_BIG_RULES
+        TRAIN_RULES if shape.kind == "train" else big
     try:
         yield
     finally:
@@ -827,11 +835,233 @@ def sharded_moe(rank, world):
     (OUT / f"sharded_moe.{rank}.json").write_text(json.dumps(res))
 
 
+# the long-context decode cells (one row, the cache's length split over
+# every mesh axis: LONG_SERVE_RULES, and LONG_SERVE_BIG_RULES, which the
+# job substitutes for rules_for's choice as ``serve_big_rules`` does):
+# reduced gemma3-1b under the first, reduced Mixtral under both; a cache
+# of LONG_LEN rows, filled up to the position by the unsharded prefill,
+# then two tokens stepped in a row (the second reads the row the first
+# wrote in place)
+LONG_LEN = 48
+LONG = (("gemma3-1b", "long"), ("mixtral-8x22b", "long"),
+        ("mixtral-8x22b", "long-big"))
+LONG_CASES = ("decode-first", "decode-hi-1", "decode-hi", "decode-last",
+              "decode-last-bf16", "memory")
+# planted faults, each on the meshes where it must show: the partials
+# merged over "model" alone (the "data" blocks dropped); the length
+# block indexed model-major (the token written to and read from another
+# rank's block); the one-block shortcut taken when "model" has one rank
+LONG_FAULTS = {"merge-model": ((2, 1), (2, 2)), "model-major": ((2, 2),),
+               "model-shortcut": ((2, 1),)}
+
+
+def long_positions(blocks):
+    """The long cases' positions on a cache of LONG_LEN rows cut into
+    ``blocks`` length blocks of b rows: in the first block, at the last
+    row of block 0 and the first of block 1, and in the last block (the
+    reduced window of 8 then straddles two blocks, and some blocks lie
+    wholly before it or past the token)."""
+    b = LONG_LEN // blocks
+    return {"decode-first": 3, "decode-hi-1": b - 1, "decode-hi": b,
+            "decode-last": LONG_LEN - 3, "decode-last-bf16": LONG_LEN - 3}
+
+
+def long_shape():
+    from repro_torch.launch.steps import ShapeSpec
+    return ShapeSpec("long", "decode", LONG_LEN, 1)
+
+
+def long_rules(rules):
+    """``steps.rules_for`` as it is ("long"), or choosing
+    LONG_SERVE_BIG_RULES for every serving cell ("long-big")."""
+    from repro_torch.distributed.sharding import LONG_SERVE_BIG_RULES
+    return serve_big_rules(LONG_SERVE_BIG_RULES) if rules == "long-big" \
+        else contextlib.nullcontext()
+
+
+def long_inputs(arch, pos, dtype):
+    """A long case's inputs, the same in every process: (cfg, params,
+    caches, tokens): the weights from seed 0 at the d_model fan-in law,
+    caches of LONG_LEN rows in ``dtype`` from seed 2 whose rows [0, pos)
+    the unsharded prefill of a ``pos``-token prompt (seed 3) wrote, and
+    the two tokens [1, 2] stepped at ``pos`` and ``pos + 1`` (seed 4)."""
+    from repro_torch.launch.steps import input_specs, make_prefill_step
+    cfg = reduced(arch)
+    specs = input_specs(cfg, long_shape())
+    params = _serve_params(cfg, specs["params"])
+    caches = _filled(specs["caches"], 2, dtype)
+    prompt = {"tokens": _batch(cfg, 1, pos, 3)["tokens"]}
+    _, caches = make_prefill_step(cfg)(params, prompt, caches)
+    return cfg, params, caches, _batch(cfg, 1, 2, 4)["tokens"]
+
+
+def _long_case(arch, rules, mesh, case, name):
+    """One long case of the sharded decode body against
+    ``make_decode_step``, two steps in a row from ``long_inputs``: each
+    step's logits and every float32 cache leaf within rtol 1e-5 of each
+    leaf's max, a bf16 one by ``bf16_close``, each rank's caches its
+    blocks.  Rank 0 saves both steps' whole logits and caches (and the
+    bf16 witnesses) to ``OUT / long.<name>.pt`` for the test's
+    comparison with the JAX package."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import (input_shardings, jit_cell,
+                                          make_decode_step)
+    shape = long_shape()
+    blocks = mesh.shape["data"] * mesh.shape["model"]
+    with long_rules(rules):
+        assert steps.layout(reduced(arch), shape, mesh) == "sharded"
+        if case == "memory":
+            return _serve_memory(reduced(arch), mesh, shape, 1,
+                                 long_positions(blocks))
+        dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+        pos = long_positions(blocks)[case]
+        cfg, params, caches, tok = long_inputs(arch, pos, dtype)
+        ref = make_decode_step(cfg)
+        step, _ = jit_cell(cfg, shape, mesh)
+        want_c, got_c, saved = caches, caches, []
+        for i in range(2):
+            t = tok[:, i:i + 1]
+            want, new_c = ref(params, t, tree_map(torch.clone, want_c),
+                              pos + i)
+            wide = None if dtype == torch.float32 else bf16_witness(
+                ref, params, t, want_c, new_c, pos + i)
+            want_c = new_c
+            got, got_c = step(params, t, got_c, pos + i)
+            logits = got.full_tensor()
+            whole = {path: g.full_tensor()
+                     for path, g in leaves_with_paths(got_c)}
+            label = f"{name} step {i}"
+            _close(logits, want, f"{label} logits")
+            for path, w in leaves_with_paths(want_c):
+                if wide is None:
+                    _close(whole[path], w, f"{label} cache{path}")
+                else:
+                    bf16_close(whole[path], w,
+                               dict(leaves_with_paths(wide))[path],
+                               f"{label} cache{path}")
+            _check_blocks(got_c, input_shardings(cfg, shape, mesh)["caches"],
+                          mesh, label)
+            saved.append({"logits": logits, "caches": whole,
+                          "wide": None if wide is None else
+                          dict(leaves_with_paths(wide))})
+    if dist.get_rank() == 0:
+        torch.save(saved, OUT / f"long.{name}.pt")
+
+
+def _serve_source(old, new):
+    """``attention._serve_attention`` with the text ``old`` of its source
+    replaced by ``new`` (a planted fault)."""
+    import inspect
+    import textwrap
+
+    from repro_torch.models import attention
+    src = textwrap.dedent(inspect.getsource(attention._serve_attention))
+    assert old in src, old
+    scope = dict(vars(attention))
+    exec(compile(src.replace(old, new), attention.__file__, "exec"), scope)
+    return scope["_serve_attention"]
+
+
+@contextlib.contextmanager
+def long_fault(name):
+    """A planted fault of LONG_FAULTS, patched into
+    ``distributed/sharding.ServeShards`` or ``models/attention``."""
+    from repro_torch.distributed.sharding import ServeShards
+    from repro_torch.models import attention
+    real_merge, real_rows = ServeShards.merge, ServeShards.kv_rows
+    real_attn = attention._serve_attention
+
+    def merge_model(self, out, lse):
+        axes = self.kv_axes
+        self.kv_axes = tuple(a for a in axes if a == self.axis)
+        try:
+            return real_merge(self, out, lse)
+        finally:
+            self.kv_axes = axes
+
+    def model_major(self, n):
+        b = n // self.kv_size
+        dm = self.mesh.device_mesh
+        idx = 0
+        for a in reversed(self.kv_axes):
+            idx = idx * self.mesh.shape[a] + dm.get_local_rank(a)
+        return idx * b, (idx + 1) * b
+
+    if name == "merge-model":
+        ServeShards.merge = merge_model
+    elif name == "model-major":
+        ServeShards.kv_rows = model_major
+    else:
+        attention._serve_attention = _serve_source(
+            "if tp.kv_size == 1:", "if tp.size == 1:")
+    try:
+        yield
+    finally:
+        ServeShards.merge, ServeShards.kv_rows = real_merge, real_rows
+        attention._serve_attention = real_attn
+
+
+def _long_fault_case(arch, rules, mesh, fault):
+    """A planted fault's miss on this rank: one decode step of the
+    sharded body under ``fault`` (at the first row of block 1 for
+    "model-major", so the token's row is another rank's; else at
+    "decode-last", where the global layers see every block), its logits'
+    and caches' largest distance from the unsharded step's over each
+    one's max (the test requires the largest over the ranks to exceed
+    10 x rtol)."""
+    from repro_torch.launch.steps import jit_cell, make_decode_step
+    blocks = mesh.shape["data"] * mesh.shape["model"]
+    pos = long_positions(blocks)["decode-hi" if fault == "model-major"
+                                 else "decode-last"]
+    cfg, params, caches, tok = long_inputs(arch, pos, torch.float32)
+    want, want_c = make_decode_step(cfg)(params, tok[:, :1],
+                                         tree_map(torch.clone, caches), pos)
+    with long_rules(rules), long_fault(fault):
+        got, got_c = jit_cell(cfg, long_shape(), mesh)[0](
+            params, tok[:, :1], caches, pos)
+
+    def miss(g, w):
+        return float((g - w).abs().max()) / float(w.abs().max())
+    return max([miss(got.full_tensor(), want)] + [
+        miss(g.full_tensor(), w) for (_, g), (_, w) in zip(
+            leaves_with_paths(got_c), leaves_with_paths(want_c))])
+
+
+def sharded_long(rank, world):
+    """Every (mesh, config, case) of MESHES[world] x LONG x LONG_CASES,
+    and the LONG_FAULTS of each mesh; each rank writes its outcome a
+    case ("ok", an error, or a fault's miss) to ``OUT /
+    sharded_long.<rank>.json`` (the test reads them)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    res = {}
+    for data, model in MESHES[world]:
+        mesh = make_host_mesh(data=data, model=model, device_type="cpu")
+        for arch, rules in LONG:
+            for case in LONG_CASES:
+                name = f"{data}x{model}-{arch}-{rules}-{case}"
+                try:
+                    _long_case(arch, rules, mesh, case, name)
+                    res[name] = "ok"
+                except Exception as e:              # noqa: BLE001
+                    res[name] = f"{type(e).__name__}: {e}"
+            if rules == "long-big" or arch == "gemma3-1b":
+                for fault, meshes in LONG_FAULTS.items():
+                    if (data, model) in meshes:
+                        name = f"{data}x{model}-{arch}-{rules}-{fault}"
+                        try:
+                            res[name] = _long_fault_case(arch, rules, mesh,
+                                                         fault)
+                        except Exception as e:      # noqa: BLE001
+                            res[name] = f"{type(e).__name__}: {e}"
+    (OUT / f"sharded_long.{rank}.json").write_text(json.dumps(res))
+
+
 JOBS = {"sharded_steps": sharded_steps,
         "pipeline_two_stages": pipeline_two_stages,
         "sharded_train": sharded_train,
         "sharded_serve": sharded_serve,
-        "sharded_moe": sharded_moe}
+        "sharded_moe": sharded_moe,
+        "sharded_long": sharded_long}
 OUT = pathlib.Path(".")
 
 

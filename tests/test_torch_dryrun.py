@@ -47,14 +47,21 @@ from repro_torch.models.params import tree_leaves, tree_map
 # "model", the cache's length over "model", written in place), and two more train
 # cells of the sharded layout on {data: 1, model: 4}: gemma3-1b (2
 # heads, replicated; tied embeddings; windows) and command-r-35b (2 K/V
-# heads replicated under 4 split query heads)
+# heads replicated under 4 split query heads); and two one-row decode
+# cells of the long rules (LONG_SERVE_RULES: the cache's length over
+# ("data", "model"), the partials merged by an all-gather over each) on
+# {data: 2, model: 2}: gemma3-1b and Mixtral
 CELLS = {"train": ShapeSpec("tiny_train", "train", 32, 4),
          "prefill": ShapeSpec("tiny_prefill", "prefill", 16, 4),
          "decode": ShapeSpec("tiny_decode", "decode", 32, 4),
          "train_gemma3_1x4": ShapeSpec("tiny_train", "train", 32, 4),
-         "train_command_r_1x4": ShapeSpec("tiny_train", "train", 32, 4)}
+         "train_command_r_1x4": ShapeSpec("tiny_train", "train", 32, 4),
+         "long_gemma3_2x2": ShapeSpec("tiny_long", "decode", 32, 1),
+         "long_mixtral_2x2": ShapeSpec("tiny_long", "decode", 32, 1)}
 CELL_ARCH = {"train_gemma3_1x4": ("gemma3-1b", 1),
-             "train_command_r_1x4": ("command-r-35b", 1)}
+             "train_command_r_1x4": ("command-r-35b", 1),
+             "long_gemma3_2x2": ("gemma3-1b", 2),
+             "long_mixtral_2x2": ("mixtral-8x22b", 2)}
 DECODE_POS = 20
 WORLD = 4
 
@@ -92,7 +99,7 @@ def _real_cells(rank, world, out):
         args = [tree_map(_laid_out, f, shards[n])
                 for f, n in zip(full, names)]
         del full
-        if kind == "decode":
+        if shape.kind == "decode":
             args[-1] = DECODE_POS
         step, _ = jit_cell(cfg, shape, mesh)
         trace = traceanalysis._Trace(1)      # its collectives' bytes

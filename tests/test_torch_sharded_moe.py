@@ -61,7 +61,8 @@ from repro.models.params import materialize as jmaterialize
 from repro.training.optimizer import AdamWConfig as JAdamWConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
-from repro_torch.distributed.sharding import (SERVE_BIG_RULES, TRAIN_RULES,
+from repro_torch.distributed.sharding import (LONG_SERVE_BIG_RULES,
+                                              SERVE_BIG_RULES, TRAIN_RULES,
                                               entry_axes, partition_spec)
 from repro_torch.launch import steps
 from repro_torch.launch.analytic import analytic_bytes_per_device
@@ -267,21 +268,22 @@ def test_sharded_moe_serving_matches_the_jax_reference(runs, world, data,
 
 
 def test_layout_of_the_moe_cells():
-    """mixtral-8x22b's train_4k, prefill_32k and decode_32k cells are
-    sharded on both production meshes (serving under SERVE_BIG_RULES:
-    its 140.6e9 weights do not replicate over "data"), its long_500k
-    and int8-cache cells gathered; both reduced configs' cells are
-    sharded on every test mesh, under either serving rule set; a decoder
-    with shared experts stays gathered."""
+    """mixtral-8x22b's train_4k, prefill_32k, decode_32k and long_500k
+    cells are sharded on both production meshes (serving under
+    SERVE_BIG_RULES and long_500k under LONG_SERVE_BIG_RULES: its
+    140.6e9 weights do not replicate over "data"), its int8-cache cells
+    gathered; both reduced configs' cells are sharded on every test mesh,
+    under either serving rule set; a decoder with shared experts stays
+    gathered."""
     cfg = get_config("mixtral-8x22b")
     int8 = RunFlags(cache_dtype="int8")
     for mesh in (SINGLE, MULTI):
         for sname, shape in SHAPES.items():
-            want = "gathered" if sname == "long_500k" else "sharded"
-            assert steps.layout(cfg, shape, mesh) == want, sname
+            assert steps.layout(cfg, shape, mesh) == "sharded", sname
             if shape.kind != "train":
                 assert steps.layout(cfg, shape, mesh, int8) == "gathered"
     assert steps.rules_for(SHAPES["decode_32k"], cfg) is SERVE_BIG_RULES
+    assert steps.rules_for(SHAPES["long_500k"], cfg) is LONG_SERVE_BIG_RULES
     for arch in MOE:
         small = _torch_spmd.reduced(arch)
         for _, data, model in MESH_LIST:

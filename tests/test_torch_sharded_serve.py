@@ -182,10 +182,13 @@ def test_sharded_serving_matches_the_jax_reference(runs, world, data, model,
 def test_layout_of_the_serving_cells():
     """The dense decoders' prefill_32k and decode_32k cells are sharded
     on both production meshes and on the test meshes, and so are
-    mixtral-8x22b's (``tests/test_torch_sharded_moe.py``); long_500k
-    (its length over ("data", "model")), an int8 cache and every other
-    arch's serving cells are gathered; so is a cell whose cache length
-    does not split over "model"."""
+    mixtral-8x22b's (``tests/test_torch_sharded_moe.py``); so are their
+    long_500k cells (one row, its length over every mesh axis:
+    ``tests/test_torch_sharded_long.py``; the matrix runs it for gemma3-1b
+    and Mixtral alone, ``shape_applicable``); an int8 cache and every
+    other arch's serving cells are gathered, recurrentgemma-9b's and
+    xlstm-125m's long_500k too; so is a cell whose cache length does not
+    split over "model"."""
     int8 = RunFlags(cache_dtype="int8")
     for arch in ARCHS:
         cfg = get_config(arch)
@@ -194,7 +197,7 @@ def test_layout_of_the_serving_cells():
                 if shape.kind == "train":
                     continue
                 want = "sharded" if arch in DENSE + ("mixtral-8x22b",) \
-                    and sname in SERVING else "gathered"
+                    and sname in SERVING + ("long_500k",) else "gathered"
                 assert steps.layout(cfg, shape, mesh) == want, (arch, sname)
                 assert steps.layout(cfg, shape, mesh, int8) == "gathered"
     for arch in DENSE:

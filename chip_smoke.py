@@ -421,7 +421,16 @@ Phases, in order:
       full depth's LONG_SERVE_BIG_RULES, one decode a layer on the route
       the plan gives its visible rows, the fault that must miss being
       the cache's length split over "model" alone (16 times the block);
-      then the decode
+      then deepseek-v2-236b x train_4k, prefill_32k and decode_32k (at
+      row 2,047: rank 0 reads its whole latent block) at 2 of its 60
+      layers, full width, bf16, in the sharded layout the same way (MLA's
+      heads, the latent cache's length, the routed experts and the
+      shared experts' ffn over "model"; the serving cells under
+      SERVE_BIG_RULES; the train cell at one microbatch): MLA and the
+      MoE FFN are plain PyTorch, so no kernel launches, traced and real;
+      the faults that must miss being the MLA scores made whole (train,
+      prefill) and the latent cache held whole on every model rank
+      (decode); then the decode
       wrapper (with the fake branch's tests) beside its raw kernel on
       the same rotated inputs at Qwen's B = 4, T = 4,096, and its host
       time a call; one JSON line for the phase;
@@ -481,7 +490,8 @@ and 17 profile none of their eight runs (the four profiles they kept
 took 89 s on the slower host); Mixtral's sharded cells in phase 24.3
 (six traces of 4 layers and three real steps) take about 25 s, and
 phase 11 no longer profiles its launcher in their place; the long_500k
-cells (four traces and two real steps) about 10 s.  It also
+cells (four traces and two real steps) about 10 s; deepseek-v2-236b's
+(six traces of 2 layers and three real steps) about 25 s.  It also
 exits non-zero without a CUDA device.  ``python3 chip_smoke.py --metering`` stops after phase 4d and
 prints the metering kernels' figures and the stack's walls and launches
 as two JSON lines instead of the last two;
@@ -6255,6 +6265,22 @@ def _rules_of(full):
         steps.rules_for = real
 
 
+@contextlib.contextmanager
+def _relaid(**entries):
+    """The cells laid out by their rule sets with ``entries`` in place of
+    theirs, and run in the sharded body all the same (a planted layout
+    fault's frame)."""
+    from repro_torch.launch import steps
+    rules_for, layout = steps.rules_for, steps.layout
+    steps.rules_for = lambda shape, cfg=None: dict(
+        rules_for(shape, cfg), **entries)
+    steps.layout = lambda *args, **kw: "sharded"
+    try:
+        yield
+    finally:
+        steps.rules_for, steps.layout = rules_for, layout
+
+
 def check_moe_rank0(card):
     """Phase 24.3, MoE: mixtral-8x22b's DRY_MOE cells on the (16, 16)
     mesh in the sharded layout at MOE_LAYERS of its 56 layers (full
@@ -6346,6 +6372,125 @@ def check_moe_rank0(card):
     return res
 
 
+# deepseek-v2-236b's sharded cells, run as rank 0 of the (16, 16) mesh
+# at MLA_LAYERS of its 60 layers (full width, bf16, the full depth's
+# SERVE_BIG_RULES): 8 of the 128 MLA heads, 10 of the 160 routed experts
+# and a 192-wide block of the shared experts' ffn a rank; the decode at
+# MLA_POS, the last row of rank 0's 2,048-row latent cache block, so
+# that rank 0 reads all of it
+DRY_MLA = ("train_4k", "prefill_32k", "decode_32k")
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 2
+MLA_POS = 2047
+
+
+@contextlib.contextmanager
+def _whole_mla_scores():
+    """A planted layout fault of the sharded MLA train and prefill,
+    modelled in the trace: the naive path's scores made whole, [B, H, S,
+    S] float32 at once, as the port's MLA made them before it was
+    query-chunked (the reference's ``chunk_q``)."""
+    from repro_torch.models import attention
+    real = attention._mla_heads
+
+    def heads(p, q_nope, q_rope, c_kv, k_rope, positions, cfg, chunk_q):
+        return real(p, q_nope, q_rope, c_kv, k_rope, positions, cfg,
+                    q_nope.shape[1])
+
+    attention._mla_heads = heads
+    try:
+        yield
+    finally:
+        attention._mla_heads = real
+
+
+def _latent_whole():
+    """A planted layout fault of the sharded MLA decode, modelled in the
+    trace: the latent cache's length split over no axis (``kv_len`` and
+    ``k_rope``'s ``hdim`` replicated), so that each model rank holds the
+    whole cache of its rows and attends its heads over all of it, the
+    body otherwise as it is."""
+    return _relaid(kv_len=[], hdim=[])
+
+
+def check_mla_rank0(card):
+    """Phase 24.3, MLA: deepseek-v2-236b's DRY_MLA cells on the (16, 16)
+    mesh in the sharded layout at MLA_LAYERS of its 60 layers (full
+    width, bf16), each traced as the dry run traces it and then run for
+    real as rank 0 of a ``fake`` group of 256 on the card (the weights
+    drawn at their local shapes; the collectives complete at once and
+    return nothing, so the values are not checked).  The cut takes the
+    full depth's rules (``_rules_of``: SERVE_BIG_RULES at serve time),
+    the train cell one microbatch (as ``check_moe_rank0``), the decode
+    cell MLA_POS.  MLA and the MoE FFN are plain PyTorch: no kernel
+    launches, traced = real; the traced peak within DRY_PEAK_TOL of
+    ``max_memory_allocated``; the traces with a planted fault must miss
+    the peak gate (train and prefill: the MLA scores whole,
+    ``_whole_mla_scores``; decode: the latent cache whole on every model
+    rank, ``_latent_whole``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import SHAPES
+    cfg = cut_depth(MLA_ARCH, MLA_LAYERS, torch.bfloat16)
+    n = cfg.n_layers
+    res = {}
+    for shape_name in DRY_MLA:
+        shape = SHAPES[shape_name]
+        pos = MLA_POS if shape.kind == "decode" else None
+        fault = _latent_whole if shape.kind == "decode" else \
+            _whole_mla_scores
+        t0 = time.perf_counter()
+        with _rules_of(get_config(MLA_ARCH)), dryrun.fake_group(256):
+            mesh = make_production_mesh(
+                device_type=dryrun.tensor_device("cuda"))
+            traced = dryrun.trace_cell(cfg, shape, mesh, pos=pos,
+                                       mesh_name="single")
+            assert traced["layout"] == "sharded", traced["layout"]
+            with fault():
+                bad = dryrun.trace_cell(cfg, shape, mesh, pos=pos,
+                                        mesh_name="single")
+            real = _rank0_step(cfg, shape, mesh, pos)
+        none = {op: {} for op in real["routes"]}
+        assert traced["kernel_launches"] == real["launches"] == {}, (
+            shape_name, traced["kernel_launches"], real["launches"])
+        assert traced["kernel_routes"] == real["routes"] == none, (
+            shape_name, traced["kernel_routes"], real["routes"])
+        gap = _gap(traced["peak_device_bytes"], real["peak_bytes"])
+        miss = _gap(bad["peak_device_bytes"], real["peak_bytes"])
+        assert gap <= DRY_PEAK_TOL, (shape_name, traced["peak_device_bytes"],
+                                     real["peak_bytes"])
+        assert miss > DRY_PEAK_TOL, (
+            f"the {fault.__name__} trace passes the peak gate of "
+            f"{shape_name}", bad["peak_device_bytes"], real["peak_bytes"])
+        wall = time.perf_counter() - t0
+        print(f"sharded {MLA_ARCH} x {shape_name} rank 0 of single "
+              f"(16, 16), {n} of 60 layers bf16: step {real['ms']:.3f} ms "
+              f"({card}); launches {real['launches']} routes "
+              f"{real['routes']} traced and real; peak "
+              f"{traced['peak_device_bytes']:,} B traced vs "
+              f"{real['peak_bytes']:,} B max_memory_allocated (gap "
+              f"{100 * gap:.3f} %, gate {100 * DRY_PEAK_TOL:.0f} %; {card});"
+              f" the {fault.__name__} trace {bad['peak_device_bytes']:,} B "
+              f"(gap {100 * miss:.1f} %); useful-FLOP ratio "
+              f"{traced['useful_flops_ratio']:.3f}; traces "
+              f"{traced['trace_s']:.3f} / {bad['trace_s']:.3f} s; "
+              f"{wall:.3f} s")
+        res[shape_name] = {
+            "layers": n, "layout": traced["layout"], "step_ms": real["ms"],
+            "launches": real["launches"], "routes": real["routes"],
+            "predicted_peak": traced["peak_device_bytes"],
+            "real_peak": real["peak_bytes"], "peak_gap": gap,
+            "fault": fault.__name__,
+            "fault_peak": bad["peak_device_bytes"], "fault_gap": miss,
+            "useful_flops_ratio": traced["useful_flops_ratio"],
+            "collective_counts": traced["collective_counts"],
+            "trace_s": traced["trace_s"], "wall_s": wall, "card": card}
+    return res
+
+
 # the long_500k cells in the sharded layout (LONG_SERVE_RULES /
 # LONG_SERVE_BIG_RULES: the cache's length over all 256 ranks, 2,048 rows
 # a rank), run as rank 0 of the (16, 16) mesh: gemma3-1b at full depth,
@@ -6356,21 +6501,12 @@ DRY_LONG = ("gemma3-1b", MOE_ARCH)
 LONG_POS = 2047
 
 
-@contextlib.contextmanager
 def _kv_over_model():
     """A planted layout fault of the long cells, modelled in the trace:
     the cache's length split over "model" alone (as SERVE_RULES split
     it), so each rank holds 16 times its block (the "data" ranks
     repeating each other's), the body otherwise as it is."""
-    from repro_torch.launch import steps
-    rules_for, layout = steps.rules_for, steps.layout
-    steps.rules_for = lambda shape, cfg=None: dict(
-        rules_for(shape, cfg), kv_len=[("model",)])
-    steps.layout = lambda *args, **kw: "sharded"
-    try:
-        yield
-    finally:
-        steps.rules_for, steps.layout = rules_for, layout
+    return _relaid(kv_len=[("model",)])
 
 
 def _long_routes(cfg, rows, pos):
@@ -6608,6 +6744,7 @@ def drive_dryrun(stats):
     sharded = check_sharded_rank0(_card_line())
     serving = check_serving_rank0(_card_line(), cell)
     moe = check_moe_rank0(_card_line())
+    mla = check_mla_rank0(_card_line())
     long = check_long_rank0(_card_line())
     timing = time_decode_wrapper(stats)
     _possible(timing["wrapper_ms"], stats["decode_attention"]["bound_ms"]
@@ -6628,7 +6765,8 @@ def drive_dryrun(stats):
     return {"cells": res, "production": {
         "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
         "sharded_rank0": sharded, "serving_rank0": serving,
-        "moe_rank0": moe, "long_rank0": long, "decode_wrapper": timing,
+        "moe_rank0": moe, "mla_rank0": mla, "long_rank0": long,
+        "decode_wrapper": timing,
         "wall_s": wall}
 
 

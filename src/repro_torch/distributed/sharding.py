@@ -58,8 +58,9 @@ local tokens).
 
 ``ServeShards``, a ``ModelShards`` over the params' specs under a
 serving rule set, is the "model" axis inside the sharded serving body
-(the prefill and decode cells of a decoder of attention + dense or MoE
-FFN blocks, and its one-row decode under the long rules).  The
+(the prefill and decode cells of a decoder of attention or MLA + dense
+or MoE FFN blocks, and an attention decoder's one-row decode under the
+long rules).  The
 residual is replicated over "model" there (``"seq": []``), so its
 sequence "gather" is the residual itself and its "reduce-scatter" an
 all-reduce: each row-parallel product's partial sums summed over the
@@ -77,8 +78,9 @@ SERVE_RULES, every mesh axis under the long rules (one row, which
 splits over none).  Each rank holds the block ``kv_rows(T)`` of the
 length, numbered major to minor over those axes as DTensor lays a
 dimension split over several mesh dims out, and writes it in place;
-``merge`` combines the partial decode attention of every length block by
-their log-sum-exps (``ref.decode_merge``), in block order.
+``merge`` combines the partial decode attention (or MLA's latent
+context) of every length block by their log-sum-exps
+(``ref.decode_merge``), in block order.
 """
 from __future__ import annotations
 

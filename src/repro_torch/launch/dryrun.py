@@ -18,8 +18,9 @@ plain versions instead (the CPU's program).
 
 ``jit_cell`` runs each cell in one of two layouts (``steps.layout``),
 recorded as ``layout``: ``sharded`` (the train, ``prefill_32k`` and
-``decode_32k`` cells of the dense decoders and mixtral-8x22b, whose
-serving cells take SERVE_BIG_RULES, and the ``long_500k`` cells of
+``decode_32k`` cells of the dense decoders, mixtral-8x22b and
+deepseek-v2-236b, whose serving cells take SERVE_BIG_RULES, and the
+``long_500k`` cells of
 gemma3-1b and mixtral-8x22b, whose cache length splits over every
 rank and whose partials merge by an all-gather over each of its
 axes: each rank holds its blocks of

@@ -23,7 +23,9 @@ two layouts (``layout``), chosen from the config and the mesh:
 
 * ``"sharded"``: the train cell of a decoder whose every block is
   attention + a dense FFN (qwen2-5-7b, gemma3-1b, granite-20b,
-  command-r-35b) or a routed MoE FFN (mixtral-8x22b), laid out as GSPMD
+  command-r-35b) or a routed MoE FFN (mixtral-8x22b), or MLA + a MoE
+  FFN with shared experts (deepseek-v2-236b; MLA only where its heads
+  divide "model", so not minicpm3-4b's 40 on 16), laid out as GSPMD
   partitions the reference's step under ``TRAIN_RULES``.  Each rank
   keeps only its block of every state leaf (``to_local()``) and the
   optimizer runs on the blocks.  Each layer gathers its weights over
@@ -33,29 +35,36 @@ two layouts (``layout``), chosen from the config and the mesh:
   and by sequence over "model", gathered before the column-parallel
   products and reduce-scattered after the row-parallel ones
   (``sharding.ModelShards``, ``models/model.py``);
-  the MoE FFN routes whole dispatch groups on the gathered sequence and
-  computes the rank's experts, or its ffn block of every expert where
-  the experts do not divide "model" (``models/moe.py``); the loss, the
-  router's statistics, the global norm and the int8 scale are reduced
-  over the shards.
+  MLA projects the gathered sequence through its whole "lora" weights
+  and runs the rank's heads over it, query-chunked
+  (``models/attention._tp_mla``); the MoE FFN routes whole dispatch
+  groups on the gathered sequence and computes the rank's experts, or
+  its ffn block of every expert where the experts do not divide
+  "model", and its block of the shared experts' ffn (``models/moe.py``);
+  the loss, the router's statistics, the global norm and the int8 scale
+  are reduced over the shards.
 * ``"sharded"`` also runs the ``prefill_32k`` / ``decode_32k`` cells
-  of the same five decoders with a bf16 or float32 cache, laid out as
+  of the same six decoders with a bf16 or float32 cache, laid out as
   the reference's step under ``SERVE_RULES`` or, for an arch whose
-  weights cannot replicate over "data" (mixtral-8x22b),
-  ``SERVE_BIG_RULES``: each rank keeps its block of every weight
-  (heads, ffn, experts and vocab over "model"; "embed" over "data" under
-  SERVE_BIG_RULES, else weights replicated over "data"), its rows over
-  the batch's axes and its block of the KV cache's length over "model",
-  which it writes in place (the reference donates the caches).  Each
-  layer gathers its weights over "data" (SERVE_BIG_RULES), and those
-  split by head dim or K/V head whole, each row-parallel product's (and
-  the MoE's) partial sums are all-reduced over "model", a decode step's
-  attention merged over the ranks' length blocks by their log-sum-exps
-  (``sharding.ServeShards``, ``models/attention._serve_attention``); the
-  step returns the rank's block of the logits, ("batch", "vocab"), and
-  the caches it was given.
-* ``"sharded"`` also runs their one-row ``long_500k`` decode cell with a
-  float cache, laid out as the reference's step under
+  weights cannot replicate over "data" (mixtral-8x22b,
+  deepseek-v2-236b), ``SERVE_BIG_RULES``: each rank keeps its block of
+  every weight (heads, ffn, experts and vocab over "model"; "embed"
+  over "data" under SERVE_BIG_RULES, else weights replicated over
+  "data"), its rows over the batch's axes and its block of the KV (or
+  MLA's latent) cache's length over "model", which it writes in place
+  (the reference donates the caches).  Each layer gathers its weights
+  over "data" (SERVE_BIG_RULES), and those split by head dim or K/V
+  head whole, each row-parallel product's (and the MoE's) partial sums
+  are all-reduced over "model", a decode step's attention merged over
+  the ranks' length blocks by their log-sum-exps
+  (``sharding.ServeShards``, ``models/attention._serve_attention``,
+  ``_serve_mla``: MLA's absorbed decode gathers every head's absorbed
+  query and merges the blocks' latent contexts); the step returns the
+  rank's block of the logits, ("batch", "vocab"), and the caches it
+  was given.
+* ``"sharded"`` also runs the attention decoders' one-row
+  ``long_500k`` decode cell with a float cache, laid out as the
+  reference's step under
   ``LONG_SERVE_RULES`` or ``LONG_SERVE_BIG_RULES`` (mixtral-8x22b): the
   batch of one splits over no axis, the KV cache's length over every one
   (("data", "model"), or ("pod", "data", "model") on the multi-pod
@@ -64,8 +73,8 @@ two layouts (``layout``), chosen from the config and the mesh:
   there, attends over its block's visible rows, and the partials of
   every length block are merged in block order (``ServeShards.kv_axes``);
   the logits come back ("batch", "vocab"), the row replicated.
-* ``"gathered"``: every other cell (an int8 cache, the other six
-  archs).  Every weight is gathered whole
+* ``"gathered"``: every other cell (an int8 cache, MLA's one-row
+  cells, the other five archs).  Every weight is gathered whole
   (``full_tensor()``: the ZeRO resolution of TRAIN_RULES' ``"embed" ->
   data``, and the tensor-parallel dims gathered too), each rank runs its
   block of the batch's rows (``sharding.BatchShards``: the mesh axes the
@@ -397,14 +406,16 @@ def _donate(dst: DTensor, new: torch.Tensor, s: ParamSpec,
 
 
 def _attention_decoder(cfg: ArchConfig) -> bool:
-    """A decoder-only config whose every block is attention + a dense
-    FFN or a routed MoE FFN without shared experts (no encoder,
-    cross-attention or prefix embeddings)."""
-    ffns = (FFN.DENSE,) if cfg.moe is not None and \
-        cfg.moe.n_shared_experts > 0 else (FFN.DENSE, FFN.MOE)
+    """A decoder-only config whose every block is attention or MLA + a
+    dense FFN or a routed MoE FFN, with or without shared experts (no
+    encoder, cross-attention or prefix embeddings)."""
     return cfg.encoder is None and cfg.n_prefix_embeddings == 0 and all(
-        b.mixer == Mixer.ATTN and b.ffn in ffns
+        b.mixer in (Mixer.ATTN, Mixer.MLA) and b.ffn in (FFN.DENSE, FFN.MOE)
         and not b.cross_attention for g in cfg.groups for b in g.pattern)
+
+
+def _mla(cfg: ArchConfig) -> bool:
+    return any(b.mixer == Mixer.MLA for g in cfg.groups for b in g.pattern)
 
 
 def _kv_axes(specs: Tree, shardings: Tree) -> Tuple[str, ...]:
@@ -418,8 +429,8 @@ def _kv_axes(specs: Tree, shardings: Tree) -> Tuple[str, ...]:
 def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
            flags: RunFlags = RunFlags()) -> str:
     """The body ``jit_cell`` runs for a cell (module docstring):
-    ``"sharded"`` for the train cell of a decoder of attention + dense
-    or MoE FFN blocks whose residual, at the reference's block-boundary
+    ``"sharded"`` for the train cell of a decoder of attention or MLA +
+    dense or MoE FFN blocks whose residual, at the reference's block-boundary
     hint ("batch", "seq", None) under TRAIN_RULES, splits its rows over
     every axis but "model" and its sequence over "model" (each rank's
     tokens its own); for its prefill and decode cells under SERVE_RULES
@@ -427,9 +438,13 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     "model" (or no "model" axis to split); and for its decode cells
     under LONG_SERVE_RULES or LONG_SERVE_BIG_RULES (a batch of one row)
     with a float cache whose length splits over every mesh axis of more
-    than one rank.  Else ``"gathered"``.  ``mesh``: anything with
-    ``axis_names`` and ``shape``."""
+    than one rank.  A decoder with MLA blocks takes the first two only,
+    and only where its heads divide "model" (else, as minicpm3-4b's 40
+    heads on 16 ranks, they would replicate).  Else ``"gathered"``.
+    ``mesh``: anything with ``axis_names`` and ``shape``."""
     if not _attention_decoder(cfg):
+        return "gathered"
+    if _mla(cfg) and cfg.n_heads % mesh.shape.get("model", 1):
         return "gathered"
     if shape.kind != "train":
         if flags.cache_dtype == "int8":
@@ -439,6 +454,8 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
         kv = _kv_axes(caches, shardings_for_specs(caches, rules, mesh))
         if rules in (SERVE_RULES, SERVE_BIG_RULES):
             split = mesh.shape.get("model", 1) == 1 or kv == ("model",)
+        elif _mla(cfg):
+            split = False
         else:               # the long rules: one row, which splits over none
             split = shape.kind == "decode" and all(
                 n == 1 or a in kv for a, n in mesh.shape.items())

@@ -30,18 +30,21 @@ prefill, or a step of several tokens, is a non-causal
 one-token step a ``decode_attention`` over all T rows.
 
 MLA is the reference's plain computation (it reaches no Pallas kernel):
-the naive path (per-head K/V materialized from the latent) for prefill,
-the absorbed path (scores and outputs in the compressed ``kv_lora``
-space, against the ``c_kv`` / ``k_rope`` cache) for decode.  Its scores
-are float32 from float32 copies of the operands (the reference's
-``preferred_element_type``), and mixed dtypes are cast as jax promotes
-them.
+the naive path (per-head K/V materialized from the latent) for training
+and prefill, query-chunked as the reference's (``chunk_q``, the
+``RunFlags.attn_chunk`` of 1,024: a chunk's [B, H, chunk_q, S] scores
+are the working set), the absorbed path (scores and outputs in the
+compressed ``kv_lora`` space, against the ``c_kv`` / ``k_rope`` cache)
+for decode.  Its scores are float32 from float32 copies of the operands
+(the reference's ``preferred_element_type``), and mixed dtypes are cast
+as jax promotes them.
 
 The GQA KV cache is ``[B, T, Hkv, D]`` per layer (float32, bfloat16 or
 int8 with per-(token, head) scales), the MLA cache ``c_kv [B, T, kvr]``
 and ``k_rope [B, T, qr]``.  Writes are out of place
-(``torch.slice_scatter``), as the reference's ``dynamic_update_slice``:
-the serving engine merges only the rows it stepped.
+(``torch.slice_scatter``), as the reference's ``dynamic_update_slice``
+(the serving engine merges only the rows it stepped); the sharded
+serving body writes in place (below).
 
 In the sharded serving body (``tp``, a ``sharding.ServeShards``, with a
 cache: ``_serve_attention``) each rank holds the block [lo, hi) of the
@@ -51,6 +54,13 @@ rank's query heads (all of them where the heads replicate) over the
 whole sequence of its rows; a decode step runs every head over the rows
 of its block the token may see, with their log-sum-exp, and merges the
 ranks' partials (``ServeShards.merge``) before its share of ``wo``.
+MLA does the same (``_serve_mla``, the latent rows written by
+``_kv_put``): its prefill runs the rank's heads, its decode every
+head's absorbed query against the block, each block's float32 latent
+context merged by its log-sum-exp (a block with no row to see weighs
+0) before the rank's heads take it through ``wv_b`` and ``wo``.  In the
+sharded train body (without a cache) MLA runs the rank's heads over the
+gathered sequence (``_tp_mla``), as ``_tp_attention`` does.
 """
 from __future__ import annotations
 
@@ -320,13 +330,15 @@ def _serve_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
 
 def _kv_put(cache: Dict[str, torch.Tensor], kv: Dict[str, torch.Tensor],
             lo: int, off: int) -> Dict[str, torch.Tensor]:
-    """Write K and V ([B, S, Hkv, D], at positions off .. off + S - 1)
-    into a cache block holding positions [lo, lo + T) of the length, in
-    place: the rows that fall inside it, cast to its float dtype (the
-    sharded serving body; the reference donates the cache).  Returns
-    ``cache`` itself."""
-    t, s = cache["k"].shape[1], kv["k"].shape[1]
-    if cache["k"].dtype == torch.int8:
+    """Write the rows of ``kv`` ({name: [B, S, ...]} at positions off ..
+    off + S - 1: attention's K and V, or MLA's latent ``c_kv`` and
+    ``k_rope``) into a cache block holding positions [lo, lo + T) of the
+    length, in place: the rows that fall inside it, cast to its float
+    dtype (the sharded serving body; the reference donates the cache).
+    Returns ``cache`` itself."""
+    first = next(iter(kv))
+    t, s = cache[first].shape[1], kv[first].shape[1]
+    if any(cache[name].dtype == torch.int8 for name in kv):
         raise ValueError("the sharded serving body writes float caches")
     a, e = max(lo, off), min(lo + t, off + s)
     for name, val in kv.items():
@@ -485,25 +497,70 @@ def _softmax_masked(scores: torch.Tensor, mask: torch.Tensor
     return torch.softmax(scores.masked_fill(~mask[:, None], low), -1)
 
 
+def _mla_scores(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                k_nope: torch.Tensor, k_rope: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """[B,H,S,T] float32 scaled scores of queries [B,S,H,*] against keys
+    k_nope [B,T,H,*] (or the latent [B,T,kvr] against absorbed queries)
+    and k_rope [B,T,qr]: float32 products of float32 copies of the
+    operands (the reference's ``preferred_element_type``; bf16 products
+    are exact there)."""
+    eq = "bshk,bthk->bhst" if k_nope.dim() == 4 else "bshk,btk->bhst"
+    return (torch.einsum(eq, q_nope.float(), k_nope.float())
+            + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                           k_rope.float())) * _mla_scale(cfg)
+
+
+def _mla_heads(p: Tree, q_nope: torch.Tensor, q_rope: torch.Tensor,
+               c_kv: torch.Tensor, k_rope: torch.Tensor,
+               positions: torch.Tensor, cfg: ArchConfig,
+               chunk_q: int) -> torch.Tensor:
+    """The naive path's attention of the heads ``p`` holds: per-head K/V
+    from the latent, causal over ``positions``, [B,S,H,v] before ``wo``.
+    Query-chunked as the reference: whole when ``s <= chunk_q`` or
+    ``chunk_q`` does not divide S, else ``chunk_q`` query rows at a time
+    against every key, so a chunk's [B,H,chunk_q,S] float32 scores are
+    the working set."""
+    k_nope = torch.einsum("btr,rhk->bthk", c_kv, p["wk_b"])
+    v = torch.einsum("btr,rhk->bthk", c_kv, p["wv_b"])
+    k_nope, k_rope = k_nope.float(), k_rope.float()
+
+    def attend(lo: int, hi: int) -> torch.Tensor:
+        scores = _mla_scores(q_nope[:, lo:hi], q_rope[:, lo:hi], k_nope,
+                             k_rope, cfg)
+        w = _softmax_masked(scores, _mask(positions[:, lo:hi], positions,
+                                          None, True))
+        return torch.einsum("bhst,bthk->bshk", w.to(v.dtype), v)
+
+    s = q_nope.shape[1]
+    if s <= chunk_q or s % chunk_q != 0:
+        return attend(0, s)
+    return torch.cat([attend(i, i + chunk_q) for i in range(0, s, chunk_q)],
+                     1)
+
+
 def mla_attention_naive(
     p: Tree, x: torch.Tensor, positions: torch.Tensor, *, cfg: ArchConfig,
     rope_theta=10_000.0, cache: Optional[Dict[str, torch.Tensor]] = None,
+    chunk_q: int = 1024, tp=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Prefill path: per-head K/V materialized from the latent, causal
-    over ``positions``.  With a cache, also writes ``c_kv`` / ``k_rope``
+    """Prefill and train path: per-head K/V materialized from the
+    latent, causal over ``positions``, query-chunked by ``chunk_q``
+    (``_mla_heads``).  With a cache, also writes ``c_kv`` / ``k_rope``
     at offset 0 from the same projections (the reference projects
-    twice)."""
+    twice).  ``tp`` (a ``sharding.ModelShards``): without a cache the
+    sharded train body (``_tp_mla``), with one the sharded serving body
+    (``_serve_mla``)."""
+    if tp is not None:
+        if cache is not None:
+            return _serve_mla(p, x, positions, cfg=cfg, rope_theta=rope_theta,
+                              cache=cache, off=0, chunk_q=chunk_q, tp=tp)
+        return _tp_mla(p, x, positions, cfg=cfg, rope_theta=rope_theta,
+                       chunk_q=chunk_q, tp=tp), None
     q_nope, q_rope, c_kv, k_rope = mla_project(p, x, positions, cfg,
                                                rope_theta)
-    k_nope = torch.einsum("btr,rhk->bthk", c_kv, p["wk_b"])
-    v = torch.einsum("btr,rhk->bthk", c_kv, p["wv_b"])
-    # float32 scores from float32 operands: bf16 products are exact there
-    scores = (torch.einsum("bshk,bthk->bhst", q_nope.float(),
-                           k_nope.float())
-              + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                             k_rope.float())) * _mla_scale(cfg)
-    w = _softmax_masked(scores, _mask(positions, positions, None, True))
-    out = torch.einsum("bhst,bthk->bshk", w.to(v.dtype), v)
+    out = _mla_heads(p, q_nope, q_rope, c_kv, k_rope, positions, cfg,
+                     chunk_q)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     new_cache = None
     if cache is not None:
@@ -513,9 +570,42 @@ def mla_attention_naive(
     return y, new_cache
 
 
+def _mla_absorbed(p: Tree, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], positions: torch.Tensor,
+                  off: int, cfg: ArchConfig, dtype: torch.dtype
+                  ) -> torch.Tensor:
+    """The absorbed step of the heads ``p`` holds against the whole
+    written ``cache``, keys past a query's position or past the write
+    frontier masked: the output [B,S,H,v] in ``dtype``, before ``wo``.
+    Casts follow jax's promotion: with a float32 cache, the context and
+    the value absorption are float32."""
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    s, t = q_nope.shape[1], c_kv.shape[1]
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])   # absorbed
+    scores = _mla_scores(q_c, q_rope, c_kv.to(q_c.dtype),
+                         k_rope.to(q_rope.dtype), cfg)
+    pos_k = torch.arange(t, device=q_c.device)[None, :]
+    mask = _mask(positions, pos_k, None, True) & \
+        (pos_k <= off + s - 1)[:, None, :]
+    w = _softmax_masked(scores, mask)
+    ctx = torch.einsum("bhst,btr->bshr", w.to(c_kv.dtype), c_kv)
+    return _mla_values(p, ctx, dtype)
+
+
+def _mla_values(p: Tree, ctx: torch.Tensor, dtype: torch.dtype
+                ) -> torch.Tensor:
+    """The latent context [B,S,H,kvr] through the heads' ``wv_b``: jax
+    promotes ctx @ wv_b to the wider of the two dtypes; the output in
+    ``dtype``."""
+    wide = torch.promote_types(ctx.dtype, p["wv_b"].dtype)
+    out = torch.einsum("bshr,rhk->bshk", ctx.to(wide), p["wv_b"].to(wide))
+    return out.to(dtype)
+
+
 def mla_attention_absorbed(
     p: Tree, x: torch.Tensor, positions: torch.Tensor, *, cfg: ArchConfig,
     cache: Dict[str, torch.Tensor], cache_offset, rope_theta=10_000.0,
+    tp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decode path: scores and outputs against the compressed cache.
 
@@ -525,39 +615,122 @@ def mla_attention_absorbed(
     the write frontier, over the whole cache (a multi-token step at a
     nonzero offset is legal).  Casts follow jax's promotion: with a
     float32 cache, the context and the value absorption are float32,
-    cast to x's dtype before ``wo``."""
+    cast to x's dtype before ``wo``.  ``tp`` (a ``sharding.ServeShards``):
+    the sharded serving body (``_serve_mla``)."""
     s = x.shape[1]
     off = int(cache_offset)
+    if tp is not None:
+        return _serve_mla(p, x, positions, cfg=cfg, rope_theta=rope_theta,
+                          cache=cache, off=off, tp=tp)
     q_nope, q_rope, c_kv_new, k_rope_new = mla_project(
         p, x, positions, cfg, rope_theta)
     t = cache["c_kv"].shape[1]
     if off + s > t:
         raise ValueError(f"cache write of {s} rows at {off} overruns {t} "
                          f"rows")
-    c_kv = torch.slice_scatter(cache["c_kv"],
-                               c_kv_new.to(cache["c_kv"].dtype), 1, off,
-                               off + s)
-    k_rope = torch.slice_scatter(cache["k_rope"],
-                                 k_rope_new.to(cache["k_rope"].dtype), 1,
-                                 off, off + s)
-    new_cache = {"c_kv": c_kv, "k_rope": k_rope}
+    new_cache = {n: torch.slice_scatter(cache[n], val.to(cache[n].dtype), 1,
+                                        off, off + s)
+                 for n, val in (("c_kv", c_kv_new), ("k_rope", k_rope_new))}
+    out = _mla_absorbed(p, q_nope, q_rope, new_cache, positions, off, cfg,
+                        x.dtype)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
 
-    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])   # absorbed
-    scores = (torch.einsum("bshr,btr->bhst", q_c.float(),
-                           c_kv.to(q_c.dtype).float())
-              + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                             k_rope.to(q_rope.dtype).float())) * \
-        _mla_scale(cfg)
-    pos_k = torch.arange(t, device=x.device)[None, :]
-    mask = _mask(positions, pos_k, None, True) & \
-        (pos_k <= off + s - 1)[:, None, :]
-    w = _softmax_masked(scores, mask)
-    ctx = torch.einsum("bhst,btr->bshr", w.to(c_kv.dtype), c_kv)
-    # jax promotes ctx @ wv_b to the wider of the two dtypes
-    wide = torch.promote_types(ctx.dtype, p["wv_b"].dtype)
-    out = torch.einsum("bshr,rhk->bshk", ctx.to(wide), p["wv_b"].to(wide))
-    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), p["wo"])
-    return y, new_cache
+
+def _tp_mla(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
+            cfg: ArchConfig, rope_theta, chunk_q: int, tp) -> torch.Tensor:
+    """MLA in the sharded train body (as ``_tp_attention``): ``x``
+    [B, S / size, D] this rank's sequence block, ``positions`` [B, S]
+    the whole sequence's.  The sequence is gathered, projected through
+    the whole "lora" weights, and the rank's heads (``wq_b``, ``wk_b``,
+    ``wv_b`` and ``wo`` split by "heads") attend over it, query-chunked;
+    ``wo``'s partial sums are reduce-scattered back to the block.  Heads
+    replicated: every rank runs all of them and keeps its rows."""
+    h = tp.seq_gather(x)
+    q_nope, q_rope, c_kv, k_rope = mla_project(p, h, positions, cfg,
+                                               rope_theta)
+    out = _mla_heads(p, q_nope, q_rope, c_kv, k_rope, positions, cfg,
+                     chunk_q)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return tp.seq_scatter(y) if q_nope.shape[2] != cfg.n_heads \
+        else tp.own(y)
+
+
+def _serve_mla(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
+               cfg: ArchConfig, rope_theta, cache: Dict[str, torch.Tensor],
+               off: int, tp, chunk_q: int = 1024
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """MLA in the sharded serving body (as ``_serve_attention``): ``x``
+    [B, S, D] this rank's rows, replicated over the model axis;
+    ``cache`` its block [lo, hi) of the latent cache's length
+    (``tp.kv_rows``), into which the rows' ``c_kv`` / ``k_rope`` are
+    written in place (``_kv_put``).  The "lora" weights are whole, the
+    rest the rank's heads.  A prefill (``off`` 0) runs the rank's heads
+    over the sequence, query-chunked (``_mla_heads``); a one-token step
+    takes the absorbed form against the block alone: every head's
+    absorbed query (gathered over the heads' axis) scores the block's
+    rows the token sees, each block gives its float32 latent context and
+    log-sum-exp (``_mla_partial``: no visible row, weight 0), the blocks
+    are merged (``tp.merge``), and the rank's heads take the merged
+    context through ``wv_b``.  Split heads end in an all-reduce of
+    ``wo``'s partial sums.  With the length in one block the step is
+    ``mla_attention_absorbed``'s, op for op."""
+    s = x.shape[1]
+    q_nope, q_rope, c_kv, k_rope = mla_project(p, x, positions, cfg,
+                                               rope_theta)
+    length = cache["c_kv"].shape[1] * tp.kv_size
+    if off + s > length:
+        raise ValueError(f"cache write of {s} rows at {off} overruns "
+                         f"{length} rows")
+    lo, hi = tp.kv_rows(length)
+    cache = _kv_put(cache, {"c_kv": c_kv, "k_rope": k_rope}, lo, off)
+    hl = q_nope.shape[2]
+    split = hl != cfg.n_heads
+    if off == 0:
+        out = _mla_heads(p, q_nope, q_rope, c_kv, k_rope, positions, cfg,
+                         chunk_q)
+    elif s != 1:
+        raise ValueError("the sharded serving body steps one token at a "
+                         "time")
+    elif tp.kv_size == 1:
+        out = _mla_absorbed(p, q_nope, q_rope, cache, positions, off, cfg,
+                            x.dtype)
+    else:
+        q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])  # absorbed
+        r = q_c.shape[-1]
+        q = torch.cat([q_c, q_rope], -1)
+        if split:
+            q = tp.concat(q, 2)
+        ctx, lse = _mla_partial(q[..., :r].to(q_c.dtype),
+                                q[..., r:].to(q_rope.dtype), cache,
+                                min(hi, off + 1) - lo, cfg)
+        ctx = tp.merge(ctx, lse).to(cache["c_kv"].dtype)
+        if split:
+            ctx = ctx.narrow(1, tp.index * hl, hl)
+        out = _mla_values(p, ctx[:, None], x.dtype)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return (tp.seq_scatter(y) if split else y), cache
+
+
+def _mla_partial(q_c: torch.Tensor, q_rope: torch.Tensor,
+                 block: Dict[str, torch.Tensor], n: int, cfg: ArchConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token's absorbed attention over the first ``n`` rows of a
+    latent cache block (the rows it sees): q_c [B,1,H,kvr] and q_rope
+    [B,1,H,qr] of every head.  Returns the float32 latent context
+    [B,H,kvr], normalised over those rows, and the log-sum-exp [B,H] of
+    their scores; with no row to see, 0 and minus infinity, so that the
+    merge weighs the block 0 (never a uniform average of rows past the
+    write frontier)."""
+    b, _, h, r = q_c.shape
+    if n <= 0:
+        return (q_c.new_zeros((b, h, r), dtype=torch.float32),
+                q_c.new_full((b, h), -math.inf, dtype=torch.float32))
+    c_kv, k_rope = block["c_kv"][:, :n], block["k_rope"][:, :n]
+    scores = _mla_scores(q_c, q_rope, c_kv.to(q_c.dtype),
+                         k_rope.to(q_rope.dtype), cfg)[:, :, 0]
+    ctx = torch.einsum("bht,btr->bhr", torch.softmax(scores, -1),
+                       c_kv.float())
+    return ctx, torch.logsumexp(scores, -1)
 
 
 def mla_cache_spec(cfg: ArchConfig, batch: int, max_len: int,

@@ -115,6 +115,7 @@ def apply_block(
     causal: bool = True,
     moe_impl: Optional[str] = None,
     moe_group: Optional[int] = None,
+    attn_chunk: int = 1024,
     tp=None,
 ) -> Tuple[torch.Tensor, Optional[Tree], torch.Tensor]:
     """Returns (x, new_cache, aux): aux is the MoE router's auxiliary
@@ -124,22 +125,23 @@ def apply_block(
     decode step is a call with a cache at an offset above 0;
     ``enc_out`` feeds a cross-attention block's K/V in any other call.
     ``moe_impl`` / ``moe_group`` override the MoE config's dispatch and
-    group size (``RunFlags``).  ``tp`` (a ``sharding.ModelShards``: a
-    sharded step body, an attention + dense or MoE FFN block only):
-    without a cache the train body, ``x`` this rank's block of rows and
-    sequence; the norms run on it, the attention, a split dense FFN and
-    the MoE FFN gather the sequence and scatter it back (Megatron
-    sequence parallelism; the MoE routes whole dispatch groups), a dense
-    FFN whose dim does not split runs on the block as it is.  With a
-    cache the serving body (a ``sharding.ServeShards``): ``x`` is this
-    rank's rows, replicated over the model axis; the attention writes
-    the rank's block of the cache in place, and a split FFN's
-    row-parallel ``wo`` (the MoE's partial sums) ends in an
-    all-reduce."""
-    if tp is not None and (blk.mixer != Mixer.ATTN or blk.ffn == FFN.NONE
-                           or blk.cross_attention):
-        raise ValueError("the sharded bodies run attention + dense or MoE "
-                         "FFN blocks only")
+    group size, ``attn_chunk`` is MLA's query chunk in the naive path
+    (``RunFlags``).  ``tp`` (a ``sharding.ModelShards``: a sharded step
+    body, an attention or MLA + dense or MoE FFN block only): without a
+    cache the train body, ``x`` this rank's block of rows and sequence;
+    the norms run on it, the attention, a split dense FFN and the MoE
+    FFN gather the sequence and scatter it back (Megatron sequence
+    parallelism; the MoE routes whole dispatch groups), a dense FFN
+    whose dim does not split runs on the block as it is.  With a cache
+    the serving body (a ``sharding.ServeShards``): ``x`` is this rank's
+    rows, replicated over the model axis; the attention writes the
+    rank's block of the cache (MLA's latent cache) in place, and a split
+    FFN's row-parallel ``wo`` (the MoE's partial sums, its shared
+    experts' with them) ends in an all-reduce."""
+    if tp is not None and (blk.mixer not in (Mixer.ATTN, Mixer.MLA)
+                           or blk.ffn == FFN.NONE or blk.cross_attention):
+        raise ValueError("the sharded bodies run attention or MLA + dense "
+                         "or MoE FFN blocks only")
     # without per-layer overrides the BlockSpec's window / theta hold
     if cfg.layer_windows is None and cfg.layer_thetas is None:
         window = blk.window
@@ -163,11 +165,12 @@ def apply_block(
         if decode:
             y, nc = attn.mla_attention_absorbed(
                 p["attn"], h, positions, cfg=cfg, cache=cache["attn"],
-                cache_offset=cache_offset, rope_theta=theta)
+                cache_offset=cache_offset, rope_theta=theta, tp=tp)
         else:
             y, nc = attn.mla_attention_naive(
                 p["attn"], h, positions, cfg=cfg, rope_theta=theta,
-                cache=cache["attn"] if cache else None)
+                cache=cache["attn"] if cache else None, chunk_q=attn_chunk,
+                tp=tp)
     elif blk.mixer == Mixer.RGLRU:
         y, nc = rec.rglru_block(p["rglru"], h, cfg=cfg,
                                 state=cache["rglru"] if cache else None)

@@ -59,11 +59,13 @@ class RunFlags:
     """Per-step execution knobs (the reference's).  The port reads
     ``remat`` in ``train_loss`` ("full", "dots" or "none"),
     ``grad_accum`` in ``launch/steps.make_train_step``, ``moe_impl`` and
-    ``moe_group`` (the MoE dispatch), and its callers ``cache_dtype``.
-    ``scan_unroll`` and ``attn_chunk`` shape the reference's XLA program
-    (``lax.scan`` unrolling, query-chunked jnp attention) and have no
-    counterpart in an eager stack whose attention is the flash kernel;
-    they are kept so the flags carry over."""
+    ``moe_group`` (the MoE dispatch), ``attn_chunk`` (MLA's query chunk
+    in its naive path, as the reference's), and its callers
+    ``cache_dtype``.  ``scan_unroll`` shapes the reference's XLA program
+    (``lax.scan`` unrolling), and ``attn_chunk`` its query-chunked jnp
+    GQA attention too: neither has a counterpart in an eager stack whose
+    GQA attention is the flash kernel; they are kept so the flags carry
+    over."""
     remat: str = "full"            # none | full | dots
     moe_impl: Optional[str] = None  # override cfg.moe.impl
     scan_unroll: int = 1
@@ -188,7 +190,7 @@ def _apply_layer(h: torch.Tensor, r: int, g: ScanGroup, gp: Tree, gm: Tree,
                 lp, blk, cfg, h, positions, meta, cache=lc,
                 cache_offset=cache_offset, enc_out=enc_out, causal=causal,
                 moe_impl=flags.moe_impl, moe_group=flags.moe_group or None,
-                tp=tp)
+                attn_chunk=flags.attn_chunk, tp=tp)
             aux = aux + a
             same = lc is not None and all(
                 x is y for x, y in zip(tree_leaves(nc), tree_leaves(lc)))

@@ -25,7 +25,10 @@ Where the experts dim is split over the axis (expert parallelism) a rank
 dispatches to and computes only its experts; where the ffn dim is split
 (Mixtral's 8 experts on 16 ranks) it computes its ffn block of every
 expert.  Either way its output is a partial sum, which ends in the dense
-FFN's collective after ``wo``: one collective a layer.
+FFN's collective after ``wo``: one collective a layer.  The shared
+experts (DeepSeek-V2's) run their ffn block on the same gathered
+sequence or rows, and their partial sums join the routed ones before
+that collective.
 """
 from __future__ import annotations
 
@@ -198,18 +201,16 @@ def moe_ffn(p: Tree, x: torch.Tensor, cfg: ArchConfig, *,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full MoE FFN: routed experts (+ shared experts if configured).
     Returns (y [B,S,D], the router's auxiliary loss).  ``tp`` (a
-    ``sharding.ModelShards``: the sharded bodies, routed experts only;
-    module docstring): ``x`` is this rank's sequence block in the train
-    body, gathered before the routing, or its rows in the serving body;
-    the partial sums of a split experts or ffn dim are reduce-scattered
-    back to the block (train) or all-reduced (serving), and where
-    neither dim splits every rank computes the whole and keeps its
-    block."""
+    ``sharding.ModelShards``: the sharded bodies; module docstring):
+    ``x`` is this rank's sequence block in the train body, gathered
+    before the routing, or its rows in the serving body; the partial
+    sums of a split experts or ffn dim, and the shared experts' of their
+    split ffn, are added and reduce-scattered back to the block (train)
+    or all-reduced (serving) at once, and what no dim splits every rank
+    computes whole and keeps its block of."""
     m = cfg.moe
     impl = impl or m.impl
     if tp is not None:
-        if m.n_shared_experts > 0:
-            raise ValueError("the sharded bodies run no shared experts")
         x = tp.seq_gather(x)
     if impl == "dense":
         y, aux = moe_dense(p, x, m, tp)
@@ -219,10 +220,21 @@ def moe_ffn(p: Tree, x: torch.Tensor, cfg: ArchConfig, *,
                             tp=tp)
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
-    if tp is not None:
-        split = tuple(p["wi_gate"].shape[::2]) != (m.n_experts,
-                                                   m.d_ff_expert)
-        return (tp.seq_scatter(y) if split else tp.own(y)), aux
+    if tp is None:
+        if m.n_shared_experts > 0:
+            y = y + shared_expert(p, x)
+        return y, aux
+    # partial sums (a split experts or ffn dim) and whole results apart
+    split = tuple(p["wi_gate"].shape[::2]) != (m.n_experts, m.d_ff_expert)
+    part, whole = (y, None) if split else (None, y)
     if m.n_shared_experts > 0:
-        y = y + shared_expert(p, x)
-    return y, aux
+        ys = shared_expert(p, x)
+        width = m.d_ff_shared or m.d_ff_expert * m.n_shared_experts
+        if p["shared"]["wi_gate"].shape[-1] != width:
+            part = ys if part is None else part + ys
+        else:
+            whole = ys if whole is None else whole + ys
+    if part is None:
+        return tp.own(whole), aux
+    y = tp.seq_scatter(part)
+    return (y if whole is None else y + tp.own(whole)), aux

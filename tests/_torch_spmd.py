@@ -490,8 +490,15 @@ def _serve_memory(cfg, mesh, dec, rows=SERVE_ROWS, positions=None):
                for (_, c), (_, s) in zip(leaves_with_paths(specs["caches"]),
                                          leaves_with_paths(sh["caches"]))}
     kv = next(iter(tree_leaves(sh["caches"]))).spec[2]
+    # a K/V row, or the rank's rows of a latent row (a [rows, length]
+    # tail alone would match the reduced configs' weights)
+    per = rows // math.prod(mesh.shape[a] for a in entry_axes(
+        next(iter(tree_leaves(sh["caches"]))).spec[1]))
+    tails = [(dec.seq_len, cfg.n_kv_heads, cfg.head_dim_)] if \
+        cfg.mla is None else [(per, dec.seq_len, w) for w in (
+            cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim)]
     whole = set() if math.prod(mesh.shape[a] for a in entry_axes(kv)) == 1 \
-        else {(dec.seq_len, cfg.n_kv_heads, cfg.head_dim_)}
+        else set(tails)
     if model > 1:
         whole |= {(cfg.vocab_size, cfg.d_model), (cfg.d_model,
                                                   cfg.vocab_size)}
@@ -506,8 +513,8 @@ def _serve_memory(cfg, mesh, dec, rows=SERVE_ROWS, positions=None):
             _, got = step(params, tok, caches, pos)
         same = [c.to_local().untyped_storage()._cdata
                 for _, c in leaves_with_paths(got)] == held
-        big = [s for s in seen.shapes
-               if s in stacked or s[-3:] in whole or s[-2:] in whole]
+        big = [s for s in seen.shapes if s in stacked or any(
+            s[-len(w):] == w for w in whole)]
         return same and not big, big, got
 
     # every run's collectives before any check raises, so the ranks stay
@@ -516,11 +523,12 @@ def _serve_memory(cfg, mesh, dec, rows=SERVE_ROWS, positions=None):
     real = attention._kv_put
 
     def out_of_place(cache, kv, lo, off):
-        t, s = cache["k"].shape[1], kv["k"].shape[1]
+        first = next(iter(kv))
+        t, s = cache[first].shape[1], kv[first].shape[1]
         a, e = max(lo, off), min(lo + t, off + s)
         return {n: torch.slice_scatter(
             cache[n], kv[n][:, a - off:max(e, a) - off].to(cache[n].dtype),
-            1, a - lo, max(e, a) - lo) for n in cache}
+            1, a - lo, max(e, a) - lo) for n in kv}
 
     attention._kv_put = out_of_place
     try:
@@ -536,10 +544,13 @@ def _serve_memory(cfg, mesh, dec, rows=SERVE_ROWS, positions=None):
 
 def reduced(name):
     """A reduced config by name: an arch's (``get_reduced``), or
-    ``THREE_EXPERTS``, reduced Mixtral with 3 experts."""
-    if name != THREE_EXPERTS:
+    ``THREE_EXPERTS`` / ``MLA_THREE_EXPERTS``, reduced Mixtral / reduced
+    deepseek-v2 with 3 routed experts."""
+    base = {THREE_EXPERTS: "mixtral-8x22b",
+            MLA_THREE_EXPERTS: "deepseek-v2-236b"}.get(name)
+    if base is None:
         return get_reduced(name)
-    cfg = get_reduced("mixtral-8x22b")
+    cfg = get_reduced(base)
     return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                             n_experts=3))
 
@@ -565,7 +576,7 @@ def serve_inputs(arch, prefill, dtype, pos=None):
             caches, (pos,))
 
 
-def _serve_case(arch, mesh, case, name):
+def _serve_case(arch, mesh, case, name, flags=RunFlags()):
     """One case of the sharded serving body against ``make_prefill_step``
     / ``make_decode_step`` on the same inputs: the logits and every
     float32 cache leaf within rtol 1e-5 of each leaf's max, a bf16 one
@@ -573,7 +584,7 @@ def _serve_case(arch, mesh, case, name):
     "-bf16" case with a bf16 cache, the rest float32).  Rank 0 saves
     the whole logits and caches (and the bf16 witness) to
     ``OUT / serve.<name>.pt`` for the test's comparison with the JAX
-    package."""
+    package.  ``flags``: both steps' ``RunFlags``."""
     from repro_torch.launch import steps
     from repro_torch.launch.steps import (ShapeSpec, input_shardings,
                                           jit_cell, make_decode_step,
@@ -590,11 +601,12 @@ def _serve_case(arch, mesh, case, name):
     pos = None if prefill else serve_positions(mesh.shape["model"])[case]
     cfg, shape, params, first, caches, rest = serve_inputs(arch, prefill,
                                                           dtype, pos)
-    ref = (make_prefill_step if prefill else make_decode_step)(cfg)
+    ref = (make_prefill_step if prefill else make_decode_step)(cfg, flags)
     want, want_c = ref(params, first, tree_map(torch.clone, caches), *rest)
     wide = None if dtype == torch.float32 else bf16_witness(
         ref, params, first, caches, want_c, *rest)
-    got, got_c = jit_cell(cfg, shape, mesh)[0](params, first, caches, *rest)
+    got, got_c = jit_cell(cfg, shape, mesh, flags)[0](params, first, caches,
+                                                      *rest)
     logits = got.full_tensor()
     whole = {path: g.full_tensor() for path, g in leaves_with_paths(got_c)}
     _close(logits, want, f"{arch} {case} logits")
@@ -687,18 +699,18 @@ def serve_big_rules(big=None):
         steps.rules_for = real
 
 
-def _moe_train_case(arch, mesh, variant, name):
-    """One MOE_TRAIN case of the sharded train body against
-    ``make_train_step``, two steps from ``train_state`` on
-    ``_batch(cfg, 4, 32, 10 + i)``: the losses and grad norms, every
-    param and moment within rtol 1e-5, each rank's state its blocks.
-    Rank 0 saves the losses, grad norms and whole params and moments to
-    ``OUT / train.<name>.pt`` for the test's comparison with the JAX
-    package."""
+def _moe_train_case(cfg, flags, mesh, name):
+    """One train case (a MOE_TRAIN or MLA_TRAIN variant's config and
+    flags) of the sharded train body against ``make_train_step``, two
+    steps from ``train_state`` on ``_batch(cfg, 4, 32, 10 + i)``: the
+    losses and grad norms, every param and moment within rtol 1e-5,
+    each rank's state its blocks.  Rank 0 saves the losses, grad norms
+    and whole params and moments to ``OUT / train.<name>.pt`` for the
+    test's comparison with the JAX package."""
     from repro_torch.launch import steps
     from repro_torch.launch.steps import (ShapeSpec, input_shardings,
                                           jit_cell, make_train_step)
-    cfg, flags = moe_train_cfg(arch, variant)
+    arch = name
     shape = ShapeSpec("tiny_train", "train", 32, 4)
     assert steps.layout(cfg, shape, mesh, flags) == "sharded"
     step, _ = jit_cell(cfg, shape, mesh, flags, OPT)
@@ -821,7 +833,8 @@ def sharded_moe(rank, world):
                 big = case.startswith("big-")
                 try:
                     if case in MOE_TRAIN:
-                        _moe_train_case(arch, mesh, case, name)
+                        _moe_train_case(*moe_train_cfg(arch, case), mesh,
+                                        name)
                     elif case in MOE_FAULTS:
                         _moe_fault_case(arch, mesh, case)
                     else:
@@ -1056,12 +1069,164 @@ def sharded_long(rank, world):
     (OUT / f"sharded_long.{rank}.json").write_text(json.dumps(res))
 
 
+# the sharded MLA bodies (deepseek-v2's cells): reduced deepseek-v2, whose
+# 4 MLA heads and 8 routed experts split over "model" at 2 and 4 ranks
+# and whose shared expert's ffn splits too, and MLA_THREE_EXPERTS, whose
+# 3 routed experts do not divide "model", so each expert's ffn is split
+# and the routed and shared ffn blocks both add before the collective
+MLA_THREE_EXPERTS = "deepseek-3-experts"
+MLA = ("deepseek-v2-236b", MLA_THREE_EXPERTS)
+MLA_CHUNK = 8              # the "chunk8" cases' query chunk: S = 32 in 4
+MLA_TRAIN = ("plain", "chunk8")
+# serving cases under SERVE_RULES ("serve-", the reduced config's own) and
+# SERVE_BIG_RULES ("big-", deepseek-v2-236b's): prefill, decode in the
+# first block, at a block's last row and in the last block
+# (serve_positions), a prefill chunked by MLA_CHUNK, a bf16 cache's
+# prefill, and the in-place, blocks-only memory check (``_serve_memory``)
+MLA_SERVE = tuple(f"{r}-{c}" for r in ("serve", "big") for c in (
+    "prefill", "decode-first", "decode-hi-1", "decode-last")) + (
+    "big-prefill-chunk8", "big-prefill-bf16", "big-memory")
+# planted faults (meshes with a "model" axis of more than one rank): a
+# length block past the write frontier merged as a uniform average of
+# its rows; the shared experts' partial sums left unreduced; the latent
+# cache held whole on every model rank
+MLA_FAULTS = ("uniform", "shared-unreduced", "cache-whole")
+
+
+def mla_flags(case):
+    """The flags of an MLA case: MLA_CHUNK as the query chunk in a
+    "chunk8" case."""
+    return RunFlags(remat="full",
+                    attn_chunk=MLA_CHUNK if "chunk8" in case else 1024)
+
+
+def _uniform_partial(q_c, q_rope, block, n, cfg):
+    """``attention._mla_partial`` with a planted fault: the block's rows
+    past the token masked by ``_softmax_masked`` (a block with none
+    visible: a uniform average of its rows) and its log-sum-exp over
+    every row."""
+    from repro_torch.models import attention
+    c_kv, k_rope = block["c_kv"], block["k_rope"]
+    scores = attention._mla_scores(q_c, q_rope, c_kv.to(q_c.dtype),
+                                   k_rope.to(q_rope.dtype), cfg)
+    seen = torch.arange(c_kv.shape[1]) < n
+    w = attention._softmax_masked(scores, seen.expand(
+        c_kv.shape[0], 1, c_kv.shape[1]))[:, :, 0]
+    return (torch.einsum("bht,btr->bhr", w, c_kv.float()),
+            torch.logsumexp(scores[:, :, 0], -1))
+
+
+def _mla_fault_case(arch, mesh, fault):
+    """A planted fault must miss: "uniform" a decode step in the first
+    block (the later blocks lie past the frontier; its logits),
+    "shared-unreduced" a train step (its loss or grad norm), each
+    farther than 10 x rtol from the unsharded step's; "cache-whole" (the
+    cache's length split over no axis, the body otherwise as it is) the
+    check that each rank holds its block of the caches."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import (ShapeSpec, input_shardings,
+                                          jit_cell, make_decode_step,
+                                          make_train_step)
+    from repro_torch.models import attention, moe
+    if fault == "shared-unreduced":
+        cfg = reduced(arch)
+        real = moe.moe_ffn
+
+        def unreduced(p, x, c, *, tp=None, **kw):
+            if tp is None:
+                return real(p, x, c, **kw)
+            routed = dataclasses.replace(c, moe=dataclasses.replace(
+                c.moe, n_shared_experts=0))
+            y, aux = real(p, x, routed, tp=tp, **kw)
+            return y + tp.own(moe.shared_expert(p, tp.seq_gather(x))), aux
+        shape = ShapeSpec("tiny_train", "train", 32, 4)
+        batch = _batch(cfg, 4, 32, 10)
+        _, wm = make_train_step(cfg, OPT, FLAGS)(train_state(cfg), batch)
+        moe.moe_ffn = unreduced
+        try:
+            _, gm = jit_cell(cfg, shape, mesh, FLAGS, OPT)[0](
+                train_state(cfg), batch)
+        finally:
+            moe.moe_ffn = real
+        miss = max(abs(float(gm[k].full_tensor()) - float(wm[k]))
+                   / abs(float(wm[k])) for k in ("loss", "grad_norm"))
+        assert miss > 10 * RTOL, f"{fault} passes: {miss}"
+        return
+    pos = serve_positions(mesh.shape["model"])[
+        "decode-first" if fault == "uniform" else "decode-last"]
+    cfg, shape, params, tok, caches, rest = serve_inputs(
+        arch, False, torch.float32, pos)
+    if fault == "uniform":
+        want, _ = make_decode_step(cfg)(params, tok, tree_map(torch.clone,
+                                                              caches), *rest)
+        real = attention._mla_partial
+        attention._mla_partial = _uniform_partial
+        try:
+            got, _ = jit_cell(cfg, shape, mesh)[0](params, tok, caches, *rest)
+        finally:
+            attention._mla_partial = real
+        got = got.full_tensor()
+        miss = float((got - want).abs().max()) / float(want.abs().max())
+        assert miss > 10 * RTOL, f"{fault} passes: {miss}"
+        return
+    blocks = input_shardings(cfg, shape, mesh)["caches"]
+    rules_for, layout = steps.rules_for, steps.layout
+    # (k_rope's "hdim" would take "model" once its length does not)
+    steps.rules_for = lambda sh, c=None: dict(rules_for(sh, c), kv_len=[],
+                                              hdim=[])
+    steps.layout = lambda *args, **kw: "sharded"
+    try:
+        _, got_c = jit_cell(cfg, shape, mesh)[0](params, tok, caches, *rest)
+    finally:
+        steps.rules_for, steps.layout = rules_for, layout
+    try:
+        _state_bytes(got_c, blocks, mesh, "caches")
+    except AssertionError:
+        return
+    raise AssertionError(f"{fault} passes the blocks check")
+
+
+def sharded_mla(rank, world):
+    """Every (mesh, config, case) of MESHES[world] x MLA x (MLA_TRAIN,
+    MLA_SERVE, and MLA_FAULTS where "model" has more than one rank);
+    each rank writes its outcome a case to ``OUT /
+    sharded_mla.<rank>.json``, rank 0 a train case's losses, grad norms
+    and whole state to ``OUT / train.<name>.pt`` and a serving case's
+    whole logits and caches to ``OUT / serve.<name>.pt`` (the test reads
+    them)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    res = {}
+    for data, model in MESHES[world]:
+        mesh = make_host_mesh(data=data, model=model, device_type="cpu")
+        for arch in MLA:
+            cases = MLA_TRAIN + MLA_SERVE + (MLA_FAULTS if model > 1
+                                             else ())
+            for case in cases:
+                name = f"{data}x{model}-{arch}-{case}"
+                try:
+                    if case in MLA_TRAIN:
+                        _moe_train_case(reduced(arch), mla_flags(case),
+                                        mesh, name)
+                    elif case in MLA_FAULTS:
+                        _mla_fault_case(arch, mesh, case)
+                    else:
+                        with serve_big_rules() if case.startswith("big-") \
+                                else contextlib.nullcontext():
+                            _serve_case(arch, mesh, case.split("-", 1)[1],
+                                        name, mla_flags(case))
+                    res[name] = "ok"
+                except Exception as e:              # noqa: BLE001
+                    res[name] = f"{type(e).__name__}: {e}"
+    (OUT / f"sharded_mla.{rank}.json").write_text(json.dumps(res))
+
+
 JOBS = {"sharded_steps": sharded_steps,
         "pipeline_two_stages": pipeline_two_stages,
         "sharded_train": sharded_train,
         "sharded_serve": sharded_serve,
         "sharded_moe": sharded_moe,
-        "sharded_long": sharded_long}
+        "sharded_long": sharded_long,
+        "sharded_mla": sharded_mla}
 OUT = pathlib.Path(".")
 
 

@@ -8,10 +8,15 @@ absorbed path also for a multi-token step at a nonzero offset, and with
 its cache written); the naive and absorbed paths within 1e-4 of each
 other at the same positions; in bfloat16 (with a bfloat16 and with a
 float32 cache, the engine's) within 2e-2 of the reference's bfloat16,
-whose scores are float32.
+whose scores are float32.  The naive path is query-chunked by
+``chunk_q`` as the reference's (whole where ``chunk_q`` does not divide
+S or is not below it): within the same bounds of the reference's at the
+same ``chunk_q`` and of its own whole path, and a chunk's scores are its
+working set.
 """
 import dataclasses
 
+import _torch_spmd
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -193,3 +198,45 @@ def test_mla_cache_spec_matches_reference():
     want = jattn.mla_cache_spec(jcfg, 3, 16, jnp.float32)
     assert {k: (v.shape, v.axes, v.init) for k, v in got.items()} == \
         {k: (v.shape, v.axes, v.init) for k, v in want.items()}
+
+
+@pytest.mark.parametrize("dtype,s,chunk", [
+    ("f32", 32, 8), ("f32", 30, 8), ("f32", 32, 32), ("f32", 16, 64),
+    ("bf16", 32, 8)],
+    ids=["chunked", "chunk-does-not-divide", "one-chunk", "chunk-above-s",
+         "bf16-chunked"])
+def test_mla_chunked_naive_matches_reference(f32, bf16, dtype, s, chunk):
+    """The naive path at ``chunk_q=chunk``: chunked where the chunk
+    divides S and lies below it (4 chunks of 8 at S = 32), else whole,
+    both as the reference's rule says; against the reference's
+    ``mla_attention_naive`` at the same ``chunk_q`` and against the
+    port's whole path (``chunk_q`` = S), within 1e-4 in float32, 2e-2
+    in bfloat16."""
+    jcfg, jp, cfg, p = f32 if dtype == "f32" else bf16
+    tdt, tol = ((torch.float32, TOL) if dtype == "f32" else
+                (torch.bfloat16, BF16_TOL))
+    jx, x = _x(cfg, 2, s, 9, tdt)
+    jpos, pos = _pos(2, s)
+    want = jattn.mla_attention_naive(jp, jx, jpos, cfg=jcfg, chunk_q=chunk)
+    got, _ = attn.mla_attention_naive(p, x, pos, cfg=cfg, chunk_q=chunk)
+    whole, _ = attn.mla_attention_naive(p, x, pos, cfg=cfg, chunk_q=s)
+    assert got.dtype == tdt
+    _close(got, want, tol, "reference")
+    _close(got, whole.float().numpy(), tol, "whole")
+
+
+def test_mla_chunk_is_the_working_set(f32):
+    """At S = 32 and ``chunk_q`` 8 no [B, H, 32, 32] score tensor is
+    made, only [B, H, 8, 32] ones; the whole path makes them (so the
+    check can fail)."""
+    _, _, cfg, p = f32
+    _, x = _x(cfg, 2, 32, 10)
+    _, pos = _pos(2, 32)
+    seen = {}
+    for chunk in (8, 32):
+        with _torch_spmd._Allocations() as mode:
+            attn.mla_attention_naive(p, x, pos, cfg=cfg, chunk_q=chunk)
+        seen[chunk] = set(mode.shapes)
+    h = cfg.n_heads
+    assert (2, h, 32, 32) not in seen[8] and (2, h, 8, 32) in seen[8]
+    assert (2, h, 32, 32) in seen[32]

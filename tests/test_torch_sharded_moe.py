@@ -273,8 +273,8 @@ def test_layout_of_the_moe_cells():
     SERVE_BIG_RULES and long_500k under LONG_SERVE_BIG_RULES: its
     140.6e9 weights do not replicate over "data"), its int8-cache cells
     gathered; both reduced configs' cells are sharded on every test mesh,
-    under either serving rule set; a decoder with shared experts stays
-    gathered."""
+    under either serving rule set; so is a decoder with shared experts
+    (``tests/test_torch_sharded_mla.py``)."""
     cfg = get_config("mixtral-8x22b")
     int8 = RunFlags(cache_dtype="int8")
     for mesh in (SINGLE, MULTI):
@@ -296,7 +296,7 @@ def test_layout_of_the_moe_cells():
                     assert steps.layout(small, shape, mesh) == "sharded"
     shared = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, n_shared_experts=1))
-    assert steps.layout(shared, SHAPES["train_4k"], SINGLE) == "gathered"
+    assert steps.layout(shared, SHAPES["train_4k"], SINGLE) == "sharded"
 
 
 @pytest.mark.parametrize("arch,data,model,route", [

@@ -182,13 +182,14 @@ def test_sharded_serving_matches_the_jax_reference(runs, world, data, model,
 def test_layout_of_the_serving_cells():
     """The dense decoders' prefill_32k and decode_32k cells are sharded
     on both production meshes and on the test meshes, and so are
-    mixtral-8x22b's (``tests/test_torch_sharded_moe.py``); so are their
-    long_500k cells (one row, its length over every mesh axis:
-    ``tests/test_torch_sharded_long.py``; the matrix runs it for gemma3-1b
-    and Mixtral alone, ``shape_applicable``); an int8 cache and every
-    other arch's serving cells are gathered, recurrentgemma-9b's and
-    xlstm-125m's long_500k too; so is a cell whose cache length does not
-    split over "model"."""
+    mixtral-8x22b's (``tests/test_torch_sharded_moe.py``) and
+    deepseek-v2-236b's (``tests/test_torch_sharded_mla.py``); so are the
+    first two's long_500k cells (one row, its length over every mesh
+    axis: ``tests/test_torch_sharded_long.py``; the matrix runs it for
+    gemma3-1b and Mixtral alone, ``shape_applicable``); an int8 cache
+    and every other arch's serving cells are gathered, deepseek-v2's,
+    recurrentgemma-9b's and xlstm-125m's long_500k too; so is a cell
+    whose cache length does not split over "model"."""
     int8 = RunFlags(cache_dtype="int8")
     for arch in ARCHS:
         cfg = get_config(arch)
@@ -197,7 +198,9 @@ def test_layout_of_the_serving_cells():
                 if shape.kind == "train":
                     continue
                 want = "sharded" if arch in DENSE + ("mixtral-8x22b",) \
-                    and sname in SERVING + ("long_500k",) else "gathered"
+                    and sname in SERVING + ("long_500k",) or \
+                    arch == "deepseek-v2-236b" and sname in SERVING \
+                    else "gathered"
                 assert steps.layout(cfg, shape, mesh) == want, (arch, sname)
                 assert steps.layout(cfg, shape, mesh, int8) == "gathered"
     for arch in DENSE:

@@ -84,15 +84,17 @@ def test_layout_is_chosen_from_the_config():
     decode_32k and long_500k cells are sharded on both production meshes
     (the serving ones: ``tests/test_torch_sharded_serve.py``, Mixtral's:
     ``tests/test_torch_sharded_moe.py``, long_500k's:
-    ``tests/test_torch_sharded_long.py``); every other arch's cells are
-    gathered, and so is a train cell whose sequence does not split over
-    "model"."""
+    ``tests/test_torch_sharded_long.py``), and deepseek-v2-236b's but
+    long_500k (``tests/test_torch_sharded_mla.py``); every other arch's
+    cells are gathered, and so is a train cell whose sequence does not
+    split over "model"."""
     for arch in ARCHS:
         cfg = get_config(arch)
         for mesh in (FakeMesh({"data": 16, "model": 16}),
                      FakeMesh({"pod": 2, "data": 16, "model": 16})):
             for sname, shape in SHAPES.items():
                 want = "sharded" if arch in DENSE + ("mixtral-8x22b",) \
+                    or arch == "deepseek-v2-236b" and sname != "long_500k" \
                     else "gathered"
                 assert steps.layout(cfg, shape, mesh) == want, (arch, sname)
     cfg = get_reduced("granite-20b")

@@ -430,7 +430,17 @@ Phases, in order:
       MoE FFN are plain PyTorch, so no kernel launches, traced and real;
       the faults that must miss being the MLA scores made whole (train,
       prefill) and the latent cache held whole on every model rank
-      (decode); then the decode
+      (decode); then internvl2-26b x train_4k, prefill_32k and
+      decode_32k (at row 2,047) at 2 of its 48 layers, full width, bf16,
+      in the sharded layout the same way (3 of the 48 query heads over
+      one K/V head a rank; the train residual 272 of the 4,352 rows of
+      [256 prefix rows; 4,096 tokens], re-blocked by an all-to-all each
+      way in and out; the prefill cache 2,064 of its 33,024 rows; 2 / 1
+      sm90 flash and 1 split decode a layer), each peak within 0.5 % of
+      its trace, the faults that must miss being the residual gathered
+      whole with the loss over every token (train), the whole length
+      kept as cache rows (prefill) and the decode's out-of-place writes;
+      then the decode
       wrapper (with the fake branch's tests) beside its raw kernel on
       the same rotated inputs at Qwen's B = 4, T = 4,096, and its host
       time a call; one JSON line for the phase;
@@ -491,7 +501,8 @@ took 89 s on the slower host); Mixtral's sharded cells in phase 24.3
 (six traces of 4 layers and three real steps) take about 25 s, and
 phase 11 no longer profiles its launcher in their place; the long_500k
 cells (four traces and two real steps) about 10 s; deepseek-v2-236b's
-(six traces of 2 layers and three real steps) about 25 s.  It also
+(six traces of 2 layers and three real steps) about 25 s;
+internvl2-26b's (the same) about 11 s.  It also
 exits non-zero without a CUDA device.  ``python3 chip_smoke.py --metering`` stops after phase 4d and
 prints the metering kernels' figures and the stack's walls and launches
 as two JSON lines instead of the last two;
@@ -1161,6 +1172,9 @@ SM90_CASES = (
     (1, 3, 1, 8192, 8192, 128, 4096, False, True),
     (2, 8, 2, 300, 200, 128, None, False, False),
     (2, 4, 4, 200, 300, 64, 64, False, False),
+    # internvl2-26b's sharded prefill rank shape (3 query heads over one
+    # K/V head) at its train cell's 4,352 rows (256 prefix + 4,096 tokens)
+    (2, 3, 1, 4352, 4352, 128, None, True, True),
 )
 
 
@@ -5830,7 +5844,6 @@ DRY_SERVING = (("granite-20b", "decode_32k", "single"),
 # MOE_LAYERS of its 56 layers (full width, bf16); the decode at MOE_POS,
 # the last row of its 4,096 window's second 2,048-row block, so that
 # rank 0 reads all of its block
-DRY_MOE = ("train_4k", "prefill_32k", "decode_32k")
 MOE_ARCH = "mixtral-8x22b"
 MOE_LAYERS = 4
 MOE_POS = 4095
@@ -5947,11 +5960,16 @@ def _rank0_inputs(cfg, shape, mesh, pos=None):
         return tree_map(laid_out, t, specs[name], shards[name])
 
     def tokens(name):
+        # token leaves drawn as tokens, a VLM's prefix embeddings as
+        # unit normals
         toks = tree_map(lambda s, sh: s, specs[name], shards[name])
         leaves = toks.items() if isinstance(toks, dict) else [(None, toks)]
-        out = {k: _tokens(cfg, *local(s, shards[name][k] if k else
-                                      shards[name]).shape, 70 + i)
-               for i, (k, s) in enumerate(leaves)}
+        out = {}
+        for i, (k, s) in enumerate(leaves):
+            dims = local(s, shards[name][k] if k else shards[name]).shape
+            out[k] = _randn(dims, 70 + i, s.dtype, torch) \
+                if s.dtype.is_floating_point else \
+                _tokens(cfg, *dims, 70 + i)
         out = out if isinstance(toks, dict) else out[None]
         return tree_map(laid_out, out, specs[name], shards[name])
 
@@ -6281,23 +6299,24 @@ def _relaid(**entries):
         steps.rules_for, steps.layout = rules_for, layout
 
 
-def check_moe_rank0(card):
-    """Phase 24.3, MoE: mixtral-8x22b's DRY_MOE cells on the (16, 16)
-    mesh in the sharded layout at MOE_LAYERS of its 56 layers (full
-    width, bf16), each traced as the dry run traces it and then run for
-    real as rank 0 of a ``fake`` group of 256 on the card (the weights
-    drawn at their local shapes; the collectives complete at once and
-    return nothing, so the values are not checked).  The cut takes the
-    full depth's rules (``_rules_of``: SERVE_BIG_RULES at serve time)
-    and the train cell one microbatch (the dry run's full-depth row
-    takes 4; on a fake group a gathered batch is uninitialised memory,
-    whose tokens would index the table out of range); the decode cell
-    sits at MOE_POS.  The launches (2 sm90 flash a layer in train, 1 in
-    prefill, 1 decode a layer on the plan's route for rank 0's 2,048-row
-    block) and routes traced = real, the traced peak within DRY_PEAK_TOL
-    of ``max_memory_allocated``; the trace with the experts' weights
-    gathered whole over "model" (``_whole_experts``) must miss the peak
-    gate."""
+def _check_cut_rank0(arch, layers, pos, faults, card, gate=DRY_PEAK_TOL):
+    """Phase 24.3's check of ``arch``'s train_4k, prefill_32k and
+    decode_32k cells on the (16, 16) mesh in the sharded layout at
+    ``layers`` of its layers (full width, bf16), each traced as the dry
+    run traces it and then run for real as rank 0 of a ``fake`` group of
+    256 on the card (the weights, and rank 0's cache block and a VLM's
+    prefix block, drawn at their local shapes; the collectives complete
+    at once and return nothing, so the values are not checked).  The cut
+    takes the full depth's rules (``_rules_of``), the train cell one
+    microbatch (the dry run's full-depth row may take more; on a fake
+    group a gathered batch is uninitialised memory, whose tokens would
+    index the table out of range), the decode cell ``pos``.  The
+    launches (attention: 2 sm90 flash a layer in train, 1 in prefill, 1
+    decode a layer on the plan's route for rank 0's 2,048-row block;
+    MLA: none) and routes traced = real, a VLM's train trace four
+    all-to-alls (its re-blocking, in and out, each way), the traced peak
+    within ``gate`` of ``max_memory_allocated``; the trace with the
+    planted fault ``faults[kind]`` must miss the peak gate."""
     import torch
 
     from repro_torch.configs import get_config
@@ -6305,57 +6324,68 @@ def check_moe_rank0(card):
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import SHAPES
-    cfg = cut_depth(MOE_ARCH, MOE_LAYERS, torch.bfloat16)
+    from repro_torch.models import Mixer
+    full = get_config(arch)
+    cfg = cut_depth(arch, layers, torch.bfloat16)
     n = cfg.n_layers
+    mla = any(b.mixer == Mixer.MLA for g in cfg.groups for b in g.pattern)
     res = {}
-    for shape_name in DRY_MOE:
+    for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
         shape = SHAPES[shape_name]
-        pos = MOE_POS if shape.kind == "decode" else None
+        at = pos if shape.kind == "decode" else None
+        fault = faults[shape.kind]
         t0 = time.perf_counter()
-        with _rules_of(get_config(MOE_ARCH)), dryrun.fake_group(256):
+        with _rules_of(full), dryrun.fake_group(256):
             mesh = make_production_mesh(
                 device_type=dryrun.tensor_device("cuda"))
-            traced = dryrun.trace_cell(cfg, shape, mesh, pos=pos,
+            traced = dryrun.trace_cell(cfg, shape, mesh, pos=at,
                                        mesh_name="single")
             assert traced["layout"] == "sharded", traced["layout"]
-            with _whole_experts():
-                bad = dryrun.trace_cell(cfg, shape, mesh, pos=pos,
+            with fault():
+                bad = dryrun.trace_cell(cfg, shape, mesh, pos=at,
                                         mesh_name="single")
-            real = _rank0_step(cfg, shape, mesh, pos)
-        if shape.kind == "decode":
-            block = shape.seq_len // 16
+            real = _rank0_step(cfg, shape, mesh, at)
+        if mla:
+            want = {}
+        elif shape.kind == "decode":
             way = "split" if dmod.plan(shape.global_batch // 16,
-                                       cfg.n_heads, cfg.n_kv_heads, block,
-                                       cfg.head_dim_,
+                                       cfg.n_heads, cfg.n_kv_heads,
+                                       shape.seq_len // 16, cfg.head_dim_,
                                        dmod.FAKE_SMS).splits > 1 \
                 else "single"
-            op, want = "decode_attention", {way: n}
+            want = {"decode_attention": {way: n}}
         else:
-            op = "flash_attention"
-            want = {"sm90": 2 * n if shape.kind == "train" else n}
+            want = {"flash_attention": {
+                "sm90": 2 * n if shape.kind == "train" else n}}
         assert traced["kernel_launches"] == real["launches"] == {
-            op: sum(want.values())}, (shape_name, traced["kernel_launches"],
-                                      real["launches"])
+            op: sum(r.values()) for op, r in want.items()}, (
+            shape_name, traced["kernel_launches"], real["launches"])
         assert traced["kernel_routes"] == real["routes"], (
             shape_name, traced["kernel_routes"], real["routes"])
-        assert real["routes"][op] == want, (shape_name, real["routes"])
+        assert real["routes"] == {op: want.get(op, {})
+                                  for op in real["routes"]}, (
+            shape_name, real["routes"])
+        if cfg.n_prefix_embeddings and shape.kind == "train":
+            assert traced["collective_counts"]["all-to-all"] == 4, \
+                traced["collective_counts"]
         gap = _gap(traced["peak_device_bytes"], real["peak_bytes"])
         miss = _gap(bad["peak_device_bytes"], real["peak_bytes"])
-        assert gap <= DRY_PEAK_TOL, (shape_name, traced["peak_device_bytes"],
-                                     real["peak_bytes"])
-        assert miss > DRY_PEAK_TOL, (
-            f"the _whole_experts trace passes the peak gate of "
+        assert gap <= gate, (shape_name, traced["peak_device_bytes"],
+                             real["peak_bytes"])
+        assert miss > gate, (
+            f"the {fault.__name__} trace passes the peak gate of "
             f"{shape_name}", bad["peak_device_bytes"], real["peak_bytes"])
         wall = time.perf_counter() - t0
-        print(f"sharded {MOE_ARCH} x {shape_name} rank 0 of single "
-              f"(16, 16), {n} of 56 layers bf16: step {real['ms']:.3f} ms "
-              f"({card}); launches {real['launches']} routes "
-              f"{real['routes']} traced and real; peak "
+        print(f"sharded {arch} x {shape_name} rank 0 of single (16, 16), "
+              f"{n} of {full.n_layers} layers bf16: step "
+              f"{real['ms']:.3f} ms ({card}); launches {real['launches']} "
+              f"routes {real['routes']} traced and real; peak "
               f"{traced['peak_device_bytes']:,} B traced vs "
               f"{real['peak_bytes']:,} B max_memory_allocated (gap "
-              f"{100 * gap:.3f} %, gate {100 * DRY_PEAK_TOL:.0f} %; {card});"
-              f" the _whole_experts trace {bad['peak_device_bytes']:,} B "
-              f"(gap {100 * miss:.1f} %); useful-FLOP ratio "
+              f"{100 * gap:.3f} %, gate {100 * gate:.1f} %; {card}); the "
+              f"{fault.__name__} trace {bad['peak_device_bytes']:,} B (gap "
+              f"{100 * miss:.1f} %); collectives "
+              f"{traced['collective_counts']}; useful-FLOP ratio "
               f"{traced['useful_flops_ratio']:.3f}; traces "
               f"{traced['trace_s']:.3f} / {bad['trace_s']:.3f} s; "
               f"{wall:.3f} s")
@@ -6364,12 +6394,21 @@ def check_moe_rank0(card):
             "launches": real["launches"], "routes": real["routes"],
             "predicted_peak": traced["peak_device_bytes"],
             "real_peak": real["peak_bytes"], "peak_gap": gap,
-            "fault": "_whole_experts",
+            "fault": fault.__name__,
             "fault_peak": bad["peak_device_bytes"], "fault_gap": miss,
             "useful_flops_ratio": traced["useful_flops_ratio"],
             "collective_counts": traced["collective_counts"],
             "trace_s": traced["trace_s"], "wall_s": wall, "card": card}
     return res
+
+
+def check_moe_rank0(card):
+    """Phase 24.3, MoE: mixtral-8x22b's three cells at MOE_LAYERS of its
+    56 layers (``_check_cut_rank0``: serving under the full depth's
+    SERVE_BIG_RULES, the decode at MOE_POS); the fault for every cell the
+    experts' weights gathered whole over "model" (``_whole_experts``)."""
+    return _check_cut_rank0(MOE_ARCH, MOE_LAYERS, MOE_POS, dict.fromkeys(
+        ("train", "prefill", "decode"), _whole_experts), card)
 
 
 # deepseek-v2-236b's sharded cells, run as rank 0 of the (16, 16) mesh
@@ -6378,7 +6417,6 @@ def check_moe_rank0(card):
 # and a 192-wide block of the shared experts' ffn a rank; the decode at
 # MLA_POS, the last row of rank 0's 2,048-row latent cache block, so
 # that rank 0 reads all of it
-DRY_MLA = ("train_4k", "prefill_32k", "decode_32k")
 MLA_ARCH = "deepseek-v2-236b"
 MLA_LAYERS = 2
 MLA_POS = 2047
@@ -6414,81 +6452,15 @@ def _latent_whole():
 
 
 def check_mla_rank0(card):
-    """Phase 24.3, MLA: deepseek-v2-236b's DRY_MLA cells on the (16, 16)
-    mesh in the sharded layout at MLA_LAYERS of its 60 layers (full
-    width, bf16), each traced as the dry run traces it and then run for
-    real as rank 0 of a ``fake`` group of 256 on the card (the weights
-    drawn at their local shapes; the collectives complete at once and
-    return nothing, so the values are not checked).  The cut takes the
-    full depth's rules (``_rules_of``: SERVE_BIG_RULES at serve time),
-    the train cell one microbatch (as ``check_moe_rank0``), the decode
-    cell MLA_POS.  MLA and the MoE FFN are plain PyTorch: no kernel
-    launches, traced = real; the traced peak within DRY_PEAK_TOL of
-    ``max_memory_allocated``; the traces with a planted fault must miss
-    the peak gate (train and prefill: the MLA scores whole,
-    ``_whole_mla_scores``; decode: the latent cache whole on every model
-    rank, ``_latent_whole``)."""
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.launch.steps import SHAPES
-    cfg = cut_depth(MLA_ARCH, MLA_LAYERS, torch.bfloat16)
-    n = cfg.n_layers
-    res = {}
-    for shape_name in DRY_MLA:
-        shape = SHAPES[shape_name]
-        pos = MLA_POS if shape.kind == "decode" else None
-        fault = _latent_whole if shape.kind == "decode" else \
-            _whole_mla_scores
-        t0 = time.perf_counter()
-        with _rules_of(get_config(MLA_ARCH)), dryrun.fake_group(256):
-            mesh = make_production_mesh(
-                device_type=dryrun.tensor_device("cuda"))
-            traced = dryrun.trace_cell(cfg, shape, mesh, pos=pos,
-                                       mesh_name="single")
-            assert traced["layout"] == "sharded", traced["layout"]
-            with fault():
-                bad = dryrun.trace_cell(cfg, shape, mesh, pos=pos,
-                                        mesh_name="single")
-            real = _rank0_step(cfg, shape, mesh, pos)
-        none = {op: {} for op in real["routes"]}
-        assert traced["kernel_launches"] == real["launches"] == {}, (
-            shape_name, traced["kernel_launches"], real["launches"])
-        assert traced["kernel_routes"] == real["routes"] == none, (
-            shape_name, traced["kernel_routes"], real["routes"])
-        gap = _gap(traced["peak_device_bytes"], real["peak_bytes"])
-        miss = _gap(bad["peak_device_bytes"], real["peak_bytes"])
-        assert gap <= DRY_PEAK_TOL, (shape_name, traced["peak_device_bytes"],
-                                     real["peak_bytes"])
-        assert miss > DRY_PEAK_TOL, (
-            f"the {fault.__name__} trace passes the peak gate of "
-            f"{shape_name}", bad["peak_device_bytes"], real["peak_bytes"])
-        wall = time.perf_counter() - t0
-        print(f"sharded {MLA_ARCH} x {shape_name} rank 0 of single "
-              f"(16, 16), {n} of 60 layers bf16: step {real['ms']:.3f} ms "
-              f"({card}); launches {real['launches']} routes "
-              f"{real['routes']} traced and real; peak "
-              f"{traced['peak_device_bytes']:,} B traced vs "
-              f"{real['peak_bytes']:,} B max_memory_allocated (gap "
-              f"{100 * gap:.3f} %, gate {100 * DRY_PEAK_TOL:.0f} %; {card});"
-              f" the {fault.__name__} trace {bad['peak_device_bytes']:,} B "
-              f"(gap {100 * miss:.1f} %); useful-FLOP ratio "
-              f"{traced['useful_flops_ratio']:.3f}; traces "
-              f"{traced['trace_s']:.3f} / {bad['trace_s']:.3f} s; "
-              f"{wall:.3f} s")
-        res[shape_name] = {
-            "layers": n, "layout": traced["layout"], "step_ms": real["ms"],
-            "launches": real["launches"], "routes": real["routes"],
-            "predicted_peak": traced["peak_device_bytes"],
-            "real_peak": real["peak_bytes"], "peak_gap": gap,
-            "fault": fault.__name__,
-            "fault_peak": bad["peak_device_bytes"], "fault_gap": miss,
-            "useful_flops_ratio": traced["useful_flops_ratio"],
-            "collective_counts": traced["collective_counts"],
-            "trace_s": traced["trace_s"], "wall_s": wall, "card": card}
-    return res
+    """Phase 24.3, MLA: deepseek-v2-236b's three cells at MLA_LAYERS of
+    its 60 layers (``_check_cut_rank0``: serving under the full depth's
+    SERVE_BIG_RULES, the decode at MLA_POS; MLA and the MoE FFN are plain
+    PyTorch, so no kernel launches); the faults the MLA scores whole
+    (train, prefill: ``_whole_mla_scores``) and the latent cache whole on
+    every model rank (decode: ``_latent_whole``)."""
+    return _check_cut_rank0(MLA_ARCH, MLA_LAYERS, MLA_POS, {
+        "train": _whole_mla_scores, "prefill": _whole_mla_scores,
+        "decode": _latent_whole}, card)
 
 
 # the long_500k cells in the sharded layout (LONG_SERVE_RULES /
@@ -6611,6 +6583,67 @@ def check_long_rank0(card):
             "collective_counts": traced["collective_counts"],
             "trace_s": traced["trace_s"], "wall_s": wall, "card": card}
     return res
+
+
+# internvl2-26b's sharded cells, run as rank 0 of the (16, 16) mesh at
+# VLM_LAYERS of its 48 layers (full width, bf16, the full depth's
+# SERVE_RULES): 3 of the 48 query heads over one of the 8 K/V heads a
+# rank; train's residual 272 of the 4,352 rows of [256 prefix rows; 4,096
+# tokens] (re-blocked from and to the tokens' 256-row blocks), the
+# prefill cache 2,064 of its 33,024 rows; the decode at VLM_POS, the last
+# row of rank 0's 2,048-row cache block, so that rank 0 reads all of it.
+# Each peak within VLM_PEAK_TOL of its trace
+VLM_ARCH = "internvl2-26b"
+VLM_LAYERS = 2
+VLM_POS = 2047
+VLM_PEAK_TOL = 0.005
+
+
+@contextlib.contextmanager
+def _whole_residual():
+    """A planted layout fault of a VLM's sharded train body, modelled in
+    the trace: the concatenated [prefix; tokens] sequence gathered whole
+    on every rank instead of re-blocked (each rank's block a view of the
+    whole, which its layers' checkpoints keep alive), and the loss over
+    every token on every rank, as a body that left the residual whole
+    would take it."""
+    import torch
+
+    from repro_torch.models import model
+    real_in, real_out, real_xent = model._prefix_in, model._prefix_out, \
+        model.softmax_xent
+
+    def whole_in(pre, x, tp):
+        full = torch.cat([tp.concat(pre, 1), tp.concat(x, 1)], 1)
+        n = full.shape[1] // tp.size
+        return full[:, tp.index * n:(tp.index + 1) * n]
+
+    def whole_out(x, n_prefix, seq, tp):
+        return tp.concat(x, 1)[:, n_prefix:]
+
+    def whole_xent(logits, labels, mask=None):
+        tp = model.sharding.model_shards()
+        return real_xent(logits, tp.concat(labels, 1), mask)
+
+    model._prefix_in, model._prefix_out = whole_in, whole_out
+    model.softmax_xent = whole_xent
+    try:
+        yield
+    finally:
+        model._prefix_in, model._prefix_out, model.softmax_xent = \
+            real_in, real_out, real_xent
+
+
+def check_vlm_rank0(card):
+    """Phase 24.3, VLM: internvl2-26b's three cells at VLM_LAYERS of its
+    48 layers (``_check_cut_rank0``, each peak within VLM_PEAK_TOL, the
+    decode at VLM_POS); the faults the residual gathered whole
+    (``_whole_residual``), the whole length kept as cache rows
+    (``_whole_length_writes``) and the decode's blocks written out of
+    place (``_out_of_place_writes``)."""
+    return _check_cut_rank0(VLM_ARCH, VLM_LAYERS, VLM_POS, {
+        "train": _whole_residual, "prefill": _whole_length_writes,
+        "decode": _out_of_place_writes}, card, VLM_PEAK_TOL)
 
 
 def time_decode_wrapper(stats):
@@ -6745,6 +6778,7 @@ def drive_dryrun(stats):
     serving = check_serving_rank0(_card_line(), cell)
     moe = check_moe_rank0(_card_line())
     mla = check_mla_rank0(_card_line())
+    vlm = check_vlm_rank0(_card_line())
     long = check_long_rank0(_card_line())
     timing = time_decode_wrapper(stats)
     _possible(timing["wrapper_ms"], stats["decode_attention"]["bound_ms"]
@@ -6765,7 +6799,8 @@ def drive_dryrun(stats):
     return {"cells": res, "production": {
         "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
         "sharded_rank0": sharded, "serving_rank0": serving,
-        "moe_rank0": moe, "mla_rank0": mla, "long_rank0": long,
+        "moe_rank0": moe, "mla_rank0": mla, "vlm_rank0": vlm,
+        "long_rank0": long,
         "decode_wrapper": timing,
         "wall_s": wall}
 
@@ -7212,10 +7247,13 @@ def main():
             row["dryrun_launches"]["sharded_prefill_rank0"] = \
                 dry["serving_rank0"]["prefill_32k"]["launches"][
                     "flash_attention"]
-            # mixtral-8x22b's sharded cells at MOE_LAYERS layers
+            # mixtral-8x22b's and internvl2-26b's sharded cells at
+            # MOE_LAYERS / VLM_LAYERS layers
             for cell in ("train_4k", "prefill_32k"):
                 row["dryrun_launches"][f"moe_{cell}_rank0"] = \
                     dry["moe_rank0"][cell]["launches"]["flash_attention"]
+                row["dryrun_launches"][f"vlm_{cell}_rank0"] = \
+                    dry["vlm_rank0"][cell]["launches"]["flash_attention"]
         if row["name"] == "decode_attention":
             # the sharded decode cell's rank-0 step (with the log-sum-exp
             # output), and phase 25's checks and times of that output
@@ -7224,6 +7262,9 @@ def main():
                     "decode_attention"]
             row["dryrun_launches"]["moe_decode_32k_rank0"] = \
                 dry["moe_rank0"]["decode_32k"]["launches"][
+                    "decode_attention"]
+            row["dryrun_launches"]["vlm_decode_32k_rank0"] = \
+                dry["vlm_rank0"]["decode_32k"]["launches"][
                     "decode_attention"]
             # the long_500k cells' rank-0 steps (gemma3-1b, Mixtral)
             for arch, cell in dry["long_rank0"].items():

@@ -50,7 +50,10 @@ sequence parallelism).  The collectives carry their gradients (an
 all-gather's is a reduce-scatter, and back), so a gathered weight's
 gradient returns to its block by a reduce-scatter; ``reduce_grads``
 then sums each gradient over the axes its leaf is replicated over,
-where each rank computed a part of it.
+where each rank computed a part of it.  ``reblock`` moves rows of a
+sequence between two block layouts by one uneven all-to-all (a VLM's
+residual, whose blocks are the concatenated [prefix; tokens]
+sequence's, not the tokens').
 Inside that body the model's tensors are plain local tensors and
 ``shard_hint`` leaves them as they are: the hint sites' layouts are the
 body's own (the residual split by rows and sequence, the logits of the
@@ -444,6 +447,92 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather(g, ctx.dim, ctx.group), None, None
 
 
+Rows = Sequence[Tuple[int, int]]
+
+
+def _runs(have: Rows, want: Rows) -> List[Tuple[int, int]]:
+    """The rows in both ``have`` and ``want`` (each [lo, hi) runs of a
+    sequence's rows, ascending) as [lo, hi) runs, ascending."""
+    return sorted((max(a, c), min(b, d)) for a, b in have for c, d in want
+                  if max(a, c) < min(b, d))
+
+
+def _place(rows: Rows, i: int) -> int:
+    """The place of row ``i`` in a block that holds ``rows`` in order."""
+    n = 0
+    for a, b in rows:
+        if a <= i < b:
+            return n + i - a
+        n += b - a
+    raise ValueError(f"row {i} is not in {list(rows)}")
+
+
+def _count(rows: Rows) -> int:
+    return sum(b - a for a, b in rows)
+
+
+def _taken(x: torch.Tensor, rows: Rows, runs: Rows) -> torch.Tensor:
+    """The rows of ``runs`` of ``x`` (dim 0; ``x`` holds ``rows``), in
+    run order, as one contiguous tensor."""
+    parts = [x.narrow(0, _place(rows, a), b - a) for a, b in runs]
+    return torch.cat(parts) if parts else \
+        x.new_empty((0,) + tuple(x.shape[1:]))
+
+
+def _laid(buf: torch.Tensor, runs: Rows, rows: Rows) -> torch.Tensor:
+    """``buf`` (dim 0: the rows of ``runs``, in run order) laid out as
+    ``rows``, which the runs cover once each; ``buf`` itself where it
+    is so already."""
+    if _count(runs) != _count(rows):
+        raise ValueError(f"{list(runs)} do not cover {list(rows)}")
+    starts = [0]
+    for a, b in runs:
+        starts.append(starts[-1] + b - a)
+    order = sorted(range(len(runs)), key=lambda i: _place(rows, runs[i][0]))
+    if order == list(range(len(runs))):
+        return buf
+    return torch.cat([buf.narrow(0, starts[i], runs[i][1] - runs[i][0])
+                      for i in order])
+
+
+class _Reblock(torch.autograd.Function):
+    """``apply(x, dim, group, index, src, dst)``: ``x`` holds, along
+    ``dim``, the rows ``src[index]`` of a sequence (rank ``index`` of
+    ``group``); the result holds ``dst[index]``, each row sent to the
+    rank whose ``dst`` block holds it by one uneven all-to-all (a blocking
+    c10d call, as the gathers are); the gradient goes back by the reverse
+    exchange."""
+
+    @staticmethod
+    def _exchange(x, dim, group, have, give, got, mine):
+        """Send this rank's rows ``have`` (of ``x``) to each peer as
+        ``give[peer]`` says; receive ``got[peer]`` from each; lay them
+        out as ``mine``."""
+        xm = x.movedim(dim, 0)
+        send = _taken(xm, have, [r for runs in give for r in runs])
+        out = xm.new_empty((sum(_count(r) for r in got),) + xm.shape[1:])
+        dist.all_to_all_single(out, send, [_count(r) for r in got],
+                               [_count(r) for r in give], group=group)
+        return _laid(out, [r for runs in got for r in runs],
+                     mine).movedim(0, dim)
+
+    @staticmethod
+    def forward(ctx, x, dim, group, index, src, dst):
+        size = len(src)
+        ctx.dim, ctx.group = dim, group
+        ctx.src, ctx.dst = src[index], dst[index]
+        ctx.give = [_runs(src[index], dst[q]) for q in range(size)]
+        ctx.got = [_runs(src[r], dst[index]) for r in range(size)]
+        return _Reblock._exchange(x, dim, group, ctx.src, ctx.give,
+                                  ctx.got, ctx.dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Reblock._exchange(g, ctx.dim, ctx.group, ctx.dst, ctx.got,
+                                  ctx.give, ctx.src), \
+            None, None, None, None, None
+
+
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -516,6 +605,20 @@ class ModelShards:
         if self.size == 1:
             return x
         return _AllGather.apply(x, dim, self._group(self.axis))
+
+    def reblock(self, x: torch.Tensor, src: Sequence[Rows],
+                dst: Sequence[Rows], dim: int = 1) -> torch.Tensor:
+        """``x``, which holds along ``dim`` the rows ``src[index]`` of a
+        sequence ([lo, hi) runs, ascending: ``src`` and ``dst`` give every
+        rank's of the axis), re-blocked to hold ``dst[index]``: each row
+        goes to the rank whose ``dst`` block holds it, by one uneven
+        all-to-all over the axis (the reverse exchange in the backward).
+        No rank holds more than its own rows.  One rank holds every row
+        in order, and ``x`` is returned as it is."""
+        if self.size == 1:
+            return x
+        return _Reblock.apply(x, dim, self._group(self.axis), self.index,
+                              src, dst)
 
     def gather(self, t: torch.Tensor, spec: Sequence, whole: bool = False
                ) -> torch.Tensor:

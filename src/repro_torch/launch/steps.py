@@ -23,7 +23,8 @@ two layouts (``layout``), chosen from the config and the mesh:
 
 * ``"sharded"``: the train cell of a decoder whose every block is
   attention + a dense FFN (qwen2-5-7b, gemma3-1b, granite-20b,
-  command-r-35b) or a routed MoE FFN (mixtral-8x22b), or MLA + a MoE
+  command-r-35b, and internvl2-26b with its VLM prefix) or a routed MoE
+  FFN (mixtral-8x22b), or MLA + a MoE
   FFN with shared experts (deepseek-v2-236b; MLA only where its heads
   divide "model", so not minicpm3-4b's 40 on 16), laid out as GSPMD
   partitions the reference's step under ``TRAIN_RULES``.  Each rank
@@ -34,7 +35,11 @@ two layouts (``layout``), chosen from the config and the mesh:
   the residual between blocks is split by rows over the batch's axes
   and by sequence over "model", gathered before the column-parallel
   products and reduce-scattered after the row-parallel ones
-  (``sharding.ModelShards``, ``models/model.py``);
+  (``sharding.ModelShards``, ``models/model.py``); a VLM's residual is
+  the concatenated [prefix; tokens] sequence's blocks, re-blocked from
+  the tokens' and prefix's blocks by one all-to-all and its token rows
+  back to the tokens' blocks for the loss by another
+  (``ModelShards.reblock``);
   MLA projects the gathered sequence through its whole "lora" weights
   and runs the rank's heads over it, query-chunked
   (``models/attention._tp_mla``); the MoE FFN routes whole dispatch
@@ -44,7 +49,8 @@ two layouts (``layout``), chosen from the config and the mesh:
   the loss, the router's statistics, the global norm and the int8 scale
   are reduced over the shards.
 * ``"sharded"`` also runs the ``prefill_32k`` / ``decode_32k`` cells
-  of the same six decoders with a bf16 or float32 cache, laid out as
+  of the same seven decoders with a bf16 or float32 cache (a VLM's
+  prefill cache the prefix's rows longer, the prefix whole), laid out as
   the reference's step under ``SERVE_RULES`` or, for an arch whose
   weights cannot replicate over "data" (mixtral-8x22b,
   deepseek-v2-236b), ``SERVE_BIG_RULES``: each rank keeps its block of
@@ -74,7 +80,7 @@ two layouts (``layout``), chosen from the config and the mesh:
   every length block are merged in block order (``ServeShards.kv_axes``);
   the logits come back ("batch", "vocab"), the row replicated.
 * ``"gathered"``: every other cell (an int8 cache, MLA's one-row
-  cells, the other five archs).  Every weight is gathered whole
+  cells, the other four archs).  Every weight is gathered whole
   (``full_tensor()``: the ZeRO resolution of TRAIN_RULES' ``"embed" ->
   data``, and the tensor-parallel dims gathered too), each rank runs its
   block of the batch's rows (``sharding.BatchShards``: the mesh axes the
@@ -407,9 +413,10 @@ def _donate(dst: DTensor, new: torch.Tensor, s: ParamSpec,
 
 def _attention_decoder(cfg: ArchConfig) -> bool:
     """A decoder-only config whose every block is attention or MLA + a
-    dense FFN or a routed MoE FFN, with or without shared experts (no
-    encoder, cross-attention or prefix embeddings)."""
-    return cfg.encoder is None and cfg.n_prefix_embeddings == 0 and all(
+    dense FFN or a routed MoE FFN, with or without shared experts, and
+    with or without a VLM's prefix embeddings (no encoder or
+    cross-attention)."""
+    return cfg.encoder is None and all(
         b.mixer in (Mixer.ATTN, Mixer.MLA) and b.ffn in (FFN.DENSE, FFN.MOE)
         and not b.cross_attention for g in cfg.groups for b in g.pattern)
 
@@ -433,10 +440,12 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     dense or MoE FFN blocks whose residual, at the reference's block-boundary
     hint ("batch", "seq", None) under TRAIN_RULES, splits its rows over
     every axis but "model" and its sequence over "model" (each rank's
-    tokens its own); for its prefill and decode cells under SERVE_RULES
-    or SERVE_BIG_RULES with a float cache whose length splits over
-    "model" (or no "model" axis to split); and for its decode cells
-    under LONG_SERVE_RULES or LONG_SERVE_BIG_RULES (a batch of one row)
+    tokens its own; a VLM's concatenated [prefix; tokens] sequence and
+    its tokens' both split so); for its prefill and decode cells under
+    SERVE_RULES or SERVE_BIG_RULES with a float cache whose length
+    splits over "model" (or no "model" axis to split); and for its
+    decode cells under LONG_SERVE_RULES or LONG_SERVE_BIG_RULES (a batch
+    of one row)
     with a float cache whose length splits over every mesh axis of more
     than one rank.  A decoder with MLA blocks takes the first two only,
     and only where its heads divide "model" (else, as minicpm3-4b's 40
@@ -461,12 +470,15 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
                 n == 1 or a in kv for a, n in mesh.shape.items())
         return "sharded" if split else "gathered"
     rows = shape.global_batch // max(flags.grad_accum, 1)
-    hint = partition_spec(("batch", "seq", None),
-                          (rows, shape.seq_len, cfg.d_model),
-                          rules_for(shape, cfg), mesh)
-    split = sharding.entry_axes(hint[0]) + sharding.entry_axes(hint[1])
-    if any(n > 1 and a not in split for a, n in mesh.shape.items()):
-        return "gathered"
+    # the residual's sequence (the prefix rows in front of the tokens)
+    # and the tokens' and labels' must both split
+    for seq in {shape.seq_len + cfg.n_prefix_embeddings, shape.seq_len}:
+        hint = partition_spec(("batch", "seq", None),
+                              (rows, seq, cfg.d_model),
+                              rules_for(shape, cfg), mesh)
+        split = sharding.entry_axes(hint[0]) + sharding.entry_axes(hint[1])
+        if any(n > 1 and a not in split for a, n in mesh.shape.items()):
+            return "gathered"
     return "sharded"
 
 

@@ -309,14 +309,57 @@ def _served(params: Tree, tp, *path: str) -> Tree:
     return tp.fsdp(params, *path)
 
 
+def _prefix_rows(n_prefix: int, seq: int, size: int):
+    """Every rank's rows in the sharded train body of a VLM, as [lo, hi)
+    runs of the concatenated [prefix; tokens] sequence of ``n_prefix`` +
+    ``seq`` rows over ``size`` ranks: (the inputs' -- its prefix block,
+    then its token block --, the residual's -- its 1/size of the whole
+    --, the tokens' -- its token block), one list a rank each."""
+    p, t = n_prefix // size, seq // size
+    n = (n_prefix + seq) // size
+    held = [((r * p, (r + 1) * p),
+             (n_prefix + r * t, n_prefix + (r + 1) * t))
+            for r in range(size)]
+    residual = [((r * n, (r + 1) * n),) for r in range(size)]
+    tokens = [((n_prefix + r * t, n_prefix + (r + 1) * t),)
+              for r in range(size)]
+    return held, residual, tokens
+
+
+def _prefix_in(pre: torch.Tensor, x: torch.Tensor, tp) -> torch.Tensor:
+    """The sharded train body's residual from this rank's prefix block
+    ``pre`` [B, P / size, D] and token block ``x`` [B, S / size, D]: its
+    block [r L, (r + 1) L) of the concatenated sequence, L = (P + S) /
+    size (the reference hints the concatenated sequence, whose blocks
+    are not the tokens'), by one all-to-all (``tp.reblock``)."""
+    held, residual, _ = _prefix_rows(pre.shape[1] * tp.size,
+                                     x.shape[1] * tp.size, tp.size)
+    return tp.reblock(torch.cat([pre, x], dim=1), held, residual)
+
+
+def _prefix_out(x: torch.Tensor, n_prefix: int, seq: int, tp
+                ) -> torch.Tensor:
+    """The inverse for the loss: this rank's residual block [B, L, D]
+    without the prefix rows it holds, re-blocked to its token block [B,
+    S / size, D] (the labels' and the reference's logits hint's), by one
+    all-to-all, so that every rank's loss covers as many tokens."""
+    _, residual, tokens = _prefix_rows(n_prefix, seq, tp.size)
+    own = [tuple((max(a, n_prefix), max(b, n_prefix)) for a, b in r)
+           for r in residual]
+    drop = own[tp.index][0][0] - residual[tp.index][0][0]
+    return tp.reblock(x[:, drop:], own, tokens)
+
+
 def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any],
                     tp=None) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Embed tokens, prepend a VLM's prefix embeddings if any.
     Returns (x, positions, n_prefix).  ``tp`` (the sharded train body):
     the tokens are this rank's sequence block, embedded against the
-    table gathered whole; the positions are the whole sequence's.  A
-    ``ServeShards`` (the serving body): the tokens whole, looked up in
-    the rank's block of the table's vocab (``embed``)."""
+    table gathered whole, the prefix this rank's block of it, and the
+    residual its block of the concatenated sequence (``_prefix_in``);
+    the positions are the whole sequence's.  A ``ServeShards`` (the
+    serving body): the tokens and the prefix whole, the tokens looked up
+    in the rank's block of the table's vocab (``embed``)."""
     tokens = batch["tokens"]
     serve = isinstance(tp, sharding.ServeShards)
     if tp is None or serve:
@@ -329,8 +372,12 @@ def _prepare_inputs(params: Tree, cfg: ArchConfig, batch: Dict[str, Any],
     n_prefix = 0
     if cfg.n_prefix_embeddings > 0:
         pre = batch["prefix_embeds"].to(cfg.compute_dtype)
-        n_prefix = pre.shape[1]
-        x = torch.cat([pre, x], dim=1)
+        if tp is None or serve:
+            n_prefix = pre.shape[1]
+            x = torch.cat([pre, x], dim=1)
+        else:
+            n_prefix = pre.shape[1] * tp.size
+            x = _prefix_in(pre, x, tp)
     b, s, _ = x.shape
     if tp is not None and not serve:
         s *= tp.size
@@ -350,7 +397,10 @@ def train_loss(params: Tree, batch: Dict[str, Any], cfg: ArchConfig,
     reference's hint at its block boundary), each layer gathers its
     weights (``_apply_layer``), and the local tokens' logits come from
     the head gathered whole, the reference's ("batch", "seq", "vocab")
-    layout with the vocab whole ("seq" takes "model" first)."""
+    layout with the vocab whole ("seq" takes "model" first).  A VLM's
+    residual holds the rank's block of the concatenated [prefix; tokens]
+    sequence (``_prefix_in``), and after the final norm its token rows
+    go back to the tokens' blocks (``_prefix_out``)."""
     tp = sharding.model_shards()
     x, positions, n_prefix = _prepare_inputs(params, cfg, batch, tp)
     enc_out = None
@@ -364,7 +414,9 @@ def train_loss(params: Tree, batch: Dict[str, Any], cfg: ArchConfig,
     if tp is not None:
         final = tp.fsdp(params, "final_norm")
     x = rmsnorm(final, x, cfg.norm_eps)
-    if n_prefix > 0:
+    if n_prefix > 0 and tp is not None:
+        x = _prefix_out(x, n_prefix, batch["labels"].shape[1] * tp.size, tp)
+    elif n_prefix > 0:
         x = x[:, n_prefix:, :]
     if tp is not None:
         name = "table" if cfg.tie_embeddings else "head"

@@ -30,10 +30,29 @@ RTOL = 1e-5
 
 
 def _batch(cfg, b, s, seed):
+    """Tokens and labels [b, s] from seed ``seed``, and for a VLM its
+    prefix embeddings [b, n_prefix, d_model] (unit normals) from the same
+    stream after them."""
     rng = np.random.default_rng(seed)
-    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
-                                .astype(np.int32))
-            for k in ("tokens", "labels")}
+    out = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                               .astype(np.int32))
+           for k in ("tokens", "labels")}
+    if cfg.n_prefix_embeddings:
+        out["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_prefix_embeddings, cfg.d_model)).astype(np.float32))
+    return out
+
+
+# the residual's rows in the tiny train cells: a VLM's tokens are fewer by
+# its prefix (reduced internvl2: 4 + 28, so that at model 2 and 4 the
+# residual's blocks of 16 and 8 rows are not the tokens' of 14 and 7, and
+# the re-blocking moves rows on every rank)
+TRAIN_ROWS = 32
+
+
+def train_len(cfg):
+    """The tokens of a tiny train cell of ``cfg``."""
+    return TRAIN_ROWS - cfg.n_prefix_embeddings
 
 
 def _close(got, want, label, rtol=RTOL):
@@ -238,7 +257,8 @@ def pipeline_two_stages(rank, world):
 
 # the sharded train body: the dense decoders, the meshes (data, model) of
 # each world size, and the variants held against the unsharded step
-DENSE = ("qwen2-5-7b", "gemma3-1b", "granite-20b", "command-r-35b")
+DENSE = ("qwen2-5-7b", "gemma3-1b", "granite-20b", "command-r-35b",
+         "internvl2-26b")
 MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4))}
 VARIANTS = ("plain", "accum2", "compression")
 SCALE_RTOL = 1e-6          # the int8 scales
@@ -284,7 +304,8 @@ def _sharded_case(arch, mesh, variant):
                                           jit_cell, make_train_step)
     from repro_torch.training import compression as comp
     cfg = get_reduced(arch)
-    shape = ShapeSpec("tiny_train", "train", 32, 4)
+    seq = train_len(cfg)
+    shape = ShapeSpec("tiny_train", "train", seq, 4)
     flags = RunFlags(remat="full", grad_accum=2 if variant == "accum2"
                      else 1)
     packed = variant == "compression"
@@ -293,9 +314,10 @@ def _sharded_case(arch, mesh, variant):
     ref = make_train_step(cfg, OPT, flags, compression=packed)
     got, want = train_state(cfg, packed), train_state(cfg, packed)
     mine, theirs = [], []
+    saved = {"loss": [], "grad_norm": []}
     real = comp._quantize
     for i in range(2):
-        batch = _batch(cfg, 4, 32, 10 + i)
+        batch = _batch(cfg, 4, seq, 10 + i)
         comp._quantize = _quantized(real, mine)
         try:
             got, gm = step(got, batch)
@@ -304,16 +326,23 @@ def _sharded_case(arch, mesh, variant):
         finally:
             comp._quantize = real
         for k in ("loss",) if packed else ("loss", "grad_norm"):
+            saved[k].append(float(gm[k].full_tensor()))
             _close(gm[k].full_tensor(), wm[k], f"{arch} step {i} {k}")
     for key in () if packed else got:
+        saved[key] = {}
         for (path, g), (_, w) in zip(leaves_with_paths(got[key]),
                                      leaves_with_paths(want[key])):
-            _close(g.full_tensor(), w, f"{arch} {key}{path}")
+            saved[key][path] = g.full_tensor()
+            _close(saved[key][path], w, f"{arch} {key}{path}")
     shardings = input_shardings(cfg, shape, mesh)["state"]
     if packed:
         shardings = dict(shardings, ef=shardings["params"])
     _check_blocks(got, shardings, mesh, arch)
     _state_bytes(got, shardings, mesh, arch)
+    if cfg.n_prefix_embeddings and not packed and dist.get_rank() == 0:
+        saved.pop("step")
+        torch.save(saved, OUT / f"train.{mesh.shape['data']}x"
+                   f"{mesh.shape['model']}-{arch}-{variant}.pt")
     if not packed:
         return
     # the int8 codes and scales, leaf by leaf (the params' order, twice)
@@ -334,7 +363,7 @@ def _sharded_case(arch, mesh, variant):
     comp._quantize = _quantized(real, own)
     try:
         jit_cell(cfg, shape, mesh, flags, OPT, compression=True)[0](
-            train_state(cfg, True), _batch(cfg, 4, 32, 10))
+            train_state(cfg, True), _batch(cfg, 4, seq, 10))
     finally:
         comp.reduce_over, comp._quantize = reduce_over, real
     missed = any(abs(sc - wsc) > SCALE_RTOL * abs(wsc)
@@ -342,19 +371,88 @@ def _sharded_case(arch, mesh, variant):
     assert missed, f"{arch}: a rank's own max |g| passes the scale bound"
 
 
+# planted faults of a VLM's sharded train body (meshes with a "model"
+# axis of more than one rank): each rank's residual its own [prefix
+# block; token block], its prefix rows dropped for the loss (no
+# re-blocking); the loss over the token rows of the residual's blocks,
+# the labels cut to match, each rank's mean weighed alike though the
+# ranks hold different numbers of tokens
+VLM_FAULTS = ("per-rank-concat", "residual-block-loss")
+
+
+@contextlib.contextmanager
+def vlm_fault(name):
+    """A planted fault of VLM_FAULTS, patched into ``models/model``."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model
+    real_in, real_out, real_xent = model._prefix_in, model._prefix_out, \
+        model.softmax_xent
+
+    def per_rank_out(x, n_prefix, seq, tp):
+        return x[:, n_prefix // tp.size:]
+
+    rows = {}
+
+    def residual_rows(x, n_prefix, seq, tp):
+        lo, hi = tp.index * x.shape[1], (tp.index + 1) * x.shape[1]
+        rows["tokens"] = max(lo, n_prefix) - n_prefix, hi - n_prefix
+        return x[:, max(n_prefix - lo, 0):]
+
+    def residual_labels(logits, labels, mask=None):
+        lo, hi = rows["tokens"]
+        whole = sharding.model_shards().concat(labels, 1)
+        return real_xent(logits, whole[:, lo:hi], mask)
+
+    if name == "per-rank-concat":
+        model._prefix_in = lambda pre, x, tp: torch.cat([pre, x], dim=1)
+        model._prefix_out = per_rank_out
+    else:
+        model._prefix_out = residual_rows
+        model.softmax_xent = residual_labels
+    try:
+        yield
+    finally:
+        model._prefix_in, model._prefix_out, model.softmax_xent = \
+            real_in, real_out, real_xent
+
+
+def _vlm_fault_case(arch, mesh, fault):
+    """A planted fault must miss: one train step's loss or grad norm
+    farther than 10 x rtol from the unsharded step's."""
+    from repro_torch.launch.steps import ShapeSpec, jit_cell, make_train_step
+    cfg = get_reduced(arch)
+    shape = ShapeSpec("tiny_train", "train", train_len(cfg), 4)
+    batch = _batch(cfg, 4, train_len(cfg), 10)
+    _, wm = make_train_step(cfg, OPT, FLAGS)(train_state(cfg), batch)
+    with vlm_fault(fault):
+        _, gm = jit_cell(cfg, shape, mesh, FLAGS, OPT)[0](train_state(cfg),
+                                                          batch)
+    miss = max(abs(float(gm[k].full_tensor()) - float(wm[k]))
+               / abs(float(wm[k])) for k in ("loss", "grad_norm"))
+    assert miss > 10 * RTOL, f"{fault} passes: {miss}"
+
+
 def sharded_train(rank, world):
     """Every (mesh, arch, variant) case of MESHES[world] x DENSE x
-    VARIANTS; each rank writes its outcome a case to
-    ``OUT / sharded_train.<rank>.json`` (the test reads them)."""
+    VARIANTS, and VLM_FAULTS for the archs with a prefix on the meshes
+    whose "model" axis has more than one rank; each rank writes its
+    outcome a case to ``OUT / sharded_train.<rank>.json`` (the test
+    reads them), rank 0 a VLM's train case's losses, grad norms and
+    whole params and moments to ``OUT / train.<name>.pt``."""
     from repro_torch.launch.mesh import make_host_mesh
     res = {}
     for data, model in MESHES[world]:
         mesh = make_host_mesh(data=data, model=model, device_type="cpu")
         for arch in DENSE:
-            for variant in VARIANTS:
+            faults = VLM_FAULTS if model > 1 and get_reduced(
+                arch).n_prefix_embeddings else ()
+            for variant in VARIANTS + faults:
                 name = f"{data}x{model}-{arch}-{variant}"
                 try:
-                    _sharded_case(arch, mesh, variant)
+                    if variant in VLM_FAULTS:
+                        _vlm_fault_case(arch, mesh, variant)
+                    else:
+                        _sharded_case(arch, mesh, variant)
                     res[name] = "ok"
                 except Exception as e:              # noqa: BLE001
                     res[name] = f"{type(e).__name__}: {e}"
@@ -560,7 +658,9 @@ def serve_inputs(arch, prefill, dtype, pos=None):
     params, first, caches, rest), the step called as ``step(params,
     first, caches, *rest)``: a prompt of PROMPT_LEN tokens into a cache
     of PROMPT_LEN rows, or a token at ``pos`` of a cache of SERVE_LEN
-    rows, SERVE_ROWS rows of batch; caches in ``dtype`` from seed 2."""
+    rows, SERVE_ROWS rows of batch; caches in ``dtype`` from seed 2.  A
+    VLM's prompt carries its prefix embeddings too (``_batch``), and its
+    prefill cache their rows as well."""
     from repro_torch.launch.steps import ShapeSpec, input_specs
     cfg = reduced(arch)
     shape = ShapeSpec("tiny_prefill", "prefill", PROMPT_LEN, SERVE_ROWS) \
@@ -570,7 +670,8 @@ def serve_inputs(arch, prefill, dtype, pos=None):
     params = _serve_params(cfg, specs["params"])
     caches = _filled(specs["caches"], 2, dtype)
     if prefill:
-        first = {"tokens": _batch(cfg, SERVE_ROWS, PROMPT_LEN, 3)["tokens"]}
+        first = _batch(cfg, SERVE_ROWS, PROMPT_LEN, 3)
+        first.pop("labels")
         return cfg, shape, params, first, caches, ()
     return (cfg, shape, params, _batch(cfg, SERVE_ROWS, 1, 4)["tokens"],
             caches, (pos,))
@@ -603,15 +704,30 @@ def _serve_case(arch, mesh, case, name, flags=RunFlags()):
                                                           dtype, pos)
     ref = (make_prefill_step if prefill else make_decode_step)(cfg, flags)
     want, want_c = ref(params, first, tree_map(torch.clone, caches), *rest)
-    wide = None if dtype == torch.float32 else bf16_witness(
+    # the MLA decode on a bf16 cache: held by the weights' band
+    merged = cfg.mla is not None and not prefill and \
+        dtype == torch.bfloat16
+    wide = None if dtype == torch.float32 or merged else bf16_witness(
         ref, params, first, caches, want_c, *rest)
+    band = None
+    if merged:
+        w_log, w_c = mla_weights_witness(ref, params, first, caches, *rest)
+        band = {"logits": weights_band(want, w_log), **{
+            path: weights_band(w, x) for (path, w), (_, x) in zip(
+                leaves_with_paths(want_c), leaves_with_paths(w_c))}}
     got, got_c = jit_cell(cfg, shape, mesh, flags)[0](params, first, caches,
                                                       *rest)
     logits = got.full_tensor()
     whole = {path: g.full_tensor() for path, g in leaves_with_paths(got_c)}
-    _close(logits, want, f"{arch} {case} logits")
+    if merged:
+        weights_close(logits, want, band["logits"], f"{arch} {case} logits")
+    else:
+        _close(logits, want, f"{arch} {case} logits")
     for path, w in leaves_with_paths(want_c):
-        if wide is None:
+        if merged:
+            weights_close(whole[path], w, band[path],
+                          f"{arch} {case} cache{path}")
+        elif wide is None:
             _close(whole[path], w, f"{arch} {case} cache{path}")
         else:
             bf16_close(whole[path], w, dict(leaves_with_paths(wide))[path],
@@ -620,23 +736,57 @@ def _serve_case(arch, mesh, case, name, flags=RunFlags()):
                   f"{arch} {case}")
     if dist.get_rank() == 0:
         torch.save({"logits": logits, "caches": whole, "wide": None
-                    if wide is None else dict(leaves_with_paths(wide))},
-                   OUT / f"serve.{name}.pt")
+                    if wide is None else dict(leaves_with_paths(wide)),
+                    "band": band}, OUT / f"serve.{name}.pt")
+
+
+# a planted fault of a VLM's sharded prefill: the cache written at the
+# tokens' positions, without the prefix's shift (the token rows from row
+# 0, the prefix rows not written)
+PREFIX_FAULT = "prefix-unshifted"
+
+
+def _prefix_fault_case(arch, mesh):
+    """The prefill with PREFIX_FAULT must miss: a cache leaf farther than
+    10 x rtol of its max from the unsharded step's."""
+    from repro_torch.launch.steps import jit_cell, make_prefill_step
+    from repro_torch.models import attention
+    cfg, shape, params, first, caches, _ = serve_inputs(arch, True,
+                                                        torch.float32)
+    _, want = make_prefill_step(cfg)(params, first,
+                                     tree_map(torch.clone, caches))
+    real, n = attention._kv_put, cfg.n_prefix_embeddings
+    attention._kv_put = lambda cache, kv, lo, off: real(
+        cache, {k: v[:, n:] for k, v in kv.items()}, lo, off)
+    try:
+        _, got = jit_cell(cfg, shape, mesh)[0](params, first, caches)
+    finally:
+        attention._kv_put = real
+    miss = max(float((g.full_tensor() - w).abs().max() / w.abs().max())
+               for (_, g), (_, w) in zip(leaves_with_paths(got),
+                                         leaves_with_paths(want)))
+    assert miss > 10 * RTOL, f"{PREFIX_FAULT} passes: {miss}"
 
 
 def sharded_serve(rank, world):
-    """Every (mesh, arch, case) of MESHES[world] x DENSE x SERVE_CASES;
-    each rank writes its outcome a case to
-    ``OUT / sharded_serve.<rank>.json`` (the test reads them)."""
+    """Every (mesh, arch, case) of MESHES[world] x DENSE x SERVE_CASES,
+    and PREFIX_FAULT for the archs with a prefix; each rank writes its
+    outcome a case to ``OUT / sharded_serve.<rank>.json`` (the test
+    reads them)."""
     from repro_torch.launch.mesh import make_host_mesh
     res = {}
     for data, model in MESHES[world]:
         mesh = make_host_mesh(data=data, model=model, device_type="cpu")
         for arch in DENSE:
-            for case in SERVE_CASES:
+            faults = (PREFIX_FAULT,) if get_reduced(
+                arch).n_prefix_embeddings else ()
+            for case in SERVE_CASES + faults:
                 name = f"{data}x{model}-{arch}-{case}"
                 try:
-                    _serve_case(arch, mesh, case, name)
+                    if case == PREFIX_FAULT:
+                        _prefix_fault_case(arch, mesh)
+                    else:
+                        _serve_case(arch, mesh, case, name)
                     res[name] = "ok"
                 except Exception as e:              # noqa: BLE001
                     res[name] = f"{type(e).__name__}: {e}"
@@ -961,18 +1111,28 @@ def _long_case(arch, rules, mesh, case, name):
         torch.save(saved, OUT / f"long.{name}.pt")
 
 
-def _serve_source(old, new):
-    """``attention._serve_attention`` with the text ``old`` of its source
-    replaced by ``new`` (a planted fault)."""
+def _replaced(fn, *edits):
+    """``fn``, a function of ``models/attention``, compiled anew with
+    each (old, new) text of its source replaced (a planted fault, or a
+    witness's casts)."""
     import inspect
     import textwrap
 
     from repro_torch.models import attention
-    src = textwrap.dedent(inspect.getsource(attention._serve_attention))
-    assert old in src, old
+    src = textwrap.dedent(inspect.getsource(fn))
+    for old, new in edits:
+        assert old in src, old
+        src = src.replace(old, new)
     scope = dict(vars(attention))
-    exec(compile(src.replace(old, new), attention.__file__, "exec"), scope)
-    return scope["_serve_attention"]
+    exec(compile(src, attention.__file__, "exec"), scope)
+    return scope[fn.__name__]
+
+
+def _serve_source(old, new):
+    """``attention._serve_attention`` with the text ``old`` of its source
+    replaced by ``new`` (a planted fault)."""
+    from repro_torch.models import attention
+    return _replaced(attention._serve_attention, (old, new))
 
 
 @contextlib.contextmanager
@@ -1084,13 +1244,62 @@ MLA_TRAIN = ("plain", "chunk8")
 # (serve_positions), a prefill chunked by MLA_CHUNK, a bf16 cache's
 # prefill, and the in-place, blocks-only memory check (``_serve_memory``)
 MLA_SERVE = tuple(f"{r}-{c}" for r in ("serve", "big") for c in (
-    "prefill", "decode-first", "decode-hi-1", "decode-last")) + (
+    "prefill", "decode-first", "decode-hi-1", "decode-last",
+    "decode-bf16")) + (
     "big-prefill-chunk8", "big-prefill-bf16", "big-memory")
 # planted faults (meshes with a "model" axis of more than one rank): a
 # length block past the write frontier merged as a uniform average of
 # its rows; the shared experts' partial sums left unreduced; the latent
-# cache held whole on every model rank
-MLA_FAULTS = ("uniform", "shared-unreduced", "cache-whole")
+# cache held whole on every model rank; on a bf16 cache, the first
+# again and the blocks' contexts averaged (``ref.decode_merge_faults``'
+# "blocks averaged"), each against the weights' bound (``weights_close``)
+MLA_FAULTS = ("uniform", "shared-unreduced", "cache-whole", "uniform-bf16",
+              "averaged-bf16")
+# the sharded MLA decode on a bf16 cache against the unsharded step: this
+# many times the distance the softmax weights' rounding alone puts
+# between the unsharded step and its witness (``weights_close``)
+WEIGHTS_BAND = 2
+
+
+def mla_weights_witness(step, params, tok, caches, *rest):
+    """The unsharded decode ``step`` of an MLA config on bf16 ``caches``
+    with the casts of the merged path (``attention._serve_mla``): the
+    absorbed attention's softmax weights kept float32 and its latent
+    context rounded to the cache's dtype once, where
+    ``attention._mla_absorbed`` (as the JAX package) rounds the weights
+    to the cache's dtype first.  Returns its (logits, caches)."""
+    from repro_torch.models import attention
+    real = attention._mla_absorbed
+    attention._mla_absorbed = _replaced(real, (
+        'torch.einsum("bhst,btr->bshr", w.to(c_kv.dtype), c_kv)',
+        'torch.einsum("bhst,btr->bshr", w, c_kv.float()).to(c_kv.dtype)'))
+    try:
+        return step(params, tok, tree_map(torch.clone, caches), *rest)
+    finally:
+        attention._mla_absorbed = real
+
+
+def weights_band(want, wide):
+    """WEIGHTS_BAND x the largest distance between a leaf of the
+    unsharded step (``want``) and of its witness (``wide``,
+    ``mla_weights_witness``)."""
+    return WEIGHTS_BAND * float((wide.float() - want.float()).abs().max())
+
+
+def weights_close(got, want, band, label):
+    """A leaf of the sharded MLA decode on a bf16 cache against the
+    unsharded step's: within rtol 1e-5 of the leaf's max plus ``band``
+    (``weights_band``).  The merged path keeps the softmax weights
+    float32 where the unsharded step rounds them to bf16, and its own
+    summation order may put a latent context element, rounded to bf16,
+    on the other neighbour: perturbations of the context of the same
+    kind, each seen to move a leaf at most 1.12 times as far as the
+    weights' rounding alone (reduced deepseek-v2 and its 3-expert
+    variant at the test meshes)."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    tol = RTOL * float(want.abs().max()) + band
+    assert err <= tol, (label, err, tol)
 
 
 def mla_flags(case):
@@ -1153,7 +1362,9 @@ def _mla_fault_case(arch, mesh, fault):
         assert miss > 10 * RTOL, f"{fault} passes: {miss}"
         return
     pos = serve_positions(mesh.shape["model"])[
-        "decode-first" if fault == "uniform" else "decode-last"]
+        "decode-first" if fault.startswith("uniform") else "decode-last"]
+    if fault.endswith("-bf16"):
+        return _mla_bf16_fault_case(arch, mesh, fault, pos)
     cfg, shape, params, tok, caches, rest = serve_inputs(
         arch, False, torch.float32, pos)
     if fault == "uniform":
@@ -1184,6 +1395,44 @@ def _mla_fault_case(arch, mesh, fault):
     except AssertionError:
         return
     raise AssertionError(f"{fault} passes the blocks check")
+
+
+def _averaged(outs, lses, dtype):
+    """``ref.decode_merge`` with a planted fault: the mean of the live
+    blocks' outputs (``ref.decode_merge_faults``' "blocks averaged")."""
+    live = (lses > -math.inf).float()
+    return ((outs.float() * live[..., None]).sum(0) /
+            live.sum(0).clamp_min(1)[..., None]).to(dtype)
+
+
+def _mla_bf16_fault_case(arch, mesh, fault, pos):
+    """A planted fault of the merged MLA decode on a bf16 cache at
+    ``pos`` ("uniform-bf16": ``_uniform_partial``; "averaged-bf16": the
+    blocks' contexts averaged, ``_averaged``) must miss the weights'
+    band on the logits (``weights_close``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch.steps import jit_cell, make_decode_step
+    from repro_torch.models import attention
+    cfg, shape, params, tok, caches, rest = serve_inputs(
+        arch, False, torch.bfloat16, pos)
+    step = make_decode_step(cfg)
+    want, _ = step(params, tok, tree_map(torch.clone, caches), *rest)
+    band = weights_band(want, mla_weights_witness(step, params, tok,
+                                                  caches, *rest)[0])
+    real_partial, real_merge = attention._mla_partial, ref.decode_merge
+    if fault == "uniform-bf16":
+        attention._mla_partial = _uniform_partial
+    else:
+        ref.decode_merge = _averaged
+    try:
+        got, _ = jit_cell(cfg, shape, mesh)[0](params, tok, caches, *rest)
+    finally:
+        attention._mla_partial, ref.decode_merge = real_partial, real_merge
+    try:
+        weights_close(got.full_tensor(), want, band, fault)
+    except AssertionError:
+        return
+    raise AssertionError(f"{fault} passes the weights' band {band}")
 
 
 def sharded_mla(rank, world):
@@ -1220,7 +1469,89 @@ def sharded_mla(rank, world):
     (OUT / f"sharded_mla.{rank}.json").write_text(json.dumps(res))
 
 
+# ``ModelShards.reblock``'s cases: a VLM's inputs to its residual's
+# blocks and back (``models/model._prefix_rows``: 8 prefix rows and 40
+# tokens), random runs of 37 rows (a rank's rows in up to three runs),
+# and a rank that holds no row before or after
+REBLOCK_CASES = ("prefix-in", "prefix-out", "random-0", "random-1",
+                 "empty-rank")
+
+
+def _random_rows(n, size, rng):
+    """``n`` rows cut into runs at random and dealt to ``size`` ranks (a
+    rank's runs ascending): every row on one rank."""
+    cuts = np.sort(rng.choice(np.arange(1, n), 3 * size - 1, replace=False))
+    edges = [0, *map(int, cuts), n]
+    runs = [(a, b) for a, b in zip(edges[:-1], edges[1:])]
+    owner = rng.permutation(np.arange(len(runs)) % size)
+    return [tuple(r for r, o in zip(runs, owner) if o == k)
+            for k in range(size)]
+
+
+def _reblock_rows(case, size):
+    """(rows of the sequence, src, dst) of a REBLOCK_CASES case."""
+    from repro_torch.models.model import _prefix_rows
+    if case.startswith("prefix"):
+        held, residual, tokens = _prefix_rows(8, 40, size)
+        if case == "prefix-in":
+            return 48, held, residual
+        own = [tuple((max(a, 8), max(b, 8)) for a, b in r)
+               for r in residual]
+        return 48, own, tokens
+    if case == "empty-rank":
+        src = [((0, 10),), ((10, 37),)] + [()] * (size - 2)
+        dst = [()] + [((0, 37),)] + [()] * (size - 2)
+        return 37, src, dst
+    rng = np.random.default_rng(int(case[-1]) + 10 * size)
+    return 37, _random_rows(37, size, rng), _random_rows(37, size, rng)
+
+
+def _reblock_case(mesh, case):
+    """``reblock`` of a [2, rows, 3] float64 sequence (each rank its
+    ``src`` rows) against the rows ``dst`` names, exactly; its gradient
+    (of the sum of the result times a second sequence's ``dst`` rows)
+    the second sequence's ``src`` rows, exactly; one all-to-all each
+    way."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.distributed.sharding import ModelShards
+    tp = ModelShards(mesh, {})
+    n, src, dst = _reblock_rows(case, tp.size)
+    rng = np.random.default_rng(7)
+    full, weight = (torch.from_numpy(rng.standard_normal((2, n, 3)))
+                    for _ in range(2))
+
+    def rows(t, runs):
+        return torch.cat([t[:, a:b] for a, b in runs], 1) if runs \
+            else t[:, :0]
+
+    x = rows(full, src[tp.index]).requires_grad_()
+    with CommDebugMode() as comm:
+        y = tp.reblock(x, src, dst)
+        (y * rows(weight, dst[tp.index])).sum().backward()
+    assert torch.equal(y.detach(), rows(full, dst[tp.index])), case
+    assert torch.equal(x.grad, rows(weight, src[tp.index])), case
+    counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+    assert counts == {"c10d.alltoall_base_": 2}, counts
+
+
+def reblock(rank, world):
+    """Every REBLOCK_CASES case on a {model: world} mesh; each rank
+    writes its outcome a case to ``OUT / reblock.<rank>.json``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=1, model=world, device_type="cpu")
+    res = {}
+    for case in REBLOCK_CASES:
+        try:
+            _reblock_case(mesh, case)
+            res[case] = "ok"
+        except Exception as e:                      # noqa: BLE001
+            res[case] = f"{type(e).__name__}: {e}"
+    (OUT / f"reblock.{rank}.json").write_text(json.dumps(res))
+
+
 JOBS = {"sharded_steps": sharded_steps,
+        "reblock": reblock,
         "pipeline_two_stages": pipeline_two_stages,
         "sharded_train": sharded_train,
         "sharded_serve": sharded_serve,

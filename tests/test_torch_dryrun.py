@@ -47,7 +47,9 @@ from repro_torch.models.params import tree_leaves, tree_map
 # "model", the cache's length over "model", written in place), and two more train
 # cells of the sharded layout on {data: 1, model: 4}: gemma3-1b (2
 # heads, replicated; tied embeddings; windows) and command-r-35b (2 K/V
-# heads replicated under 4 split query heads); and two one-row decode
+# heads replicated under 4 split query heads) and internvl2-26b (4
+# prefix rows and 28 tokens: its residual re-blocked from the tokens'
+# blocks and back by all-to-alls); and two one-row decode
 # cells of the long rules (LONG_SERVE_RULES: the cache's length over
 # ("data", "model"), the partials merged by an all-gather over each) on
 # {data: 2, model: 2}: gemma3-1b and Mixtral
@@ -56,10 +58,12 @@ CELLS = {"train": ShapeSpec("tiny_train", "train", 32, 4),
          "decode": ShapeSpec("tiny_decode", "decode", 32, 4),
          "train_gemma3_1x4": ShapeSpec("tiny_train", "train", 32, 4),
          "train_command_r_1x4": ShapeSpec("tiny_train", "train", 32, 4),
+         "train_internvl2_1x4": ShapeSpec("tiny_train", "train", 28, 4),
          "long_gemma3_2x2": ShapeSpec("tiny_long", "decode", 32, 1),
          "long_mixtral_2x2": ShapeSpec("tiny_long", "decode", 32, 1)}
 CELL_ARCH = {"train_gemma3_1x4": ("gemma3-1b", 1),
              "train_command_r_1x4": ("command-r-35b", 1),
+             "train_internvl2_1x4": ("internvl2-26b", 1),
              "long_gemma3_2x2": ("gemma3-1b", 2),
              "long_mixtral_2x2": ("mixtral-8x22b", 2)}
 DECODE_POS = 20
@@ -187,6 +191,10 @@ def test_trace_matches_a_real_gloo_run(kind, real_cells, traced_cells):
     if kind.startswith("train"):
         # the FSDP gathers' gradients return by reduce-scatters
         assert counts["reduce-scatter"] > 0
+        # a VLM's residual re-blocked in and out, each way in the
+        # backward too
+        assert counts.get("all-to-all", 0) == (
+            4 if "internvl2" in kind else 0), counts
     else:
         # the row-parallel products' partial sums
         assert counts["all-reduce"] > 0 and "reduce-scatter" not in counts

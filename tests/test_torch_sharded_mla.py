@@ -19,16 +19,22 @@ the last row of a block and in the last block, under SERVE_RULES and
 under SERVE_BIG_RULES (deepseek-v2-236b's; substituted for
 ``rules_for``'s choice, since the reduced weights would replicate): the
 logits and float32 caches within rtol 1e-5, bf16 caches by
-``_torch_spmd.bf16_close``; and a decode step's caches written in place,
-each rank holding its blocks and making no tensor of the latent cache's
-whole length.  Rank 0's whole logits and caches are also held against
-the JAX package's ``prefill`` / ``decode_step``, and its losses, grad
+``_torch_spmd.bf16_close``; a decode into a bf16 cache, whose merged
+path keeps the softmax weights float32 where the unsharded step (as the
+JAX package) rounds them to bf16, within rtol 1e-5 plus twice the
+distance that rounding alone puts between the unsharded step and its
+witness (``_torch_spmd.weights_close``); and a decode step's caches
+written in place, each rank holding its blocks and making no tensor of
+the latent cache's whole length.  Rank 0's whole logits and caches are
+also held against the JAX package's ``prefill`` / ``decode_step``, and
+its losses, grad
 norms, params and moments of each train case against the JAX package's
 ``jit_cell`` on a (1, 1) mesh.  The planted faults of
 ``_torch_spmd.MLA_FAULTS`` (a block past the write frontier merged as a
 uniform average of its rows, the shared experts' partial sums left
-unreduced, the latent cache held whole on every model rank) must miss
-the same bounds.  The weights are at the d_model fan-in law
+unreduced, the latent cache held whole on every model rank; on a bf16
+cache the first and the blocks' contexts averaged) must miss the same
+bounds.  The weights are at the d_model fan-in law
 (``_torch_spmd.fan_in_d_model``).
 
 Without processes: ``steps.layout`` of deepseek-v2-236b's and
@@ -249,7 +255,8 @@ def test_sharded_mla_serving_matches_the_jax_reference(runs, world, data,
     on the same weights, tokens and caches at the same query chunk: the
     logits and float32 caches within rtol 1e-5 of each leaf's max, bf16
     caches by ``bf16_close`` against the unsharded port's float32
-    latents."""
+    latents; a decode on a bf16 cache, logits and caches within the
+    weights' band (``_torch_spmd.weights_close``)."""
     name = f"{data}x{model}-{arch}-{case}"
     tmp, res = runs[world]
     assert all(r[name] == "ok" for r in res), name
@@ -258,12 +265,19 @@ def test_sharded_mla_serving_matches_the_jax_reference(runs, world, data,
     pos = None if kind.startswith("prefill") else \
         serve_positions(model)[kind]
     jlog, jcaches = _reference_serving(arch, kind, pos)
-    _torch_spmd._close(got["logits"], torch.from_numpy(jlog.copy()),
-                       f"{name} logits")
+    band = got["band"]
+    if band is not None:
+        _torch_spmd.weights_close(got["logits"], torch.from_numpy(
+            jlog.copy()), band["logits"], f"{name} logits")
+    else:
+        _torch_spmd._close(got["logits"], torch.from_numpy(jlog.copy()),
+                           f"{name} logits")
     assert set(got["caches"]) == set(jcaches), name
     for path, g in got["caches"].items():
         w = torch.from_numpy(jcaches[path].copy())
-        if got["wide"] is None:
+        if band is not None:
+            _torch_spmd.weights_close(g, w, band[path], f"{name} cache{path}")
+        elif got["wide"] is None:
             _torch_spmd._close(g, w, f"{name} cache{path}")
         else:
             bf16_close(g, w.bfloat16(), got["wide"][path],

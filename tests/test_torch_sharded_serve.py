@@ -1,5 +1,6 @@
 """The sharded serving body (``launch/steps.jit_cell``'s ``"sharded"``
-layout for the prefill and decode cells of the four dense decoders,
+layout for the prefill and decode cells of the four dense decoders and
+internvl2-26b,
 laid out as the reference's step under ``SERVE_RULES``: heads, ffn and
 vocab over "model", the KV cache's length over "model" and written in
 place, a decode step merged across the length blocks) on the CPU.
@@ -22,7 +23,11 @@ last block, so reduced gemma3-1b's window of 8 straddles two blocks on
 window.  The "memory" case: each rank holds its blocks of the weights
 and caches, writes its cache in place (no restack, no tensor of the
 cache's whole length or the whole table), and an out-of-place writer
-fails that check.  The weights are at the d_model fan-in law: at the
+fails that check.  Reduced internvl2's prefill runs its 4 prefix rows
+before the 16 tokens into a cache of 20 rows (5 a rank at model 4),
+and the planted fault ``_torch_spmd.PREFIX_FAULT`` (the cache written
+at the tokens' positions, without the prefix's shift) must miss.  The
+weights are at the d_model fan-in law: at the
 reference's law reduced gemma3-1b's float32 prefill is chaotic enough
 that the port and the JAX package miss each other's rtol 1e-5 unsharded
 (``_torch_spmd._serve_params``).
@@ -49,8 +54,8 @@ import torch
 import torch.distributed as dist
 
 import _torch_spmd
-from _torch_spmd import (DENSE, MESHES, SERVE_CASES, bf16_close,
-                         bf16_witness, serve_positions)
+from _torch_spmd import (DENSE, MESHES, PREFIX_FAULT, SERVE_CASES,
+                         bf16_close, bf16_witness, serve_positions)
 from repro.configs import get_reduced as jget_reduced
 from repro.kernels import ops as jops
 from repro.models import RunFlags as JRunFlags
@@ -73,7 +78,9 @@ from repro_torch.models.params import leaves_with_paths, tree_map
 
 CASES = [(world, data, model, arch, case)
          for world in sorted(MESHES) for data, model in MESHES[world]
-         for arch in DENSE for case in SERVE_CASES]
+         for arch in DENSE for case in SERVE_CASES + (
+             (PREFIX_FAULT,) if get_reduced(arch).n_prefix_embeddings
+             else ())]
 SERVING = ("prefill_32k", "decode_32k")
 
 
@@ -134,8 +141,9 @@ def _reference_serving(arch, prefill, bf16, pos):
     jcfg = jget_reduced(arch)
     jp, jc = tree_map(_jnp, params), tree_map(_jnp, caches)
     if prefill:
-        logits, out = jprefill(jp, {"tokens": jnp.asarray(
-            first["tokens"].numpy())}, jc, jcfg, JRunFlags())
+        logits, out = jprefill(jp, {k: jnp.asarray(v.numpy())
+                                    for k, v in first.items()}, jc, jcfg,
+                               JRunFlags())
     else:
         logits, out = jdecode_step(jp, jnp.asarray(first.numpy()), jc, pos,
                                    jcfg, JRunFlags())
@@ -144,7 +152,7 @@ def _reference_serving(arch, prefill, bf16, pos):
         for k, v in jax.tree_util.tree_flatten_with_path(out)[0]}
 
 
-SERVED = [c for c in CASES if c[-1] != "memory"]
+SERVED = [c for c in CASES if c[-1] not in ("memory", PREFIX_FAULT)]
 
 
 @pytest.mark.parametrize(
@@ -224,6 +232,7 @@ LOCAL = {
     "command-r-35b": ((4, 128), (8, 8), 1408, 16000, (8, 2048, 8, 128)),
     "qwen2-5-7b": ((28, 8), (4, 8), 1184, 9504, (8, 2048, 4, 128)),
     "gemma3-1b": ((4, 16), (1, 16), 432, 16384, (8, 2048, 1, 256)),
+    "internvl2-26b": ((3, 128), (8, 8), 1024, 92553, (8, 2048, 8, 128)),
 }
 
 
@@ -239,9 +248,10 @@ def _local(spec, sh, mesh):
 def test_local_blocks_at_full_width(arch):
     """Each rank's blocks of decode_32k at full width on (16, 16), as meta
     tensors: the query heads split over "model" where they divide 16
-    (granite's 48, command-r's 64), else the head dim (qwen's 28,
-    gemma3's 4); K/V by head dim (their heads do not divide 16); ffn and
-    vocab split; the cache 8 rows x 2,048 of the length.  The rank's
+    (granite's and internvl2's 48, command-r's 64), else the head dim
+    (qwen's 28, gemma3's 4); K/V by head dim (their heads do not divide
+    16); ffn split; the vocab split but internvl2's 92,553 rows, which 16
+    does not divide; the cache 8 rows x 2,048 of the length.  The rank's
     bytes are the analytic floor's params and cache."""
     cfg, shape = get_config(arch), SHAPES["decode_32k"]
     specs, sh = input_specs(cfg, shape), input_shardings(cfg, shape, SINGLE)

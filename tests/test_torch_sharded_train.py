@@ -1,6 +1,9 @@
 """The sharded train body (``launch/steps.jit_cell``'s ``"sharded"``
 layout: FSDP over "data", tensor parallelism over "model", the residual
-split by rows and sequence) of the four dense decoders, on the CPU.
+split by rows and sequence) of the four dense decoders and of
+internvl2-26b (a VLM: its residual split as the concatenated [prefix;
+tokens] sequence, re-blocked from and to the tokens' blocks), on the
+CPU.
 
 At world sizes 2 and 4 (gloo processes, ``_torch_spmd.sharded_train``)
 every (mesh, arch, variant) case of ``_torch_spmd.MESHES`` x ``DENSE`` x
@@ -12,9 +15,17 @@ compression each scale within rtol 1e-6 and at most 0.1 % of the codes
 one step off, where a rank's own max |g| misses.  Reduced gemma3's 2
 heads on (1, 4) take the replicated-heads route, reduced granite's and
 command-r's K/V heads the replicated-K/V route.  The weights are at the
-d_model fan-in law (``_torch_spmd.fan_in_d_model``).  At world size 1
-the cell is held against the reference's own ``jit_cell``.
+d_model fan-in law (``_torch_spmd.fan_in_d_model``).  Reduced
+internvl2 runs 4 prefix rows and 28 tokens, so that its residual's
+blocks (16, 8 rows) are not its tokens' (14, 7) and every rank moves
+rows; rank 0's two steps of its plain and two-microbatch cases are also
+held against the reference's ``jit_cell`` on a (1, 1) mesh, and its
+planted faults (``_torch_spmd.VLM_FAULTS``: the prefix concatenated per
+rank; the loss over the residual's blocks, ranks weighed alike) must
+miss.  At world size 1 the cell is held against the reference's own
+``jit_cell``.
 """
+import functools
 import json
 
 import jax
@@ -25,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 import _torch_spmd
-from _torch_spmd import DENSE, MESHES, VARIANTS
+from _torch_spmd import DENSE, MESHES, VARIANTS, VLM_FAULTS, train_len
 from test_torch_train_loss import _fan_in_d_model
 from repro.configs import get_reduced as jget_reduced
 from repro.launch import steps as jsteps
@@ -42,9 +53,14 @@ from repro_torch.models import RunFlags
 from repro_torch.models.params import leaves_with_paths, tree_map
 from repro_torch.training.optimizer import AdamWConfig
 
+VLM = "internvl2-26b"
 CASES = [(world, data, model, arch, variant)
          for world in sorted(MESHES) for data, model in MESHES[world]
-         for arch in DENSE for variant in VARIANTS]
+         for arch in DENSE for variant in VARIANTS + (
+             VLM_FAULTS if arch == VLM and model > 1 else ())]
+VLM_CASES = [(world, data, model, variant)
+             for world, data, model, arch, variant in CASES
+             if arch == VLM and variant in ("plain", "accum2")]
 
 
 class FakeMesh:
@@ -56,15 +72,17 @@ class FakeMesh:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """world -> each rank's outcome a case, the job run once a world."""
+    """world -> (the job's folder, each rank's outcome a case), the job
+    run once a world."""
     done = {}
 
     def get(world):
         if world not in done:
             tmp = tmp_path_factory.mktemp(f"sharded_train_{world}")
             _torch_spmd.spawn("sharded_train", world, tmp, timeout=300)
-            done[world] = [json.loads((tmp / f"sharded_train.{r}.json")
-                                      .read_text()) for r in range(world)]
+            done[world] = tmp, [json.loads((tmp / f"sharded_train.{r}.json")
+                                           .read_text())
+                                for r in range(world)]
         return done[world]
     return get
 
@@ -75,19 +93,81 @@ def runs(tmp_path_factory):
 def test_sharded_train_matches_the_unsharded_step(runs, world, data, model,
                                                   arch, variant):
     name = f"{data}x{model}-{arch}-{variant}"
-    for rank, res in enumerate(runs(world)):
+    for rank, res in enumerate(runs(world)[1]):
         assert res[name] == "ok", (rank, res[name])
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_vlm_train(variant):
+    """The JAX package's ``jit_cell`` train step of reduced internvl2 on
+    a (1, 1) mesh (``variant``: "plain", or "accum2", two microbatches),
+    two steps from the port's ``_torch_spmd.train_state`` on
+    ``_torch_spmd._batch(cfg, 4, 28, 10 + i)`` (prefix embeddings
+    included), as the gloo job runs them: the losses and grad norms, and
+    {path: leaf} of the params and moments, float32 numpy."""
+    cfg = get_reduced(VLM)
+    seq = train_len(cfg)
+    jshape = jsteps.ShapeSpec("tiny_train", "train", seq, 4)
+    jmesh = jax.make_mesh((1, 1), ("data", "model"))
+    jflags = JRunFlags(remat="full",
+                       grad_accum=2 if variant == "accum2" else 1)
+    jf, _ = jsteps.jit_cell(jget_reduced(VLM), jshape, jmesh, flags=jflags,
+                            opt=JAdamWConfig(**OPT))
+    jst = tree_map(lambda t: jnp.asarray(t.numpy()),
+                   _torch_spmd.train_state(cfg))
+    out = {"loss": [], "grad_norm": []}
+    for i in range(2):
+        batch = _torch_spmd._batch(cfg, 4, seq, 10 + i)
+        with jmesh:
+            jst, jm = jf(jst, {k: jnp.asarray(v.numpy())
+                               for k, v in batch.items()})
+        for k in ("loss", "grad_norm"):
+            out[k].append(float(jm[k]))
+    for key in ("params", "mu", "nu"):
+        out[key] = {jax.tree_util.keystr(k): np.asarray(v, np.float32)
+                    for k, v in
+                    jax.tree_util.tree_flatten_with_path(jst[key])[0]}
+    return out
+
+
+@pytest.mark.parametrize(
+    "world,data,model,variant", VLM_CASES,
+    ids=[f"{d}x{m}-{VLM}-{v}" for _, d, m, v in VLM_CASES])
+def test_sharded_vlm_train_matches_the_jax_reference(runs, world, data,
+                                                     model, variant):
+    """Rank 0's two steps of each gloo internvl2 case (its losses, grad
+    norms and whole params and moments, saved by the job) against the
+    JAX package's ``jit_cell`` on a (1, 1) mesh from the same state on
+    the same batches: each within rtol 1e-5 of its max."""
+    name = f"{data}x{model}-{VLM}-{variant}"
+    tmp, res = runs(world)
+    assert all(r[name] == "ok" for r in res), name
+    got = torch.load(tmp / f"train.{name}.pt")
+    want = _reference_vlm_train(variant)
+    for k in ("loss", "grad_norm"):
+        for i, (g, w) in enumerate(zip(got[k], want[k], strict=True)):
+            _torch_spmd._close(torch.tensor(g), torch.tensor(w),
+                               f"{name} step {i} {k}")
+    for key in ("params", "mu", "nu"):
+        assert set(got[key]) == set(want[key]), (name, key)
+        for path, g in got[key].items():
+            _torch_spmd._close(g, torch.from_numpy(want[key][path].copy()),
+                               f"{name} {key}{path}")
+
+
 def test_layout_is_chosen_from_the_config():
-    """The dense decoders' and mixtral-8x22b's train, prefill_32k,
-    decode_32k and long_500k cells are sharded on both production meshes
-    (the serving ones: ``tests/test_torch_sharded_serve.py``, Mixtral's:
+    """The dense decoders' (internvl2-26b's too) and mixtral-8x22b's
+    train, prefill_32k, decode_32k and long_500k cells are sharded on
+    both production meshes (the serving ones:
+    ``tests/test_torch_sharded_serve.py``, Mixtral's:
     ``tests/test_torch_sharded_moe.py``, long_500k's:
-    ``tests/test_torch_sharded_long.py``), and deepseek-v2-236b's but
-    long_500k (``tests/test_torch_sharded_mla.py``); every other arch's
-    cells are gathered, and so is a train cell whose sequence does not
-    split over "model"."""
+    ``tests/test_torch_sharded_long.py``; the matrix runs internvl2's
+    long_500k not at all, ``shape_applicable``), and deepseek-v2-236b's
+    but long_500k (``tests/test_torch_sharded_mla.py``); every other
+    arch's cells are gathered, and so is a train cell whose sequence
+    does not split over "model", or whose tokens split and whose
+    residual (the prefix rows in front of them) does not, or the
+    reverse."""
     for arch in ARCHS:
         cfg = get_config(arch)
         for mesh in (FakeMesh({"data": 16, "model": 16}),
@@ -107,6 +187,15 @@ def test_layout_is_chosen_from_the_config():
     # gradient in every FSDP reduce-scatter
     assert steps.layout(cfg, ShapeSpec("t", "train", 32, 3),
                         FakeMesh({"data": 2, "model": 2})) == "gathered"
+    # reduced internvl2's 4 prefix rows: 28 tokens and 32 residual rows
+    # split over 4 ranks, not over 8 (the tokens), nor 32 tokens and 36
+    # rows over 8 (the residual)
+    vlm = get_reduced(VLM)
+    for seq, model, want in ((28, 4, "sharded"), (28, 8, "gathered"),
+                             (32, 8, "gathered"), (30, 2, "sharded")):
+        assert steps.layout(vlm, ShapeSpec("t", "train", seq, 4),
+                            FakeMesh({"data": 1, "model": model})) == \
+            want, (seq, model)
 
 
 @pytest.fixture
@@ -128,10 +217,12 @@ def test_sharded_cell_matches_reference_jit_cell(arch, gloo1):
     """The reference's ``jit_cell`` train step and the port's sharded
     one at world size 1 on the same carried-over state at the d_model
     fan-in law: loss and grad norm within rtol 1e-5, params within rtol
-    1e-5, atol 1e-7, over two steps (the first at learning rate 0)."""
+    1e-5, atol 1e-7, over two steps (the first at learning rate 0); a
+    VLM's batch with its prefix embeddings."""
     jcfg, cfg = jget_reduced(arch), get_reduced(arch)
-    jshape = jsteps.ShapeSpec("tiny_train", "train", 32, 2)
-    shape = ShapeSpec("tiny_train", "train", 32, 2)
+    seq = train_len(cfg)
+    jshape = jsteps.ShapeSpec("tiny_train", "train", seq, 2)
+    shape = ShapeSpec("tiny_train", "train", seq, 2)
     assert steps.layout(cfg, shape, gloo1) == "sharded"
     jstate = jax.tree_util.tree_map(np.asarray, jmaterialize(
         jsteps.input_specs(jcfg, jshape)["state"], jax.random.PRNGKey(0)))
@@ -150,12 +241,15 @@ def test_sharded_cell_matches_reference_jit_cell(arch, gloo1):
     jst = jax.tree_util.tree_map(jnp.asarray, jstate)
     rng = np.random.default_rng(20)
     for i in range(2):
-        tok = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+        tok = rng.integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)
+        batch = {"tokens": tok, "labels": tok}
+        if cfg.n_prefix_embeddings:
+            batch["prefix_embeds"] = rng.standard_normal(
+                (2, cfg.n_prefix_embeddings, cfg.d_model)).astype(np.float32)
         with jmesh:
-            jst, jm = jf(jst, {"tokens": jnp.asarray(tok),
-                               "labels": jnp.asarray(tok)})
-        state, m = step(state, {"tokens": torch.from_numpy(tok),
-                                "labels": torch.from_numpy(tok)})
+            jst, jm = jf(jst, {k: jnp.asarray(v) for k, v in batch.items()})
+        state, m = step(state, {k: torch.from_numpy(v)
+                                for k, v in batch.items()})
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(m[k].full_tensor()),
                                        float(jm[k]), rtol=1e-5)

@@ -11,6 +11,8 @@ bounds of the reference's own ``jit_cell`` step on the same weights),
 and at world sizes 2 and 4 as gloo processes (``_torch_spmd``) against
 the unsharded step within rtol 1e-5.
 """
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -418,3 +420,34 @@ def test_sharded_steps_match_the_unsharded_step(world, tmp_path):
     without the router's global statistics), the serving cells, and a
     DTensor refused by ``ops``."""
     _torch_spmd.spawn("sharded_steps", world, tmp_path, timeout=240)
+
+
+@pytest.fixture(scope="module")
+def reblocked(tmp_path_factory):
+    """world -> each rank's outcome a ``_torch_spmd.REBLOCK_CASES`` case,
+    the job run once a world."""
+    done = {}
+
+    def get(world):
+        if world not in done:
+            tmp = tmp_path_factory.mktemp(f"reblock_{world}")
+            _torch_spmd.spawn("reblock", world, tmp, timeout=120)
+            done[world] = [json.loads((tmp / f"reblock.{r}.json")
+                                      .read_text()) for r in range(world)]
+        return done[world]
+    return get
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", _torch_spmd.REBLOCK_CASES)
+def test_reblock_moves_each_row_to_its_rank(reblocked, world, case):
+    """``ModelShards.reblock`` at world sizes 2 and 4 (gloo processes):
+    a VLM's [prefix block; token block] to its residual's blocks and the
+    residual's token rows back to the tokens' blocks, random uneven runs
+    (a rank's rows in up to three), and ranks that hold no row: each
+    rank's result exactly the rows its destination block names, its
+    gradient exactly the rows of the upstream gradient its source block
+    names, by one all-to-all each way
+    (``_torch_spmd._reblock_case``)."""
+    for rank, res in enumerate(reblocked(world)):
+        assert res[case] == "ok", (rank, res[case])

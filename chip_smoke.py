@@ -26,9 +26,12 @@ predicts.
 Phases, in order:
 
   1. the card (``nvidia-smi`` name and power limit) and the build time
-     (every source in parallel, with its ``ptxas`` register and spill
-     lines per entry function), and the HGMMA (wgmma) instructions in the
-     sm90 attention library's SASS where the toolkit has ``cuobjdump``;
+     (every source's ``nvcc`` started at once, with its ``ptxas``
+     register and spill lines per entry function; the float32 attention
+     backward, which no phase before 18 launches, compiles on while
+     phases 2-17 run and phase 18 waits for it), and the HGMMA (wgmma)
+     instructions in the sm90 attention library's SASS where the
+     toolkit has ``cuobjdump``;
   2. each metering kernel against its plain version: ``fused_meter`` at
      small and acceptance-day shapes (``e``/``s`` bit-equal, ``c``/``fa``
      within 1e-12 relative); ``segment_trapz`` bit-equal at N in {1, 17,
@@ -144,10 +147,12 @@ Phases, in order:
      serial and the chunked kernel, at the reference's three shapes,
      the launcher's [1,3,4096] and [4,1,4096] and a 2048-token prompt
      [1,2048,4096] with a channel at a = 0.9999 (the carry's drift), in
-     float32 and bfloat16 (tolerance 1e-4 / 3e-2), two chunked calls
+     float32 and bfloat16 (tolerance 1e-4 / 3e-2), and a sharded rank's
+     256 channels of recurrentgemma-9b's train and prefill cells,
+     [16,4096,256] and [2,32768,256], in float32; two chunked calls
      bit-equal, and the carried ``h0``; its times (both routes on the
-     same inputs) on the 2048-token prompt and at the launcher's
-     shapes; and windowed decode (``decode_attention`` over a view of
+     same inputs) on the 2048-token prompt, at the launcher's shapes and
+     at the rank's; and windowed decode (``decode_attention`` over a view of
      the window's cache rows) against the plain windowed attention at
      RecurrentGemma's heads;
   10. RecurrentGemma-9B's widths at depth 3 (one RG-LRU, RG-LRU, local
@@ -241,7 +246,8 @@ Phases, in order:
       split); deepseek-v2 at 7 of its 60 layers (~57.7 GB) through
       ``ServingEngine`` on 24 requests, no launch, drops printed; its
       wall;
-  18. the kernels' gradients (``ops``' autograd functions: in float32
+  18. (after waiting for the float32 attention backward's build) the
+      kernels' gradients (``ops``' autograd functions: in float32
       the f32tc forward and its backward kernel, in bf16 the sm90
       forward with the plain version's recomputed gradient, the scan
       kernel in both passes) against ``torch.autograd`` through the
@@ -398,9 +404,10 @@ Phases, in order:
       at their local shapes, 16 rows x 256 tokens; the collectives
       return nothing, so no value is checked): the traced peak within 5
       % of ``max_memory_allocated``, launches (2 sm90 a layer) and
-      routes equal, the step's wall printed; a trace that keeps every
-      layer's gathered weights to the end of the step must miss the
-      peak gate; then granite-20b x decode_32k (at its last row: rank
+      routes equal, the step's wall printed; on the cell cut to 24
+      layers a trace that keeps every layer's gathered weights to the
+      end of the step must miss that cut's correct trace by more than
+      10 %; then granite-20b x decode_32k (at its last row: rank
       0 reads its whole block) and x prefill_32k in the sharded serving
       layout the same way (rank 0's weights and cache blocks; one split
       decode / one sm90 flash a layer), the faults that must miss being
@@ -417,9 +424,11 @@ Phases, in order:
       cache's 524,288 rows over all 256 ranks, 2,048 a rank; the token
       at row 2,047, so rank 0 writes it into its own block and reads all
       of its visible rows): gemma3-1b at full width and depth under
-      LONG_SERVE_RULES and mixtral-8x22b at 4 of 56 layers under the
-      full depth's LONG_SERVE_BIG_RULES, one decode a layer on the route
-      the plan gives its visible rows, the fault that must miss being
+      LONG_SERVE_RULES, mixtral-8x22b at 4 of 56 layers under the full
+      depth's LONG_SERVE_BIG_RULES and recurrentgemma-9b at 3 of 38 under
+      LONG_SERVE_RULES, one decode an attention layer on the route the
+      plan gives its visible rows and one serial scan an RG-LRU layer,
+      the fault that must miss being
       the cache's length split over "model" alone (16 times the block);
       then deepseek-v2-236b x train_4k, prefill_32k and decode_32k (at
       row 2,047: rank 0 reads its whole latent block) at 2 of its 60
@@ -440,7 +449,18 @@ Phases, in order:
       its trace, the faults that must miss being the residual gathered
       whole with the loss over every token (train), the whole length
       kept as cache rows (prefill) and the decode's out-of-place writes;
-      then the decode
+      then recurrentgemma-9b x train_4k, prefill_32k and decode_32k (at
+      row 2,047) at 3 of its 38 layers (one RG-LRU, RG-LRU, local
+      attention superlayer), full width, bf16, in the sharded layout the
+      same way (256 of the RG-LRU's 4,096 channels and of its state a
+      rank, each gate's partial sums reduce-scattered by channel; 1 of
+      the 16 query heads over the one K/V head), the launches counted
+      per mixer (attention 2 / 1 sm90 flash and 1 split decode a layer,
+      RG-LRU 3 / 1 / 1 scans a layer, chunked in train and prefill), the
+      faults that must miss being the RG-LRU weights gathered whole
+      (train), the "ffn" axis split over nothing (prefill) and the
+      decode's cache and state written out of place, and its long_500k
+      cell at 3 layers with the long cells; then the decode
       wrapper (with the fake branch's tests) beside its raw kernel on
       the same rotated inputs at Qwen's B = 4, T = 4,096, and its host
       time a call; one JSON line for the phase;
@@ -485,25 +505,23 @@ Phases, in order:
   27. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
-the last line.  Phases 1-17 took 669-931 s on the hosts seen (an H100
-80GB HBM3 at 700 W); phases 18-21 take about 80 s more and phase 22
-about 25 s (the whole script took 738.6 s with all 22, and 861.9 s with
-the float32 backward kernel's checks and phase 20's two batches), sized
-to keep the whole under 1000 s of the 1200 s limit; phase 23 adds about
-20 s and phase 24 about 60 s (their walls are printed; the whole took
-857.6-910.9 s with 23 phases); phase 24's sharded granite-20b train
-cell (two traces of its 52 layers on the host, about 40 s each, and the
-real step) adds about 100 s; the sharded serving cells (three more
-traces, about 10 s each, and two real steps) about 25 s and phase 25
-about 5 s.  The whole took 889.9-1041.0 s with 25 phases, so phases 14
-and 17 profile none of their eight runs (the four profiles they kept
-took 89 s on the slower host); Mixtral's sharded cells in phase 24.3
-(six traces of 4 layers and three real steps) take about 25 s, and
-phase 11 no longer profiles its launcher in their place; the long_500k
-cells (four traces and two real steps) about 10 s; deepseek-v2-236b's
-(six traces of 2 layers and three real steps) about 25 s;
-internvl2-26b's (the same) about 11 s.  It also
-exits non-zero without a CUDA device.  ``python3 chip_smoke.py --metering`` stops after phase 4d and
+the last line.  The whole must finish within 1000 s of the runner's
+1200 s limit.  It took 777.7 s on an H100 80GB HBM3 at 700 W, where the
+phases took: 1 (the build) 15 s, the float32 attention backward's 55 s
+of ``nvcc`` running on behind phases 2-17; 2-11 325 s (the acceptance
+day and the acceptance-scale sweep point on both backends, the kernel
+checks, the Qwen and RecurrentGemma launchers); 12-17 156 s; 18-21 81
+s; 22 24 s; 23 21 s; 24 155 s, mostly phase 24.3's traces (granite-20b's
+52-layer train cell 24 s traced and 6 s run, its fault two 24-layer
+traces 22 s, its serving cells about 20 s; each other model's cells and
+the three long_500k cells 2-25 s); 25 1 s.  A host seen earlier ran the
+host-bound phases 1.3-1.6 times as long (992.0 s with the backward's
+build in phase 1 and recurrentgemma-9b's cells not yet run), so phases
+14 and 17 profile none of their runs and phase 11 none, and phase 24.3
+prints recurrentgemma-9b's cells' wall beside what the 24-layer fault
+traces (against a 52-layer one) and the late build save.
+It also exits non-zero without a CUDA device.
+``python3 chip_smoke.py --metering`` stops after phase 4d and
 prints the metering kernels' figures and the stack's walls and launches
 as two JSON lines instead of the last two;
 ``python3 chip_smoke.py --train`` runs phase 1 and phases 18-22 and 24
@@ -614,17 +632,54 @@ def _rel_close(x, y, rel):
     return float(err.max()) if err.numel() else 0.0
 
 
-def build():
+# the sources no phase before 18 launches: they compile while phases 2-17
+# run, and phase 18 waits for them (``finish_build``); every other source
+# is waited for in phase 1
+LATE_BUILDS = ("flash_attention_f32_bwd",)
+# phase 1's wall, and when the late builds ended (``finish_build``)
+BUILD_WALLS = {}
+
+
+def _ptxas(names):
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    secs = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.3f} s wall "
-          f"({', '.join(f'{k}.cu {v:.3f} s' for k, v in secs.items())})")
-    for name in _build.SOURCES:
+    for name in names:
         log = _build.lib_path(name).with_suffix(".log")
         for line in log.read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "entry")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+
+def build():
+    """Start every source's ``nvcc`` at once and wait for all but
+    LATE_BUILDS; returns the wall waited."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.start_all()
+    names = [n for n in _build.SOURCES if n not in LATE_BUILDS]
+    secs = {n: _build.finish(n) for n in names}
+    wall = BUILD_WALLS["phase1_s"] = time.perf_counter() - t0
+    print(f"build: {wall:.3f} s wall "
+          f"({', '.join(f'{k}.cu {v:.3f} s' for k, v in secs.items())}); "
+          f"{', '.join(f'{k}.cu' for k in LATE_BUILDS)} compiling on "
+          f"while phases 2-17 run")
+    _ptxas(names)
+    return wall
+
+
+def finish_build():
+    """Wait for LATE_BUILDS (phase 18 launches them): the wall this
+    waited, and when each one's compiler ended, in seconds since the
+    builds started (phase 1 would have waited that long for it)."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    secs = {n: _build.finish(n) for n in LATE_BUILDS}
+    waited = time.perf_counter() - t0
+    BUILD_WALLS.update(late_ended_s=max(secs.values()), late_waited_s=waited)
+    print(f"late build: "
+          f"{', '.join(f'{k}.cu ended {v:.3f} s after the build began' for k, v in secs.items())}"
+          f"; phase 18 waited {waited:.3f} s for it")
+    _ptxas(LATE_BUILDS)
+    return {"waited_s": waited, "ended_s": secs}
 
 
 def _tables(traces, torch):
@@ -1032,7 +1087,14 @@ RGLRU_RAGGED = ((1, 3, 4096), (4, 1, 4096))
 RGLRU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 RGLRU_TIMED = (1, 2048, 4096)          # a long RecurrentGemma prompt, f32
 RGLRU_ROWS = (RGLRU_TIMED,) + RGLRU_RAGGED   # timed, f32
+# a rank's 256 of recurrentgemma-9b's 4,096 RG-LRU channels in phase
+# 24.3's sharded cells: train (16 rows x 4,096 tokens) and prefill (2
+# rows x 32,768), float32; checked and timed beside RGLRU_ROWS
+RGLRU_RANK = ((16, 4096, 256), (2, 32768, 256))
 RG_WINDOW = 16                         # the depth-3 run's cut window
+# phase 24.3's cut of recurrentgemma-9b: one (RG-LRU, RG-LRU, local
+# attention) superlayer of its first scan group
+RG_LAYERS = 3
 
 
 def _randn(shape, seed, dtype, torch):
@@ -1707,8 +1769,9 @@ def check_rglru():
     """``rglru_scan`` against its plain version on the card, on both
     routes: the reference's shapes, the launcher's ragged shapes and the
     2048-token prompt (a channel at a = 0.9999 throughout), in float32
-    and bfloat16; two chunked calls bit-equal; the carried ``h0``.
-    Returns its max abs error."""
+    and bfloat16, and a sharded rank's 256 channels (RGLRU_RANK, float32:
+    two of the chunked kernel's 128-channel blocks); two chunked calls
+    bit-equal; the carried ``h0``.  Returns its max abs error."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -1717,7 +1780,8 @@ def check_rglru():
     worst = 0.0
     for dt in (torch.float32, torch.bfloat16):
         tol = RGLRU_TOL[str(dt).split(".")[-1]]
-        for shape in RGLRU_SHAPES + RGLRU_ROWS:
+        rank = RGLRU_RANK if dt == torch.float32 else ()
+        for shape in RGLRU_SHAPES + RGLRU_ROWS + rank:
             a, x, h0 = _scan_inputs(shape, sum(shape), dt, torch)
             if shape == RGLRU_TIMED:
                 a[:, :, 7] = 0.9999                 # the carry's drift
@@ -1772,11 +1836,11 @@ def _raw_scan(a, x, h0, out, way):
 
 
 def time_rglru(stats):
-    """Its time at every RGLRU_ROWS shape (float32): the serial and the
-    chunked kernel on the same inputs, each rotating over input sets of
-    >= ROTATE_BYTES together, beside the byte bound (every kernel time
-    must be at or above it) and the plain version; no single PyTorch
-    call computes the recurrence.  The 2048-token row fills
+    """Its time at every RGLRU_ROWS and RGLRU_RANK shape (float32): the
+    serial and the chunked kernel on the same inputs, each rotating over
+    input sets of >= ROTATE_BYTES together, beside the byte bound (every
+    kernel time must be at or above it) and the plain version; no single
+    PyTorch call computes the recurrence.  The 2048-token row fills
     ``stats["rglru_scan"]``."""
     import torch
 
@@ -1785,7 +1849,7 @@ def time_rglru(stats):
 
     name = torch.cuda.get_device_name(0)
     rows = []
-    for shape in RGLRU_ROWS:
+    for shape in RGLRU_ROWS + RGLRU_RANK:
         b, s, w = shape
         sets = [_scan_inputs(shape, 20 + j, torch.float32, torch)
                 for j in range(_sets(3 * b * s * w * 4))]
@@ -4489,7 +4553,8 @@ def check_train_launcher(tmp):
 
 
 def drive_training(stats):
-    """Phases 18-21."""
+    """Phases 18-21 (the late builds waited for first)."""
+    finish_build()
     stats.setdefault("rglru_scan", {})
     for row in ("flash_attention_f32", "flash_attention_bwd"):
         stats.setdefault(row, {"max_abs_err": 0.0})
@@ -5837,6 +5902,13 @@ DRY_PEAK_TOL = 0.05        # the traced peak vs max_memory_allocated
 DRY_CELL = ("granite-20b", "decode_32k", "single")
 # one production train cell in the sharded layout, run as rank 0
 DRY_SHARDED = ("granite-20b", "train_4k", "single")
+# the depth cut of DRY_SHARDED whose trace with the planted fault
+# (``_kept_gathers``) is held against its own correct trace: the fault's
+# excess grows by about 0.5 % of the peak a layer (traces of this cell at
+# 2, 4, 8 and 20 layers: 1.4, 2.5, 4.7 and 10.5 %), so at 24 layers it
+# misses by about 12.5 %, clear of KEPT_MISS
+KEPT_LAYERS = 24
+KEPT_MISS = 2 * DRY_PEAK_TOL
 # the production serving cells in the sharded layout, run as rank 0
 DRY_SERVING = (("granite-20b", "decode_32k", "single"),
                ("granite-20b", "prefill_32k", "single"))
@@ -6045,8 +6117,11 @@ def check_sharded_rank0(card):
     the card (the weights drawn at their local shapes; the collectives
     complete at once and return nothing, so the values are not checked):
     the traced peak within DRY_PEAK_TOL of ``max_memory_allocated``, the
-    launches and routes equal; the trace with the planted fault
-    (``_kept_gathers``) must miss the peak gate."""
+    launches and routes equal.  The planted fault (``_kept_gathers``) is
+    traced on the cell cut to KEPT_LAYERS layers and must miss that
+    cut's correct trace by more than KEPT_MISS (the full-depth trace is
+    tied to the card by the gate above; a second trace of all 52 layers
+    would take as long as the first)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -6057,8 +6132,14 @@ def check_sharded_rank0(card):
     cfg, shape = get_config(arch), SHAPES[shape_name]
     traced = dryrun.run_cell(arch, shape_name, mesh_name, verbose=False)
     assert traced["layout"] == "sharded", traced["layout"]
-    with _kept_gathers():
-        kept = dryrun.run_cell(arch, shape_name, mesh_name, verbose=False)
+    t0 = time.perf_counter()
+    cut = cut_depth(arch, KEPT_LAYERS, torch.bfloat16)
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type=dryrun.tensor_device("cuda"))
+        clean = dryrun.trace_cell(cut, shape, mesh, mesh_name=mesh_name)
+        with _kept_gathers():
+            kept = dryrun.trace_cell(cut, shape, mesh, mesh_name=mesh_name)
+    kept_wall = time.perf_counter() - t0
     with dryrun.fake_group(256):
         mesh = make_production_mesh(device_type="cuda")
         real = _rank0_step(cfg, shape, mesh)
@@ -6069,12 +6150,13 @@ def check_sharded_rank0(card):
         traced["kernel_routes"], real["routes"])
     assert real["routes"]["flash_attention"] == {"sm90": 2 * cfg.n_layers}
     gap = _gap(traced["peak_device_bytes"], real["peak_bytes"])
-    miss = _gap(kept["peak_device_bytes"], real["peak_bytes"])
+    miss = _gap(kept["peak_device_bytes"], clean["peak_device_bytes"])
     assert gap <= DRY_PEAK_TOL, (traced["peak_device_bytes"],
                                  real["peak_bytes"])
-    assert miss > DRY_PEAK_TOL, (
-        "the trace that keeps every layer's gathered weights passes the "
-        "peak gate", kept["peak_device_bytes"], real["peak_bytes"])
+    assert miss > KEPT_MISS, (
+        "the trace that keeps every layer's gathered weights does not miss "
+        "its cut's correct trace by KEPT_MISS", kept["peak_device_bytes"],
+        clean["peak_device_bytes"])
     print(f"sharded {arch} x {shape_name} rank 0 of {mesh_name} (16, 16), "
           f"{cfg.n_layers} layers bf16, {shape.global_batch // 16} rows x "
           f"{shape.seq_len // 16} tokens a rank: step {real['ms']:.3f} ms "
@@ -6083,17 +6165,23 @@ def check_sharded_rank0(card):
           f"{traced['peak_device_bytes']:,} B traced vs "
           f"{real['peak_bytes']:,} B max_memory_allocated (gap "
           f"{100 * gap:.3f} %, gate {100 * DRY_PEAK_TOL:.0f} %; {card}); "
-          f"the kept-gathers trace {kept['peak_device_bytes']:,} B (gap "
-          f"{100 * miss:.1f} %); useful-FLOP ratio "
-          f"{traced['useful_flops_ratio']:.3f}; traces "
-          f"{traced['trace_s']:.3f} / {kept['trace_s']:.3f} s")
+          f"at {KEPT_LAYERS} layers the kept-gathers trace "
+          f"{kept['peak_device_bytes']:,} B vs the correct trace "
+          f"{clean['peak_device_bytes']:,} B (gap {100 * miss:.1f} %, it "
+          f"must exceed {100 * KEPT_MISS:.0f} %); useful-FLOP ratio "
+          f"{traced['useful_flops_ratio']:.3f}; the {cfg.n_layers}-layer "
+          f"trace {traced['trace_s']:.3f} s, the two {KEPT_LAYERS}-layer "
+          f"traces {clean['trace_s']:.3f} / {kept['trace_s']:.3f} s "
+          f"({kept_wall:.3f} s)")
     return {"cell": "_".join(DRY_SHARDED), "layout": traced["layout"],
             "step_ms": real["ms"], "launches": real["launches"],
             "routes": real["routes"],
             "predicted_peak": traced["peak_device_bytes"],
             "real_peak": real["peak_bytes"], "peak_gap": gap,
+            "kept_layers": KEPT_LAYERS,
+            "kept_clean_peak": clean["peak_device_bytes"],
             "kept_gathers_peak": kept["peak_device_bytes"],
-            "kept_gathers_gap": miss,
+            "kept_gathers_gap": miss, "kept_wall_s": kept_wall,
             "useful_flops_ratio": traced["useful_flops_ratio"],
             "collective_counts": traced["collective_counts"],
             "trace_s": traced["trace_s"], "card": card}
@@ -6104,12 +6192,13 @@ def _out_of_place_writes():
     """A planted layout fault of the sharded serving body, modelled in
     the trace: each layer's cache block written out of place
     (``torch.slice_scatter``, the gathered body's writer, whose kernel
-    clones the whole stacked storage its view lies in), so that
-    ``_run_groups`` restacks the new blocks."""
+    clones the whole stacked storage its view lies in) and an RG-LRU
+    layer's new state returned, not written, so that ``_run_groups``
+    restacks the new blocks."""
     import torch
 
-    from repro_torch.models import attention
-    real = attention._kv_put
+    from repro_torch.models import attention, recurrent
+    real, real_state = attention._kv_put, recurrent._state_put
 
     def put(cache, kv, lo, off):
         t, s = cache["k"].shape[1], kv["k"].shape[1]
@@ -6120,10 +6209,12 @@ def _out_of_place_writes():
             a - lo, e - lo) for n in cache}
 
     attention._kv_put = put
+    recurrent._state_put = lambda state, new: {
+        n: v.to(state[n].dtype) for n, v in new.items()}
     try:
         yield
     finally:
-        attention._kv_put = real
+        attention._kv_put, recurrent._state_put = real, real_state
 
 
 @contextlib.contextmanager
@@ -6311,24 +6402,23 @@ def _check_cut_rank0(arch, layers, pos, faults, card, gate=DRY_PEAK_TOL):
     microbatch (the dry run's full-depth row may take more; on a fake
     group a gathered batch is uninitialised memory, whose tokens would
     index the table out of range), the decode cell ``pos``.  The
-    launches (attention: 2 sm90 flash a layer in train, 1 in prefill, 1
-    decode a layer on the plan's route for rank 0's 2,048-row block;
-    MLA: none) and routes traced = real, a VLM's train trace four
+    launches of each mixer (``_cut_launches``: attention 2 sm90 flash a
+    layer in train, 1 in prefill, 1 decode a layer on the plan's route
+    for rank 0's 2,048-row block; RG-LRU 3 scans a layer in train, 1
+    in prefill and decode; MLA none) and routes traced = real, a VLM's
+    train trace four
     all-to-alls (its re-blocking, in and out, each way), the traced peak
     within ``gate`` of ``max_memory_allocated``; the trace with the
     planted fault ``faults[kind]`` must miss the peak gate."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as dmod
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import SHAPES
-    from repro_torch.models import Mixer
     full = get_config(arch)
     cfg = cut_depth(arch, layers, torch.bfloat16)
     n = cfg.n_layers
-    mla = any(b.mixer == Mixer.MLA for g in cfg.groups for b in g.pattern)
     res = {}
     for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
         shape = SHAPES[shape_name]
@@ -6345,18 +6435,7 @@ def _check_cut_rank0(arch, layers, pos, faults, card, gate=DRY_PEAK_TOL):
                 bad = dryrun.trace_cell(cfg, shape, mesh, pos=at,
                                         mesh_name="single")
             real = _rank0_step(cfg, shape, mesh, at)
-        if mla:
-            want = {}
-        elif shape.kind == "decode":
-            way = "split" if dmod.plan(shape.global_batch // 16,
-                                       cfg.n_heads, cfg.n_kv_heads,
-                                       shape.seq_len // 16, cfg.head_dim_,
-                                       dmod.FAKE_SMS).splits > 1 \
-                else "single"
-            want = {"decode_attention": {way: n}}
-        else:
-            want = {"flash_attention": {
-                "sm90": 2 * n if shape.kind == "train" else n}}
+        want = _cut_launches(cfg, shape, at, shape.global_batch // 16, 16)
         assert traced["kernel_launches"] == real["launches"] == {
             op: sum(r.values()) for op, r in want.items()}, (
             shape_name, traced["kernel_launches"], real["launches"])
@@ -6465,11 +6544,14 @@ def check_mla_rank0(card):
 
 # the long_500k cells in the sharded layout (LONG_SERVE_RULES /
 # LONG_SERVE_BIG_RULES: the cache's length over all 256 ranks, 2,048 rows
-# a rank), run as rank 0 of the (16, 16) mesh: gemma3-1b at full depth,
-# mixtral-8x22b at MOE_LAYERS of its 56 layers (the full depth's rules);
-# the token at LONG_POS, the last row of rank 0's block, so rank 0 writes
-# it into its own block and reads all of its visible rows
-DRY_LONG = ("gemma3-1b", MOE_ARCH)
+# a rank), run as rank 0 of the (16, 16) mesh, (arch, layers; None: its
+# full depth): gemma3-1b at full depth, mixtral-8x22b at MOE_LAYERS of
+# its 56 layers and recurrentgemma-9b at RG_LAYERS of its 38 (the full
+# depth's rules); the token at LONG_POS, the last row of rank 0's block,
+# so rank 0 writes it into its own block and reads all of its visible
+# rows
+DRY_LONG = (("gemma3-1b", None), (MOE_ARCH, MOE_LAYERS),
+            (RG_ARCH, RG_LAYERS))
 LONG_POS = 2047
 
 
@@ -6481,26 +6563,50 @@ def _kv_over_model():
     return _relaid(kv_len=[("model",)])
 
 
-def _long_routes(cfg, rows, pos):
-    """The decode route of each layer of a one-row step at ``pos`` over
-    rank 0's block of ``rows`` rows (its visible rows under the layer's
-    window; a block wholly before the window: a one-row view), by the
-    fake launch's plan, counted."""
+def _cut_launches(cfg, shape, pos, rows, blocks):
+    """The kernel launches of rank 0's step of a cell in the sharded
+    layout, op -> route -> count, per mixer: an attention layer 2 sm90
+    flash a train step (forward and remat recompute; the bf16 backward
+    recomputes the plain version), 1 a prefill, 1 decode a decode step on
+    the route the plan gives ``rows`` rows of every head over rank 0's
+    visible rows (its block of the length cut in ``blocks``, under the
+    layer's window, the token at ``pos``; a block wholly before the
+    window: a one-row view); an RG-LRU layer the scan on rank 0's
+    channels on the route its sequence picks (the gathered sequence, or
+    one token), 3 a train step (forward, recompute, backward) and 1 a
+    prefill or decode step; MLA none."""
     from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import rglru_scan as rmod
+    from repro_torch.models import Mixer
     from repro_torch.models.blocks import WINDOW_INF
     from repro_torch.models.model import build_meta
-    routes = {}
-    for group in build_meta(cfg).values():
-        for meta in group.values():
-            for w in meta["window"]:
-                first = 0 if w >= WINDOW_INF else max(0, pos + 1 - w)
-                n = max(min(rows, pos + 1) - first, 1)
-                way = "split" if dmod.plan(1, cfg.n_heads, cfg.n_kv_heads,
-                                           n, cfg.head_dim_,
-                                           dmod.FAKE_SMS).splits > 1 \
-                    else "single"
-                routes[way] = routes.get(way, 0) + 1
-    return routes
+    train, decode = shape.kind == "train", shape.kind == "decode"
+    want = {}
+
+    def add(op, way, n):
+        want.setdefault(op, {})
+        want[op][way] = want[op].get(way, 0) + n
+
+    meta = build_meta(cfg)
+    for g in cfg.groups:
+        for j, blk in enumerate(g.pattern):
+            for w in meta[g.name][f"pos{j}"]["window"]:
+                if blk.mixer == Mixer.RGLRU:
+                    add("rglru_scan", rmod.route(1 if decode
+                                                 else shape.seq_len),
+                        3 if train else 1)
+                elif blk.mixer != Mixer.ATTN:
+                    continue
+                elif not decode:
+                    add("flash_attention", "sm90", 2 if train else 1)
+                else:
+                    block = shape.seq_len // blocks
+                    first = 0 if w >= WINDOW_INF else max(0, pos + 1 - w)
+                    n = max(min(block, pos + 1) - first, 1)
+                    add("decode_attention", "split" if dmod.plan(
+                        rows, cfg.n_heads, cfg.n_kv_heads, n, cfg.head_dim_,
+                        dmod.FAKE_SMS).splits > 1 else "single", 1)
+    return want
 
 
 def check_long_rank0(card):
@@ -6508,13 +6614,16 @@ def check_long_rank0(card):
     (16, 16) mesh in the sharded layout (gemma3-1b at full width and
     depth under LONG_SERVE_RULES; mixtral-8x22b at full width and
     MOE_LAYERS layers under the full depth's LONG_SERVE_BIG_RULES,
-    ``_rules_of``), bf16, the token at LONG_POS, each traced as the dry
+    ``_rules_of``; recurrentgemma-9b at RG_LAYERS layers under
+    LONG_SERVE_RULES, its RG-LRU state 256 of the 4,096 channels a rank,
+    repeated over "data"), bf16, the token at LONG_POS, each traced as the dry
     run traces it and then run for real as rank 0 of a ``fake`` group of
     256 on the card (the weights and rank 0's 2,048-row cache block drawn
     at their local shapes; the collectives complete at once and return
     nothing, so the values are not checked).  The launches (one
-    ``decode_attention`` a layer, each on the route the plan gives its
-    visible rows) and routes traced = real, the traced peak within
+    ``decode_attention`` an attention layer, each on the route the plan
+    gives its visible rows, and one serial scan an RG-LRU layer:
+    ``_cut_launches``) and routes traced = real, the traced peak within
     DRY_PEAK_TOL of ``max_memory_allocated``; the trace with the cache's
     length split over "model" alone (``_kv_over_model``: 16 times the
     block) must miss the peak gate."""
@@ -6527,10 +6636,10 @@ def check_long_rank0(card):
     shape = SHAPES["long_500k"]
     rows = shape.seq_len // 256
     res = {}
-    for arch in DRY_LONG:
+    for arch, layers in DRY_LONG:
         full = get_config(arch)
-        cfg = full if arch != MOE_ARCH else \
-            cut_depth(MOE_ARCH, MOE_LAYERS, torch.bfloat16)
+        cfg = full if layers is None else \
+            cut_depth(arch, layers, torch.bfloat16)
         n = cfg.n_layers
         t0 = time.perf_counter()
         with _rules_of(full), dryrun.fake_group(256):
@@ -6543,13 +6652,14 @@ def check_long_rank0(card):
                 bad = dryrun.trace_cell(cfg, shape, mesh, pos=LONG_POS,
                                         mesh_name="single")
             real = _rank0_step(cfg, shape, mesh, LONG_POS)
-        want = _long_routes(cfg, rows, LONG_POS)
+        want = _cut_launches(cfg, shape, LONG_POS, 1, 256)
         assert traced["kernel_launches"] == real["launches"] == {
-            "decode_attention": n}, (arch, traced["kernel_launches"],
-                                     real["launches"])
+            op: sum(r.values()) for op, r in want.items()}, (
+            arch, traced["kernel_launches"], real["launches"])
         assert traced["kernel_routes"] == real["routes"], (
             arch, traced["kernel_routes"], real["routes"])
-        assert real["routes"]["decode_attention"] == want, (
+        assert real["routes"] == {op: want.get(op, {})
+                                  for op in real["routes"]}, (
             arch, real["routes"], want)
         gap = _gap(traced["peak_device_bytes"], real["peak_bytes"])
         miss = _gap(bad["peak_device_bytes"], real["peak_bytes"])
@@ -6644,6 +6754,72 @@ def check_vlm_rank0(card):
     return _check_cut_rank0(VLM_ARCH, VLM_LAYERS, VLM_POS, {
         "train": _whole_residual, "prefill": _whole_length_writes,
         "decode": _out_of_place_writes}, card, VLM_PEAK_TOL)
+
+
+# recurrentgemma-9b's sharded cells, run as rank 0 of the (16, 16) mesh
+# at RG_LAYERS of its 38 layers (full width, bf16, the full depth's
+# SERVE_RULES): 256 of the RG-LRU's 4,096 channels and 1 of the 16 query
+# heads over the one K/V head a rank; the decode at RG_POS, the last row
+# of rank 0's 2,048-row cache block, so that rank 0 reads all of it
+RG_POS = 2047
+
+
+@contextlib.contextmanager
+def _whole_channels():
+    """A planted layout fault of the sharded RG-LRU block, modelled in the
+    trace: each RG-LRU layer's weights gathered whole over "model" too
+    (the width split over no axis), so that every rank runs all 4,096
+    channels -- the gates, the conv and the scan -- and keeps its own
+    rows."""
+    from repro_torch.distributed import sharding
+    real = sharding.ModelShards.layer       # ServeShards' too
+
+    def layer(self, tree, *path):
+        out = real(self, tree, *path)
+        if "rglru" not in out or self.size == 1:
+            return out
+        specs = sharding._at(self.specs, path)["rglru"]
+        for name, t in out["rglru"].items():
+            for dim, entry in enumerate(specs[name][1:]):
+                if self.axis in sharding.entry_axes(entry):
+                    t = sharding._AllGather.apply(t, dim,
+                                                  self._group(self.axis))
+            out["rglru"][name] = t
+        return out
+
+    sharding.ModelShards.layer = layer
+    try:
+        yield
+    finally:
+        sharding.ModelShards.layer = real
+
+
+def _ffn_whole():
+    """A planted layout fault of the sharded RG-LRU serving cells,
+    modelled in the trace: "ffn" split over no mesh axis, so that every
+    rank holds each RG-LRU weight and its state whole (the FFN's weights
+    too) and runs all 4,096 channels, the body otherwise as it is."""
+    return _relaid(ffn=[])
+
+
+def check_rg_rank0(card):
+    """Phase 24.3, RG-LRU: recurrentgemma-9b's three cells at RG_LAYERS
+    of its 38 layers (``_check_cut_rank0``: the RG-LRU's channels, its
+    state's too, over "model", each gate's partial sums reduce-scattered
+    by channel, the scan on the rank's 256 channels over the whole
+    sequence; the decode at RG_POS); the faults the RG-LRU weights
+    gathered whole (train: ``_whole_channels``), its weights and state
+    whole (prefill: ``_ffn_whole``) and the decode's cache and state
+    written out of place (``_out_of_place_writes``).
+    Prints the four cells' wall (the long_500k cell is
+    ``check_long_rank0``'s)."""
+    t0 = time.perf_counter()
+    res = _check_cut_rank0(RG_ARCH, RG_LAYERS, RG_POS, {
+        "train": _whole_channels, "prefill": _ffn_whole,
+        "decode": _out_of_place_writes}, card)
+    print(f"phase 24.3 recurrentgemma-9b's three cells: "
+          f"{time.perf_counter() - t0:.3f} s")
+    return res
 
 
 def time_decode_wrapper(stats):
@@ -6779,7 +6955,26 @@ def drive_dryrun(stats):
     moe = check_moe_rank0(_card_line())
     mla = check_mla_rank0(_card_line())
     vlm = check_vlm_rank0(_card_line())
+    rg = check_rg_rank0(_card_line())
     long = check_long_rank0(_card_line())
+    # recurrentgemma-9b's four cells' wall beside the time won back
+    # for them: granite-20b's fault traced at KEPT_LAYERS
+    # layers, not at its 52 (a trace as long as its correct one), and
+    # the late build, which phase 1 does not wait for
+    rg_wall = sum(c["wall_s"] for c in rg.values()) + \
+        long[RG_ARCH]["wall_s"]
+    won = sharded["trace_s"] - sharded["kept_wall_s"]
+    late = BUILD_WALLS.get("late_ended_s", 0.0) - \
+        BUILD_WALLS.get("phase1_s", 0.0) - \
+        BUILD_WALLS.get("late_waited_s", 0.0)
+    print(f"phase 24.3 walls: recurrentgemma-9b's four cells "
+          f"{rg_wall:.3f} s; won back: granite-20b's fault at "
+          f"{KEPT_LAYERS} layers {sharded['kept_wall_s']:.3f} s against "
+          f"its 52-layer trace's {sharded['trace_s']:.3f} s "
+          f"({won:.3f} s), the late build's compile behind phases 2-17 "
+          f"({late:.3f} s: it ended "
+          f"{BUILD_WALLS.get('late_ended_s', 0.0):.3f} s after the build "
+          f"began, phase 1 took {BUILD_WALLS.get('phase1_s', 0.0):.3f} s)")
     timing = time_decode_wrapper(stats)
     _possible(timing["wrapper_ms"], stats["decode_attention"]["bound_ms"]
               if "decode_attention" in stats else 0.0, "decode wrapper")
@@ -6800,7 +6995,8 @@ def drive_dryrun(stats):
         "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
         "sharded_rank0": sharded, "serving_rank0": serving,
         "moe_rank0": moe, "mla_rank0": mla, "vlm_rank0": vlm,
-        "long_rank0": long,
+        "rg_rank0": rg, "long_rank0": long,
+        "rg_wall_s": rg_wall, "kept_won_s": won, "late_build_won_s": late,
         "decode_wrapper": timing,
         "wall_s": wall}
 
@@ -7247,13 +7443,13 @@ def main():
             row["dryrun_launches"]["sharded_prefill_rank0"] = \
                 dry["serving_rank0"]["prefill_32k"]["launches"][
                     "flash_attention"]
-            # mixtral-8x22b's and internvl2-26b's sharded cells at
-            # MOE_LAYERS / VLM_LAYERS layers
+            # mixtral-8x22b's, internvl2-26b's and recurrentgemma-9b's
+            # sharded cells at MOE_LAYERS / VLM_LAYERS / RG_LAYERS layers
             for cell in ("train_4k", "prefill_32k"):
-                row["dryrun_launches"][f"moe_{cell}_rank0"] = \
-                    dry["moe_rank0"][cell]["launches"]["flash_attention"]
-                row["dryrun_launches"][f"vlm_{cell}_rank0"] = \
-                    dry["vlm_rank0"][cell]["launches"]["flash_attention"]
+                for key in ("moe", "vlm", "rg"):
+                    row["dryrun_launches"][f"{key}_{cell}_rank0"] = \
+                        dry[f"{key}_rank0"][cell]["launches"][
+                            "flash_attention"]
         if row["name"] == "decode_attention":
             # the sharded decode cell's rank-0 step (with the log-sum-exp
             # output), and phase 25's checks and times of that output
@@ -7266,11 +7462,23 @@ def main():
             row["dryrun_launches"]["vlm_decode_32k_rank0"] = \
                 dry["vlm_rank0"]["decode_32k"]["launches"][
                     "decode_attention"]
-            # the long_500k cells' rank-0 steps (gemma3-1b, Mixtral)
+            row["dryrun_launches"]["rg_decode_32k_rank0"] = \
+                dry["rg_rank0"]["decode_32k"]["launches"][
+                    "decode_attention"]
+            # the long_500k cells' rank-0 steps (gemma3-1b, Mixtral,
+            # recurrentgemma-9b)
             for arch, cell in dry["long_rank0"].items():
                 row["dryrun_launches"][f"{arch}_long_500k_rank0"] = \
                     cell["launches"]["decode_attention"]
             row["lse"] = lse
+        if row["name"] == "rglru_scan":
+            # recurrentgemma-9b's sharded cells' rank-0 steps, the scan
+            # on a rank's 256 channels
+            row["dryrun_launches"] = {
+                f"rg_{cell}_rank0": c["launches"]["rglru_scan"]
+                for cell, c in dry["rg_rank0"].items()}
+            row["dryrun_launches"]["rg_long_500k_rank0"] = \
+                dry["long_rank0"][RG_ARCH]["launches"]["rglru_scan"]
     print(json.dumps({"cap_offset": {k: cap_offset[k] for k in (
         "qwen", "gemma3", "grads", "whisper")}}))
     print(json.dumps({"dryrun": dry}))
@@ -7286,5 +7494,15 @@ def main():
     return 0
 
 
+def _stop_builds():
+    """End a build still running when the script stops early."""
+    mod = sys.modules.get("repro_torch.kernels._build")
+    if mod is not None:
+        mod.stop_all()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _stop_builds()

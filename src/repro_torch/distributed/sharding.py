@@ -46,7 +46,10 @@ It gathers a layer's weights over their FSDP axes ("data") and, where
 a product needs a weight whole (the embedding, the head), over every
 axis; it gathers the residual's sequence before the column-parallel
 products and reduce-scatters it after the row-parallel ones (Megatron
-sequence parallelism).  The collectives carry their gradients (an
+sequence parallelism), and reduce-scatters a product's partial sums
+along its channels where the rank's channels need every rank's rows of
+a weight (``channel_scatter``: the RG-LRU's gates).  The collectives
+carry their gradients (an
 all-gather's is a reduce-scatter, and back), so a gathered weight's
 gradient returns to its block by a reduce-scatter; ``reduce_grads``
 then sums each gradient over the axes its leaf is replicated over,
@@ -61,9 +64,9 @@ local tokens).
 
 ``ServeShards``, a ``ModelShards`` over the params' specs under a
 serving rule set, is the "model" axis inside the sharded serving body
-(the prefill and decode cells of a decoder of attention or MLA + dense
-or MoE FFN blocks, and an attention decoder's one-row decode under the
-long rules).  The
+(the prefill and decode cells of a decoder of attention, MLA or RG-LRU
+blocks with dense or MoE FFNs, and such a decoder's one-row decode under
+the long rules).  The
 residual is replicated over "model" there (``"seq": []``), so its
 sequence "gather" is the residual itself and its "reduce-scatter" an
 all-reduce: each row-parallel product's partial sums summed over the
@@ -598,6 +601,17 @@ class ModelShards:
             return x
         lo, hi = self.rows(x.shape[1])
         return x[:, lo:hi]
+
+    def channel_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., W] partial sums -> [..., W / size], contiguous: summed
+        over the ranks, this rank's block of the last dim kept (a product
+        of the rank's channels against its rows of a [W, W] weight, for
+        its own channels; one reduce-scatter over the axis, an all-gather
+        in the backward)."""
+        if self.size == 1:
+            return x
+        return _ReduceScatter.apply(x, x.dim() - 1,
+                                    self._group(self.axis)).contiguous()
 
     def concat(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The ranks' blocks ``x`` concatenated along ``dim``, in rank

@@ -8,7 +8,9 @@ and loaded with ctypes.  Flags are per source: the metering kernels
 build with ``--fmad=false`` (their carbon lanes round step by step like
 the plain versions); the attention and RG-LRU kernels keep fused
 multiply-adds.
-All missing libraries compile in parallel, one ``nvcc`` per source.
+All missing libraries compile in parallel, one ``nvcc`` per source;
+``start_all`` starts them and ``finish`` waits for one, so a caller may
+go on while a slow source builds (``load`` waits for its own).
 Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -19,8 +21,9 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -73,39 +76,68 @@ def lib_path(name: str) -> pathlib.Path:
     return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all() -> Dict[str, float]:
-    """Compile every source whose library is missing, all at once.
-    Returns per-source wall seconds (0.0 for a library already built)
-    and writes each compiler log (``-Xptxas -v``: registers, shared
-    memory, spills) next to its library as ``.log``.  Raises with the
-    compiler's output if any build fails."""
+# source -> (its nvcc process, the thread collecting its output, what the
+# thread collected, temporary output, library) while it builds
+_pending: Dict[str, Tuple[subprocess.Popen, threading.Thread, Dict[str, Any],
+                          pathlib.Path, pathlib.Path]] = {}
+_t0 = 0.0
+
+
+def _collect(proc: subprocess.Popen, box: Dict[str, Any]) -> None:
+    box["log"], _ = proc.communicate()
+    box["secs"] = time.perf_counter() - _t0
+
+
+def start_all() -> None:
+    """Start one ``nvcc`` for every source whose library is missing and
+    is not building already, all at once, and return without waiting
+    (``finish`` waits for one); a thread a source collects its
+    compiler's output and the time it ended."""
+    global _t0
     BUILD.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
+    if not _pending:
+        _t0 = time.perf_counter()
     for name in SOURCES:
         out = lib_path(name)
-        if out.exists():
+        if out.exists() or name in _pending:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *_SOURCES[name][0], "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
-    secs = {name: 0.0 for name in SOURCES}
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    return secs
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        box: Dict[str, Any] = {}
+        th = threading.Thread(target=_collect, args=(proc, box), daemon=True)
+        th.start()
+        _pending[name] = (proc, th, box, tmp, out)
+
+
+def finish(name: str) -> float:
+    """Wait for ``name``'s build if it is running: the seconds from the
+    builds' start to its compiler's end (0.0 if none ran), its compiler
+    log (``-Xptxas -v``: registers, shared memory, spills) written next
+    to its library as ``.log``.  Raises with the compiler's output if it
+    failed."""
+    if name not in _pending:
+        return 0.0
+    proc, th, box, tmp, out = _pending.pop(name)
+    th.join()
+    out.with_suffix(".log").write_text(box["log"])
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA kernel build failed: {name}.cu (nvcc exit "
+                           f"{proc.returncode}):\n{box['log']}")
+    os.replace(tmp, out)
+    return box["secs"]
+
+
+def stop_all() -> None:
+    """End every build still running (its library is not written)."""
+    for name in list(_pending):
+        proc, th, _, tmp, _ = _pending.pop(name)
+        proc.kill()
+        th.join()
+        tmp.unlink(missing_ok=True)
 
 
 def loaded() -> int:
@@ -114,10 +146,12 @@ def loaded() -> int:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if missing."""
+    """The loaded library of ``csrc/<name>.cu``, built if missing (its
+    build waited for if it is running)."""
     lib = _libs.get(name)
     if lib is None:
         if not lib_path(name).exists():
-            build_all()
+            start_all()
+            finish(name)
         lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
     return lib

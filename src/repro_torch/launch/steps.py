@@ -26,7 +26,8 @@ two layouts (``layout``), chosen from the config and the mesh:
   command-r-35b, and internvl2-26b with its VLM prefix) or a routed MoE
   FFN (mixtral-8x22b), or MLA + a MoE
   FFN with shared experts (deepseek-v2-236b; MLA only where its heads
-  divide "model", so not minicpm3-4b's 40 on 16), laid out as GSPMD
+  divide "model", so not minicpm3-4b's 40 on 16), or RG-LRU and local
+  attention + a dense FFN (recurrentgemma-9b), laid out as GSPMD
   partitions the reference's step under ``TRAIN_RULES``.  Each rank
   keeps only its block of every state leaf (``to_local()``) and the
   optimizer runs on the blocks.  Each layer gathers its weights over
@@ -42,14 +43,17 @@ two layouts (``layout``), chosen from the config and the mesh:
   (``ModelShards.reblock``);
   MLA projects the gathered sequence through its whole "lora" weights
   and runs the rank's heads over it, query-chunked
-  (``models/attention._tp_mla``); the MoE FFN routes whole dispatch
+  (``models/attention._tp_mla``); the RG-LRU block runs the rank's
+  block of its channels over the gathered sequence, its gates' partial
+  sums reduce-scattered by channel (``ModelShards.channel_scatter``,
+  ``models/recurrent.rglru_block``); the MoE FFN routes whole dispatch
   groups on the gathered sequence and computes the rank's experts, or
   its ffn block of every expert where the experts do not divide
   "model", and its block of the shared experts' ffn (``models/moe.py``);
   the loss, the router's statistics, the global norm and the int8 scale
   are reduced over the shards.
 * ``"sharded"`` also runs the ``prefill_32k`` / ``decode_32k`` cells
-  of the same seven decoders with a bf16 or float32 cache (a VLM's
+  of the same eight decoders with a bf16 or float32 cache (a VLM's
   prefill cache the prefix's rows longer, the prefix whole), laid out as
   the reference's step under ``SERVE_RULES`` or, for an arch whose
   weights cannot replicate over "data" (mixtral-8x22b,
@@ -67,8 +71,9 @@ two layouts (``layout``), chosen from the config and the mesh:
   ``_serve_mla``: MLA's absorbed decode gathers every head's absorbed
   query and merges the blocks' latent contexts); the step returns the
   rank's block of the logits, ("batch", "vocab"), and the caches it
-  was given.
-* ``"sharded"`` also runs the attention decoders' one-row
+  was given; an RG-LRU layer's state is split by channel over "model"
+  like its weights and written in place.
+* ``"sharded"`` also runs those decoders' one-row
   ``long_500k`` decode cell with a float cache, laid out as the
   reference's step under
   ``LONG_SERVE_RULES`` or ``LONG_SERVE_BIG_RULES`` (mixtral-8x22b): the
@@ -80,7 +85,8 @@ two layouts (``layout``), chosen from the config and the mesh:
   every length block are merged in block order (``ServeShards.kv_axes``);
   the logits come back ("batch", "vocab"), the row replicated.
 * ``"gathered"``: every other cell (an int8 cache, MLA's one-row
-  cells, the other four archs).  Every weight is gathered whole
+  cells, the other three archs: minicpm3-4b, whisper-base,
+  xlstm-125m).  Every weight is gathered whole
   (``full_tensor()``: the ZeRO resolution of TRAIN_RULES' ``"embed" ->
   data``, and the tensor-parallel dims gathered too), each rank runs its
   block of the batch's rows (``sharding.BatchShards``: the mesh axes the
@@ -411,13 +417,14 @@ def _donate(dst: DTensor, new: torch.Tensor, s: ParamSpec,
                                        shards).to_local())
 
 
-def _attention_decoder(cfg: ArchConfig) -> bool:
+def _shardable_decoder(cfg: ArchConfig) -> bool:
     """A decoder-only config whose every block is attention or MLA + a
-    dense FFN or a routed MoE FFN, with or without shared experts, and
-    with or without a VLM's prefix embeddings (no encoder or
-    cross-attention)."""
+    dense FFN or a routed MoE FFN, with or without shared experts, or an
+    RG-LRU block + a dense FFN, with or without a VLM's prefix
+    embeddings (no encoder, cross-attention or xLSTM block)."""
     return cfg.encoder is None and all(
-        b.mixer in (Mixer.ATTN, Mixer.MLA) and b.ffn in (FFN.DENSE, FFN.MOE)
+        (b.mixer in (Mixer.ATTN, Mixer.MLA) and b.ffn in (FFN.DENSE, FFN.MOE)
+         or b.mixer == Mixer.RGLRU and b.ffn == FFN.DENSE)
         and not b.cross_attention for g in cfg.groups for b in g.pattern)
 
 
@@ -426,18 +433,22 @@ def _mla(cfg: ArchConfig) -> bool:
 
 
 def _kv_axes(specs: Tree, shardings: Tree) -> Tuple[str, ...]:
-    """The mesh axes an attention decoder's KV cache length is split
-    over (major to minor), as the ``kv_len`` entry of its caches'
-    ``PartitionSpec`` names them (every layer's K and V alike)."""
-    s, sh = tree_leaves(specs)[0], tree_leaves(shardings)[0]
-    return sharding.entry_axes(sh.spec[s.axes.index("kv_len")])
+    """The mesh axes a decoder's KV cache length is split over (major to
+    minor), as the ``kv_len`` entry of its caches' ``PartitionSpec``
+    names them (every layer's K and V alike; an RG-LRU layer's state
+    has no length and is passed over); () where no cache leaf has one."""
+    for s, sh in zip(tree_leaves(specs), tree_leaves(shardings)):
+        if "kv_len" in s.axes:
+            return sharding.entry_axes(sh.spec[s.axes.index("kv_len")])
+    return ()
 
 
 def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
            flags: RunFlags = RunFlags()) -> str:
     """The body ``jit_cell`` runs for a cell (module docstring):
     ``"sharded"`` for the train cell of a decoder of attention or MLA +
-    dense or MoE FFN blocks whose residual, at the reference's block-boundary
+    dense or MoE FFN blocks, or of those and RG-LRU + dense FFN blocks,
+    whose residual, at the reference's block-boundary
     hint ("batch", "seq", None) under TRAIN_RULES, splits its rows over
     every axis but "model" and its sequence over "model" (each rank's
     tokens its own; a VLM's concatenated [prefix; tokens] sequence and
@@ -451,7 +462,7 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     and only where its heads divide "model" (else, as minicpm3-4b's 40
     heads on 16 ranks, they would replicate).  Else ``"gathered"``.
     ``mesh``: anything with ``axis_names`` and ``shape``."""
-    if not _attention_decoder(cfg):
+    if not _shardable_decoder(cfg):
         return "gathered"
     if _mla(cfg) and cfg.n_heads % mesh.shape.get("model", 1):
         return "gathered"

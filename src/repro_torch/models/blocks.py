@@ -127,21 +127,23 @@ def apply_block(
     ``moe_impl`` / ``moe_group`` override the MoE config's dispatch and
     group size, ``attn_chunk`` is MLA's query chunk in the naive path
     (``RunFlags``).  ``tp`` (a ``sharding.ModelShards``: a sharded step
-    body, an attention or MLA + dense or MoE FFN block only): without a
-    cache the train body, ``x`` this rank's block of rows and sequence;
-    the norms run on it, the attention, a split dense FFN and the MoE
-    FFN gather the sequence and scatter it back (Megatron sequence
-    parallelism; the MoE routes whole dispatch groups), a dense FFN
-    whose dim does not split runs on the block as it is.  With a cache
-    the serving body (a ``sharding.ServeShards``): ``x`` is this rank's
-    rows, replicated over the model axis; the attention writes the
-    rank's block of the cache (MLA's latent cache) in place, and a split
-    FFN's row-parallel ``wo`` (the MoE's partial sums, its shared
-    experts' with them) ends in an all-reduce."""
-    if tp is not None and (blk.mixer not in (Mixer.ATTN, Mixer.MLA)
+    body, an attention, MLA or RG-LRU + dense or MoE FFN block only):
+    without a cache the train body, ``x`` this rank's block of rows and
+    sequence; the norms run on it, the attention, the RG-LRU block, a
+    split dense FFN and the MoE FFN gather the sequence and scatter it
+    back (Megatron sequence parallelism; the MoE routes whole dispatch
+    groups), a dense FFN whose dim does not split runs on the block as
+    it is.  With a cache the serving body (a ``sharding.ServeShards``):
+    ``x`` is this rank's rows, replicated over the model axis; the
+    attention writes the rank's block of the cache (MLA's latent cache)
+    in place, the RG-LRU block its channels' state, and a split FFN's
+    row-parallel ``wo`` (the MoE's partial sums, its shared experts'
+    with them; the RG-LRU's ``w_out``) ends in an all-reduce."""
+    if tp is not None and (blk.mixer not in (Mixer.ATTN, Mixer.MLA,
+                                             Mixer.RGLRU)
                            or blk.ffn == FFN.NONE or blk.cross_attention):
-        raise ValueError("the sharded bodies run attention or MLA + dense "
-                         "or MoE FFN blocks only")
+        raise ValueError("the sharded bodies run attention, MLA or RG-LRU "
+                         "+ dense or MoE FFN blocks only")
     # without per-layer overrides the BlockSpec's window / theta hold
     if cfg.layer_windows is None and cfg.layer_thetas is None:
         window = blk.window
@@ -173,7 +175,8 @@ def apply_block(
                 tp=tp)
     elif blk.mixer == Mixer.RGLRU:
         y, nc = rec.rglru_block(p["rglru"], h, cfg=cfg,
-                                state=cache["rglru"] if cache else None)
+                                state=cache["rglru"] if cache else None,
+                                tp=tp)
     elif blk.mixer == Mixer.MLSTM:
         if decode:
             y, nc = rec.mlstm_step(p["mlstm"], h, cache["mlstm"], cfg=cfg)

@@ -94,15 +94,36 @@ def unembed(p: Tree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 # -- loss -------------------------------------------------------------------
 
+class _Picked(torch.autograd.Function):
+    """``apply(x, idx)``: ``torch.gather(x, -1, idx)``, whose gradient is
+    a zeros tensor of ``x``'s shape with the incoming gradient
+    scattered into it in place.  (Autograd's own gather backward takes
+    the out-of-place ``scatter_add`` under a tensor subclass, so the dry
+    run's fake tensors would hold two [B, S, V] buffers where the card
+    holds one.)"""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return torch.gather(x, -1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return g.new_zeros(ctx.shape).scatter_add_(-1, idx, g), None
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy.  logits [B,S,V] (any float dtype,
     reduced in float32), labels [B,S] int32 (widened to int64 to index),
     ``mask`` [B,S] optional.
 
-    The label's log-probability is a ``torch.gather``; the reference
-    takes it as a one-hot product (``repro/models/layers.py``), which
-    keeps GSPMD's vocab sharding and sums the same single nonzero term.
+    The label's log-probability is a ``torch.gather`` (``_Picked``); the
+    reference takes it as a one-hot product (``repro/models/layers.py``),
+    which keeps GSPMD's vocab sharding and sums the same single nonzero
+    term.
     The gather saves the [B,S,V] float32 one-hot (2.49 GB a batch row at
     V = 152,064, S = 4,096).  The max is detached, as the reference's
     ``stop_gradient``.
@@ -117,7 +138,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = logits - m
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
-    ll = torch.gather(shifted, -1, labels.long()[..., None])[..., 0] + \
+    ll = _Picked.apply(shifted, labels.long()[..., None])[..., 0] + \
         m[..., 0]
     nll = lse - ll
     shards = sharding.batch_shards()

@@ -11,7 +11,10 @@ last conv inputs and the recurrence's float32 state, and has no time
 axis.  The recurrence goes through ``ops.rglru_scan`` (the hand-written
 CUDA kernel on the card, its plain version on the CPU); the reference
 (``repro/models/recurrent.py``) computes it with an associative scan,
-which agrees to float32 rounding.
+which agrees to float32 rounding.  In the sharded bodies (``tp``) a
+rank holds a block of the W channels: its gates' partial sums are
+reduce-scattered by channel, its conv and scan run on its channels over
+the whole sequence, and a serving step writes its state in place.
 
 The xLSTM blocks are the reference's plain computation (they reach no
 Pallas kernel): the mLSTM's stabilized parallel form for a full
@@ -58,17 +61,24 @@ def rglru_specs(cfg: ArchConfig) -> Tree:
 _RGLRU_C = 8.0
 
 
-def _rglru_gates(p: Tree, u: torch.Tensor
+def _rglru_gates(p: Tree, u: torch.Tensor, tp=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a_t (decay) and b_t (input) of the diagonal recurrence, float32,
-    in the reference's order of operations."""
+    in the reference's order of operations.  ``tp`` (the sharded bodies,
+    the width split): ``u`` holds this rank's channels and ``p`` its
+    rows of ``w_rec_gate`` / ``w_in_gate``, so each product is partial
+    sums over every channel, summed and cut to the rank's channels by
+    one reduce-scatter (``tp.channel_scatter``) before the bias."""
     uf = u.float()
-    r_gate = torch.sigmoid(
-        torch.einsum("...w,wv->...v", uf, p["w_rec_gate"].float())
-        + p["b_rec_gate"].float())
-    i_gate = torch.sigmoid(
-        torch.einsum("...w,wv->...v", uf, p["w_in_gate"].float())
-        + p["b_in_gate"].float())
+
+    def gate(w: str, bias: str) -> torch.Tensor:
+        z = torch.einsum("...w,wv->...v", uf, p[w].float())
+        if tp is not None:
+            z = tp.channel_scatter(z)
+        return torch.sigmoid(z + p[bias].float())
+
+    r_gate = gate("w_rec_gate", "b_rec_gate")
+    i_gate = gate("w_in_gate", "b_in_gate")
     log_a = -_RGLRU_C * F.softplus(p["lambda_param"].float()) * r_gate
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i_gate * uf)
@@ -99,15 +109,34 @@ def _conv1d(p: Tree, u: torch.Tensor,
 
 def rglru_block(
     p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
-    state: Optional[Dict[str, torch.Tensor]] = None,
+    state: Optional[Dict[str, torch.Tensor]] = None, tp=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full Griffin recurrent block.  x: [B,S,D].
     state = {"conv": [B,cw-1,W], "h": [B,W]} or None (fresh sequence).
-    Returns (out [B,S,D], new state or None)."""
+    Returns (out [B,S,D], new state or None).
+
+    ``tp`` (a ``sharding.ModelShards``: the sharded bodies, the width W
+    over its axis as the rules split "ffn"): ``p`` holds this rank's
+    channels -- ``w_in`` / ``w_gate`` by column, the conv, lambda and
+    the biases by channel, ``w_rec_gate`` / ``w_in_gate`` and ``w_out``
+    by row -- and ``state`` its channels of its rows.  Without a cache
+    (train) ``x`` is this rank's sequence block, gathered first; with
+    one (serving) its rows, whole.  The gates' partial sums are
+    reduce-scattered by channel (``_rglru_gates``); the conv and the
+    scan are per channel, so the rank's channels run over the whole
+    sequence with no collective; ``w_out``'s partial sums end in
+    ``tp.seq_scatter``.  A width that does not split runs whole on
+    every rank, which keeps its own rows (``tp.own``).  The serving
+    body writes the new state into ``state`` in place (``_state_put``)
+    and returns it."""
+    if tp is not None:
+        x = tp.seq_gather(x)
     u = torch.einsum("bsd,dw->bsw", x, p["w_in"])
     gate = torch.einsum("bsd,dw->bsw", x, p["w_gate"])
     u, new_conv = _conv1d(p, u, state["conv"] if state is not None else None)
-    a, b = _rglru_gates(p, u)                            # [B,S,W] float32
+    split = tp is not None and \
+        u.shape[-1] != (cfg.recurrent.lru_width or cfg.d_model)
+    a, b = _rglru_gates(p, u, tp if split else None)     # [B,S,W] float32
     h0 = state["h"] if state is not None else \
         torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
                     device=a.device)
@@ -115,10 +144,24 @@ def rglru_block(
     # jax.nn.gelu's default is the tanh approximation
     y = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
     out = torch.einsum("bsw,wd->bsd", y, p["w_out"])
+    if tp is not None:
+        out = tp.seq_scatter(out) if split else tp.own(out)
     new_state = None
     if state is not None:
         new_state = {"conv": new_conv, "h": h[:, -1].to(state["h"].dtype)}
+        if tp is not None:
+            new_state = _state_put(state, new_state)
     return out, new_state
+
+
+def _state_put(state: Dict[str, torch.Tensor],
+               new: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Write a block's new state into ``state``'s leaves in place (the
+    sharded serving body: this rank's channels of its rows; the
+    reference donates the caches).  Returns ``state`` itself."""
+    for name, val in new.items():
+        state[name].copy_(val)
+    return state
 
 
 def rglru_state_spec(cfg: ArchConfig, batch: int) -> Tree:

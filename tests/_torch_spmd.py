@@ -255,13 +255,19 @@ def pipeline_two_stages(rank, world):
         _close(g, w, f"pipeline grad{path}")
 
 
-# the sharded train body: the dense decoders, the meshes (data, model) of
-# each world size, and the variants held against the unsharded step
+# the sharded train body: the dense decoders (and recurrentgemma-9b's RG-LRU
+# and local-attention blocks), the meshes (data, model) of each world
+# size, and the variants held against the unsharded step
+RG = "recurrentgemma-9b"
 DENSE = ("qwen2-5-7b", "gemma3-1b", "granite-20b", "command-r-35b",
-         "internvl2-26b")
+         "internvl2-26b", RG)
 MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4))}
 VARIANTS = ("plain", "accum2", "compression")
 SCALE_RTOL = 1e-6          # the int8 scales
+SCALE_BAND = 2             # x the flipped-channel witness's distance
+# the archs whose rank-0 train cases are held against the JAX package's
+# ``jit_cell`` too (their whole state saved by the job)
+JAX_HELD = ("internvl2-26b", RG)
 CODE_SHARE = 1e-3          # the int8 codes that may differ, by one step
 
 
@@ -289,6 +295,49 @@ def _quantized(real, into):
     return spy
 
 
+def _recurrent(cfg):
+    from repro_torch.models import Mixer
+    return any(b.mixer == Mixer.RGLRU for g in cfg.groups for b in g.pattern)
+
+
+def _channels_flipped(state, specs):
+    """``state`` with every "ffn" and "ffn2" dim reversed: the same model
+    (the RG-LRU's and the FFN's channels are summed over or taken one by
+    one), whose products sum the channels in another order."""
+    def flip(t, s):
+        for dim, ax in enumerate(s.axes):
+            if ax in ("ffn", "ffn2"):
+                t = t.flip(dim)
+        return t.contiguous()
+    return tree_map(flip, state, specs)
+
+
+def scale_band(cfg, flags, theirs):
+    """SCALE_BAND x the largest relative distance between an int8 scale
+    of the unsharded compressed step's two steps (``theirs``) and the
+    same steps' from the channel-flipped state (``_channels_flipped``: a
+    scale is a leaf's max |g|, which the flip does not move, so the
+    distance is the step's rounding alone).  Reduced recurrentgemma's
+    moved 6.5e-7 so, more than half SCALE_RTOL: the sharded layout sums
+    the same products in another order too (its gates' partial sums
+    reduced over the ranks)."""
+    from repro_torch.launch.steps import make_train_step, train_state_specs
+    from repro_torch.training import compression as comp
+    real, flipped = comp._quantize, []
+    st = _channels_flipped(train_state(cfg, True),
+                           train_state_specs(cfg, compression=True))
+    step = make_train_step(cfg, OPT, flags, compression=True)
+    comp._quantize = _quantized(real, flipped)
+    try:
+        for i in range(2):
+            st, _ = step(st, _batch(cfg, 4, train_len(cfg), 10 + i))
+    finally:
+        comp._quantize = real
+    assert len(flipped) == len(theirs)
+    return SCALE_BAND * max(abs(f - w) / abs(w) for (_, f), (_, w) in
+                            zip(flipped, theirs))
+
+
 def _sharded_case(arch, mesh, variant):
     """One train cell of the sharded body against ``make_train_step``,
     two steps: the losses, and each rank's state its blocks; without
@@ -298,7 +347,10 @@ def _sharded_case(arch, mesh, variant):
     may move a gradient across a rounding edge, and a code one step off
     moves that element's update by a 127th of the leaf's max), while a
     rank's own max |g| (the scale not reduced over the shards) misses
-    the scale bound."""
+    the scale bound.  A config with RG-LRU blocks holds its scales
+    within SCALE_RTOL plus ``scale_band``: its unsharded step's own
+    scales move farther than half SCALE_RTOL under another order of
+    its sums alone."""
     from repro_torch.launch import steps
     from repro_torch.launch.steps import (ShapeSpec, input_shardings,
                                           jit_cell, make_train_step)
@@ -339,7 +391,7 @@ def _sharded_case(arch, mesh, variant):
         shardings = dict(shardings, ef=shardings["params"])
     _check_blocks(got, shardings, mesh, arch)
     _state_bytes(got, shardings, mesh, arch)
-    if cfg.n_prefix_embeddings and not packed and dist.get_rank() == 0:
+    if arch in JAX_HELD and not packed and dist.get_rank() == 0:
         saved.pop("step")
         torch.save(saved, OUT / f"train.{mesh.shape['data']}x"
                    f"{mesh.shape['model']}-{arch}-{variant}.pt")
@@ -349,9 +401,11 @@ def _sharded_case(arch, mesh, variant):
     specs = [sh.spec for _, sh in leaves_with_paths(shardings["params"])]
     specs = specs * 2
     assert len(mine) == len(theirs) == len(specs)
+    rtol = SCALE_RTOL + (scale_band(cfg, flags, theirs) if _recurrent(cfg)
+                         else 0.0)
     off = total = 0
     for (q, sc), (wq, wsc), spec in zip(mine, theirs, specs):
-        assert abs(sc - wsc) <= SCALE_RTOL * abs(wsc), (arch, sc, wsc)
+        assert abs(sc - wsc) <= rtol * abs(wsc), (arch, sc, wsc, rtol)
         d = (q.int() - block(wq, spec, mesh).int()).abs()
         assert int(d.max()) <= 1, (arch, int(d.max()))
         off += int((d > 0).sum())
@@ -366,7 +420,7 @@ def _sharded_case(arch, mesh, variant):
             train_state(cfg, True), _batch(cfg, 4, seq, 10))
     finally:
         comp.reduce_over, comp._quantize = reduce_over, real
-    missed = any(abs(sc - wsc) > SCALE_RTOL * abs(wsc)
+    missed = any(abs(sc - wsc) > rtol * abs(wsc)
                  for (_, sc), (_, wsc) in zip(own, theirs))
     assert missed, f"{arch}: a rank's own max |g| passes the scale bound"
 
@@ -416,15 +470,70 @@ def vlm_fault(name):
             real_in, real_out, real_xent
 
 
-def _vlm_fault_case(arch, mesh, fault):
-    """A planted fault must miss: one train step's loss or grad norm
-    farther than 10 x rtol from the unsharded step's."""
+# planted faults of the sharded RG-LRU block (meshes with a "model" axis of
+# more than one rank): its gates' partial sums used unreduced (each
+# rank's own rows' share of its channels); the reduced sums of another
+# rank's channels kept; the conv and the scan run on each rank's
+# sequence block from a zero state (another recurrence)
+RG_FAULTS = ("gates-unreduced", "wrong-block", "blockwise-scan")
+
+
+@contextlib.contextmanager
+def rg_fault(name, size):
+    """A planted fault of RG_FAULTS on a "model" axis of ``size`` ranks,
+    patched into ``ModelShards.channel_scatter`` or
+    ``models/recurrent``."""
+    import types
+
+    from repro_torch.distributed.sharding import ModelShards
+    from repro_torch.models import recurrent
+    real_cs, real_conv, real_ops = ModelShards.channel_scatter, \
+        recurrent._conv1d, recurrent.ops
+
+    def unreduced(self, x):
+        n = x.shape[-1] // self.size
+        return x.narrow(-1, self.index * n, n).contiguous()
+
+    def wrong_block(self, x):
+        n = x.shape[-1] // self.size
+        whole = self.concat(real_cs(self, x), x.dim() - 1)
+        return whole.narrow(-1, (self.index + 1) % self.size * n,
+                            n).contiguous()
+
+    def conv(p, u, state=None):
+        outs = [real_conv(p, blk) for blk in u.chunk(size, 1)]
+        return torch.cat([o for o, _ in outs], 1), outs[-1][1]
+
+    def scan(a, b, h0):
+        return torch.cat([real_ops.rglru_scan(x, y, torch.zeros_like(h0))
+                          for x, y in zip(a.chunk(size, 1),
+                                          b.chunk(size, 1))], 1)
+
+    if name == "gates-unreduced":
+        ModelShards.channel_scatter = unreduced
+    elif name == "wrong-block":
+        ModelShards.channel_scatter = wrong_block
+    else:
+        recurrent._conv1d = conv
+        recurrent.ops = types.SimpleNamespace(rglru_scan=scan)
+    try:
+        yield
+    finally:
+        ModelShards.channel_scatter = real_cs
+        recurrent._conv1d, recurrent.ops = real_conv, real_ops
+
+
+def _train_fault_case(arch, mesh, fault):
+    """A planted fault (VLM_FAULTS, RG_FAULTS) must miss: one train
+    step's loss or grad norm farther than 10 x rtol from the unsharded
+    step's."""
     from repro_torch.launch.steps import ShapeSpec, jit_cell, make_train_step
     cfg = get_reduced(arch)
     shape = ShapeSpec("tiny_train", "train", train_len(cfg), 4)
     batch = _batch(cfg, 4, train_len(cfg), 10)
     _, wm = make_train_step(cfg, OPT, FLAGS)(train_state(cfg), batch)
-    with vlm_fault(fault):
+    with vlm_fault(fault) if fault in VLM_FAULTS else \
+            rg_fault(fault, mesh.shape["model"]):
         _, gm = jit_cell(cfg, shape, mesh, FLAGS, OPT)[0](train_state(cfg),
                                                           batch)
     miss = max(abs(float(gm[k].full_tensor()) - float(wm[k]))
@@ -432,25 +541,32 @@ def _vlm_fault_case(arch, mesh, fault):
     assert miss > 10 * RTOL, f"{fault} passes: {miss}"
 
 
+def train_faults(arch):
+    """The planted train faults of ``arch``: VLM_FAULTS with a prefix,
+    RG_FAULTS with RG-LRU blocks."""
+    cfg = get_reduced(arch)
+    return VLM_FAULTS if cfg.n_prefix_embeddings else \
+        RG_FAULTS if _recurrent(cfg) else ()
+
+
 def sharded_train(rank, world):
     """Every (mesh, arch, variant) case of MESHES[world] x DENSE x
-    VARIANTS, and VLM_FAULTS for the archs with a prefix on the meshes
-    whose "model" axis has more than one rank; each rank writes its
-    outcome a case to ``OUT / sharded_train.<rank>.json`` (the test
-    reads them), rank 0 a VLM's train case's losses, grad norms and
-    whole params and moments to ``OUT / train.<name>.pt``."""
+    VARIANTS, and ``train_faults`` on the meshes whose "model" axis has
+    more than one rank; each rank writes its outcome a case to ``OUT /
+    sharded_train.<rank>.json`` (the test reads them), rank 0 a JAX_HELD
+    arch's train case's losses, grad norms and whole params and moments
+    to ``OUT / train.<name>.pt``."""
     from repro_torch.launch.mesh import make_host_mesh
     res = {}
     for data, model in MESHES[world]:
         mesh = make_host_mesh(data=data, model=model, device_type="cpu")
         for arch in DENSE:
-            faults = VLM_FAULTS if model > 1 and get_reduced(
-                arch).n_prefix_embeddings else ()
+            faults = train_faults(arch) if model > 1 else ()
             for variant in VARIANTS + faults:
                 name = f"{data}x{model}-{arch}-{variant}"
                 try:
-                    if variant in VLM_FAULTS:
-                        _vlm_fault_case(arch, mesh, variant)
+                    if variant in faults:
+                        _train_fault_case(arch, mesh, variant)
                     else:
                         _sharded_case(arch, mesh, variant)
                     res[name] = "ok"
@@ -483,11 +599,14 @@ def serve_positions(model):
 
 
 def _filled(specs, seed, dtype):
-    """Caches of ``specs`` filled from seed ``seed`` (unit normals) in
-    ``dtype``: a decode reads rows written before it."""
+    """Caches of ``specs`` filled from seed ``seed`` (unit normals), the
+    KV (or latent) leaves, which have a length, in ``dtype`` and an
+    RG-LRU layer's state in its spec's: a decode reads rows written
+    before it."""
     rng = np.random.default_rng(seed)
     return tree_map(lambda s: torch.from_numpy(rng.standard_normal(
-        s.shape).astype(np.float32)).to(dtype), specs)
+        s.shape).astype(np.float32)).to(
+            dtype if "kv_len" in s.axes else s.dtype), specs)
 
 
 def bf16_close(got, want, wide, label):
@@ -513,7 +632,8 @@ def bf16_witness(step, params, first, caches, want, *rest):
     step again on ``caches`` widened to float32, every cache read
     rounded to bf16 as the bf16 cache gives it, so each product is the
     bf16 run's.  Checks that these caches round to ``want`` (the bf16
-    run's new caches) bit for bit, and returns them."""
+    run's new caches; an RG-LRU layer's float32 state equals it) bit for
+    bit, and returns them."""
     from repro_torch.models import attention
     real = attention._kv_read
     attention._kv_read = lambda c, n, dt: real(c, n, torch.float32) \
@@ -525,7 +645,7 @@ def bf16_witness(step, params, first, caches, want, *rest):
         attention._kv_read = real
     for (path, x), (_, w) in zip(leaves_with_paths(wide),
                                  leaves_with_paths(want)):
-        assert torch.equal(x.bfloat16(), w), ("witness", path)
+        assert torch.equal(x.to(w.dtype), w), ("witness", path)
     return wide
 
 
@@ -570,12 +690,13 @@ def _serve_memory(cfg, mesh, dec, rows=SERVE_ROWS, positions=None):
     stacked cache leaf's shape: no restack), and makes no tensor with
     the cache's whole length where its length is split, nor the whole
     table where "model" splits it; an out-of-place writer
-    (``slice_scatter`` and a restack, the gathered body's) at
-    "decode-last" fails those checks."""
+    (``slice_scatter`` and a restack, the gathered body's; an RG-LRU
+    layer's new state returned, not written) at "decode-last" fails
+    those checks."""
     from repro_torch.distributed.sharding import distribute
     from repro_torch.launch.steps import input_shardings, input_specs, \
         jit_cell
-    from repro_torch.models import attention
+    from repro_torch.models import attention, recurrent
     specs = input_specs(cfg, dec)
     sh = input_shardings(cfg, dec, mesh)
     params = tree_map(distribute, _serve_params(cfg, specs["params"]),
@@ -583,15 +704,23 @@ def _serve_memory(cfg, mesh, dec, rows=SERVE_ROWS, positions=None):
     tok = _batch(cfg, rows, 1, 4)["tokens"]
     model = mesh.shape["model"]
     positions = positions or serve_positions(model)
+    # the stacked shapes of the leaves with a length (a one-layer stack
+    # of an RG-LRU state at one token is the [1, B, W] batch of an
+    # einsum's product too; the storage check holds the state)
     stacked = {tuple(block(torch.empty(c.shape, device="meta"), s.spec,
                            mesh).shape)
                for (_, c), (_, s) in zip(leaves_with_paths(specs["caches"]),
-                                         leaves_with_paths(sh["caches"]))}
-    kv = next(iter(tree_leaves(sh["caches"]))).spec[2]
+                                         leaves_with_paths(sh["caches"]))
+               if "kv_len" in c.axes}
+    # the first leaf with a length (an RG-LRU layer's state has none)
+    kv_sh = next(h for c, h in zip(tree_leaves(specs["caches"]),
+                                   tree_leaves(sh["caches"]))
+                 if "kv_len" in c.axes)
+    kv = kv_sh.spec[2]
     # a K/V row, or the rank's rows of a latent row (a [rows, length]
     # tail alone would match the reduced configs' weights)
     per = rows // math.prod(mesh.shape[a] for a in entry_axes(
-        next(iter(tree_leaves(sh["caches"]))).spec[1]))
+        kv_sh.spec[1]))
     tails = [(dec.seq_len, cfg.n_kv_heads, cfg.head_dim_)] if \
         cfg.mla is None else [(per, dec.seq_len, w) for w in (
             cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim)]
@@ -628,11 +757,14 @@ def _serve_memory(cfg, mesh, dec, rows=SERVE_ROWS, positions=None):
             cache[n], kv[n][:, a - off:max(e, a) - off].to(cache[n].dtype),
             1, a - lo, max(e, a) - lo) for n in kv}
 
+    real_state = recurrent._state_put
     attention._kv_put = out_of_place
+    recurrent._state_put = lambda state, new: {
+        n: v.to(state[n].dtype) for n, v in new.items()}
     try:
         fault, _, _ = run(positions["decode-last"])
     finally:
-        attention._kv_put = real
+        attention._kv_put, recurrent._state_put = real, real_state
     for pos, (ok, big, got) in runs.items():
         assert ok, (pos, big)
         _state_bytes(got, sh["caches"], mesh, "caches")
@@ -727,7 +859,7 @@ def _serve_case(arch, mesh, case, name, flags=RunFlags()):
         if merged:
             weights_close(whole[path], w, band[path],
                           f"{arch} {case} cache{path}")
-        elif wide is None:
+        elif wide is None or w.dtype == torch.float32:
             _close(whole[path], w, f"{arch} {case} cache{path}")
         else:
             bf16_close(whole[path], w, dict(leaves_with_paths(wide))[path],
@@ -1001,13 +1133,15 @@ def sharded_moe(rank, world):
 # the long-context decode cells (one row, the cache's length split over
 # every mesh axis: LONG_SERVE_RULES, and LONG_SERVE_BIG_RULES, which the
 # job substitutes for rules_for's choice as ``serve_big_rules`` does):
-# reduced gemma3-1b under the first, reduced Mixtral under both; a cache
+# reduced gemma3-1b and reduced recurrentgemma (its RG-LRU state split by
+# channel over "model", repeated over "data") under the first, reduced
+# Mixtral under both; a cache
 # of LONG_LEN rows, filled up to the position by the unsharded prefill,
 # then two tokens stepped in a row (the second reads the row the first
 # wrote in place)
 LONG_LEN = 48
 LONG = (("gemma3-1b", "long"), ("mixtral-8x22b", "long"),
-        ("mixtral-8x22b", "long-big"))
+        ("mixtral-8x22b", "long-big"), (RG, "long"))
 LONG_CASES = ("decode-first", "decode-hi-1", "decode-hi", "decode-last",
               "decode-last-bf16", "memory")
 # planted faults, each on the meshes where it must show: the partials
@@ -1091,12 +1225,14 @@ def _long_case(arch, rules, mesh, case, name):
             want_c = new_c
             got, got_c = step(params, t, got_c, pos + i)
             logits = got.full_tensor()
-            whole = {path: g.full_tensor()
+            # copies: a replicated leaf's full tensor is its local one,
+            # which the next step writes in place
+            whole = {path: g.full_tensor().clone()
                      for path, g in leaves_with_paths(got_c)}
             label = f"{name} step {i}"
             _close(logits, want, f"{label} logits")
             for path, w in leaves_with_paths(want_c):
-                if wide is None:
+                if wide is None or w.dtype == torch.float32:
                     _close(whole[path], w, f"{label} cache{path}")
                 else:
                     bf16_close(whole[path], w,

@@ -52,7 +52,10 @@ from repro_torch.models.params import tree_leaves, tree_map
 # blocks and back by all-to-alls); and two one-row decode
 # cells of the long rules (LONG_SERVE_RULES: the cache's length over
 # ("data", "model"), the partials merged by an all-gather over each) on
-# {data: 2, model: 2}: gemma3-1b and Mixtral
+# {data: 2, model: 2}: gemma3-1b and Mixtral; and recurrentgemma-9b's four
+# cells (its RG-LRU channels over "model", the gates' partial sums
+# reduce-scattered by channel): train and decode on {data: 1, model: 4},
+# prefill and the one-row decode on {data: 2, model: 2}
 CELLS = {"train": ShapeSpec("tiny_train", "train", 32, 4),
          "prefill": ShapeSpec("tiny_prefill", "prefill", 16, 4),
          "decode": ShapeSpec("tiny_decode", "decode", 32, 4),
@@ -60,12 +63,20 @@ CELLS = {"train": ShapeSpec("tiny_train", "train", 32, 4),
          "train_command_r_1x4": ShapeSpec("tiny_train", "train", 32, 4),
          "train_internvl2_1x4": ShapeSpec("tiny_train", "train", 28, 4),
          "long_gemma3_2x2": ShapeSpec("tiny_long", "decode", 32, 1),
-         "long_mixtral_2x2": ShapeSpec("tiny_long", "decode", 32, 1)}
+         "long_mixtral_2x2": ShapeSpec("tiny_long", "decode", 32, 1),
+         "train_rg_1x4": ShapeSpec("tiny_train", "train", 32, 4),
+         "prefill_rg_2x2": ShapeSpec("tiny_prefill", "prefill", 16, 4),
+         "decode_rg_1x4": ShapeSpec("tiny_decode", "decode", 32, 4),
+         "long_rg_2x2": ShapeSpec("tiny_long", "decode", 32, 1)}
 CELL_ARCH = {"train_gemma3_1x4": ("gemma3-1b", 1),
              "train_command_r_1x4": ("command-r-35b", 1),
              "train_internvl2_1x4": ("internvl2-26b", 1),
              "long_gemma3_2x2": ("gemma3-1b", 2),
-             "long_mixtral_2x2": ("mixtral-8x22b", 2)}
+             "long_mixtral_2x2": ("mixtral-8x22b", 2),
+             "train_rg_1x4": ("recurrentgemma-9b", 1),
+             "prefill_rg_2x2": ("recurrentgemma-9b", 2),
+             "decode_rg_1x4": ("recurrentgemma-9b", 1),
+             "long_rg_2x2": ("recurrentgemma-9b", 2)}
 DECODE_POS = 20
 WORLD = 4
 
@@ -196,8 +207,17 @@ def test_trace_matches_a_real_gloo_run(kind, real_cells, traced_cells):
         assert counts.get("all-to-all", 0) == (
             4 if "internvl2" in kind else 0), counts
     else:
-        # the row-parallel products' partial sums
-        assert counts["all-reduce"] > 0 and "reduce-scatter" not in counts
+        # the row-parallel products' partial sums; an RG-LRU layer's two
+        # gates' partial sums reduce-scattered by channel
+        cfg, data = _cell(kind)
+        assert counts["all-reduce"] > 0
+        assert counts.get("reduce-scatter", 0) == 2 * _rglru_layers(cfg)
+
+
+def _rglru_layers(cfg):
+    from repro_torch.models import Mixer
+    return sum(g.repeats for g in cfg.groups for b in g.pattern
+               if b.mixer == Mixer.RGLRU)
 
 
 # -- the card's program: launches and routes ---------------------------------
@@ -263,6 +283,49 @@ def test_card_trace_predicts_recurrentgemma_launches():
     assert dec["kernel_launches"] == {"decode_attention": 1,
                                       "rglru_scan": 4}
     assert dec["kernel_routes"]["rglru_scan"] == {"serial": 4}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_trace_predicts_sharded_recurrentgemma_launches(dtype):
+    """Reduced RecurrentGemma's sharded cells on a fake {data: 1, model:
+    4} group (its 64 RG-LRU channels 16 a rank): per mixer, the
+    attention layer 2 flash launches a train step (forward and remat
+    recompute; in float32 also 1 backward kernel, the f32tc route, in
+    bf16 the sm90 route and the plain recompute), 1 a prefill, 1 decode
+    a decode step; each of the 4 RG-LRU layers the scan on the rank's
+    [rows, S, 16] on the route S picks: 3 a train step (forward,
+    recompute, backward; S = 32, serial), 1 a prefill of 64 tokens
+    (chunked), 1 a decode step (serial); and two reduce-scatters by
+    channel a layer and pass (the gates), none else in serving."""
+    cfg = _phase22_cfg("recurrentgemma-9b", dtype)
+    n = _rglru_layers(cfg)
+    flash = "f32tc" if dtype == torch.float32 else "sm90"
+    with dryrun.fake_group(WORLD):
+        mesh = make_host_mesh(data=1, model=WORLD, device_type="cpu")
+        train = dryrun.trace_cell(cfg, ShapeSpec("t", "train", 32, 4), mesh,
+                                  device="cuda")
+        pre = dryrun.trace_cell(cfg, ShapeSpec("p", "prefill", 64, 4), mesh,
+                                device="cuda")
+        dec = dryrun.trace_cell(cfg, ShapeSpec("d", "decode", 64, 4), mesh,
+                                device="cuda", pos=40)
+    for out in (train, pre, dec):
+        assert out["layout"] == "sharded"
+    assert train["kernel_launches"] == {
+        "flash_attention": 2, "rglru_scan": 3 * n,
+        **({"flash_attention_bwd": 1} if dtype == torch.float32 else {})}
+    assert train["kernel_routes"]["flash_attention"] == {flash: 2}
+    assert train["kernel_routes"]["rglru_scan"] == {"serial": 3 * n}
+    assert pre["kernel_launches"] == {"flash_attention": 1,
+                                      "rglru_scan": n}
+    assert pre["kernel_routes"]["rglru_scan"] == {"chunked": n}
+    assert pre["kernel_routes"]["flash_attention"] == {flash: 1}
+    assert dec["kernel_launches"] == {"decode_attention": 1,
+                                      "rglru_scan": n}
+    assert dec["kernel_routes"]["rglru_scan"] == {"serial": n}
+    for out in (pre, dec):
+        assert out["collective_counts"]["reduce-scatter"] == 2 * n
+    work = rmod.work(4, 64, 64 // WORLD)        # float32 gates
+    assert pre["kernel_work"]["rglru_scan"]["bytes"] == n * work[1]
 
 
 def _depth(cfg, n):

@@ -102,11 +102,13 @@ def test_route_by_sequence_length(s, want):
 
 
 @pytest.mark.parametrize("shape", [(1, 2048, 4096), (4, 1, 4096),
-                                   (3, 65, 130), (1, 300, 4096)])
+                                   (3, 65, 130), (1, 300, 4096),
+                                   (16, 4096, 256), (2, 32768, 256)])
 def test_scratch_words_cover_every_part(shape):
     """Ticket, flags (2 a chunk and 128-channel block), aggregates (2
     floats a channel and chunk) and last states (1), each 128-byte
-    aligned."""
+    aligned; also at a sharded rank's 256 of recurrentgemma-9b's 4,096
+    channels (two blocks) in its train and prefill cells."""
     b, s, w = shape
     chunks = -(-s // cuda_rglru.CHUNK)
     blocks = -(-w // cuda_rglru.THREADS)

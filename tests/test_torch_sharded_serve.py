@@ -1,9 +1,11 @@
 """The sharded serving body (``launch/steps.jit_cell``'s ``"sharded"``
-layout for the prefill and decode cells of the four dense decoders and
-internvl2-26b,
-laid out as the reference's step under ``SERVE_RULES``: heads, ffn and
-vocab over "model", the KV cache's length over "model" and written in
-place, a decode step merged across the length blocks) on the CPU.
+layout for the prefill and decode cells of the four dense decoders,
+internvl2-26b and recurrentgemma-9b,
+laid out as the reference's step under ``SERVE_RULES``: heads, ffn,
+RG-LRU channels and vocab over "model", the KV cache's length over
+"model" and written in place, an RG-LRU layer's state by channel and
+written in place, a decode step merged across the length blocks) on
+the CPU.
 
 At world sizes 2 and 4 (gloo processes, ``_torch_spmd.sharded_serve``,
 one spawn a world size) every (mesh, arch, case) of
@@ -23,7 +25,8 @@ last block, so reduced gemma3-1b's window of 8 straddles two blocks on
 window.  The "memory" case: each rank holds its blocks of the weights
 and caches, writes its cache in place (no restack, no tensor of the
 cache's whole length or the whole table), and an out-of-place writer
-fails that check.  Reduced internvl2's prefill runs its 4 prefix rows
+fails that check.  Reduced recurrentgemma's float32 RG-LRU state is
+held within rtol 1e-5 in its bf16-cache cases too.  Reduced internvl2's prefill runs its 4 prefix rows
 before the 16 tokens into a cache of 20 rows (5 a rank at model 4),
 and the planted fault ``_torch_spmd.PREFIX_FAULT`` (the cache written
 at the tokens' positions, without the prefix's shift) must miss.  The
@@ -33,7 +36,8 @@ that the port and the JAX package miss each other's rtol 1e-5 unsharded
 (``_torch_spmd._serve_params``).
 
 Without processes: ``steps.layout`` over the production matrix and the
-test meshes, the ranks' blocks at full width on (16, 16), the
+test meshes, ``steps._kv_axes`` past a first cache leaf that is an
+RG-LRU state, the ranks' blocks at full width on (16, 16), the
 log-sum-exp output of ``decode_attention``'s plain version against the
 JAX package's Pallas kernel and the reference's scores, its merge over
 2 and 4 length blocks (with a block of length 0 and a window across two
@@ -180,7 +184,7 @@ def test_sharded_serving_matches_the_jax_reference(runs, world, data, model,
     assert set(got["caches"]) == set(jcaches), name
     for path, g in got["caches"].items():
         w = torch.from_numpy(jcaches[path].copy())
-        if got["wide"] is None:
+        if got["wide"] is None or g.dtype == torch.float32:
             _torch_spmd._close(g, w, f"{name} cache{path}")
         else:
             bf16_close(g, w.bfloat16(), got["wide"][path],
@@ -188,16 +192,18 @@ def test_sharded_serving_matches_the_jax_reference(runs, world, data, model,
 
 
 def test_layout_of_the_serving_cells():
-    """The dense decoders' prefill_32k and decode_32k cells are sharded
-    on both production meshes and on the test meshes, and so are
-    mixtral-8x22b's (``tests/test_torch_sharded_moe.py``) and
-    deepseek-v2-236b's (``tests/test_torch_sharded_mla.py``); so are the
-    first two's long_500k cells (one row, its length over every mesh
-    axis: ``tests/test_torch_sharded_long.py``; the matrix runs it for
-    gemma3-1b and Mixtral alone, ``shape_applicable``); an int8 cache
-    and every other arch's serving cells are gathered, deepseek-v2's,
-    recurrentgemma-9b's and xlstm-125m's long_500k too; so is a cell
-    whose cache length does not split over "model"."""
+    """The dense decoders' (recurrentgemma-9b's too) prefill_32k and
+    decode_32k cells are sharded on both production meshes and on the
+    test meshes, and so are mixtral-8x22b's
+    (``tests/test_torch_sharded_moe.py``) and deepseek-v2-236b's
+    (``tests/test_torch_sharded_mla.py``); so are the first two's
+    long_500k cells (one row, its length over every mesh axis:
+    ``tests/test_torch_sharded_long.py``; the matrix runs it for
+    gemma3-1b, recurrentgemma-9b and Mixtral alone,
+    ``shape_applicable``); an int8 cache and every other arch's serving
+    cells are gathered (xlstm-125m's, whisper-base's, minicpm3-4b's),
+    deepseek-v2's and xlstm-125m's long_500k too; so is a cell whose
+    cache length does not split over "model"."""
     int8 = RunFlags(cache_dtype="int8")
     for arch in ARCHS:
         cfg = get_config(arch)
@@ -233,7 +239,15 @@ LOCAL = {
     "qwen2-5-7b": ((28, 8), (4, 8), 1184, 9504, (8, 2048, 4, 128)),
     "gemma3-1b": ((4, 16), (1, 16), 432, 16384, (8, 2048, 1, 256)),
     "internvl2-26b": ((3, 128), (8, 8), 1024, 92553, (8, 2048, 8, 128)),
+    "recurrentgemma-9b": ((1, 256), (1, 16), 768, 16000,
+                          (8, 2048, 1, 256)),
 }
+# and of recurrentgemma-9b's RG-LRU blocks: 256 of the 4,096 channels
+# (w_in by column, w_rec_gate and w_out by row), its state's too
+RG_LOCAL = {"['rglru']['w_in']": (4096, 256),
+            "['rglru']['w_rec_gate']": (256, 4096),
+            "['rglru']['w_out']": (256, 4096),
+            "['rglru']['conv']": (8, 3, 256), "['rglru']['h']": (8, 256)}
 
 
 def _local(spec, sh, mesh):
@@ -248,11 +262,13 @@ def _local(spec, sh, mesh):
 def test_local_blocks_at_full_width(arch):
     """Each rank's blocks of decode_32k at full width on (16, 16), as meta
     tensors: the query heads split over "model" where they divide 16
-    (granite's and internvl2's 48, command-r's 64), else the head dim
-    (qwen's 28, gemma3's 4); K/V by head dim (their heads do not divide
-    16); ffn split; the vocab split but internvl2's 92,553 rows, which 16
-    does not divide; the cache 8 rows x 2,048 of the length.  The rank's
-    bytes are the analytic floor's params and cache."""
+    (granite's and internvl2's 48, command-r's 64, recurrentgemma's 16),
+    else the head dim (qwen's 28, gemma3's 4); K/V by head dim (their
+    heads do not divide 16); ffn split; the vocab split but internvl2's
+    92,553 rows, which 16 does not divide; the cache 8 rows x 2,048 of
+    the length; recurrentgemma's RG-LRU weights and state 256 of its
+    4,096 channels.  The rank's bytes are the analytic floor's params
+    and cache."""
     cfg, shape = get_config(arch), SHAPES["decode_32k"]
     specs, sh = input_specs(cfg, shape), input_shardings(cfg, shape, SINGLE)
     local = {"params": {}, "caches": {}}
@@ -261,8 +277,8 @@ def test_local_blocks_at_full_width(arch):
                                      leaves_with_paths(sh[key])):
             local[key][path] = _local(s, h, SINGLE)
     p, c = local["params"], local["caches"]
-    attn = "['groups']['main']['pos0']['attn']"
-    ffn = "['groups']['main']['pos0']['ffn']"
+    attn = next(k for k in p if k.endswith("['attn']['wq']"))[:-6]
+    ffn = attn[:-len("['attn']")] + "['ffn']"
     wq, wk, f, vocab, cache = LOCAL[arch]
     assert tuple(p[attn + "['wq']"].shape[2:]) == wq
     assert tuple(p[attn + "['wk']"].shape[2:]) == wk
@@ -270,11 +286,38 @@ def test_local_blocks_at_full_width(arch):
     assert p[ffn + "['wi_gate']"].shape[-1] == f
     assert p[ffn + "['wo']"].shape[1] == f
     assert p["['embed']['table']"].shape[0] == vocab
-    assert all(tuple(t.shape[1:]) == cache for t in c.values())
+    kv = [t for k, t in c.items() if k.endswith(("['k']", "['v']"))]
+    assert all(tuple(t.shape[1:]) == cache for t in kv)
+    rest = {k: t for k, t in c.items() if not k.endswith(("['k']",
+                                                          "['v']"))}
+    assert bool(rest) == (arch == "recurrentgemma-9b")
+    for k, t in {**p, **rest}.items():
+        for tail, want in RG_LOCAL.items():
+            if k.endswith(tail):
+                assert tuple(t.shape[1:]) == want, k
     floor = analytic_bytes_per_device(cfg, shape, SINGLE)
     for key, name in (("params", "params"), ("caches", "cache")):
         assert sum(t.numel() * t.element_size()
                    for t in local[key].values()) == floor[name]
+
+
+def test_kv_axes_skip_a_recurrent_state():
+    """``steps._kv_axes`` reads the length's axes from the first cache
+    leaf that has one: recurrentgemma-9b's first leaf is an RG-LRU
+    state (no "kv_len"), and the K/V's length lies over "model" under
+    SERVE_RULES, over ("data", "model") under LONG_SERVE_RULES; a tree
+    of states alone has none."""
+    from repro_torch.models.params import tree_leaves
+    cfg = get_config("recurrentgemma-9b")
+    for sname, want in (("decode_32k", ("model",)),
+                        ("prefill_32k", ("model",)),
+                        ("long_500k", ("data", "model"))):
+        shape = SHAPES[sname]
+        specs = input_specs(cfg, shape)["caches"]
+        assert "kv_len" not in tree_leaves(specs)[0].axes
+        sh = input_shardings(cfg, shape, SINGLE)["caches"]
+        assert steps._kv_axes(specs, sh) == want, sname
+        assert steps._kv_axes(specs["tail"], sh["tail"]) == ()
 
 
 def _blocks_inputs(b, h, hkv, t, d, dtype, seed, scale=1.0):

@@ -1,9 +1,10 @@
 """The sharded train body (``launch/steps.jit_cell``'s ``"sharded"``
 layout: FSDP over "data", tensor parallelism over "model", the residual
-split by rows and sequence) of the four dense decoders and of
+split by rows and sequence) of the four dense decoders, of
 internvl2-26b (a VLM: its residual split as the concatenated [prefix;
-tokens] sequence, re-blocked from and to the tokens' blocks), on the
-CPU.
+tokens] sequence, re-blocked from and to the tokens' blocks) and of
+recurrentgemma-9b (its RG-LRU channels over "model", the gates' partial
+sums reduce-scattered by channel), on the CPU.
 
 At world sizes 2 and 4 (gloo processes, ``_torch_spmd.sharded_train``)
 every (mesh, arch, variant) case of ``_torch_spmd.MESHES`` x ``DENSE`` x
@@ -12,18 +13,24 @@ same state: the loss and grad norm of two steps and every param and
 moment within rtol 1e-5 (with and without two microbatches), each
 rank's state exactly its block of ``input_shardings``; with int8
 compression each scale within rtol 1e-6 and at most 0.1 % of the codes
-one step off, where a rank's own max |g| misses.  Reduced gemma3's 2
+one step off, where a rank's own max |g| misses (reduced
+recurrentgemma's scales within 1e-6 plus twice the distance its
+unsharded step's own scales move when its channels are summed in
+another order, ``_torch_spmd.scale_band``).  Reduced gemma3's 2
 heads on (1, 4) take the replicated-heads route, reduced granite's and
 command-r's K/V heads the replicated-K/V route.  The weights are at the
 d_model fan-in law (``_torch_spmd.fan_in_d_model``).  Reduced
 internvl2 runs 4 prefix rows and 28 tokens, so that its residual's
 blocks (16, 8 rows) are not its tokens' (14, 7) and every rank moves
-rows; rank 0's two steps of its plain and two-microbatch cases are also
-held against the reference's ``jit_cell`` on a (1, 1) mesh, and its
-planted faults (``_torch_spmd.VLM_FAULTS``: the prefix concatenated per
-rank; the loss over the residual's blocks, ranks weighed alike) must
-miss.  At world size 1 the cell is held against the reference's own
-``jit_cell``.
+rows; its planted faults (``_torch_spmd.VLM_FAULTS``: the prefix
+concatenated per rank; the loss over the residual's blocks, ranks
+weighed alike) must miss, and so must reduced recurrentgemma's
+(``_torch_spmd.RG_FAULTS``: the gates' partial sums unreduced, another
+rank's channels kept, the conv and scan run on each rank's sequence
+block from a zero state).  Rank 0's two steps of both archs' plain and
+two-microbatch cases are also held against the reference's
+``jit_cell`` on a (1, 1) mesh.  At world size 1 the cell is held
+against the reference's own ``jit_cell``.
 """
 import functools
 import json
@@ -36,7 +43,8 @@ import torch
 import torch.distributed as dist
 
 import _torch_spmd
-from _torch_spmd import DENSE, MESHES, VARIANTS, VLM_FAULTS, train_len
+from _torch_spmd import (DENSE, JAX_HELD, MESHES, RG, VARIANTS,
+                         train_faults, train_len)
 from test_torch_train_loss import _fan_in_d_model
 from repro.configs import get_reduced as jget_reduced
 from repro.launch import steps as jsteps
@@ -57,10 +65,10 @@ VLM = "internvl2-26b"
 CASES = [(world, data, model, arch, variant)
          for world in sorted(MESHES) for data, model in MESHES[world]
          for arch in DENSE for variant in VARIANTS + (
-             VLM_FAULTS if arch == VLM and model > 1 else ())]
-VLM_CASES = [(world, data, model, variant)
+             train_faults(arch) if model > 1 else ())]
+JAX_CASES = [(world, data, model, arch, variant)
              for world, data, model, arch, variant in CASES
-             if arch == VLM and variant in ("plain", "accum2")]
+             if arch in JAX_HELD and variant in ("plain", "accum2")]
 
 
 class FakeMesh:
@@ -98,20 +106,21 @@ def test_sharded_train_matches_the_unsharded_step(runs, world, data, model,
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_vlm_train(variant):
-    """The JAX package's ``jit_cell`` train step of reduced internvl2 on
+def _reference_train(arch, variant):
+    """The JAX package's ``jit_cell`` train step of reduced ``arch`` on
     a (1, 1) mesh (``variant``: "plain", or "accum2", two microbatches),
     two steps from the port's ``_torch_spmd.train_state`` on
-    ``_torch_spmd._batch(cfg, 4, 28, 10 + i)`` (prefix embeddings
-    included), as the gloo job runs them: the losses and grad norms, and
-    {path: leaf} of the params and moments, float32 numpy."""
-    cfg = get_reduced(VLM)
+    ``_torch_spmd._batch(cfg, 4, train_len(cfg), 10 + i)`` (a VLM's
+    prefix embeddings included), as the gloo job runs them: the losses
+    and grad norms, and {path: leaf} of the params and moments, float32
+    numpy."""
+    cfg = get_reduced(arch)
     seq = train_len(cfg)
     jshape = jsteps.ShapeSpec("tiny_train", "train", seq, 4)
     jmesh = jax.make_mesh((1, 1), ("data", "model"))
     jflags = JRunFlags(remat="full",
                        grad_accum=2 if variant == "accum2" else 1)
-    jf, _ = jsteps.jit_cell(jget_reduced(VLM), jshape, jmesh, flags=jflags,
+    jf, _ = jsteps.jit_cell(jget_reduced(arch), jshape, jmesh, flags=jflags,
                             opt=JAdamWConfig(**OPT))
     jst = tree_map(lambda t: jnp.asarray(t.numpy()),
                    _torch_spmd.train_state(cfg))
@@ -130,29 +139,54 @@ def _reference_vlm_train(variant):
     return out
 
 
+def _jax_held(runs, world, data, model, arch, variant, rtol=1e-5):
+    """Rank 0's two steps of a gloo case of ``arch`` (its losses, grad
+    norms and whole params and moments, saved by the job) against the
+    JAX package's ``jit_cell`` on a (1, 1) mesh from the same state on
+    the same batches: each within ``rtol`` of its max."""
+    name = f"{data}x{model}-{arch}-{variant}"
+    tmp, res = runs(world)
+    assert all(r[name] == "ok" for r in res), name
+    got = torch.load(tmp / f"train.{name}.pt")
+    want = _reference_train(arch, variant)
+    for k in ("loss", "grad_norm"):
+        for i, (g, w) in enumerate(zip(got[k], want[k], strict=True)):
+            _torch_spmd._close(torch.tensor(g), torch.tensor(w),
+                               f"{name} step {i} {k}", rtol)
+    for key in ("params", "mu", "nu"):
+        assert set(got[key]) == set(want[key]), (name, key)
+        for path, g in got[key].items():
+            _torch_spmd._close(g, torch.from_numpy(want[key][path].copy()),
+                               f"{name} {key}{path}", rtol)
+
+
+VLM_CASES = [c[:3] + c[4:] for c in JAX_CASES if c[3] == VLM]
+RG_CASES = [c[:3] + c[4:] for c in JAX_CASES if c[3] == RG]
+
+
 @pytest.mark.parametrize(
     "world,data,model,variant", VLM_CASES,
     ids=[f"{d}x{m}-{VLM}-{v}" for _, d, m, v in VLM_CASES])
 def test_sharded_vlm_train_matches_the_jax_reference(runs, world, data,
                                                      model, variant):
-    """Rank 0's two steps of each gloo internvl2 case (its losses, grad
-    norms and whole params and moments, saved by the job) against the
-    JAX package's ``jit_cell`` on a (1, 1) mesh from the same state on
-    the same batches: each within rtol 1e-5 of its max."""
-    name = f"{data}x{model}-{VLM}-{variant}"
-    tmp, res = runs(world)
-    assert all(r[name] == "ok" for r in res), name
-    got = torch.load(tmp / f"train.{name}.pt")
-    want = _reference_vlm_train(variant)
-    for k in ("loss", "grad_norm"):
-        for i, (g, w) in enumerate(zip(got[k], want[k], strict=True)):
-            _torch_spmd._close(torch.tensor(g), torch.tensor(w),
-                               f"{name} step {i} {k}")
-    for key in ("params", "mu", "nu"):
-        assert set(got[key]) == set(want[key]), (name, key)
-        for path, g in got[key].items():
-            _torch_spmd._close(g, torch.from_numpy(want[key][path].copy()),
-                               f"{name} {key}{path}")
+    """Each gloo internvl2 case's rank 0 against the JAX package
+    (``_jax_held``)."""
+    _jax_held(runs, world, data, model, VLM, variant)
+
+
+@pytest.mark.parametrize(
+    "world,data,model,variant", RG_CASES,
+    ids=[f"{d}x{m}-{RG}-{v}" for _, d, m, v in RG_CASES])
+def test_sharded_recurrent_train_matches_the_jax_reference(runs, world, data,
+                                                           model, variant):
+    """Each gloo recurrentgemma case's rank 0 against the JAX package
+    (``_jax_held``; the reference's ``jit_cell`` runs this train cell
+    under JAX 0.9) within rtol 1e-4: the port's unsharded step already
+    lies 8.0e-6 of the leaf's max from the reference on an RG-LRU conv
+    bias (its zero-initialized biases take their AdamW steps from
+    near-zero gradients), and the sharded one within 1e-5 of that
+    step."""
+    _jax_held(runs, world, data, model, RG, variant, 1e-4)
 
 
 def test_layout_is_chosen_from_the_config():
@@ -163,11 +197,19 @@ def test_layout_is_chosen_from_the_config():
     ``tests/test_torch_sharded_moe.py``, long_500k's:
     ``tests/test_torch_sharded_long.py``; the matrix runs internvl2's
     long_500k not at all, ``shape_applicable``), and deepseek-v2-236b's
-    but long_500k (``tests/test_torch_sharded_mla.py``); every other
-    arch's cells are gathered, and so is a train cell whose sequence
-    does not split over "model", or whose tokens split and whose
-    residual (the prefix rows in front of them) does not, or the
-    reverse."""
+    but long_500k (``tests/test_torch_sharded_mla.py``), and
+    recurrentgemma-9b's four (a DENSE arch: its RG-LRU blocks split by
+    channel); every other arch's cells are gathered -- xlstm-125m's
+    (mLSTM and sLSTM blocks), whisper-base's (an encoder and
+    cross-attention) and minicpm3-4b's (40 MLA heads on 16) -- and so is
+    a train cell whose sequence does not split over "model", or whose
+    tokens split and whose residual (the prefix rows in front of them)
+    does not, or the reverse."""
+    assert RG in DENSE
+    for arch in ("xlstm-125m", "whisper-base", "minicpm3-4b"):
+        for sname, shape in SHAPES.items():
+            assert steps.layout(get_config(arch), shape, FakeMesh(
+                {"data": 16, "model": 16})) == "gathered", (arch, sname)
     for arch in ARCHS:
         cfg = get_config(arch)
         for mesh in (FakeMesh({"data": 16, "model": 16}),

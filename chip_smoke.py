@@ -222,7 +222,9 @@ Phases, in order:
       prefill against 48 rows (both through views), a self prefill at
       S = T = 300; the cross decode of 4 slots over 1500 rows (split,
       views; the planted combines must fail) and the self decode over
-      48 rows (single, views); its wall;
+      48 rows (single, views); its wall (the cross prefill at a
+      sharded rank's shape, 2 rows' 32,768 queries against the 1,500
+      frames, runs with phase 5's sm90 cases);
   16. the new archs at full width in float32, cut in depth where they
       are big, as phase 13 (each kernel call against float64 attention,
       the calls exactly those of the config: none for MLA and xLSTM;
@@ -460,7 +462,18 @@ Phases, in order:
       faults that must miss being the RG-LRU weights gathered whole
       (train), the "ffn" axis split over nothing (prefill) and the
       decode's cache and state written out of place, and its long_500k
-      cell at 3 layers with the long cells; then the decode
+      cell at 3 layers with the long cells; then whisper-base x
+      train_4k, prefill_32k and decode_32k (at row 2,047) at full depth
+      (6 encoder and 6 decoder layers), full width, bf16, in the sharded
+      layout the same way (every head and all 1,500 frames of the
+      rank's rows on every rank, 128 of the ffn's 2,048 columns, the
+      cross cache 4 of the 64 head dims, gathered whole a layer at a
+      decode step; 2 / 1 sm90 flash an encoder layer and a decoder
+      layer's self- and cross-attention, 2 split decodes a decoder
+      layer), each peak within 0.5 % of its trace, the faults that must
+      miss being the encoder run on every row of the batch (train), the
+      whole length kept as self cache rows (prefill) and the decode's
+      out-of-place writes; then the decode
       wrapper (with the fake branch's tests) beside its raw kernel on
       the same rotated inputs at Qwen's B = 4, T = 4,096, and its host
       time a call; one JSON line for the phase;
@@ -519,7 +532,10 @@ host-bound phases 1.3-1.6 times as long (992.0 s with the backward's
 build in phase 1 and recurrentgemma-9b's cells not yet run), so phases
 14 and 17 profile none of their runs and phase 11 none, and phase 24.3
 prints recurrentgemma-9b's cells' wall beside what the 24-layer fault
-traces (against a 52-layer one) and the late build save.
+traces (against a 52-layer one) and the late build save, and
+whisper-base's three cells' wall.  With those cells (31.8 s, two
+11-second traces of the train cell) the whole took 954.3 s on a host
+that traced granite-20b's 52 layers in 30.7 s (24.3 s above).
 It also exits non-zero without a CUDA device.
 ``python3 chip_smoke.py --metering`` stops after phase 4d and
 prints the metering kernels' figures and the stack's walls and launches
@@ -1237,6 +1253,10 @@ SM90_CASES = (
     # internvl2-26b's sharded prefill rank shape (3 query heads over one
     # K/V head) at its train cell's 4,352 rows (256 prefix + 4,096 tokens)
     (2, 3, 1, 4352, 4352, 128, None, True, True),
+    # whisper-base's sharded cross-attention prefill rank shape: a rank's
+    # 2 rows' 32,768 queries, every head, against all 1,500 frames (11
+    # key tiles of 128 and a partial one of 92), non-causal
+    (2, 8, 8, 32768, 1500, 64, None, True, False),
 )
 
 
@@ -6574,7 +6594,11 @@ def _cut_launches(cfg, shape, pos, rows, blocks):
     window: a one-row view); an RG-LRU layer the scan on rank 0's
     channels on the route its sequence picks (the gathered sequence, or
     one token), 3 a train step (forward, recompute, backward) and 1 a
-    prefill or decode step; MLA none."""
+    prefill or decode step; MLA none.  An encoder's layer and a decoder
+    layer's cross-attention as an attention layer's train and prefill
+    launches (all frames on every rank); a cross-attention 1 decode a
+    decode step on the route the plan gives ``rows`` rows of every head
+    over all of the encoder's frames (the head dim gathered whole)."""
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import rglru_scan as rmod
     from repro_torch.models import Mixer
@@ -6587,10 +6611,23 @@ def _cut_launches(cfg, shape, pos, rows, blocks):
         want.setdefault(op, {})
         want[op][way] = want[op].get(way, 0) + n
 
+    def decode_way(n):
+        return "split" if dmod.plan(
+            rows, cfg.n_heads, cfg.n_kv_heads, n, cfg.head_dim_,
+            dmod.FAKE_SMS).splits > 1 else "single"
+
+    if cfg.encoder is not None and not decode:
+        add("flash_attention", "sm90",
+            (2 if train else 1) * cfg.encoder.n_layers)
     meta = build_meta(cfg)
     for g in cfg.groups:
         for j, blk in enumerate(g.pattern):
             for w in meta[g.name][f"pos{j}"]["window"]:
+                if blk.cross_attention and decode:
+                    add("decode_attention",
+                        decode_way(cfg.encoder.source_len), 1)
+                elif blk.cross_attention:
+                    add("flash_attention", "sm90", 2 if train else 1)
                 if blk.mixer == Mixer.RGLRU:
                     add("rglru_scan", rmod.route(1 if decode
                                                  else shape.seq_len),
@@ -6603,9 +6640,7 @@ def _cut_launches(cfg, shape, pos, rows, blocks):
                     block = shape.seq_len // blocks
                     first = 0 if w >= WINDOW_INF else max(0, pos + 1 - w)
                     n = max(min(block, pos + 1) - first, 1)
-                    add("decode_attention", "split" if dmod.plan(
-                        rows, cfg.n_heads, cfg.n_kv_heads, n, cfg.head_dim_,
-                        dmod.FAKE_SMS).splits > 1 else "single", 1)
+                    add("decode_attention", decode_way(n), 1)
     return want
 
 
@@ -6822,6 +6857,70 @@ def check_rg_rank0(card):
     return res
 
 
+# whisper-base's sharded cells, run as rank 0 of the (16, 16) mesh at full
+# depth (6 encoder and 6 decoder layers, full width, bf16, SERVE_RULES):
+# every head and all 1,500 frames of its rows on every rank (8 heads and
+# 1,500 frames split over no "model" rank), 128 of the ffn's 2,048
+# columns, the cross cache's head dim 4 of 64; the decode at
+# WHISPER_POS, the last row of rank 0's 2,048-row self cache block, so
+# that rank 0 reads all of it.  Each peak within VLM_PEAK_TOL of its trace
+WHISPER_ARCH = "whisper-base"
+WHISPER_LAYERS = 6
+WHISPER_POS = 2047
+
+
+@contextlib.contextmanager
+def _encoder_every_row():
+    """A planted layout fault of the sharded train body's encoder,
+    modelled in the trace: the frames gathered over the batch's axes and
+    the encoder run on every row of the global batch, each rank keeping
+    its rows of the output (a view, which holds the whole output alive,
+    and the encoder layers' saved inputs with it, through the decoder)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model
+    real = model._encode
+
+    def encode(params, cfg, source, flags, train=False, tp=None):
+        shards = sharding.batch_shards()
+        if tp is None or shards is None:
+            return real(params, cfg, source, flags, train, tp)
+        axes = [a for a in shards.axes if a != tp.axis]
+        whole = source
+        for a in reversed(axes):
+            whole = sharding._AllGather.apply(whole, 0, tp._group(a))
+        n = source.shape[0]
+        i = sharding.BatchShards(tp.mesh, axes).index
+        return real(params, cfg, whole, flags, train, tp)[i * n:(i + 1) * n]
+
+    model._encode = encode
+    try:
+        yield
+    finally:
+        model._encode = real
+
+
+def check_whisper_rank0(card):
+    """Phase 24.3, encoder-decoder: whisper-base's three cells at full
+    depth (``_check_cut_rank0``: the encoder on all 1,500 frames of the
+    rank's rows, its ffn over "model"; the cross-attention of the rank's
+    rows against all frames, its cache by head dim over "model", gathered
+    whole at a decode step; each peak within VLM_PEAK_TOL, the decode at
+    WHISPER_POS); the faults the encoder run on every row of the batch
+    (train: ``_encoder_every_row``; the cross-attention run over every
+    decoder row leaves the train peak where it is, the decoder
+    self-attention's plain-recompute backward), the whole length kept
+    as self cache rows (prefill: ``_whole_length_writes``) and the
+    decode's blocks written out of place (``_out_of_place_writes``).
+    Prints the three cells' wall."""
+    t0 = time.perf_counter()
+    res = _check_cut_rank0(WHISPER_ARCH, WHISPER_LAYERS, WHISPER_POS, {
+        "train": _encoder_every_row, "prefill": _whole_length_writes,
+        "decode": _out_of_place_writes}, card, VLM_PEAK_TOL)
+    print(f"phase 24.3 whisper-base's three cells: "
+          f"{time.perf_counter() - t0:.3f} s")
+    return res
+
+
 def time_decode_wrapper(stats):
     """The decode wrapper (``kernels/decode_attention.py``, with the fake
     branch's tests) against a raw launch of its kernel on the same
@@ -6956,6 +7055,7 @@ def drive_dryrun(stats):
     mla = check_mla_rank0(_card_line())
     vlm = check_vlm_rank0(_card_line())
     rg = check_rg_rank0(_card_line())
+    whisper = check_whisper_rank0(_card_line())
     long = check_long_rank0(_card_line())
     # recurrentgemma-9b's four cells' wall beside the time won back
     # for them: granite-20b's fault traced at KEPT_LAYERS
@@ -6963,11 +7063,13 @@ def drive_dryrun(stats):
     # the late build, which phase 1 does not wait for
     rg_wall = sum(c["wall_s"] for c in rg.values()) + \
         long[RG_ARCH]["wall_s"]
+    whisper_wall = sum(c["wall_s"] for c in whisper.values())
     won = sharded["trace_s"] - sharded["kept_wall_s"]
     late = BUILD_WALLS.get("late_ended_s", 0.0) - \
         BUILD_WALLS.get("phase1_s", 0.0) - \
         BUILD_WALLS.get("late_waited_s", 0.0)
-    print(f"phase 24.3 walls: recurrentgemma-9b's four cells "
+    print(f"phase 24.3 walls: whisper-base's three cells "
+          f"{whisper_wall:.3f} s; recurrentgemma-9b's four cells "
           f"{rg_wall:.3f} s; won back: granite-20b's fault at "
           f"{KEPT_LAYERS} layers {sharded['kept_wall_s']:.3f} s against "
           f"its 52-layer trace's {sharded['trace_s']:.3f} s "
@@ -6995,8 +7097,9 @@ def drive_dryrun(stats):
         "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
         "sharded_rank0": sharded, "serving_rank0": serving,
         "moe_rank0": moe, "mla_rank0": mla, "vlm_rank0": vlm,
-        "rg_rank0": rg, "long_rank0": long,
-        "rg_wall_s": rg_wall, "kept_won_s": won, "late_build_won_s": late,
+        "rg_rank0": rg, "whisper_rank0": whisper, "long_rank0": long,
+        "rg_wall_s": rg_wall, "whisper_wall_s": whisper_wall,
+        "kept_won_s": won, "late_build_won_s": late,
         "decode_wrapper": timing,
         "wall_s": wall}
 
@@ -7443,10 +7546,11 @@ def main():
             row["dryrun_launches"]["sharded_prefill_rank0"] = \
                 dry["serving_rank0"]["prefill_32k"]["launches"][
                     "flash_attention"]
-            # mixtral-8x22b's, internvl2-26b's and recurrentgemma-9b's
-            # sharded cells at MOE_LAYERS / VLM_LAYERS / RG_LAYERS layers
+            # mixtral-8x22b's, internvl2-26b's, recurrentgemma-9b's and
+            # whisper-base's sharded cells at MOE_LAYERS / VLM_LAYERS /
+            # RG_LAYERS / WHISPER_LAYERS layers
             for cell in ("train_4k", "prefill_32k"):
-                for key in ("moe", "vlm", "rg"):
+                for key in ("moe", "vlm", "rg", "whisper"):
                     row["dryrun_launches"][f"{key}_{cell}_rank0"] = \
                         dry[f"{key}_rank0"][cell]["launches"][
                             "flash_attention"]
@@ -7464,6 +7568,9 @@ def main():
                     "decode_attention"]
             row["dryrun_launches"]["rg_decode_32k_rank0"] = \
                 dry["rg_rank0"]["decode_32k"]["launches"][
+                    "decode_attention"]
+            row["dryrun_launches"]["whisper_decode_32k_rank0"] = \
+                dry["whisper_rank0"]["decode_32k"]["launches"][
                     "decode_attention"]
             # the long_500k cells' rank-0 steps (gemma3-1b, Mixtral,
             # recurrentgemma-9b)

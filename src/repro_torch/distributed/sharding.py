@@ -56,7 +56,13 @@ then sums each gradient over the axes its leaf is replicated over,
 where each rank computed a part of it.  ``reblock`` moves rows of a
 sequence between two block layouts by one uneven all-to-all (a VLM's
 residual, whose blocks are the concatenated [prefix; tokens]
-sequence's, not the tokens').
+sequence's, not the tokens').  ``replicated`` is the same view of a
+subtree of the params (an encoder's) with the residual replicated over
+"model" (whisper-base's 1,500 frames, which 16 ranks do not split): its
+sequence ops keep every row and a row-parallel product's partial sums
+end in an all-reduce whose gradient is an all-reduce too (each rank
+holds a part of the replicated residual's gradient; the sum is the
+whole).
 Inside that body the model's tensors are plain local tensors and
 ``shard_hint`` leaves them as they are: the hint sites' layouts are the
 body's own (the residual split by rows and sequence, the logits of the
@@ -65,8 +71,8 @@ local tokens).
 ``ServeShards``, a ``ModelShards`` over the params' specs under a
 serving rule set, is the "model" axis inside the sharded serving body
 (the prefill and decode cells of a decoder of attention, MLA or RG-LRU
-blocks with dense or MoE FFNs, and such a decoder's one-row decode under
-the long rules).  The
+blocks with dense or MoE FFNs, or of an encoder-decoder, and such a
+decoder's one-row decode under the long rules).  The
 residual is replicated over "model" there (``"seq": []``), so its
 sequence "gather" is the residual itself and its "reduce-scatter" an
 all-reduce: each row-parallel product's partial sums summed over the
@@ -86,12 +92,16 @@ length, numbered major to minor over those axes as DTensor lays a
 dimension split over several mesh dims out, and writes it in place;
 ``merge`` combines the partial decode attention (or MLA's latent
 context) of every length block by their log-sum-exps
-(``ref.decode_merge``), in block order.
+(``ref.decode_merge``), in block order.  A cross-attention cache whose
+length and K/V heads do not split (whisper-base's) is split by head dim
+over "model": each rank writes its block of the dims (``dim_block``)
+and a decode step gathers them whole (``dim_whole``).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -536,6 +546,28 @@ class _Reblock(torch.autograd.Function):
             None, None, None, None, None
 
 
+class _AllReduce(torch.autograd.Function):
+    """``apply(t, group)``: ``t`` summed over ``group``'s ranks, in place;
+    the gradient summed over them too, in a copy (the output is a
+    residual replicated over the group, whose gradient each rank holds a
+    part of: the sum of the parts is the whole, which each rank's block
+    of a weight before the sum needs; the incoming gradient is also the
+    residual's skip branch's, which keeps its part)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        ctx.mark_dirty(t)
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -559,7 +591,10 @@ class ModelShards:
     """The sharded train body's view of its mesh (module docstring):
     ``axis`` ("model") of ``size`` ranks, this rank ``index`` of them,
     and ``specs``, the params' tree of ``PartitionSpec``s under
-    ``TRAIN_RULES``, by which each weight is gathered.  An axis of size
+    ``TRAIN_RULES``, by which each weight is gathered.  ``split_seq``:
+    the residual is split by sequence over the axis (the train body's
+    decoder), or replicated over it (``replicated``: an encoder's
+    frames, which no rank splits; the serving body).  An axis of size
     1 takes no collective, so at world size 1 the body's arithmetic is
     the unsharded step's, op for op."""
 
@@ -570,34 +605,57 @@ class ModelShards:
             if self.size > 1 else 0
         # the leaves ``layer`` gathers whole, over the axis too (none here)
         self.wholes = tree_map(lambda s: False, specs)
+        self.split_seq = True
+
+    def replicated(self, *path: str) -> "ModelShards":
+        """This view of the params' subtree at ``path`` (``specs`` and
+        ``wholes`` taken there) with the residual replicated over the
+        axis: the sequence ops keep every row, and a row-parallel
+        product's partial sums end in an all-reduce whose gradient is an
+        all-reduce too (``_AllReduce``; the serving body's ``sum``).
+        ``layer`` and ``fsdp`` gather as they do."""
+        view = copy.copy(self)
+        view.specs, view.wholes = _at(self.specs, path), \
+            _at(self.wholes, path)
+        view.split_seq = False
+        return view
 
     def _group(self, axis: str):
         return self.mesh.device_mesh.get_group(axis)
 
     def rows(self, n: int) -> Tuple[int, int]:
-        """[lo, hi): this rank's block of ``n`` sequence rows."""
+        """[lo, hi): this rank's block of ``n`` rows."""
         b = n // self.size
         return self.index * b, (self.index + 1) * b
 
+    def seq_rows(self, n: int) -> Tuple[int, int]:
+        """[lo, hi): the rows of a sequence of ``n`` the residual holds
+        here (this rank's block; all of them where it is replicated)."""
+        return self.rows(n) if self.split_seq else (0, n)
+
     def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
         """[B, S / size, ...] -> [B, S, ...]: the ranks' sequence blocks
-        in order (before a column-parallel product)."""
-        if self.size == 1:
+        in order (before a column-parallel product); a replicated
+        residual as it is."""
+        if self.size == 1 or not self.split_seq:
             return x
         return _AllGather.apply(x, 1, self._group(self.axis))
 
     def seq_scatter(self, x: torch.Tensor) -> torch.Tensor:
         """[B, S, ...] partial sums -> [B, S / size, ...]: summed over
         the ranks, this rank's sequence block kept (after a row-parallel
-        product)."""
+        product); for a replicated residual summed over the ranks, the
+        gradient too (``_AllReduce``)."""
         if self.size == 1:
             return x
+        if not self.split_seq:
+            return _AllReduce.apply(x, self._group(self.axis))
         return _ReduceScatter.apply(x, 1, self._group(self.axis))
 
     def own(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, S, ...] computed whole on every rank -> this rank's
-        sequence block of it."""
-        if self.size == 1:
+        """[B, S, ...] computed whole on every rank -> the residual's rows
+        of it (this rank's sequence block, or all of them)."""
+        if self.size == 1 or not self.split_seq:
             return x
         lo, hi = self.rows(x.shape[1])
         return x[:, lo:hi]
@@ -712,13 +770,10 @@ class ServeShards(ModelShards):
         blocks = BatchShards(mesh, kv_axes)
         self.kv_axes, self.kv_size, self.kv_index = \
             blocks.axes, blocks.size, blocks.index
+        self.split_seq = False
 
     def _groups(self) -> List[Any]:
         return [self._group(self.axis)] if self.size > 1 else []
-
-    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The residual as it is: replicated over the axis."""
-        return x
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x``'s partial sums summed over the axis, in place."""
@@ -726,13 +781,26 @@ class ServeShards(ModelShards):
 
     def seq_scatter(self, x: torch.Tensor) -> torch.Tensor:
         """A row-parallel product's partial sums summed over the axis
-        (the residual is replicated, so nothing is scattered)."""
+        (the residual is replicated, so nothing is scattered; no
+        gradient)."""
         return self.sum(x)
 
-    def own(self, x: torch.Tensor) -> torch.Tensor:
-        """A result computed whole on every rank: the residual's
-        layout, as it is."""
-        return x
+    def dim_block(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's block of ``n`` of ``x``'s last dim (a cache leaf
+        split by head dim over the axis); ``x`` itself where ``n`` is the
+        whole dim."""
+        if n == x.shape[-1]:
+            return x
+        return x.narrow(-1, self.index * n, n)
+
+    def dim_whole(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """``x``, this rank's block of a last dim of ``n``, gathered whole
+        over the axis (one all-gather; contiguous); ``x`` itself where it
+        is whole."""
+        if x.shape[-1] == n:
+            return x
+        return _AllGather.apply(x, x.dim() - 1,
+                                self._group(self.axis)).contiguous()
 
     def kv_rows(self, n: int) -> Tuple[int, int]:
         """[lo, hi): this rank's block of a cache of ``n`` rows."""

@@ -19,12 +19,15 @@ plain versions instead (the CPU's program).
 ``jit_cell`` runs each cell in one of two layouts (``steps.layout``),
 recorded as ``layout``: ``sharded`` (the train, ``prefill_32k`` and
 ``decode_32k`` cells of the dense decoders, recurrentgemma-9b,
-mixtral-8x22b and deepseek-v2-236b, whose serving cells take
-SERVE_BIG_RULES, and the ``long_500k`` cells of gemma3-1b,
+whisper-base, mixtral-8x22b and deepseek-v2-236b, whose serving cells
+take SERVE_BIG_RULES, and the ``long_500k`` cells of gemma3-1b,
 recurrentgemma-9b and mixtral-8x22b, whose cache length splits over
 every rank and whose partials merge by an all-gather over each of its
 axes; an RG-LRU layer's gates reduce-scatter their partial sums by
-channel, counted with the other reduce-scatters: each rank holds its blocks of
+channel, counted with the other reduce-scatters; whisper-base's encoder
+ffn all-reduces its partial sums (in train its gradient too) and its
+decode gathers each layer's cross cache by head dim, counted with the
+other all-reduces and all-gathers: each rank holds its blocks of
 the state, or of the weights and the KV cache, and computes its share,
 as the reference's sharded XLA program does; a serving cell writes its
 cache block in place, so its trace holds no ``*_scatter`` clone, and

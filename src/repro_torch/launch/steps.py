@@ -23,7 +23,8 @@ two layouts (``layout``), chosen from the config and the mesh:
 
 * ``"sharded"``: the train cell of a decoder whose every block is
   attention + a dense FFN (qwen2-5-7b, gemma3-1b, granite-20b,
-  command-r-35b, and internvl2-26b with its VLM prefix) or a routed MoE
+  command-r-35b, internvl2-26b with its VLM prefix, and whisper-base's
+  decoder, with cross-attention to its encoder) or a routed MoE
   FFN (mixtral-8x22b), or MLA + a MoE
   FFN with shared experts (deepseek-v2-236b; MLA only where its heads
   divide "model", so not minicpm3-4b's 40 on 16), or RG-LRU and local
@@ -41,6 +42,11 @@ two layouts (``layout``), chosen from the config and the mesh:
   the tokens' and prefix's blocks by one all-to-all and its token rows
   back to the tokens' blocks for the loss by another
   (``ModelShards.reblock``);
+  an encoder-decoder (whisper-base) runs its encoder on every frame of
+  the rank's rows on every model rank (no rank splits the frames: the
+  residual replicated, ``ModelShards.replicated``), its ffn over
+  "model" ending in an all-reduce whose gradient is an all-reduce, and
+  its cross-attention of the rank's sequence block against all frames;
   MLA projects the gathered sequence through its whole "lora" weights
   and runs the rank's heads over it, query-chunked
   (``models/attention._tp_mla``); the RG-LRU block runs the rank's
@@ -53,7 +59,7 @@ two layouts (``layout``), chosen from the config and the mesh:
   the loss, the router's statistics, the global norm and the int8 scale
   are reduced over the shards.
 * ``"sharded"`` also runs the ``prefill_32k`` / ``decode_32k`` cells
-  of the same eight decoders with a bf16 or float32 cache (a VLM's
+  of the same nine archs with a bf16 or float32 cache (a VLM's
   prefill cache the prefix's rows longer, the prefix whole), laid out as
   the reference's step under ``SERVE_RULES`` or, for an arch whose
   weights cannot replicate over "data" (mixtral-8x22b,
@@ -72,7 +78,11 @@ two layouts (``layout``), chosen from the config and the mesh:
   query and merges the blocks' latent contexts); the step returns the
   rank's block of the logits, ("batch", "vocab"), and the caches it
   was given; an RG-LRU layer's state is split by channel over "model"
-  like its weights and written in place.
+  like its weights and written in place; an encoder-decoder's encoder
+  runs every frame of the rank's rows, its ffn's partial sums
+  all-reduced, and its cross-attention K/V cache is split by head dim
+  over "model", written in place at prefill and gathered whole a layer
+  at a decode step (``attention.serve_cross_attention``).
 * ``"sharded"`` also runs those decoders' one-row
   ``long_500k`` decode cell with a float cache, laid out as the
   reference's step under
@@ -85,8 +95,7 @@ two layouts (``layout``), chosen from the config and the mesh:
   every length block are merged in block order (``ServeShards.kv_axes``);
   the logits come back ("batch", "vocab"), the row replicated.
 * ``"gathered"``: every other cell (an int8 cache, MLA's one-row
-  cells, the other three archs: minicpm3-4b, whisper-base,
-  xlstm-125m).  Every weight is gathered whole
+  cells, the other two archs: minicpm3-4b, xlstm-125m).  Every weight is gathered whole
   (``full_tensor()``: the ZeRO resolution of TRAIN_RULES' ``"embed" ->
   data``, and the tensor-parallel dims gathered too), each rank runs its
   block of the batch's rows (``sharding.BatchShards``: the mesh axes the
@@ -418,14 +427,48 @@ def _donate(dst: DTensor, new: torch.Tensor, s: ParamSpec,
 
 
 def _shardable_decoder(cfg: ArchConfig) -> bool:
-    """A decoder-only config whose every block is attention or MLA + a
-    dense FFN or a routed MoE FFN, with or without shared experts, or an
+    """A config whose every decoder block is attention or MLA + a dense
+    FFN or a routed MoE FFN, with or without shared experts, or an
     RG-LRU block + a dense FFN, with or without a VLM's prefix
-    embeddings (no encoder, cross-attention or xLSTM block)."""
-    return cfg.encoder is None and all(
+    embeddings; or an encoder-decoder whose blocks are attention + a
+    dense FFN with cross-attention (no xLSTM block)."""
+    return all(
         (b.mixer in (Mixer.ATTN, Mixer.MLA) and b.ffn in (FFN.DENSE, FFN.MOE)
          or b.mixer == Mixer.RGLRU and b.ffn == FFN.DENSE)
-        and not b.cross_attention for g in cfg.groups for b in g.pattern)
+        and (not b.cross_attention or b.mixer == Mixer.ATTN
+             and b.ffn == FFN.DENSE)
+        for g in cfg.groups for b in g.pattern)
+
+
+def _encoder_whole(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
+                   flags: RunFlags) -> bool:
+    """An encoder-decoder's parts take the layout the sharded bodies run
+    (always true of a decoder-only config, or without a "model" axis):
+    under the cell's rules no "model" rank splits the attention's heads
+    or K/V heads (the encoder's, the decoder's, the cross-attention's),
+    the encoder's frames (``source_embeds`` and the encoder's residual,
+    ("batch", "seq", None)), or a cross-attention cache's length or K/V
+    heads (its head dim may split: whisper-base's 8 heads, 1,500 frames
+    and head dim 64 on 16)."""
+    model = mesh.shape.get("model", 1)
+    if cfg.encoder is None or model == 1:
+        return True
+    rules = rules_for(shape, cfg)
+
+    def split(axes, dims, at):
+        ps = partition_spec(axes, dims, rules, mesh)
+        return any("model" in sharding.entry_axes(ps[i]) for i in at)
+
+    d, t, hd = cfg.d_model, cfg.encoder.source_len, cfg.head_dim_
+    rows = shape.global_batch // max(flags.grad_accum, 1)
+    cross = ("batch", "kv_len", "kv_heads", "hdim")
+    return not (
+        split(("embed", "heads", "hdim"), (d, cfg.n_heads, hd), (1,))
+        or split(("embed", "kv_heads", "hdim"), (d, cfg.n_kv_heads, hd),
+                 (1,))
+        or split(("batch", "seq", None), (rows, t, d), (1,))
+        or shape.kind != "train" and split(
+            cross, (shape.global_batch, t, cfg.n_kv_heads, hd), (1, 2)))
 
 
 def _mla(cfg: ArchConfig) -> bool:
@@ -448,21 +491,29 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     """The body ``jit_cell`` runs for a cell (module docstring):
     ``"sharded"`` for the train cell of a decoder of attention or MLA +
     dense or MoE FFN blocks, or of those and RG-LRU + dense FFN blocks,
-    whose residual, at the reference's block-boundary
-    hint ("batch", "seq", None) under TRAIN_RULES, splits its rows over
-    every axis but "model" and its sequence over "model" (each rank's
-    tokens its own; a VLM's concatenated [prefix; tokens] sequence and
-    its tokens' both split so); for its prefill and decode cells under
-    SERVE_RULES or SERVE_BIG_RULES with a float cache whose length
-    splits over "model" (or no "model" axis to split); and for its
-    decode cells under LONG_SERVE_RULES or LONG_SERVE_BIG_RULES (a batch
-    of one row)
-    with a float cache whose length splits over every mesh axis of more
-    than one rank.  A decoder with MLA blocks takes the first two only,
-    and only where its heads divide "model" (else, as minicpm3-4b's 40
-    heads on 16 ranks, they would replicate).  Else ``"gathered"``.
-    ``mesh``: anything with ``axis_names`` and ``shape``."""
-    if not _shardable_decoder(cfg):
+    or of an encoder-decoder of attention + dense FFN blocks with
+    cross-attention, whose decoder residual, at the reference's
+    block-boundary hint ("batch", "seq", None) under TRAIN_RULES, splits
+    its rows over every axis but "model" and its sequence over "model"
+    (each rank's tokens its own; a VLM's concatenated [prefix; tokens]
+    sequence and its tokens' both split so); for its prefill and decode
+    cells under SERVE_RULES or SERVE_BIG_RULES with a float cache whose
+    length splits over "model" (or no "model" axis to split); and for
+    its decode cells under LONG_SERVE_RULES or LONG_SERVE_BIG_RULES (a
+    batch of one row) with a float cache whose length splits over every
+    mesh axis of more than one rank.  A decoder with MLA blocks takes
+    the first two only, and only where its heads divide "model" (else,
+    as minicpm3-4b's 40 heads on 16 ranks, they would replicate).  An
+    encoder-decoder takes them only where no "model" rank splits its
+    heads, its encoder's frames or its cross-attention cache's length
+    or K/V heads (``_encoder_whole``): every model rank then runs the
+    encoder on all frames of its rows and the cross-attention over all
+    of them, as whisper-base's 8 heads and 1,500 frames on 16 ranks lay
+    it out; reduced whisper-base's 4 heads and 8 frames on 2 or 4 ranks
+    stay gathered.  Else ``"gathered"``.  ``mesh``: anything with
+    ``axis_names`` and ``shape``."""
+    if not _shardable_decoder(cfg) or \
+            not _encoder_whole(cfg, shape, mesh, flags):
         return "gathered"
     if _mla(cfg) and cfg.n_heads % mesh.shape.get("model", 1):
         return "gathered"
@@ -493,19 +544,26 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     return "sharded"
 
 
-def _tp_batch(x: DTensor, groups: int, shards: Optional[BatchShards],
-              tp: ModelShards) -> torch.Tensor:
-    """A batch leaf [B, S] in the sharded body: this rank's rows (of each
-    microbatch) and its sequence block.  Without accumulation that is
-    the leaf's local block as laid out (rows over the batch's axes,
-    sequence over "model"); with it the microbatches' blocks are cut
-    from the gathered batch, as the gathered body cuts them."""
+def _tp_batch(x: DTensor, spec: PartitionSpec, groups: int,
+              shards: Optional[BatchShards], tp: ModelShards
+              ) -> torch.Tensor:
+    """A batch leaf [B, S, ...] in the sharded train body, laid out as
+    ``spec``: this rank's rows (of each microbatch) and its block of each
+    dim ``spec`` splits over "model" (the tokens' and labels' sequence,
+    a VLM's prefix rows; not an encoder's frames, which no model rank
+    splits: every model rank runs the encoder on all of them).  Without
+    accumulation that is the leaf's local block as laid out; with it the
+    microbatches' blocks are cut from the gathered batch, as the
+    gathered body cuts them."""
     if groups == 1:
         return x.to_local()
     full = sharding.gather(x)
-    rows = full if shards is None else shards.rows(full, 0, groups)
-    lo, hi = tp.rows(rows.shape[1])
-    return rows[:, lo:hi]
+    out = full if shards is None else shards.rows(full, 0, groups)
+    for dim, entry in enumerate(spec):
+        if tp.axis in sharding.entry_axes(entry):
+            lo, hi = tp.rows(out.shape[dim])
+            out = out.narrow(dim, lo, hi - lo)
+    return out
 
 
 def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
@@ -579,8 +637,9 @@ def jit_cell(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
                 tree_map(_write_local, ins["caches"], caches)
         if tp is not None:
             state = tree_map(lambda x: x.to_local(), ins["state"])
-            batch = tree_map(lambda x: _tp_batch(x, groups, shards, tp),
-                             ins["batch"])
+            batch = tree_map(lambda x, sh: _tp_batch(x, sh.spec, groups,
+                                                     shards, tp),
+                             ins["batch"], shard["batch"])
             with sharding.data_parallel(stats), sharding.model_parallel(tp):
                 new_state, metrics = fn(state, batch)
             return tree_map(_write_local, ins["state"], new_state), {

@@ -60,7 +60,12 @@ head's absorbed query against the block, each block's float32 latent
 context merged by its log-sum-exp (a block with no row to see weighs
 0) before the rank's heads take it through ``wv_b`` and ``wo``.  In the
 sharded train body (without a cache) MLA runs the rank's heads over the
-gathered sequence (``_tp_mla``), as ``_tp_attention`` does.
+gathered sequence (``_tp_mla``), as ``_tp_attention`` does.  A
+cross-attention whose heads and frames split over no "model" rank
+(whisper-base's) runs every head of the rank's rows against all the
+frames: in train with no collective, in serving from a cache split by
+head dim, written in place and gathered whole a layer at a decode step
+(``serve_cross_attention``).
 """
 from __future__ import annotations
 
@@ -157,14 +162,23 @@ def gqa_attention(
     is passed through; ``cache_offset`` only says prefill (0) or decode
     step.  ``tp`` (a ``sharding.ModelShards``): without a cache the
     sharded train body, ``x`` this rank's sequence block
-    (``_tp_attention``); with one the sharded serving body
-    (``_serve_attention``)."""
+    (``_tp_attention``; a cross-attention: its rows against every frame,
+    below); with one the sharded serving body (``_serve_attention``; its
+    cross-attention is ``serve_cross_attention``)."""
     b, s, _ = x.shape
     off = 0 if cache_offset is None else int(cache_offset)
     softcap = cfg.attn_logit_softcap
-    if tp is not None:
-        if kv_override is not None:
-            raise ValueError("the sharded bodies run no cross-attention")
+    if tp is not None and kv_override is not None:
+        # the train body's cross-attention: this rank's rows (its
+        # sequence block) against all T frames of the encoder output,
+        # which every model rank holds, every head (the weights whole):
+        # the computation below, with no collective.  Each rank's
+        # gradient of the frames is its rows' part; ``reduce_grads`` sums
+        # the encoder's replicated leaves' over the axis
+        if cache is not None or p["wq"].shape[1] != cfg.n_heads:
+            raise ValueError("the sharded train body's cross-attention "
+                             "runs every head, without a cache")
+    elif tp is not None:
         if cache is not None:
             return _serve_attention(p, x, positions, cfg=cfg, window=window,
                                     rope_theta=rope_theta, causal=causal,
@@ -252,7 +266,9 @@ def _tp_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
     row-parallel ``wo``'s partial sums reduce-scattered back to its
     block.  Heads replicated (they do not divide the axis): every rank
     runs all of them and keeps its own rows, GSPMD's redundancy for such
-    a dim.  ``flash_attention`` gets [B, local heads, S, D] views."""
+    a dim.  A residual replicated over the axis (an encoder's frames,
+    ``tp.replicated``) is the whole sequence and keeps every row.
+    ``flash_attention`` gets [B, local heads, S, D] views."""
     h = tp.seq_gather(x)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     wk, wv = _tp_kv(p, cfg, tp)
@@ -263,7 +279,7 @@ def _tp_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
     softcap = cfg.attn_logit_softcap
     if p["wq"].shape[1] == cfg.n_heads:
         return _attend(p, q, k, v, 0, causal=causal, window=window,
-                       softcap=softcap, rows=tp.rows(h.shape[1]))
+                       softcap=softcap, rows=tp.seq_rows(h.shape[1]))
     return tp.seq_scatter(_attend(p, q, k, v, 0, causal=causal,
                                   window=window, softcap=softcap))
 
@@ -326,6 +342,38 @@ def _serve_attention(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
         out = out.narrow(1, tp.index * hl, hl)
     y = torch.einsum("bshk,hkd->bsd", out[:, None], p["wo"])
     return (tp.seq_scatter(y) if split else y), cache
+
+
+def serve_cross_attention(p: Tree, x: torch.Tensor,
+                          kv: Tuple[torch.Tensor, torch.Tensor], *,
+                          cfg: ArchConfig, cache: Dict[str, torch.Tensor],
+                          off: int, tp) -> Tuple[torch.Tensor,
+                                                 Dict[str, torch.Tensor]]:
+    """Cross-attention in the sharded serving body: ``x`` [B, S, D] this
+    rank's rows, replicated over the model axis, every head (the
+    projections whole: ``ServeShards.layer``); ``cache`` {"ek", "ev"}
+    [B, T, Hkv, D / n], the rank's block of the head dim of the encoder's
+    K/V (its T frames and its K/V heads split over no axis).  A prefill
+    (``off`` 0; ``kv`` the encoder's K/V from the whole ``wk`` / ``wv``)
+    writes the rank's head-dim block into the cache in place
+    (``ServeShards.dim_block``) and runs the non-causal flash of the S
+    queries against the T frames; a decode step (``kv`` the cache) gathers
+    the head dim whole over the axis for the layer
+    (``ServeShards.dim_whole``) and runs one ``decode_attention`` over
+    all T frames for every head.  Unsharded ``gqa_attention``'s
+    ``kv_override`` path, op for op, where the head dim is whole.
+    Returns (y, ``cache`` itself)."""
+    ek, ev = kv
+    d = cfg.head_dim_
+    if off == 0:
+        for name, val in (("ek", ek), ("ev", ev)):
+            c = cache[name]
+            c.copy_(tp.dim_block(val, c.shape[-1]))
+    else:
+        ek, ev = tp.dim_whole(ek, d), tp.dim_whole(ev, d)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    return _attend(p, q, ek.to(q.dtype), ev.to(q.dtype), off, causal=False,
+                   window=None, softcap=cfg.attn_logit_softcap), cache
 
 
 def _kv_put(cache: Dict[str, torch.Tensor], kv: Dict[str, torch.Tensor],

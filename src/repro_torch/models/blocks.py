@@ -138,10 +138,15 @@ def apply_block(
     attention writes the rank's block of the cache (MLA's latent cache)
     in place, the RG-LRU block its channels' state, and a split FFN's
     row-parallel ``wo`` (the MoE's partial sums, its shared experts'
-    with them; the RG-LRU's ``w_out``) ends in an all-reduce."""
+    with them; the RG-LRU's ``w_out``) ends in an all-reduce.  A
+    cross-attention block under ``tp`` runs every head of its rows
+    (the body's or the residual's) against all of ``enc_out``'s frames
+    (``attention.gqa_attention``'s ``kv_override``): in the serving
+    body its K/V cache holds the rank's block of the head dim, written
+    at prefill and gathered whole at a decode step."""
     if tp is not None and (blk.mixer not in (Mixer.ATTN, Mixer.MLA,
                                              Mixer.RGLRU)
-                           or blk.ffn == FFN.NONE or blk.cross_attention):
+                           or blk.ffn == FFN.NONE):
         raise ValueError("the sharded bodies run attention, MLA or RG-LRU "
                          "+ dense or MoE FFN blocks only")
     # without per-layer overrides the BlockSpec's window / theta hold
@@ -199,13 +204,19 @@ def apply_block(
             if enc_out is None:
                 raise ValueError("cross-attention needs the encoder output")
             ek, ev = cross_kv(p, enc_out)
-        y, _ = attn.gqa_attention(
-            p["cross"], h, positions, cfg=cfg, causal=False,
-            cache_offset=cache_offset,
-            kv_override=(ek.to(h.dtype), ev.to(h.dtype)))
-        if new_cache is not None:
-            new_cache["cross"] = {"ek": ek.to(cache["cross"]["ek"].dtype),
-                                  "ev": ev.to(cache["cross"]["ev"].dtype)}
+        if tp is not None and cache is not None:
+            y, new_cache["cross"] = attn.serve_cross_attention(
+                p["cross"], h, (ek, ev), cfg=cfg, cache=cache["cross"],
+                off=int(cache_offset or 0), tp=tp)
+        else:
+            y, _ = attn.gqa_attention(
+                p["cross"], h, positions, cfg=cfg, causal=False,
+                cache_offset=cache_offset,
+                kv_override=(ek.to(h.dtype), ev.to(h.dtype)), tp=tp)
+            if new_cache is not None:
+                new_cache["cross"] = {
+                    "ek": ek.to(cache["cross"]["ek"].dtype),
+                    "ev": ev.to(cache["cross"]["ev"].dtype)}
         x = x + y
 
     if blk.ffn != FFN.NONE:

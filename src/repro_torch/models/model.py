@@ -13,7 +13,8 @@ in a prefill.  An encoder-decoder config (whisper) runs its
 bidirectional encoder tower over ``batch["source_embeds"]`` [B, T, D]
 at prefill (``_encode``); each decoder block's cross-attention K/V of
 the encoder output are written into the cache then, and decode steps
-read them from there.
+read them from there.  In a sharded body every model rank runs the
+encoder on all frames of its rows (``ModelShards.replicated``).
 
 ``train_loss`` is the reference's: the no-cache path of every block
 (MLA naive, mLSTM parallel, sLSTM over the sequence, RG-LRU from a zero
@@ -231,6 +232,7 @@ def _run_groups(
     enc_out: Optional[torch.Tensor] = None,
     causal: bool = True,
     flags: RunFlags = RunFlags(),
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Tree], torch.Tensor]:
     """Run every layer in order; returns (x, new caches or None, the
     auxiliary loss summed over layers: 0.0 without an MoE FFN).
@@ -238,12 +240,13 @@ def _run_groups(
     ``flags.remat`` is ``"none"``; under ``"dots"`` the checkpoint saves
     the matrix products' outputs (``_save_dots``).  A group whose every
     layer wrote its cache in place (the sharded serving body) returns
-    the caches it was given; else its layers' new caches are stacked."""
+    the caches it was given; else its layers' new caches are stacked.
+    ``tp``: the sharded body's view of the mesh for these layers (None
+    outside a sharded body)."""
     if train and flags.remat not in _REMAT:
         raise ValueError(f"remat={flags.remat!r}: expected one of "
                          f"{sorted(_REMAT)}")
     remat = _REMAT[flags.remat] if train else None
-    tp = sharding.model_shards() if train or caches is not None else None
     new_caches: Optional[Dict[str, Tree]] = {} if caches is not None \
         else None
     aux_total = 0.0
@@ -283,18 +286,26 @@ def _run_groups(
 # ---------------------------------------------------------------------------
 
 def _encode(params: Tree, cfg: ArchConfig, source_embeds: torch.Tensor,
-            flags: RunFlags, train: bool = False) -> torch.Tensor:
+            flags: RunFlags, train: bool = False, tp=None) -> torch.Tensor:
     """Run the bidirectional encoder tower (whisper-style) over
     ``source_embeds`` [B, T, D]: no cache, no causal mask; rematerialized
-    as the decoder in ``train``."""
+    as the decoder in ``train``.  ``tp`` (a sharded body's view): every
+    model rank runs all T frames of its rows (no rank splits them),
+    under the view's ``replicated`` sibling: the attention weights
+    gathered whole and every head run, the ffn on the rank's columns,
+    its partial sums all-reduced over the model axis (in train with an
+    all-reduce gradient)."""
     ecfg = _encoder_cfg(cfg)
     b, t, _ = source_embeds.shape
     x = source_embeds.to(cfg.compute_dtype)
     positions = torch.arange(t, device=x.device)[None].expand(b, t)
+    etp = None if tp is None else tp.replicated("encoder")
     x, _, _ = _run_groups(params["encoder"], ecfg.groups, ecfg, x,
                           positions, build_meta(ecfg), train=train,
-                          causal=False, flags=flags)
-    return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+                          causal=False, flags=flags, tp=etp)
+    final = params["encoder"]["final_norm"] if etp is None \
+        else etp.fsdp(params["encoder"], "final_norm")
+    return rmsnorm(final, x, cfg.norm_eps)
 
 
 def _served(params: Tree, tp, *path: str) -> Tree:
@@ -406,10 +417,10 @@ def train_loss(params: Tree, batch: Dict[str, Any], cfg: ArchConfig,
     enc_out = None
     if cfg.encoder is not None:
         enc_out = _encode(params, cfg, batch["source_embeds"], flags,
-                          train=True)
+                          train=True, tp=tp)
     x, _, aux = _run_groups(params, cfg.groups, cfg, x, positions,
                             build_meta(cfg), train=True, enc_out=enc_out,
-                            flags=flags)
+                            flags=flags, tp=tp)
     final, head = params["final_norm"], params["embed"]
     if tp is not None:
         final = tp.fsdp(params, "final_norm")
@@ -439,10 +450,11 @@ def prefill(params: Tree, batch: Dict[str, Any], caches: Tree,
     x, positions, _ = _prepare_inputs(params, cfg, batch, tp)
     enc_out = None
     if cfg.encoder is not None:
-        enc_out = _encode(params, cfg, batch["source_embeds"], flags)
+        enc_out = _encode(params, cfg, batch["source_embeds"], flags,
+                          tp=tp)
     x, new_caches, _ = _run_groups(
         params, cfg.groups, cfg, x, positions, build_meta(cfg),
-        caches=caches, cache_offset=0, enc_out=enc_out, flags=flags)
+        caches=caches, cache_offset=0, enc_out=enc_out, flags=flags, tp=tp)
     x = rmsnorm(_served(params, tp, "final_norm"), x[:, -1:, :],
                 cfg.norm_eps)
     head = "table" if cfg.tie_embeddings else "head"
@@ -470,7 +482,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, caches: Tree,
     positions = (pos + torch.arange(s, device=x.device))[None].expand(b, s)
     x, new_caches, _ = _run_groups(
         params, cfg.groups, cfg, x, positions, build_meta(cfg),
-        caches=caches, cache_offset=pos, flags=flags)
+        caches=caches, cache_offset=pos, flags=flags, tp=tp)
     x = rmsnorm(_served(params, tp, "final_norm"), x, cfg.norm_eps)
     head = "table" if cfg.tie_embeddings else "head"
     logits = unembed({head: _served(params, tp, "embed", head)}, x,

@@ -31,8 +31,9 @@ RTOL = 1e-5
 
 def _batch(cfg, b, s, seed):
     """Tokens and labels [b, s] from seed ``seed``, and for a VLM its
-    prefix embeddings [b, n_prefix, d_model] (unit normals) from the same
-    stream after them."""
+    prefix embeddings [b, n_prefix, d_model], for an encoder-decoder its
+    frames [b, source_len, d_model] (unit normals) from the same stream
+    after them."""
     rng = np.random.default_rng(seed)
     out = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
                                .astype(np.int32))
@@ -40,6 +41,9 @@ def _batch(cfg, b, s, seed):
     if cfg.n_prefix_embeddings:
         out["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
             (b, cfg.n_prefix_embeddings, cfg.d_model)).astype(np.float32))
+    if cfg.encoder is not None:
+        out["source_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder.source_len, cfg.d_model)).astype(np.float32))
     return out
 
 
@@ -259,15 +263,18 @@ def pipeline_two_stages(rank, world):
 # and local-attention blocks), the meshes (data, model) of each world
 # size, and the variants held against the unsharded step
 RG = "recurrentgemma-9b"
+WHISPER = "whisper-3-heads"        # ``whisper_variant``
 DENSE = ("qwen2-5-7b", "gemma3-1b", "granite-20b", "command-r-35b",
-         "internvl2-26b", RG)
+         "internvl2-26b", RG, WHISPER)
+# the production arch each of DENSE stands for
+ARCH_OF = {WHISPER: "whisper-base"}
 MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4))}
 VARIANTS = ("plain", "accum2", "compression")
 SCALE_RTOL = 1e-6          # the int8 scales
 SCALE_BAND = 2             # x the flipped-channel witness's distance
 # the archs whose rank-0 train cases are held against the JAX package's
 # ``jit_cell`` too (their whole state saved by the job)
-JAX_HELD = ("internvl2-26b", RG)
+JAX_HELD = ("internvl2-26b", RG, WHISPER)
 CODE_SHARE = 1e-3          # the int8 codes that may differ, by one step
 
 
@@ -355,7 +362,7 @@ def _sharded_case(arch, mesh, variant):
     from repro_torch.launch.steps import (ShapeSpec, input_shardings,
                                           jit_cell, make_train_step)
     from repro_torch.training import compression as comp
-    cfg = get_reduced(arch)
+    cfg = reduced(arch)
     seq = train_len(cfg)
     shape = ShapeSpec("tiny_train", "train", seq, 4)
     flags = RunFlags(remat="full", grad_accum=2 if variant == "accum2"
@@ -523,16 +530,86 @@ def rg_fault(name, size):
         recurrent._conv1d, recurrent.ops = real_conv, real_ops
 
 
+# planted faults of an encoder-decoder's sharded train body (meshes with a
+# "model" axis of more than one rank): the encoder output's gradient
+# all-reduced over "model" where the encoder meets the cross-attention
+# (each model rank's gradient of the frames is its decoder rows' part,
+# which ``reduce_grads`` already sums for the encoder's replicated
+# leaves: summed here too, they count each part "model"-size times); the
+# encoder's row-parallel ffn's partial sums all-reduced with no gradient
+# collective (the serving body's ``sum``: the rank's ffn columns then
+# take their gradient from its own rows' part alone)
+ENC_FAULTS = ("enc-grad-reduced", "enc-ffn-sum-no-grad")
+
+
+class _GradReduced(torch.autograd.Function):
+    """``apply(t, group)``: ``t``; its gradient summed over ``group``."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumNoGrad(torch.autograd.Function):
+    """``apply(t, group)``: ``t`` summed over ``group``; its gradient as
+    it comes."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@contextlib.contextmanager
+def enc_fault(name):
+    """A planted fault of ENC_FAULTS, patched into ``models/model`` or
+    ``ModelShards.seq_scatter``."""
+    from repro_torch.distributed.sharding import ModelShards
+    from repro_torch.models import model
+    real_enc, real_scatter = model._encode, ModelShards.seq_scatter
+
+    def encode(params, cfg, source, flags, train=False, tp=None):
+        out = real_enc(params, cfg, source, flags, train, tp)
+        return _GradReduced.apply(out, tp._group(tp.axis))
+
+    def scatter(self, x):
+        if self.split_seq or self.size == 1:
+            return real_scatter(self, x)
+        return _SumNoGrad.apply(x, self._group(self.axis))
+
+    if name == "enc-grad-reduced":
+        model._encode = encode
+    else:
+        ModelShards.seq_scatter = scatter
+    try:
+        yield
+    finally:
+        model._encode, ModelShards.seq_scatter = real_enc, real_scatter
+
+
 def _train_fault_case(arch, mesh, fault):
-    """A planted fault (VLM_FAULTS, RG_FAULTS) must miss: one train
-    step's loss or grad norm farther than 10 x rtol from the unsharded
-    step's."""
+    """A planted fault (VLM_FAULTS, RG_FAULTS, ENC_FAULTS) must miss: one
+    train step's loss or grad norm farther than 10 x rtol from the
+    unsharded step's."""
     from repro_torch.launch.steps import ShapeSpec, jit_cell, make_train_step
-    cfg = get_reduced(arch)
+    cfg = reduced(arch)
     shape = ShapeSpec("tiny_train", "train", train_len(cfg), 4)
     batch = _batch(cfg, 4, train_len(cfg), 10)
     _, wm = make_train_step(cfg, OPT, FLAGS)(train_state(cfg), batch)
     with vlm_fault(fault) if fault in VLM_FAULTS else \
+            enc_fault(fault) if fault in ENC_FAULTS else \
             rg_fault(fault, mesh.shape["model"]):
         _, gm = jit_cell(cfg, shape, mesh, FLAGS, OPT)[0](train_state(cfg),
                                                           batch)
@@ -543,10 +620,11 @@ def _train_fault_case(arch, mesh, fault):
 
 def train_faults(arch):
     """The planted train faults of ``arch``: VLM_FAULTS with a prefix,
-    RG_FAULTS with RG-LRU blocks."""
-    cfg = get_reduced(arch)
+    RG_FAULTS with RG-LRU blocks, ENC_FAULTS with an encoder."""
+    cfg = reduced(arch)
     return VLM_FAULTS if cfg.n_prefix_embeddings else \
-        RG_FAULTS if _recurrent(cfg) else ()
+        RG_FAULTS if _recurrent(cfg) else \
+        ENC_FAULTS if cfg.encoder is not None else ()
 
 
 def sharded_train(rank, world):
@@ -772,10 +850,25 @@ def _serve_memory(cfg, mesh, dec, rows=SERVE_ROWS, positions=None):
     assert not fault, "an out-of-place cache write passes the in-place check"
 
 
+def whisper_variant(cfg):
+    """Reduced whisper-base (``cfg``: the port's or the JAX package's)
+    laid out as the full width is on every test mesh: 3 heads and 3 K/V
+    heads of 16 dims and 7 frames, which no "model" axis of 2 or 4
+    divides (its own 4 heads and 8 frames split there), so that every
+    model rank runs all heads and frames and the cross cache splits by
+    head dim alone (whisper-base: 8 heads, 1,500 frames on 16)."""
+    return dataclasses.replace(
+        cfg, name=WHISPER, n_heads=3, n_kv_heads=3, head_dim=16,
+        encoder=dataclasses.replace(cfg.encoder, source_len=7))
+
+
 def reduced(name):
     """A reduced config by name: an arch's (``get_reduced``), or
     ``THREE_EXPERTS`` / ``MLA_THREE_EXPERTS``, reduced Mixtral / reduced
-    deepseek-v2 with 3 routed experts."""
+    deepseek-v2 with 3 routed experts, or ``WHISPER``
+    (``whisper_variant``)."""
+    if name == WHISPER:
+        return whisper_variant(get_reduced("whisper-base"))
     base = {THREE_EXPERTS: "mixtral-8x22b",
             MLA_THREE_EXPERTS: "deepseek-v2-236b"}.get(name)
     if base is None:
@@ -900,23 +993,70 @@ def _prefix_fault_case(arch, mesh):
     assert miss > 10 * RTOL, f"{PREFIX_FAULT} passes: {miss}"
 
 
+# a planted fault of an encoder-decoder's sharded decode (meshes with a
+# "model" axis of more than one rank): the cross-attention read from the
+# rank's head-dim block of its cache, not gathered whole (the query's
+# block of dims scored against it, the outputs' blocks concatenated
+# over "model")
+CROSS_FAULT = "cross-local"
+
+
+def serve_faults(arch, model):
+    """The planted serving faults of ``arch`` on a "model" axis of
+    ``model`` ranks: PREFIX_FAULT with a prefix, CROSS_FAULT with an
+    encoder where "model" splits the cross cache's head dim."""
+    cfg = reduced(arch)
+    return (PREFIX_FAULT,) if cfg.n_prefix_embeddings else \
+        (CROSS_FAULT,) if cfg.encoder is not None and model > 1 else ()
+
+
+def _cross_fault_case(arch, mesh):
+    """The decode with CROSS_FAULT must miss: the logits farther than 10
+    x rtol of their max from the unsharded step's."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import jit_cell, make_decode_step
+    from repro_torch.models import attention
+    pos = serve_positions(mesh.shape["model"])["decode-last"]
+    cfg, shape, params, first, caches, rest = serve_inputs(
+        arch, False, torch.float32, pos)
+    want, _ = make_decode_step(cfg)(params, first,
+                                    tree_map(torch.clone, caches), *rest)
+    real = attention.serve_cross_attention
+
+    def local(p, x, kv, *, cfg, cache, off, tp):
+        n = kv[0].shape[-1]
+        q = tp.dim_block(torch.einsum("bsd,dhk->bshk", x, p["wq"]), n)
+        k, v = (t.to(q.dtype).transpose(1, 2) for t in kv)
+        length = torch.full((q.shape[0],), k.shape[2], dtype=torch.int32)
+        out = tp.concat(ops.decode_attention(q[:, 0], k, v, length), 2)
+        return torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None], cache
+
+    attention.serve_cross_attention = local
+    try:
+        got, _ = jit_cell(cfg, shape, mesh)[0](params, first, caches, *rest)
+    finally:
+        attention.serve_cross_attention = real
+    miss = float((got.full_tensor() - want).abs().max() / want.abs().max())
+    assert miss > 10 * RTOL, f"{CROSS_FAULT} passes: {miss}"
+
+
 def sharded_serve(rank, world):
     """Every (mesh, arch, case) of MESHES[world] x DENSE x SERVE_CASES,
-    and PREFIX_FAULT for the archs with a prefix; each rank writes its
-    outcome a case to ``OUT / sharded_serve.<rank>.json`` (the test
-    reads them)."""
+    and ``serve_faults``; each rank writes its outcome a case to ``OUT /
+    sharded_serve.<rank>.json`` (the test reads them)."""
     from repro_torch.launch.mesh import make_host_mesh
     res = {}
     for data, model in MESHES[world]:
         mesh = make_host_mesh(data=data, model=model, device_type="cpu")
         for arch in DENSE:
-            faults = (PREFIX_FAULT,) if get_reduced(
-                arch).n_prefix_embeddings else ()
+            faults = serve_faults(arch, model)
             for case in SERVE_CASES + faults:
                 name = f"{data}x{model}-{arch}-{case}"
                 try:
                     if case == PREFIX_FAULT:
                         _prefix_fault_case(arch, mesh)
+                    elif case == CROSS_FAULT:
+                        _cross_fault_case(arch, mesh)
                     else:
                         _serve_case(arch, mesh, case, name)
                     res[name] = "ok"

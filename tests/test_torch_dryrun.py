@@ -26,6 +26,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor
 
 import chip_smoke
+from _torch_spmd import WHISPER, reduced
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import Mesh
@@ -55,7 +56,12 @@ from repro_torch.models.params import tree_leaves, tree_map
 # {data: 2, model: 2}: gemma3-1b and Mixtral; and recurrentgemma-9b's four
 # cells (its RG-LRU channels over "model", the gates' partial sums
 # reduce-scattered by channel): train and decode on {data: 1, model: 4},
-# prefill and the one-row decode on {data: 2, model: 2}
+# prefill and the one-row decode on {data: 2, model: 2}; and whisper's
+# three (``_torch_spmd.WHISPER``: 3 heads and 7 frames, which no "model"
+# rank splits: every model rank runs the encoder on all frames, its ffn's
+# partial sums all-reduced, and the cross-attention over all of them, its
+# cache split by head dim): train and decode on {data: 1, model: 4},
+# prefill on {data: 2, model: 2}
 CELLS = {"train": ShapeSpec("tiny_train", "train", 32, 4),
          "prefill": ShapeSpec("tiny_prefill", "prefill", 16, 4),
          "decode": ShapeSpec("tiny_decode", "decode", 32, 4),
@@ -67,7 +73,10 @@ CELLS = {"train": ShapeSpec("tiny_train", "train", 32, 4),
          "train_rg_1x4": ShapeSpec("tiny_train", "train", 32, 4),
          "prefill_rg_2x2": ShapeSpec("tiny_prefill", "prefill", 16, 4),
          "decode_rg_1x4": ShapeSpec("tiny_decode", "decode", 32, 4),
-         "long_rg_2x2": ShapeSpec("tiny_long", "decode", 32, 1)}
+         "long_rg_2x2": ShapeSpec("tiny_long", "decode", 32, 1),
+         "train_whisper_1x4": ShapeSpec("tiny_train", "train", 32, 4),
+         "prefill_whisper_2x2": ShapeSpec("tiny_prefill", "prefill", 16, 4),
+         "decode_whisper_1x4": ShapeSpec("tiny_decode", "decode", 32, 4)}
 CELL_ARCH = {"train_gemma3_1x4": ("gemma3-1b", 1),
              "train_command_r_1x4": ("command-r-35b", 1),
              "train_internvl2_1x4": ("internvl2-26b", 1),
@@ -76,7 +85,10 @@ CELL_ARCH = {"train_gemma3_1x4": ("gemma3-1b", 1),
              "train_rg_1x4": ("recurrentgemma-9b", 1),
              "prefill_rg_2x2": ("recurrentgemma-9b", 2),
              "decode_rg_1x4": ("recurrentgemma-9b", 1),
-             "long_rg_2x2": ("recurrentgemma-9b", 2)}
+             "long_rg_2x2": ("recurrentgemma-9b", 2),
+             "train_whisper_1x4": (WHISPER, 1),
+             "prefill_whisper_2x2": (WHISPER, 2),
+             "decode_whisper_1x4": (WHISPER, 1)}
 DECODE_POS = 20
 WORLD = 4
 
@@ -84,7 +96,7 @@ WORLD = 4
 def _cell(kind):
     """(reduced config, data axis size) of a cell of CELLS."""
     arch, data = CELL_ARCH.get(kind, ("granite-20b", 2))
-    return get_reduced(arch), data
+    return reduced(arch), data
 
 
 def _laid_out(x, sh):
@@ -326,6 +338,45 @@ def test_card_trace_predicts_sharded_recurrentgemma_launches(dtype):
         assert out["collective_counts"]["reduce-scatter"] == 2 * n
     work = rmod.work(4, 64, 64 // WORLD)        # float32 gates
     assert pre["kernel_work"]["rglru_scan"]["bytes"] == n * work[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_trace_predicts_sharded_whisper_launches(dtype):
+    """``_torch_spmd.WHISPER`` at head dim 32 (the card's tensor-core
+    routes; 8 of its dims a rank) on a fake {data: 1, model: 4} group:
+    per layer, the encoder's attention (non-causal over the 7 frames),
+    the decoder's self-attention and its cross-attention (its rows
+    against the frames) each 2 flash launches a train step (forward and
+    remat recompute; in float32 each also 1 backward kernel, the f32tc
+    route) and 1 a prefill; a decode step 1 decode of the self block and
+    1 of the cross-attention over all 7 frames a decoder layer; a decode
+    step's all-gathers a decoder layer: the 8 projections split by head
+    dim (the self- and cross-attention's ``wq``, ``wk``, ``wv``, ``wo``)
+    gathered whole, the self blocks' partials merged, and the cross
+    cache's K and V gathered whole over their head dim."""
+    cfg = dataclasses.replace(reduced(WHISPER), head_dim=32,
+                              param_dtype=dtype, compute_dtype=dtype)
+    enc, dec = cfg.encoder.n_layers, cfg.n_layers
+    flash = "f32tc" if dtype == torch.float32 else "sm90"
+    with dryrun.fake_group(WORLD):
+        mesh = make_host_mesh(data=1, model=WORLD, device_type="cpu")
+        train = dryrun.trace_cell(cfg, ShapeSpec("t", "train", 32, 4), mesh,
+                                  device="cuda")
+        pre = dryrun.trace_cell(cfg, ShapeSpec("p", "prefill", 64, 4), mesh,
+                                device="cuda")
+        dec_out = dryrun.trace_cell(cfg, ShapeSpec("d", "decode", 64, 4),
+                                    mesh, device="cuda", pos=40)
+    for out in (train, pre, dec_out):
+        assert out["layout"] == "sharded"
+    n = enc + 2 * dec
+    assert train["kernel_launches"] == {
+        "flash_attention": 2 * n,
+        **({"flash_attention_bwd": n} if dtype == torch.float32 else {})}
+    assert train["kernel_routes"]["flash_attention"] == {flash: 2 * n}
+    assert pre["kernel_launches"] == {"flash_attention": n}
+    assert pre["kernel_routes"]["flash_attention"] == {flash: n}
+    assert dec_out["kernel_launches"] == {"decode_attention": 2 * dec}
+    assert dec_out["collective_counts"]["all-gather"] == (8 + 1 + 2) * dec
 
 
 def _depth(cfg, n):

@@ -58,8 +58,10 @@ import torch
 import torch.distributed as dist
 
 import _torch_spmd
-from _torch_spmd import (DENSE, MESHES, PREFIX_FAULT, SERVE_CASES,
-                         bf16_close, bf16_witness, serve_positions)
+from _torch_spmd import (ARCH_OF, CROSS_FAULT, DENSE, MESHES, PREFIX_FAULT,
+                         SERVE_CASES, WHISPER, bf16_close, bf16_witness,
+                         serve_faults, serve_positions)
+from test_torch_sharded_train import jreduced
 from repro.configs import get_reduced as jget_reduced
 from repro.kernels import ops as jops
 from repro.models import RunFlags as JRunFlags
@@ -82,9 +84,8 @@ from repro_torch.models.params import leaves_with_paths, tree_map
 
 CASES = [(world, data, model, arch, case)
          for world in sorted(MESHES) for data, model in MESHES[world]
-         for arch in DENSE for case in SERVE_CASES + (
-             (PREFIX_FAULT,) if get_reduced(arch).n_prefix_embeddings
-             else ())]
+         for arch in DENSE for case in SERVE_CASES + serve_faults(arch,
+                                                                  model)]
 SERVING = ("prefill_32k", "decode_32k")
 
 
@@ -142,7 +143,7 @@ def _reference_serving(arch, prefill, bf16, pos):
     float32 numpy."""
     _, _, params, first, caches, _ = _torch_spmd.serve_inputs(
         arch, prefill, torch.bfloat16 if bf16 else torch.float32, pos)
-    jcfg = jget_reduced(arch)
+    jcfg = jreduced(arch)
     jp, jc = tree_map(_jnp, params), tree_map(_jnp, caches)
     if prefill:
         logits, out = jprefill(jp, {k: jnp.asarray(v.numpy())
@@ -156,7 +157,8 @@ def _reference_serving(arch, prefill, bf16, pos):
         for k, v in jax.tree_util.tree_flatten_with_path(out)[0]}
 
 
-SERVED = [c for c in CASES if c[-1] not in ("memory", PREFIX_FAULT)]
+SERVED = [c for c in CASES
+          if c[-1] not in ("memory", PREFIX_FAULT, CROSS_FAULT)]
 
 
 @pytest.mark.parametrize(
@@ -200,25 +202,39 @@ def test_layout_of_the_serving_cells():
     long_500k cells (one row, its length over every mesh axis:
     ``tests/test_torch_sharded_long.py``; the matrix runs it for
     gemma3-1b, recurrentgemma-9b and Mixtral alone,
-    ``shape_applicable``); an int8 cache and every other arch's serving
-    cells are gathered (xlstm-125m's, whisper-base's, minicpm3-4b's),
-    deepseek-v2's and xlstm-125m's long_500k too; so is a cell whose
-    cache length does not split over "model"."""
+    ``shape_applicable``); so are whisper-base's (its 8 heads, its 1,500
+    frames and its cross cache's length over no "model" rank, the cross
+    cache split by head dim; the matrix runs its long_500k not at all);
+    an int8 cache and every other arch's serving cells are gathered
+    (xlstm-125m's, minicpm3-4b's), deepseek-v2's and xlstm-125m's
+    long_500k too; so is a cell whose cache length does not split over
+    "model", and an encoder-decoder's whose heads or cross cache's
+    length a "model" rank splits (reduced whisper-base's own 4 heads and
+    8 frames on 2 or 4 ranks)."""
     int8 = RunFlags(cache_dtype="int8")
+    sharded = tuple(ARCH_OF.get(a, a) for a in DENSE) + ("mixtral-8x22b",)
     for arch in ARCHS:
         cfg = get_config(arch)
         for mesh in (SINGLE, MULTI):
             for sname, shape in SHAPES.items():
                 if shape.kind == "train":
                     continue
-                want = "sharded" if arch in DENSE + ("mixtral-8x22b",) \
+                want = "sharded" if arch in sharded \
                     and sname in SERVING + ("long_500k",) or \
                     arch == "deepseek-v2-236b" and sname in SERVING \
                     else "gathered"
                 assert steps.layout(cfg, shape, mesh) == want, (arch, sname)
                 assert steps.layout(cfg, shape, mesh, int8) == "gathered"
+    own = get_reduced("whisper-base")
+    for data, model in (m for ms in MESHES.values() for m in ms):
+        mesh = FakeMesh({"data": data, "model": model})
+        for shape in (ShapeSpec("p", "prefill", 16, 4),
+                      ShapeSpec("d", "decode", 32, 4)):
+            assert steps.layout(own, shape, mesh) == (
+                "sharded" if model == 1 else "gathered"), (data, model)
+            assert steps.layout(own, shape, mesh, int8) == "gathered"
     for arch in DENSE:
-        cfg = get_reduced(arch)
+        cfg = _torch_spmd.reduced(arch)
         for data, model in (m for ms in MESHES.values() for m in ms):
             mesh = FakeMesh({"data": data, "model": model})
             for shape in (ShapeSpec("p", "prefill", 16, 4),
@@ -241,6 +257,7 @@ LOCAL = {
     "internvl2-26b": ((3, 128), (8, 8), 1024, 92553, (8, 2048, 8, 128)),
     "recurrentgemma-9b": ((1, 256), (1, 16), 768, 16000,
                           (8, 2048, 1, 256)),
+    "whisper-base": ((8, 4), (8, 4), 128, 51865, (8, 2048, 8, 64)),
 }
 # and of recurrentgemma-9b's RG-LRU blocks: 256 of the 4,096 channels
 # (w_in by column, w_rec_gate and w_out by row), its state's too
@@ -248,6 +265,12 @@ RG_LOCAL = {"['rglru']['w_in']": (4096, 256),
             "['rglru']['w_rec_gate']": (256, 4096),
             "['rglru']['w_out']": (256, 4096),
             "['rglru']['conv']": (8, 3, 256), "['rglru']['h']": (8, 256)}
+# and of whisper-base's cross-attention: its weights and its cache split by
+# head dim (8 heads and 1,500 frames split over no "model" rank)
+CROSS_LOCAL = {"['cross']['wq']": (512, 8, 4), "['cross']['wk']": (512, 8, 4),
+               "['cross']['wo']": (8, 4, 512),
+               "['cross']['ek']": (8, 1500, 8, 4),
+               "['cross']['ev']": (8, 1500, 8, 4)}
 
 
 def _local(spec, sh, mesh):
@@ -258,17 +281,19 @@ def _local(spec, sh, mesh):
     return torch.empty(shape, dtype=spec.dtype, device="meta")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", [ARCH_OF.get(a, a) for a in DENSE])
 def test_local_blocks_at_full_width(arch):
     """Each rank's blocks of decode_32k at full width on (16, 16), as meta
     tensors: the query heads split over "model" where they divide 16
     (granite's and internvl2's 48, command-r's 64, recurrentgemma's 16),
-    else the head dim (qwen's 28, gemma3's 4); K/V by head dim (their
-    heads do not divide 16); ffn split; the vocab split but internvl2's
-    92,553 rows, which 16 does not divide; the cache 8 rows x 2,048 of
-    the length; recurrentgemma's RG-LRU weights and state 256 of its
-    4,096 channels.  The rank's bytes are the analytic floor's params
-    and cache."""
+    else the head dim (qwen's 28, gemma3's 4, whisper's 8); K/V by head
+    dim (their heads do not divide 16); ffn split; the vocab split but
+    internvl2's 92,553 rows and whisper's 51,865, which 16 does not
+    divide; the cache 8 rows x 2,048 of the length; recurrentgemma's
+    RG-LRU weights and state 256 of its 4,096 channels; whisper's
+    cross-attention cache all 1,500 frames and 8 heads x 4 of the 64
+    dims.  The rank's bytes are the analytic floor's params and
+    cache."""
     cfg, shape = get_config(arch), SHAPES["decode_32k"]
     specs, sh = input_specs(cfg, shape), input_shardings(cfg, shape, SINGLE)
     local = {"params": {}, "caches": {}}
@@ -290,9 +315,9 @@ def test_local_blocks_at_full_width(arch):
     assert all(tuple(t.shape[1:]) == cache for t in kv)
     rest = {k: t for k, t in c.items() if not k.endswith(("['k']",
                                                           "['v']"))}
-    assert bool(rest) == (arch == "recurrentgemma-9b")
+    assert bool(rest) == (arch in ("recurrentgemma-9b", "whisper-base"))
     for k, t in {**p, **rest}.items():
-        for tail, want in RG_LOCAL.items():
+        for tail, want in {**RG_LOCAL, **CROSS_LOCAL}.items():
             if k.endswith(tail):
                 assert tuple(t.shape[1:]) == want, k
     floor = analytic_bytes_per_device(cfg, shape, SINGLE)

@@ -29,9 +29,21 @@ weighed alike) must miss, and so must reduced recurrentgemma's
 rank's channels kept, the conv and scan run on each rank's sequence
 block from a zero state).  Rank 0's two steps of both archs' plain and
 two-microbatch cases are also held against the reference's
-``jit_cell`` on a (1, 1) mesh.  At world size 1 the cell is held
+``jit_cell`` on a (1, 1) mesh.  Whisper-base runs as
+``_torch_spmd.WHISPER``, reduced whisper with 3 heads of 16 dims and 7
+frames (``whisper_variant``), which no test mesh's "model" axis
+divides, as whisper-base's 8 heads and 1,500 frames on 16: every model
+rank runs the encoder on all frames of its rows (its ffn over "model",
+ending in an all-reduce with an all-reduce gradient) and the
+cross-attention of its decoder rows against them; its planted faults
+(``_torch_spmd.ENC_FAULTS``: the encoder output's gradient all-reduced
+at the boundary, the encoder's ffn summed with no gradient collective)
+must miss, and its rank 0's plain and two-microbatch cases (the second
+cuts the tokens' sequence and not the frames) are held against the
+reference's ``jit_cell`` too.  At world size 1 the cell is held
 against the reference's own ``jit_cell``.
 """
+import dataclasses
 import functools
 import json
 
@@ -43,8 +55,9 @@ import torch
 import torch.distributed as dist
 
 import _torch_spmd
-from _torch_spmd import (DENSE, JAX_HELD, MESHES, RG, VARIANTS,
-                         train_faults, train_len)
+from _torch_spmd import (ARCH_OF, DENSE, JAX_HELD, MESHES, RG, VARIANTS,
+                         WHISPER, reduced, train_faults, train_len,
+                         whisper_variant)
 from test_torch_train_loss import _fan_in_d_model
 from repro.configs import get_reduced as jget_reduced
 from repro.launch import steps as jsteps
@@ -76,6 +89,13 @@ class FakeMesh:
     def __init__(self, shape):
         self.shape = dict(shape)
         self.axis_names = tuple(shape)
+
+
+def jreduced(name):
+    """The JAX package's config of ``_torch_spmd.reduced(name)``."""
+    if name == WHISPER:
+        return whisper_variant(jget_reduced("whisper-base"))
+    return jget_reduced(name)
 
 
 @pytest.fixture(scope="module")
@@ -114,13 +134,13 @@ def _reference_train(arch, variant):
     prefix embeddings included), as the gloo job runs them: the losses
     and grad norms, and {path: leaf} of the params and moments, float32
     numpy."""
-    cfg = get_reduced(arch)
+    cfg = reduced(arch)
     seq = train_len(cfg)
     jshape = jsteps.ShapeSpec("tiny_train", "train", seq, 4)
     jmesh = jax.make_mesh((1, 1), ("data", "model"))
     jflags = JRunFlags(remat="full",
                        grad_accum=2 if variant == "accum2" else 1)
-    jf, _ = jsteps.jit_cell(jget_reduced(arch), jshape, jmesh, flags=jflags,
+    jf, _ = jsteps.jit_cell(jreduced(arch), jshape, jmesh, flags=jflags,
                             opt=JAdamWConfig(**OPT))
     jst = tree_map(lambda t: jnp.asarray(t.numpy()),
                    _torch_spmd.train_state(cfg))
@@ -162,6 +182,7 @@ def _jax_held(runs, world, data, model, arch, variant, rtol=1e-5):
 
 VLM_CASES = [c[:3] + c[4:] for c in JAX_CASES if c[3] == VLM]
 RG_CASES = [c[:3] + c[4:] for c in JAX_CASES if c[3] == RG]
+WHISPER_CASES = [c[:3] + c[4:] for c in JAX_CASES if c[3] == WHISPER]
 
 
 @pytest.mark.parametrize(
@@ -189,6 +210,16 @@ def test_sharded_recurrent_train_matches_the_jax_reference(runs, world, data,
     _jax_held(runs, world, data, model, RG, variant, 1e-4)
 
 
+@pytest.mark.parametrize(
+    "world,data,model,variant", WHISPER_CASES,
+    ids=[f"{d}x{m}-{WHISPER}-{v}" for _, d, m, v in WHISPER_CASES])
+def test_sharded_whisper_train_matches_the_jax_reference(runs, world, data,
+                                                         model, variant):
+    """Each gloo whisper case's rank 0 against the JAX package
+    (``_jax_held``; the frames in the batch)."""
+    _jax_held(runs, world, data, model, WHISPER, variant)
+
+
 def test_layout_is_chosen_from_the_config():
     """The dense decoders' (internvl2-26b's too) and mixtral-8x22b's
     train, prefill_32k, decode_32k and long_500k cells are sharded on
@@ -199,14 +230,19 @@ def test_layout_is_chosen_from_the_config():
     long_500k not at all, ``shape_applicable``), and deepseek-v2-236b's
     but long_500k (``tests/test_torch_sharded_mla.py``), and
     recurrentgemma-9b's four (a DENSE arch: its RG-LRU blocks split by
-    channel); every other arch's cells are gathered -- xlstm-125m's
-    (mLSTM and sLSTM blocks), whisper-base's (an encoder and
-    cross-attention) and minicpm3-4b's (40 MLA heads on 16) -- and so is
-    a train cell whose sequence does not split over "model", or whose
-    tokens split and whose residual (the prefix rows in front of them)
-    does not, or the reverse."""
-    assert RG in DENSE
-    for arch in ("xlstm-125m", "whisper-base", "minicpm3-4b"):
+    channel) and whisper-base's (its 8 heads and 1,500 frames split over
+    no "model" rank: the matrix runs its long_500k not at all); every
+    other arch's cells are gathered -- xlstm-125m's (mLSTM and sLSTM
+    blocks) and minicpm3-4b's (40 MLA heads on 16) -- and so is a train
+    cell whose sequence does not split over "model", or whose tokens
+    split and whose residual (the prefix rows in front of them) does
+    not, or the reverse, or an encoder-decoder whose heads or frames a
+    "model" rank splits (reduced whisper-base's own 4 heads and 8
+    frames on 2 or 4 ranks, not on 1; the variant's 3 heads and 7
+    frames on none)."""
+    assert RG in DENSE and WHISPER in DENSE
+    sharded = tuple(ARCH_OF.get(a, a) for a in DENSE) + ("mixtral-8x22b",)
+    for arch in ("xlstm-125m", "minicpm3-4b"):
         for sname, shape in SHAPES.items():
             assert steps.layout(get_config(arch), shape, FakeMesh(
                 {"data": 16, "model": 16})) == "gathered", (arch, sname)
@@ -215,10 +251,22 @@ def test_layout_is_chosen_from_the_config():
         for mesh in (FakeMesh({"data": 16, "model": 16}),
                      FakeMesh({"pod": 2, "data": 16, "model": 16})):
             for sname, shape in SHAPES.items():
-                want = "sharded" if arch in DENSE + ("mixtral-8x22b",) \
+                want = "sharded" if arch in sharded \
                     or arch == "deepseek-v2-236b" and sname != "long_500k" \
                     else "gathered"
                 assert steps.layout(cfg, shape, mesh) == want, (arch, sname)
+    train = ShapeSpec("t", "train", 32, 4)
+    for model in (1, 2, 4):
+        mesh = FakeMesh({"data": 4 // model, "model": model})
+        assert steps.layout(get_reduced("whisper-base"), train, mesh) == (
+            "sharded" if model == 1 else "gathered"), model
+        assert steps.layout(reduced(WHISPER), train, mesh) == "sharded"
+    # 4 heads but frames that no "model" axis divides, and the reverse
+    own, var = get_reduced("whisper-base"), reduced(WHISPER)
+    for cfg in (dataclasses.replace(own, encoder=var.encoder),
+                dataclasses.replace(var, encoder=own.encoder)):
+        assert steps.layout(cfg, train, FakeMesh(
+            {"data": 1, "model": 2})) == "gathered"
     cfg = get_reduced("granite-20b")
     odd = ShapeSpec("t", "train", 30, 4)
     assert steps.layout(cfg, odd, FakeMesh({"data": 2, "model": 4})) == \
@@ -260,8 +308,9 @@ def test_sharded_cell_matches_reference_jit_cell(arch, gloo1):
     one at world size 1 on the same carried-over state at the d_model
     fan-in law: loss and grad norm within rtol 1e-5, params within rtol
     1e-5, atol 1e-7, over two steps (the first at learning rate 0); a
-    VLM's batch with its prefix embeddings."""
-    jcfg, cfg = jget_reduced(arch), get_reduced(arch)
+    VLM's batch with its prefix embeddings, an encoder-decoder's with its
+    frames."""
+    jcfg, cfg = jreduced(arch), reduced(arch)
     seq = train_len(cfg)
     jshape = jsteps.ShapeSpec("tiny_train", "train", seq, 2)
     shape = ShapeSpec("tiny_train", "train", seq, 2)
@@ -288,6 +337,9 @@ def test_sharded_cell_matches_reference_jit_cell(arch, gloo1):
         if cfg.n_prefix_embeddings:
             batch["prefix_embeds"] = rng.standard_normal(
                 (2, cfg.n_prefix_embeddings, cfg.d_model)).astype(np.float32)
+        if cfg.encoder is not None:
+            batch["source_embeds"] = rng.standard_normal(
+                (2, cfg.encoder.source_len, cfg.d_model)).astype(np.float32)
         with jmesh:
             jst, jm = jf(jst, {k: jnp.asarray(v) for k, v in batch.items()})
         state, m = step(state, {k: torch.from_numpy(v)

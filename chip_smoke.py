@@ -293,8 +293,9 @@ Phases, in order:
       plain versions;
   20. ``training.trainer.train`` on Qwen2.5-7B at full width, 4 of its
       28 layers, float32 without TF32, S = 4,096 (the reference's
-      ``train_4k`` length), at the largest batch that fits (a two-step
-      run at one more row must run out of memory), 8 steps with a 2-step
+      ``train_4k`` length), at the largest batch that fits (the run
+      itself probes it, from one row above TRAIN_BATCH; a run at one more
+      row must run out of memory within two steps), 8 steps with a 2-step
       warmup: the loss each step (the mean of the last 3 below the mean
       of the first 3), ms a step, tokens a second, peak memory, exactly 8
       flash launches a step, all f32tc, and 4 of its backward kernel
@@ -441,9 +442,18 @@ Phases, in order:
       MoE FFN are plain PyTorch, so no kernel launches, traced and real;
       the faults that must miss being the MLA scores made whole (train,
       prefill) and the latent cache held whole on every model rank
-      (decode); then internvl2-26b x train_4k, prefill_32k and
-      decode_32k (at row 2,047) at 2 of its 48 layers, full width, bf16,
-      in the sharded layout the same way (3 of the 48 query heads over
+      (decode); then minicpm3-4b x train_4k, prefill_32k and decode_32k
+      (at row 2,047) at 2 of its 62 layers, full width, bf16, under
+      SERVE_RULES, the same way (all 40 MLA heads on every rank, in
+      train the queries of the rank's 256 rows against every row's
+      gathered latents; 400 of the ffn's 6,400 columns; in serving the
+      heads' dims over "model", gathered whole a layer; no kernel
+      launches), each peak within 0.5 % of its trace, the faults that
+      must miss being every head's queries run on all 4,096 rows
+      (train), the MLA scores made whole (prefill) and the latent cache
+      held whole on every model rank (decode); then internvl2-26b x
+      train_4k, prefill_32k and decode_32k (at row 2,047) at 2 of its 48
+      layers, full width, bf16, in the sharded layout the same way (3 of the 48 query heads over
       one K/V head a rank; the train residual 272 of the 4,352 rows of
       [256 prefix rows; 4,096 tokens], re-blocked by an all-to-all each
       way in and out; the prefill cache 2,064 of its 33,024 rows; 2 / 1
@@ -512,9 +522,11 @@ Phases, in order:
       launches of a chunk and a step of Qwen's chunked prefill; the
       attention rows phase 24's launches a cell, ``dryrun_launches``,
       the flash row also the sharded train and prefill cells' rank-0
-      steps' (granite-20b's and mixtral-8x22b's), the decode row the
-      sharded decode and long_500k cells' and phase 25's figures,
-      ``lse``);
+      steps' (granite-20b's, mixtral-8x22b's, internvl2-26b's,
+      recurrentgemma-9b's and whisper-base's, and the MLA archs'
+      deepseek-v2-236b and minicpm3-4b, which launch none), the decode
+      row the sharded decode cells' (the MLA archs' none) and long_500k
+      cells' and phase 25's figures, ``lse``);
   27. as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and never prints
@@ -535,7 +547,11 @@ prints recurrentgemma-9b's cells' wall beside what the 24-layer fault
 traces (against a 52-layer one) and the late build save, and
 whisper-base's three cells' wall.  With those cells (31.8 s, two
 11-second traces of the train cell) the whole took 954.3 s on a host
-that traced granite-20b's 52 layers in 30.7 s (24.3 s above).
+that traced granite-20b's 52 layers in 30.7 s (24.3 s above).  With
+minicpm3-4b's three cells (17.4 s), phase 20's batch probed by its main
+run (12.8 s less) and the depth checks' float64 weights cast on the
+card (phases 13 and 16 45.5 s and 27.0 s), it took 808.3 s on a host
+that traced those 52 layers in 24.8 s.
 It also exits non-zero without a CUDA device.
 ``python3 chip_smoke.py --metering`` stops after phase 4d and
 prints the metering kernels' figures and the stack's walls and launches
@@ -2238,10 +2254,11 @@ def check_model_decode(cfg, ctx=2048):
 def _cast(tree, to, specs=None):
     """Every leaf of a parameter tree moved to a device or dtype; with
     ``specs`` (a spec tree of the same shape), to device ``to`` in each
-    leaf's spec dtype."""
+    leaf's spec dtype, moved first and cast there (a blocking copy that
+    casts too converts on the host and moves the wider leaf)."""
     if isinstance(tree, dict):
         return {k: _cast(v, to, specs and specs[k]) for k, v in tree.items()}
-    return tree.to(to) if specs is None else tree.to(to, specs.dtype)
+    return tree.to(to) if specs is None else tree.to(to).to(specs.dtype)
 
 
 def _serve_lines(argv, **kw):
@@ -4412,8 +4429,8 @@ def _instrumented_steps(record, profile_step):
 def train_full_width(stats):
     """Phase 20: ``trainer.train`` on Qwen2.5-7B at full width, 4 of its
     28 layers, float32, S = 4,096, at the largest batch that fits (a
-    two-step run at one more row runs out of memory), 8 steps with a
-    2-step warmup."""
+    run at one more row runs out of memory within two steps), 8 steps
+    with a 2-step warmup."""
     import torch
 
     from repro_torch.models import RunFlags
@@ -4428,32 +4445,7 @@ def train_full_width(stats):
             opt=AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS),
             flags=RunFlags())
 
-    def fits(batch):
-        # two steps: the second runs on the allocator's steady state
-        # (at 5 rows one step ran and the second did not)
-        try:
-            trainer.train(cfg, tc(batch, 2), log_fn=lambda s: None,
-                          device=DEV)
-            return True
-        except torch.cuda.OutOfMemoryError:
-            return False
-
-    # the largest batch that fits: TRAIN_BATCH, unless one more row runs
-    # (the card's cache is emptied after each probe, once the failed
-    # step's frames are gone)
-    batch = TRAIN_BATCH
-    while True:
-        more = fits(batch + 1)
-        _free_card()
-        if not more:
-            break
-        batch += 1
-    print(f"train: a step at {batch + 1} rows of {TRAIN_SEQ} tokens runs "
-          f"out of the card's memory; {batch} rows a step"
-          + ("" if batch == TRAIN_BATCH else
-             f" (TRAIN_BATCH is {TRAIN_BATCH}: raise it)"))
-    runs = {}
-    for rows, steps in ((batch, TRAIN_STEPS), (COMPARE_BATCH, COMPARE_STEPS)):
+    def run(rows, steps):
         torch.cuda.reset_peak_memory_stats()
         record = {"launches": []}
         real, make = _instrumented_steps(record, profile_step=steps - 1)
@@ -4477,12 +4469,40 @@ def train_full_width(stats):
             record["routes"]
         # the profiled step is the last; the others' host clock
         step_ms = 1e3 * statistics.median(hist["step_time_s"][1:-1])
-        runs[rows] = {"losses": losses, "step_ms": step_ms,
-                      "first_step_ms": 1e3 * hist["step_time_s"][0],
-                      "tokens_per_s": rows * TRAIN_SEQ / (step_ms / 1e3),
-                      "peak_bytes": peak, "profile": record["profile"],
-                      "launches": record["launches"]}
+        return {"losses": losses, "step_ms": step_ms,
+                "first_step_ms": 1e3 * hist["step_time_s"][0],
+                "tokens_per_s": rows * TRAIN_SEQ / (step_ms / 1e3),
+                "peak_bytes": peak, "profile": record["profile"],
+                "launches": record["launches"]}
+
+    # the largest batch that fits, probed by the main run itself (a
+    # separate two-step probe at its batch cost two of its steps): one
+    # row above TRAIN_BATCH while its run goes through, until a row more
+    # runs out of the card's memory (within two steps: at 5 rows one step
+    # ran and the second did not); the card's cache is emptied after each
+    # run, once a failed step's frames are gone
+    batch, runs = TRAIN_BATCH, {}
+    while True:
+        try:
+            more = run(batch + 1, TRAIN_STEPS)
+        except torch.cuda.OutOfMemoryError:
+            more = None
         _free_card()
+        if more is None:
+            break
+        batch += 1
+        runs = {batch: more}
+    print(f"train: a step at {batch + 1} rows of {TRAIN_SEQ} tokens runs "
+          f"out of the card's memory; {batch} rows a step"
+          + ("" if batch == TRAIN_BATCH else
+             f" (TRAIN_BATCH is {TRAIN_BATCH}: raise it)"))
+    for rows, steps in ((batch, TRAIN_STEPS), (COMPARE_BATCH, COMPARE_STEPS)):
+        if rows not in runs:
+            runs[rows] = run(rows, steps)
+            _free_card()
+    # what a separate two-step probe at the main batch took: two of the
+    # main run's steps (phase 24.3 prints it with the time won back)
+    probe_s = 2 * runs[batch]["step_ms"] / 1e3
     main = runs[batch]
     losses = main["losses"]
     first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
@@ -4523,7 +4543,7 @@ def train_full_width(stats):
               "flash_launches": sum(flash),
               "at_compare_batch": {k: runs[COMPARE_BATCH][k] for k in (
                   "step_ms", "tokens_per_s", "peak_bytes", "losses")},
-              "compare_batch": COMPARE_BATCH}
+              "compare_batch": COMPARE_BATCH, "probe_won_s": probe_s}
     print(f"phase 20: {time.perf_counter() - t0:.3f} s")
     return result
 
@@ -6530,8 +6550,8 @@ def _whole_mla_scores():
     from repro_torch.models import attention
     real = attention._mla_heads
 
-    def heads(p, q_nope, q_rope, c_kv, k_rope, positions, cfg, chunk_q):
-        return real(p, q_nope, q_rope, c_kv, k_rope, positions, cfg,
+    def heads(p, q_nope, q_rope, c_kv, k_rope, pos_q, pos_k, cfg, chunk_q):
+        return real(p, q_nope, q_rope, c_kv, k_rope, pos_q, pos_k, cfg,
                     q_nope.shape[1])
 
     attention._mla_heads = heads
@@ -6539,6 +6559,36 @@ def _whole_mla_scores():
         yield
     finally:
         attention._mla_heads = real
+
+
+@contextlib.contextmanager
+def _mla_every_row():
+    """A planted layout fault of the sharded MLA train body where the
+    heads replicate over "model", modelled in the trace: the residual's
+    whole sequence gathered, projected, and every head's queries run on
+    all of its rows against every key, the rank keeping its block of
+    the output (the body before its queries were cut to the rank's own
+    rows); split heads as they are."""
+    import torch
+
+    from repro_torch.models import attention
+    real = attention._tp_mla
+
+    def every_row(p, x, positions, *, cfg, rope_theta, chunk_q, tp):
+        if p["wq_b"].shape[1] != cfg.n_heads:
+            return real(p, x, positions, cfg=cfg, rope_theta=rope_theta,
+                        chunk_q=chunk_q, tp=tp)
+        q_nope, q_rope, c_kv, k_rope = attention.mla_project(
+            p, tp.seq_gather(x), positions, cfg, rope_theta)
+        out = attention._mla_heads(p, q_nope, q_rope, c_kv, k_rope,
+                                   positions, positions, cfg, chunk_q)
+        return tp.own(torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+
+    attention._tp_mla = every_row
+    try:
+        yield
+    finally:
+        attention._tp_mla = real
 
 
 def _latent_whole():
@@ -6560,6 +6610,37 @@ def check_mla_rank0(card):
     return _check_cut_rank0(MLA_ARCH, MLA_LAYERS, MLA_POS, {
         "train": _whole_mla_scores, "prefill": _whole_mla_scores,
         "decode": _latent_whole}, card)
+
+
+# minicpm3-4b's sharded cells, run as rank 0 of the (16, 16) mesh at
+# MINICPM3_LAYERS of its 62 layers (full width, bf16, SERVE_RULES): all
+# 40 MLA heads on every rank (40 do not divide 16), in train the queries
+# of the rank's 256 of the 4,096 rows against every row's gathered
+# latents, 400 of the ffn's 6,400 columns; in serving the heads' dims
+# (96 and 64) over "model", gathered whole a layer, and 2,048 rows of the
+# latent cache a rank; the decode at MINICPM3_POS, the last row of rank
+# 0's block, so that rank 0 reads all of it.  Each peak within
+# VLM_PEAK_TOL of its trace
+MINICPM3_LAYERS = 2
+MINICPM3_POS = 2047
+
+
+def check_minicpm3_rank0(card):
+    """Phase 24.3, MLA with replicated heads: minicpm3-4b's three cells
+    at MINICPM3_LAYERS of its 62 layers (``_check_cut_rank0``: MLA and
+    the dense FFN are plain PyTorch and cuBLAS, so no kernel launches;
+    each peak within VLM_PEAK_TOL, the decode at MINICPM3_POS); the
+    faults every head's queries run on all 4,096 rows (train:
+    ``_mla_every_row``), the MLA scores whole (prefill:
+    ``_whole_mla_scores``) and the latent cache whole on every model
+    rank (decode: ``_latent_whole``).  Prints the three cells' wall."""
+    t0 = time.perf_counter()
+    res = _check_cut_rank0(MINICPM3, MINICPM3_LAYERS, MINICPM3_POS, {
+        "train": _mla_every_row, "prefill": _whole_mla_scores,
+        "decode": _latent_whole}, card, VLM_PEAK_TOL)
+    print(f"phase 24.3 minicpm3-4b's three cells: "
+          f"{time.perf_counter() - t0:.3f} s")
+    return res
 
 
 # the long_500k cells in the sharded layout (LONG_SERVE_RULES /
@@ -6958,7 +7039,7 @@ def time_decode_wrapper(stats):
             "host_us_a_call": host_us, "splits": pl.splits}
 
 
-def drive_dryrun(stats):
+def drive_dryrun(stats, training):
     """Phase 24: the dry run traces phase 22's three world-1 cells on a
     fake process group, on fake tensors through the kernels' fake
     branch, and each trace is held against a real step of the same cell
@@ -6968,8 +7049,10 @@ def drive_dryrun(stats):
     trace through the plain attention (the CPU's program) must miss the
     prefill cell's peak (its gap on the others printed).  Then DRY_CELL
     at world size 256, DRY_SHARDED traced and run as rank 0 of 256
-    (``check_sharded_rank0``), and the decode wrapper timed beside its
-    raw kernel."""
+    (``check_sharded_rank0``), the sharded cells of every other arch
+    the same way, and the decode wrapper timed beside its raw kernel.
+    ``training``: phases 18-21's results, whose phase 20 says what its
+    old two-step batch probe took (printed with the walls)."""
     import torch
     import torch.distributed as dist
 
@@ -7053,22 +7136,26 @@ def drive_dryrun(stats):
     serving = check_serving_rank0(_card_line(), cell)
     moe = check_moe_rank0(_card_line())
     mla = check_mla_rank0(_card_line())
+    minicpm3 = check_minicpm3_rank0(_card_line())
     vlm = check_vlm_rank0(_card_line())
     rg = check_rg_rank0(_card_line())
     whisper = check_whisper_rank0(_card_line())
     long = check_long_rank0(_card_line())
-    # recurrentgemma-9b's four cells' wall beside the time won back
-    # for them: granite-20b's fault traced at KEPT_LAYERS
-    # layers, not at its 52 (a trace as long as its correct one), and
-    # the late build, which phase 1 does not wait for
+    # the newer cells' walls beside the time won back for them:
+    # granite-20b's fault traced at KEPT_LAYERS layers, not at its 52 (a
+    # trace as long as its correct one), the late build, which phase 1
+    # does not wait for, and phase 20's batch probed by its main run
     rg_wall = sum(c["wall_s"] for c in rg.values()) + \
         long[RG_ARCH]["wall_s"]
     whisper_wall = sum(c["wall_s"] for c in whisper.values())
+    minicpm3_wall = sum(c["wall_s"] for c in minicpm3.values())
+    probe = training["full_width"]["probe_won_s"]
     won = sharded["trace_s"] - sharded["kept_wall_s"]
     late = BUILD_WALLS.get("late_ended_s", 0.0) - \
         BUILD_WALLS.get("phase1_s", 0.0) - \
         BUILD_WALLS.get("late_waited_s", 0.0)
-    print(f"phase 24.3 walls: whisper-base's three cells "
+    print(f"phase 24.3 walls: minicpm3-4b's three cells "
+          f"{minicpm3_wall:.3f} s; whisper-base's three cells "
           f"{whisper_wall:.3f} s; recurrentgemma-9b's four cells "
           f"{rg_wall:.3f} s; won back: granite-20b's fault at "
           f"{KEPT_LAYERS} layers {sharded['kept_wall_s']:.3f} s against "
@@ -7076,7 +7163,9 @@ def drive_dryrun(stats):
           f"({won:.3f} s), the late build's compile behind phases 2-17 "
           f"({late:.3f} s: it ended "
           f"{BUILD_WALLS.get('late_ended_s', 0.0):.3f} s after the build "
-          f"began, phase 1 took {BUILD_WALLS.get('phase1_s', 0.0):.3f} s)")
+          f"began, phase 1 took {BUILD_WALLS.get('phase1_s', 0.0):.3f} s)"
+          f", phase 20's two-step batch probe, which its main run now "
+          f"takes ({probe:.3f} s: two of that run's steps)")
     timing = time_decode_wrapper(stats)
     _possible(timing["wrapper_ms"], stats["decode_attention"]["bound_ms"]
               if "decode_attention" in stats else 0.0, "decode wrapper")
@@ -7096,9 +7185,11 @@ def drive_dryrun(stats):
     return {"cells": res, "production": {
         "cell": "_".join(DRY_CELL), **{k: cell[k] for k in keys}},
         "sharded_rank0": sharded, "serving_rank0": serving,
-        "moe_rank0": moe, "mla_rank0": mla, "vlm_rank0": vlm,
+        "moe_rank0": moe, "mla_rank0": mla, "minicpm3_rank0": minicpm3,
+        "vlm_rank0": vlm,
         "rg_rank0": rg, "whisper_rank0": whisper, "long_rank0": long,
         "rg_wall_s": rg_wall, "whisper_wall_s": whisper_wall,
+        "minicpm3_wall_s": minicpm3_wall, "probe_won_s": probe,
         "kept_won_s": won, "late_build_won_s": late,
         "decode_wrapper": timing,
         "wall_s": wall}
@@ -7288,7 +7379,7 @@ def main():
         stats = {}
         training = drive_training(stats)
         distributed = drive_distributed(stats)
-        dry = drive_dryrun(stats)
+        dry = drive_dryrun(stats, training)
         print(card)
         print(json.dumps({"training": training, "distributed": distributed,
                           "dryrun": dry, "kernels": stats}))
@@ -7356,7 +7447,7 @@ def main():
     training = drive_training(stats)
     distributed = drive_distributed(stats)
     cap_offset = drive_cap_offset()
-    dry = drive_dryrun(stats)
+    dry = drive_dryrun(stats, training)
     lse = check_decode_lse(stats)
     csrc = "src/repro_torch/kernels/csrc/"
     source = {"fused_meter": csrc + "segment_trapz.cu",
@@ -7548,12 +7639,14 @@ def main():
                     "flash_attention"]
             # mixtral-8x22b's, internvl2-26b's, recurrentgemma-9b's and
             # whisper-base's sharded cells at MOE_LAYERS / VLM_LAYERS /
-            # RG_LAYERS / WHISPER_LAYERS layers
+            # RG_LAYERS / WHISPER_LAYERS layers; deepseek-v2-236b's and
+            # minicpm3-4b's (MLA: none)
             for cell in ("train_4k", "prefill_32k"):
-                for key in ("moe", "vlm", "rg", "whisper"):
+                for key in ("moe", "vlm", "rg", "whisper", "mla",
+                            "minicpm3"):
                     row["dryrun_launches"][f"{key}_{cell}_rank0"] = \
-                        dry[f"{key}_rank0"][cell]["launches"][
-                            "flash_attention"]
+                        dry[f"{key}_rank0"][cell]["launches"].get(
+                            "flash_attention", 0)
         if row["name"] == "decode_attention":
             # the sharded decode cell's rank-0 step (with the log-sum-exp
             # output), and phase 25's checks and times of that output
@@ -7572,6 +7665,10 @@ def main():
             row["dryrun_launches"]["whisper_decode_32k_rank0"] = \
                 dry["whisper_rank0"]["decode_32k"]["launches"][
                     "decode_attention"]
+            for key in ("mla", "minicpm3"):
+                row["dryrun_launches"][f"{key}_decode_32k_rank0"] = \
+                    dry[f"{key}_rank0"]["decode_32k"]["launches"].get(
+                        "decode_attention", 0)
             # the long_500k cells' rank-0 steps (gemma3-1b, Mixtral,
             # recurrentgemma-9b)
             for arch, cell in dry["long_rank0"].items():

@@ -19,7 +19,9 @@ plain versions instead (the CPU's program).
 ``jit_cell`` runs each cell in one of two layouts (``steps.layout``),
 recorded as ``layout``: ``sharded`` (the train, ``prefill_32k`` and
 ``decode_32k`` cells of the dense decoders, recurrentgemma-9b,
-whisper-base, mixtral-8x22b and deepseek-v2-236b, whose serving cells
+whisper-base, minicpm3-4b (its 40 MLA heads replicated over "model",
+the train queries on the rank's own rows against the gathered
+latents), mixtral-8x22b and deepseek-v2-236b, whose serving cells
 take SERVE_BIG_RULES, and the ``long_500k`` cells of gemma3-1b,
 recurrentgemma-9b and mixtral-8x22b, whose cache length splits over
 every rank and whose partials merge by an all-gather over each of its

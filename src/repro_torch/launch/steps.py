@@ -26,8 +26,8 @@ two layouts (``layout``), chosen from the config and the mesh:
   command-r-35b, internvl2-26b with its VLM prefix, and whisper-base's
   decoder, with cross-attention to its encoder) or a routed MoE
   FFN (mixtral-8x22b), or MLA + a MoE
-  FFN with shared experts (deepseek-v2-236b; MLA only where its heads
-  divide "model", so not minicpm3-4b's 40 on 16), or RG-LRU and local
+  FFN with shared experts (deepseek-v2-236b) or a dense FFN (minicpm3-4b,
+  its 40 MLA heads replicated over "model"), or RG-LRU and local
   attention + a dense FFN (recurrentgemma-9b), laid out as GSPMD
   partitions the reference's step under ``TRAIN_RULES``.  Each rank
   keeps only its block of every state leaf (``to_local()``) and the
@@ -48,7 +48,9 @@ two layouts (``layout``), chosen from the config and the mesh:
   "model" ending in an all-reduce whose gradient is an all-reduce, and
   its cross-attention of the rank's sequence block against all frames;
   MLA projects the gathered sequence through its whole "lora" weights
-  and runs the rank's heads over it, query-chunked
+  and runs the rank's heads over it, query-chunked, or, where its heads
+  replicate, projects the rank's own rows, gathers only their latents
+  and runs every head of those rows against all of them
   (``models/attention._tp_mla``); the RG-LRU block runs the rank's
   block of its channels over the gathered sequence, its gates' partial
   sums reduce-scattered by channel (``ModelShards.channel_scatter``,
@@ -59,7 +61,7 @@ two layouts (``layout``), chosen from the config and the mesh:
   the loss, the router's statistics, the global norm and the int8 scale
   are reduced over the shards.
 * ``"sharded"`` also runs the ``prefill_32k`` / ``decode_32k`` cells
-  of the same nine archs with a bf16 or float32 cache (a VLM's
+  of the same ten archs with a bf16 or float32 cache (a VLM's
   prefill cache the prefix's rows longer, the prefix whole), laid out as
   the reference's step under ``SERVE_RULES`` or, for an arch whose
   weights cannot replicate over "data" (mixtral-8x22b,
@@ -95,7 +97,7 @@ two layouts (``layout``), chosen from the config and the mesh:
   every length block are merged in block order (``ServeShards.kv_axes``);
   the logits come back ("batch", "vocab"), the row replicated.
 * ``"gathered"``: every other cell (an int8 cache, MLA's one-row
-  cells, the other two archs: minicpm3-4b, xlstm-125m).  Every weight is gathered whole
+  cells, the other arch: xlstm-125m).  Every weight is gathered whole
   (``full_tensor()``: the ZeRO resolution of TRAIN_RULES' ``"embed" ->
   data``, and the tensor-parallel dims gathered too), each rank runs its
   block of the batch's rows (``sharding.BatchShards``: the mesh axes the
@@ -502,8 +504,9 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     its decode cells under LONG_SERVE_RULES or LONG_SERVE_BIG_RULES (a
     batch of one row) with a float cache whose length splits over every
     mesh axis of more than one rank.  A decoder with MLA blocks takes
-    the first two only, and only where its heads divide "model" (else,
-    as minicpm3-4b's 40 heads on 16 ranks, they would replicate).  An
+    the first two only, its heads split over "model" or replicated over
+    it (minicpm3-4b's 40 on 16 ranks: the train queries on the rank's
+    own rows).  An
     encoder-decoder takes them only where no "model" rank splits its
     heads, its encoder's frames or its cross-attention cache's length
     or K/V heads (``_encoder_whole``): every model rank then runs the
@@ -514,8 +517,6 @@ def layout(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     ``axis_names`` and ``shape``."""
     if not _shardable_decoder(cfg) or \
             not _encoder_whole(cfg, shape, mesh, flags):
-        return "gathered"
-    if _mla(cfg) and cfg.n_heads % mesh.shape.get("model", 1):
         return "gathered"
     if shape.kind != "train":
         if flags.cache_dtype == "int8":

@@ -60,7 +60,9 @@ head's absorbed query against the block, each block's float32 latent
 context merged by its log-sum-exp (a block with no row to see weighs
 0) before the rank's heads take it through ``wv_b`` and ``wo``.  In the
 sharded train body (without a cache) MLA runs the rank's heads over the
-gathered sequence (``_tp_mla``), as ``_tp_attention`` does.  A
+gathered sequence (``_tp_mla``), as ``_tp_attention`` does; where its
+heads replicate (minicpm3-4b's 40 on 16 ranks) every head runs the
+queries of the rank's own rows against the gathered latents.  A
 cross-attention whose heads and frames split over no "model" rank
 (whisper-base's) runs every head of the rank's rows against all the
 frames: in train with no collective, in serving from a cache split by
@@ -561,13 +563,15 @@ def _mla_scores(q_nope: torch.Tensor, q_rope: torch.Tensor,
 
 def _mla_heads(p: Tree, q_nope: torch.Tensor, q_rope: torch.Tensor,
                c_kv: torch.Tensor, k_rope: torch.Tensor,
-               positions: torch.Tensor, cfg: ArchConfig,
+               pos_q: torch.Tensor, pos_k: torch.Tensor, cfg: ArchConfig,
                chunk_q: int) -> torch.Tensor:
     """The naive path's attention of the heads ``p`` holds: per-head K/V
-    from the latent, causal over ``positions``, [B,S,H,v] before ``wo``.
+    from the latent, the queries at ``pos_q`` [B,S] causal over the keys
+    at ``pos_k`` [B,T] (the same positions, or a block of the queries'
+    rows against the whole sequence), [B,S,H,v] before ``wo``.
     Query-chunked as the reference: whole when ``s <= chunk_q`` or
     ``chunk_q`` does not divide S, else ``chunk_q`` query rows at a time
-    against every key, so a chunk's [B,H,chunk_q,S] float32 scores are
+    against every key, so a chunk's [B,H,chunk_q,T] float32 scores are
     the working set."""
     k_nope = torch.einsum("btr,rhk->bthk", c_kv, p["wk_b"])
     v = torch.einsum("btr,rhk->bthk", c_kv, p["wv_b"])
@@ -576,8 +580,8 @@ def _mla_heads(p: Tree, q_nope: torch.Tensor, q_rope: torch.Tensor,
     def attend(lo: int, hi: int) -> torch.Tensor:
         scores = _mla_scores(q_nope[:, lo:hi], q_rope[:, lo:hi], k_nope,
                              k_rope, cfg)
-        w = _softmax_masked(scores, _mask(positions[:, lo:hi], positions,
-                                          None, True))
+        w = _softmax_masked(scores, _mask(pos_q[:, lo:hi], pos_k, None,
+                                          True))
         return torch.einsum("bhst,bthk->bshk", w.to(v.dtype), v)
 
     s = q_nope.shape[1]
@@ -607,8 +611,8 @@ def mla_attention_naive(
                        chunk_q=chunk_q, tp=tp), None
     q_nope, q_rope, c_kv, k_rope = mla_project(p, x, positions, cfg,
                                                rope_theta)
-    out = _mla_heads(p, q_nope, q_rope, c_kv, k_rope, positions, cfg,
-                     chunk_q)
+    out = _mla_heads(p, q_nope, q_rope, c_kv, k_rope, positions, positions,
+                     cfg, chunk_q)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     new_cache = None
     if cache is not None:
@@ -688,19 +692,32 @@ def _tp_mla(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
             cfg: ArchConfig, rope_theta, chunk_q: int, tp) -> torch.Tensor:
     """MLA in the sharded train body (as ``_tp_attention``): ``x``
     [B, S / size, D] this rank's sequence block, ``positions`` [B, S]
-    the whole sequence's.  The sequence is gathered, projected through
-    the whole "lora" weights, and the rank's heads (``wq_b``, ``wk_b``,
-    ``wv_b`` and ``wo`` split by "heads") attend over it, query-chunked;
-    ``wo``'s partial sums are reduce-scattered back to the block.  Heads
-    replicated: every rank runs all of them and keeps its rows."""
-    h = tp.seq_gather(x)
-    q_nope, q_rope, c_kv, k_rope = mla_project(p, h, positions, cfg,
-                                               rope_theta)
-    out = _mla_heads(p, q_nope, q_rope, c_kv, k_rope, positions, cfg,
-                     chunk_q)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return tp.seq_scatter(y) if q_nope.shape[2] != cfg.n_heads \
-        else tp.own(y)
+    the whole sequence's.  Heads split (``wq_b``, ``wk_b``, ``wv_b`` and
+    ``wo`` by "heads"): the sequence is gathered, projected through the
+    whole "lora" weights, the rank's heads attend over it,
+    query-chunked, and ``wo``'s partial sums are reduce-scattered back to
+    the block.  Heads replicated (every weight whole over the axis): the
+    block's own rows are projected at their positions, only their
+    latents (``c_kv`` and the roped ``k_rope``, 288 wide at minicpm3-4b
+    against the residual's 2,560) are gathered over the axis, and every
+    head's queries of the block attend against every key; ``wo`` gives
+    the block's rows with no collective.  A replicated leaf's gradient
+    is then the rank's queries' part, which ``reduce_grads`` sums."""
+    if p["wq_b"].shape[1] != cfg.n_heads:
+        h = tp.seq_gather(x)
+        q_nope, q_rope, c_kv, k_rope = mla_project(p, h, positions, cfg,
+                                                   rope_theta)
+        out = _mla_heads(p, q_nope, q_rope, c_kv, k_rope, positions,
+                         positions, cfg, chunk_q)
+        return tp.seq_scatter(torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+    lo, hi = tp.seq_rows(positions.shape[1])
+    own = positions[:, lo:hi]
+    q_nope, q_rope, c_kv, k_rope = mla_project(p, x, own, cfg, rope_theta)
+    r = c_kv.shape[-1]
+    latents = tp.seq_gather(torch.cat([c_kv, k_rope], -1))
+    out = _mla_heads(p, q_nope, q_rope, latents[..., :r], latents[..., r:],
+                     own, positions, cfg, chunk_q)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def _serve_mla(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
@@ -734,8 +751,8 @@ def _serve_mla(p: Tree, x: torch.Tensor, positions: torch.Tensor, *,
     hl = q_nope.shape[2]
     split = hl != cfg.n_heads
     if off == 0:
-        out = _mla_heads(p, q_nope, q_rope, c_kv, k_rope, positions, cfg,
-                         chunk_q)
+        out = _mla_heads(p, q_nope, q_rope, c_kv, k_rope, positions,
+                         positions, cfg, chunk_q)
     elif s != 1:
         raise ValueError("the sharded serving body steps one token at a "
                          "time")

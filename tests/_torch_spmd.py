@@ -862,13 +862,27 @@ def whisper_variant(cfg):
         encoder=dataclasses.replace(cfg.encoder, source_len=7))
 
 
+def minicpm3_variant(cfg):
+    """Reduced minicpm3-4b (``cfg``: the port's or the JAX package's)
+    laid out as the full width is on every test mesh: 3 MLA heads and
+    257 vocab rows, which no "model" axis of 2 or 4 divides (its own 4
+    heads and 256 rows split there), so that every model rank runs all
+    heads and holds the whole table, while the heads' dims (24 and 16)
+    and the ffn (128) split under SERVE_RULES (minicpm3-4b: 40 heads and
+    73,448 rows on 16; head dims 96 and 64, ffn 6,400)."""
+    return dataclasses.replace(cfg, name=MINICPM3, n_heads=3, n_kv_heads=3,
+                               vocab_size=257)
+
+
 def reduced(name):
     """A reduced config by name: an arch's (``get_reduced``), or
     ``THREE_EXPERTS`` / ``MLA_THREE_EXPERTS``, reduced Mixtral / reduced
     deepseek-v2 with 3 routed experts, or ``WHISPER``
-    (``whisper_variant``)."""
+    (``whisper_variant``), or ``MINICPM3`` (``minicpm3_variant``)."""
     if name == WHISPER:
         return whisper_variant(get_reduced("whisper-base"))
+    if name == MINICPM3:
+        return minicpm3_variant(get_reduced("minicpm3-4b"))
     base = {THREE_EXPERTS: "mixtral-8x22b",
             MLA_THREE_EXPERTS: "deepseek-v2-236b"}.get(name)
     if base is None:
@@ -1505,13 +1519,16 @@ def sharded_long(rank, world):
     (OUT / f"sharded_long.{rank}.json").write_text(json.dumps(res))
 
 
-# the sharded MLA bodies (deepseek-v2's cells): reduced deepseek-v2, whose
-# 4 MLA heads and 8 routed experts split over "model" at 2 and 4 ranks
-# and whose shared expert's ffn splits too, and MLA_THREE_EXPERTS, whose
-# 3 routed experts do not divide "model", so each expert's ffn is split
-# and the routed and shared ffn blocks both add before the collective
+# the sharded MLA bodies (deepseek-v2's and minicpm3-4b's cells): reduced
+# deepseek-v2, whose 4 MLA heads and 8 routed experts split over "model"
+# at 2 and 4 ranks and whose shared expert's ffn splits too,
+# MLA_THREE_EXPERTS, whose 3 routed experts do not divide "model", so
+# each expert's ffn is split and the routed and shared ffn blocks both
+# add before the collective, and MINICPM3 (``minicpm3_variant``), whose
+# 3 MLA heads replicate over "model" before a dense FFN
 MLA_THREE_EXPERTS = "deepseek-3-experts"
-MLA = ("deepseek-v2-236b", MLA_THREE_EXPERTS)
+MINICPM3 = "minicpm3-3-heads"
+MLA = ("deepseek-v2-236b", MLA_THREE_EXPERTS, MINICPM3)
 MLA_CHUNK = 8              # the "chunk8" cases' query chunk: S = 32 in 4
 MLA_TRAIN = ("plain", "chunk8")
 # serving cases under SERVE_RULES ("serve-", the reduced config's own) and
@@ -1531,6 +1548,19 @@ MLA_SERVE = tuple(f"{r}-{c}" for r in ("serve", "big") for c in (
 # "blocks averaged"), each against the weights' bound (``weights_close``)
 MLA_FAULTS = ("uniform", "shared-unreduced", "cache-whole", "uniform-bf16",
               "averaged-bf16")
+
+
+def mla_cases(arch):
+    """(cases, faults) of an MLA config: MLA_TRAIN + MLA_SERVE and
+    MLA_FAULTS; MINICPM3's serving cases under SERVE_RULES alone (as
+    minicpm3-4b takes them) and the faults of a dense MLA model (no
+    shared experts)."""
+    if arch != MINICPM3:
+        return MLA_TRAIN + MLA_SERVE, MLA_FAULTS
+    return (MLA_TRAIN + tuple(c for c in MLA_SERVE if c.startswith("serve-")),
+            tuple(f for f in MLA_FAULTS if f != "shared-unreduced"))
+
+
 # the sharded MLA decode on a bf16 cache against the unsharded step: this
 # many times the distance the softmax weights' rounding alone puts
 # between the unsharded step and its witness (``weights_close``)
@@ -1712,8 +1742,8 @@ def _mla_bf16_fault_case(arch, mesh, fault, pos):
 
 
 def sharded_mla(rank, world):
-    """Every (mesh, config, case) of MESHES[world] x MLA x (MLA_TRAIN,
-    MLA_SERVE, and MLA_FAULTS where "model" has more than one rank);
+    """Every (mesh, config, case) of MESHES[world] x MLA x ``mla_cases``
+    (its faults where "model" has more than one rank);
     each rank writes its outcome a case to ``OUT /
     sharded_mla.<rank>.json``, rank 0 a train case's losses, grad norms
     and whole state to ``OUT / train.<name>.pt`` and a serving case's
@@ -1724,9 +1754,8 @@ def sharded_mla(rank, world):
     for data, model in MESHES[world]:
         mesh = make_host_mesh(data=data, model=model, device_type="cpu")
         for arch in MLA:
-            cases = MLA_TRAIN + MLA_SERVE + (MLA_FAULTS if model > 1
-                                             else ())
-            for case in cases:
+            cases, faults = mla_cases(arch)
+            for case in cases + (faults if model > 1 else ()):
                 name = f"{data}x{model}-{arch}-{case}"
                 try:
                     if case in MLA_TRAIN:

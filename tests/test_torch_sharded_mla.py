@@ -1,16 +1,22 @@
 """The sharded bodies of a decoder of MLA + MoE FFN blocks with shared
-experts (``launch/steps.jit_cell``'s ``"sharded"`` layout for
-deepseek-v2-236b's train, prefill and decode cells) on the CPU.
+experts, or of MLA + dense FFN blocks whose heads replicate over "model"
+(``launch/steps.jit_cell``'s ``"sharded"`` layout for deepseek-v2-236b's
+and minicpm3-4b's train, prefill and decode cells) on the CPU.
 
 At world sizes 2 and 4 (gloo processes, ``_torch_spmd.sharded_mla``,
 the two spawns run side by side) every (mesh, config, case) of
-``_torch_spmd.MESHES`` x ``MLA`` x ``MLA_TRAIN`` / ``MLA_SERVE`` is held
-against the unsharded ``make_train_step`` / ``make_prefill_step`` /
+``_torch_spmd.MESHES`` x ``MLA`` x ``mla_cases`` is held against the
+unsharded ``make_train_step`` / ``make_prefill_step`` /
 ``make_decode_step`` on the same inputs.  ``MLA`` is reduced
 deepseek-v2 (4 MLA heads, 8 routed experts and 1 shared expert, all
-split over "model" at 2 and 4 ranks) and a 3-expert variant, whose
+split over "model" at 2 and 4 ranks), a 3-expert variant, whose
 routed experts do not divide "model", so each expert's ffn is split and
-its partial sums add to the shared expert's before the collective.
+its partial sums add to the shared expert's before the collective, and
+``MINICPM3``, reduced minicpm3-4b with 3 heads and 257 vocab rows, which
+no test mesh's "model" axis splits, as 16 does not split the full
+width's 40 and 73,448 (every rank runs all heads, the train queries on
+its own rows against the gathered latents; its serving cases under
+SERVE_RULES alone, its faults but "shared-unreduced").
 Train: loss and grad norm of two steps, every param and moment within
 rtol 1e-5, each rank's state exactly its blocks, with MLA's query
 chunk above S (whole) and at 8 (4 chunks).  Serving: prefill (whole,
@@ -38,9 +44,11 @@ bounds.  The weights are at the d_model fan-in law
 (``_torch_spmd.fan_in_d_model``).
 
 Without processes: ``steps.layout`` of deepseek-v2-236b's and
-minicpm3-4b's production cells, rank 0's blocks of deepseek-v2-236b at
-full width against the analytic floor, and its reduced train cell at
-world size 1 against the reference's own ``jit_cell``.
+minicpm3-4b's production cells, rank 0's blocks of both at full width
+against the analytic floor, reduced deepseek-v2's train cell at world
+size 1 against the reference's own ``jit_cell``, and ``MINICPM3``'s
+sharded train step traced on a fake group of 4 against the planted
+queries on every row (``chip_smoke._mla_every_row``).
 """
 import concurrent.futures
 import dataclasses
@@ -56,8 +64,9 @@ import torch
 import torch.distributed as dist
 
 import _torch_spmd
-from _torch_spmd import (MESHES, MLA, MLA_FAULTS, MLA_SERVE, MLA_THREE_EXPERTS,
-                         MLA_TRAIN, bf16_close, serve_positions)
+import chip_smoke
+from _torch_spmd import (MESHES, MINICPM3, MLA, MLA_SERVE, MLA_THREE_EXPERTS,
+                         MLA_TRAIN, bf16_close, mla_cases, serve_positions)
 from test_torch_train_loss import _fan_in_d_model
 from repro.configs import get_reduced as jget_reduced
 from repro.launch import steps as jsteps
@@ -69,7 +78,8 @@ from repro.models.params import materialize as jmaterialize
 from repro.training.optimizer import AdamWConfig as JAdamWConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
-from repro_torch.distributed.sharding import SERVE_BIG_RULES, entry_axes
+from repro_torch.distributed.sharding import (SERVE_BIG_RULES, SERVE_RULES,
+                                              entry_axes)
 from repro_torch.launch import steps
 from repro_torch.launch.analytic import analytic_bytes_per_device
 from repro_torch.launch.mesh import make_host_mesh
@@ -82,9 +92,9 @@ from repro_torch.training.optimizer import AdamWConfig
 MESH_LIST = [(world, data, model) for world in sorted(MESHES)
              for data, model in MESHES[world]]
 CASES = [(w, d, m, arch, case) for w, d, m in MESH_LIST for arch in MLA
-         for case in MLA_TRAIN + MLA_SERVE]
+         for case in mla_cases(arch)[0]]
 FAULTS = [(w, d, m, arch, fault) for w, d, m in MESH_LIST if m > 1
-          for arch in MLA for fault in MLA_FAULTS]
+          for arch in MLA for fault in mla_cases(arch)[1]]
 SERVED = [c for c in CASES if c[-1] in MLA_SERVE
           and not c[-1].endswith("memory")]
 TRAINED = [c for c in CASES if c[-1] in MLA_TRAIN]
@@ -148,6 +158,8 @@ def test_planted_mla_faults_miss(runs, world, data, model, arch, fault):
 
 def _jreduced(name):
     """The JAX package's config of ``_torch_spmd.reduced(name)``."""
+    if name == MINICPM3:
+        return _torch_spmd.minicpm3_variant(jget_reduced("minicpm3-4b"))
     if name != MLA_THREE_EXPERTS:
         return jget_reduced(name)
     cfg = jget_reduced("deepseek-v2-236b")
@@ -285,35 +297,39 @@ def test_sharded_mla_serving_matches_the_jax_reference(runs, world, data,
 
 
 def test_layout_of_the_mla_cells():
-    """deepseek-v2-236b's train_4k, prefill_32k and decode_32k cells are
-    sharded on both production meshes (its 128 MLA heads divide 16;
-    serving under SERVE_BIG_RULES), its long_500k cell (which the matrix
-    skips) and int8-cache cells gathered; minicpm3-4b's cells, whose 40
-    MLA heads do not divide 16, are all gathered; both reduced configs'
-    cells are sharded on every test mesh, under either serving rule
-    set, and reduced minicpm3-4b's where its 4 heads divide "model"."""
+    """deepseek-v2-236b's and minicpm3-4b's train_4k, prefill_32k and
+    decode_32k cells are sharded on both production meshes (deepseek's
+    128 MLA heads divide 16, its serving under SERVE_BIG_RULES;
+    minicpm3-4b's 40 replicate over "model", its serving under
+    SERVE_RULES), their long_500k cells (which the matrix skips) and
+    int8-cache cells gathered; the reduced configs' cells are sharded
+    on every test mesh and on a "model" axis of 3, under either serving
+    rule set, whether their heads divide "model" (reduced minicpm3-4b's
+    own 4 on 2 and 4) or replicate (the ``MINICPM3`` variant's 3)."""
     big, mini = get_config("deepseek-v2-236b"), get_config("minicpm3-4b")
     int8 = RunFlags(cache_dtype="int8")
     for mesh in (SINGLE, MULTI):
         for sname, shape in SHAPES.items():
             want = "gathered" if sname == "long_500k" else "sharded"
-            assert steps.layout(big, shape, mesh) == want, sname
-            assert steps.layout(mini, shape, mesh) == "gathered", sname
-            if shape.kind != "train":
-                assert steps.layout(big, shape, mesh, int8) == "gathered"
-    assert steps.rules_for(SHAPES["decode_32k"], big) is SERVE_BIG_RULES
-    assert steps.rules_for(SHAPES["prefill_32k"], big) is SERVE_BIG_RULES
+            for cfg in (big, mini):
+                assert steps.layout(cfg, shape, mesh) == want, (cfg.name,
+                                                                sname)
+                if shape.kind != "train":
+                    assert steps.layout(cfg, shape, mesh, int8) == \
+                        "gathered"
+    for sname in ("prefill_32k", "decode_32k"):
+        assert steps.rules_for(SHAPES[sname], big) is SERVE_BIG_RULES
+        assert steps.rules_for(SHAPES[sname], mini) is SERVE_RULES
     for arch in MLA + ("minicpm3-4b",):
         small = _torch_spmd.reduced(arch)
         for _, data, model in MESH_LIST + [(0, 1, 3)]:
             mesh = FakeMesh({"data": data, "model": model})
-            want = "sharded" if small.n_heads % model == 0 else "gathered"
             for shape in (ShapeSpec("t", "train", 24, 4),
                           ShapeSpec("p", "prefill", 24, 4),
                           ShapeSpec("d", "decode", 24, 4)):
-                assert steps.layout(small, shape, mesh) == want
+                assert steps.layout(small, shape, mesh) == "sharded"
                 with _torch_spmd.serve_big_rules():
-                    assert steps.layout(small, shape, mesh) == want
+                    assert steps.layout(small, shape, mesh) == "sharded"
 
 
 def _local(spec, sh, mesh):
@@ -367,6 +383,95 @@ def test_full_width_blocks(shape_name):
                     for (_, s), (_, h) in zip(leaves_with_paths(specs[name]),
                                               leaves_with_paths(sh[name])))
         assert total == floor["params" if name == "params" else "cache"]
+
+
+# rank (0, 0)'s blocks of minicpm3-4b on (16, 16): train under
+# TRAIN_RULES ("embed" over "data", the 40 heads and 73,448 vocab rows
+# replicated over "model", the ffn's 6,400 over it), decode_32k under
+# SERVE_RULES (the heads' dims over "model": 96 / 16 and 64 / 16, the
+# latent cache's length over "model", 8 of its 128 rows over "data")
+MINI_BLOCKS = {
+    "train_4k": {"wq_a": (62, 160, 768), "q_norm": (62, 768),
+                 "wq_b": (62, 768, 40, 96), "wkv_a": (62, 160, 288),
+                 "kv_norm": (62, 256), "wk_b": (62, 256, 40, 64),
+                 "wv_b": (62, 256, 40, 64), "wo": (62, 40, 64, 160),
+                 "ffn wi_gate": (62, 160, 400), "ffn wi_up": (62, 160, 400),
+                 "ffn wo": (62, 400, 160), "table": (73448, 160),
+                 "head": (160, 73448)},
+    "decode_32k": {"wq_a": (62, 2560, 768), "q_norm": (62, 768),
+                   "wq_b": (62, 768, 40, 6), "wkv_a": (62, 2560, 288),
+                   "kv_norm": (62, 256), "wk_b": (62, 256, 40, 4),
+                   "wv_b": (62, 256, 40, 4), "wo": (62, 40, 4, 2560),
+                   "ffn wi_gate": (62, 2560, 400),
+                   "ffn wi_up": (62, 2560, 400), "ffn wo": (62, 400, 2560),
+                   "table": (73448, 2560), "head": (2560, 73448),
+                   "c_kv": (62, 8, 2048, 256), "k_rope": (62, 8, 2048, 32)}}
+
+
+def _mini_path(name):
+    if name in ("table", "head"):
+        return f"['embed']['{name}']"
+    if name in ("c_kv", "k_rope"):
+        return f"['main']['pos0']['attn']['{name}']"
+    part, _, leaf = name.rpartition(" ")
+    return f"['groups']['main']['pos0']['{part or 'attn'}']['{leaf}']"
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
+def test_minicpm3_full_width_blocks(shape_name):
+    """Rank 0's blocks of minicpm3-4b at full width on (16, 16)
+    (``MINI_BLOCKS``), and its bytes the analytic floor's: the params
+    and, in training, the moments; in serving, the params and the
+    latent cache."""
+    cfg, shape = get_config("minicpm3-4b"), SHAPES[shape_name]
+    specs, sh = input_specs(cfg, shape), input_shardings(cfg, shape, SINGLE)
+    train = shape.kind == "train"
+    trees = {"params": (specs["state"]["params"], sh["state"]["params"]),
+             "optimizer": tuple((specs["state"][k], sh["state"][k])
+                                for k in ("mu", "nu"))} if train else \
+        {"params": (specs["params"], sh["params"]),
+         "cache": ((specs["caches"], sh["caches"]),)}
+    local = {p: _local(s, h, SINGLE) for (p, s), (_, h) in zip(
+        leaves_with_paths(trees["params"][0]),
+        leaves_with_paths(trees["params"][1]))}
+    if not train:
+        local.update({p: _local(s, h, SINGLE) for (p, s), (_, h) in zip(
+            leaves_with_paths(specs["caches"]),
+            leaves_with_paths(sh["caches"]))})
+    for name, want in MINI_BLOCKS[shape_name].items():
+        assert local[_mini_path(name)] == want, name
+
+    def nbytes(spec_tree, shard_tree):
+        return sum(math.prod(_local(s, h, SINGLE)) * s.dtype.itemsize
+                   for (_, s), (_, h) in zip(leaves_with_paths(spec_tree),
+                                             leaves_with_paths(shard_tree)))
+
+    floor = analytic_bytes_per_device(cfg, shape, SINGLE)
+    assert nbytes(*trees["params"]) == floor["params"]
+    key = "optimizer" if train else "cache"
+    assert sum(nbytes(*t) for t in trees[key]) == floor[key]
+
+
+def test_replicated_mla_train_queries_on_the_rank_rows():
+    """``MINICPM3``'s sharded train step (3 heads, replicated over
+    "model") traced on a fake {data: 1, model: 4} group at S = 256: its
+    peak lies below the
+    trace with the planted fault ``chip_smoke._mla_every_row`` (the
+    residual's whole sequence gathered and every head's queries run on
+    all 256 rows, the rank keeping its block), which no gloo value test
+    can see."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = _torch_spmd.reduced(MINICPM3)
+    shape = ShapeSpec("t", "train", 256, 4)
+    with dryrun.fake_group(4):
+        mesh = make_host_mesh(data=1, model=4, device_type="cpu")
+        good = dryrun.trace_cell(cfg, shape, mesh, device="cpu")
+        with chip_smoke._mla_every_row():
+            bad = dryrun.trace_cell(cfg, shape, mesh, device="cpu")
+    assert good["layout"] == bad["layout"] == "sharded"
+    assert good["peak_device_bytes"] < bad["peak_device_bytes"], (
+        good["peak_device_bytes"], bad["peak_device_bytes"])
 
 
 @pytest.fixture

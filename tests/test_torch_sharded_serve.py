@@ -197,8 +197,9 @@ def test_layout_of_the_serving_cells():
     """The dense decoders' (recurrentgemma-9b's too) prefill_32k and
     decode_32k cells are sharded on both production meshes and on the
     test meshes, and so are mixtral-8x22b's
-    (``tests/test_torch_sharded_moe.py``) and deepseek-v2-236b's
-    (``tests/test_torch_sharded_mla.py``); so are the first two's
+    (``tests/test_torch_sharded_moe.py``) and deepseek-v2-236b's and
+    minicpm3-4b's (``tests/test_torch_sharded_mla.py``); so are the
+    first two's
     long_500k cells (one row, its length over every mesh axis:
     ``tests/test_torch_sharded_long.py``; the matrix runs it for
     gemma3-1b, recurrentgemma-9b and Mixtral alone,
@@ -206,8 +207,8 @@ def test_layout_of_the_serving_cells():
     frames and its cross cache's length over no "model" rank, the cross
     cache split by head dim; the matrix runs its long_500k not at all);
     an int8 cache and every other arch's serving cells are gathered
-    (xlstm-125m's, minicpm3-4b's), deepseek-v2's and xlstm-125m's
-    long_500k too; so is a cell whose cache length does not split over
+    (xlstm-125m's), the MLA archs' and xlstm-125m's long_500k too; so
+    is a cell whose cache length does not split over
     "model", and an encoder-decoder's whose heads or cross cache's
     length a "model" rank splits (reduced whisper-base's own 4 heads and
     8 frames on 2 or 4 ranks)."""
@@ -221,8 +222,8 @@ def test_layout_of_the_serving_cells():
                     continue
                 want = "sharded" if arch in sharded \
                     and sname in SERVING + ("long_500k",) or \
-                    arch == "deepseek-v2-236b" and sname in SERVING \
-                    else "gathered"
+                    arch in ("deepseek-v2-236b", "minicpm3-4b") and \
+                    sname in SERVING else "gathered"
                 assert steps.layout(cfg, shape, mesh) == want, (arch, sname)
                 assert steps.layout(cfg, shape, mesh, int8) == "gathered"
     own = get_reduced("whisper-base")

@@ -228,12 +228,13 @@ def test_layout_is_chosen_from_the_config():
     ``tests/test_torch_sharded_moe.py``, long_500k's:
     ``tests/test_torch_sharded_long.py``; the matrix runs internvl2's
     long_500k not at all, ``shape_applicable``), and deepseek-v2-236b's
-    but long_500k (``tests/test_torch_sharded_mla.py``), and
+    and minicpm3-4b's (its 40 MLA heads replicated over "model") but
+    long_500k (``tests/test_torch_sharded_mla.py``), and
     recurrentgemma-9b's four (a DENSE arch: its RG-LRU blocks split by
     channel) and whisper-base's (its 8 heads and 1,500 frames split over
     no "model" rank: the matrix runs its long_500k not at all); every
     other arch's cells are gathered -- xlstm-125m's (mLSTM and sLSTM
-    blocks) and minicpm3-4b's (40 MLA heads on 16) -- and so is a train
+    blocks) -- and so is a train
     cell whose sequence does not split over "model", or whose tokens
     split and whose residual (the prefix rows in front of them) does
     not, or the reverse, or an encoder-decoder whose heads or frames a
@@ -242,18 +243,17 @@ def test_layout_is_chosen_from_the_config():
     frames on none)."""
     assert RG in DENSE and WHISPER in DENSE
     sharded = tuple(ARCH_OF.get(a, a) for a in DENSE) + ("mixtral-8x22b",)
-    for arch in ("xlstm-125m", "minicpm3-4b"):
-        for sname, shape in SHAPES.items():
-            assert steps.layout(get_config(arch), shape, FakeMesh(
-                {"data": 16, "model": 16})) == "gathered", (arch, sname)
+    for sname, shape in SHAPES.items():
+        assert steps.layout(get_config("xlstm-125m"), shape, FakeMesh(
+            {"data": 16, "model": 16})) == "gathered", sname
     for arch in ARCHS:
         cfg = get_config(arch)
         for mesh in (FakeMesh({"data": 16, "model": 16}),
                      FakeMesh({"pod": 2, "data": 16, "model": 16})):
             for sname, shape in SHAPES.items():
                 want = "sharded" if arch in sharded \
-                    or arch == "deepseek-v2-236b" and sname != "long_500k" \
-                    else "gathered"
+                    or arch in ("deepseek-v2-236b", "minicpm3-4b") \
+                    and sname != "long_500k" else "gathered"
                 assert steps.layout(cfg, shape, mesh) == want, (arch, sname)
     train = ShapeSpec("t", "train", 32, 4)
     for model in (1, 2, 4):
